@@ -3,13 +3,18 @@
 A port of ``dsabeamformer_tpu`` (the JAX/Pallas package beside it, which
 stays the reference): the same module paths, public names and layouts at the
 public functions, so each counterpart is easy to find and the tests compare
-like with like.  The main path runs today:
+like with like.  The main path and the deployed path run today:
 
     config -> models.weights.make_weights -> ops.quantize.prepare_weights
       -> pipeline.StreamingBeamformer: pinned staging -> H2D
       -> ops.gemm.beamform_power (hand-written CUDA kernel,
-         csrc/detect_power.cu) -> D2H -> sink
+         csrc/detect_power.cu: power, uint8 epilogue, incoherent sum,
+         spectral-kurtosis accumulators) -> D2H
+      -> sinks (ingest.sigproc.FilterbankSink .fil, pipeline.FileSink .dada)
+         and ops.rfi.RFIMonitor, whose excisions regenerate the weights
+         mid-stream
 
+Entry points run on the card unless the caller names another device.
 This package imports PyTorch and NumPy, never JAX.
 """
 

@@ -90,3 +90,22 @@ def make_point_source_block(
     re[..., :a] = v.real + rng.normal(0.0, noise_rms, v.shape)
     im[..., :a] = v.imag + rng.normal(0.0, noise_rms, v.shape)
     return _emit(cfg, re, im)
+
+
+def make_tone_block(
+    cfg: ObsConfig,
+    chan: int,
+    amplitude: float = 7.0,
+    phase_step: float = 0.1,
+) -> np.ndarray:
+    """Deterministic complex tone in one channel on all active antennas
+    (bit-exact regression inputs, no randomness)."""
+    shape = (cfg.n_chan, cfg.t_block, cfg.n_pol, cfg.n_ant)
+    re = np.zeros(shape, np.float64)
+    im = np.zeros(shape, np.float64)
+    t = np.arange(cfg.t_block)[:, None, None]
+    ph = phase_step * t
+    a = cfg.n_ant_active
+    re[chan, ..., :a] = amplitude * np.cos(ph)
+    im[chan, ..., :a] = amplitude * np.sin(ph)
+    return _emit(cfg, re, im)

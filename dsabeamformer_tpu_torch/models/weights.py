@@ -63,10 +63,11 @@ def make_weights(
     cal: CalTable | None = None,
     pointing_rad: float = 0.0,
     fringe_delay_s: float = 0.0,
-    device="cpu",
+    device="cuda",
 ) -> CVec:
     """Weights for a config -> ``CVec`` with re/im float32 ``[F, B, A]`` on
-    ``device``."""
+    ``device`` (the card unless the caller names another; raises when no
+    card is usable)."""
     dev = resolve_device(device)
     layout = layout if layout is not None else array_for(cfg)
     cal = cal if cal is not None else CalTable.unity(cfg)
@@ -175,3 +176,14 @@ def flag_antennas(w: CVec, ants, cfg: ObsConfig) -> CVec:
     re[..., sel] = 0.0
     im[..., sel] = 0.0
     return CVec(re=re, im=im)
+
+
+def zap_mask_avg(channels, cfg: ObsConfig) -> np.ndarray:
+    """``[n_chan/navg_freq]`` float32 mask for the incoherent product: 0 for
+    averaged groups containing any zapped raw channel, else 1 (the
+    incoherent sum is computed from the data, so a partly contaminated group
+    stays contaminated)."""
+    idx = parse_zap(channels) if isinstance(channels, str) else channels
+    mask = np.ones(cfg.n_chan, np.float32)
+    mask[np.asarray(sorted(set(int(c) for c in idx)), dtype=int)] = 0.0
+    return mask.reshape(-1, cfg.navg_freq).min(axis=1)

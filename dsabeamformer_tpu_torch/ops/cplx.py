@@ -13,6 +13,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from dsabeamformer_tpu_torch.utils.device import resolve_device
+
 
 class CVec(NamedTuple):
     """A complex array as (re, im) planar float tensors of equal shape."""
@@ -29,14 +31,17 @@ class CVec(NamedTuple):
         return self.re.device
 
     @staticmethod
-    def from_numpy(arr: np.ndarray, device="cpu",
+    def from_numpy(arr: np.ndarray, device="cuda",
                    dtype=torch.float32) -> "CVec":
+        """NumPy complex -> planar tensors on ``device`` (the card unless
+        the caller names another; raises when no card is usable)."""
+        dev = resolve_device(device)
         arr = np.asarray(arr)
         return CVec(
             re=torch.as_tensor(np.ascontiguousarray(arr.real), dtype=dtype,
-                               device=device),
+                               device=dev),
             im=torch.as_tensor(np.ascontiguousarray(arr.imag), dtype=dtype,
-                               device=device),
+                               device=dev),
         )
 
     def to_numpy(self) -> np.ndarray:

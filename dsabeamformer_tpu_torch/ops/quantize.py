@@ -159,10 +159,10 @@ def prepare_weights(cfg: ObsConfig, weights: CVec) -> QuantWeights:
     return quantize_weights(weights, cfg.weight_mode, cfg.a_compute)
 
 
-def quant_weights_from_numpy(terms, scales, device="cpu") -> QuantWeights:
+def quant_weights_from_numpy(terms, scales, device="cuda") -> QuantWeights:
     """NumPy terms and scales (e.g. the JAX package's ``QuantWeights`` after
-    ``np.asarray``) -> the port's ``QuantWeights`` on ``device``, the same
-    integers and scales."""
+    ``np.asarray``) -> the port's ``QuantWeights`` on ``device`` (the card
+    unless the caller names another), the same integers and scales."""
     dev = resolve_device(device)
     # np.array copies: the source may be a read-only view (a JAX array).
     return QuantWeights(
@@ -177,7 +177,9 @@ def save_quant_weights(path: str, qw: QuantWeights) -> None:
     np.savez(path, scales=qw.scales.cpu().numpy(), **arrays)
 
 
-def load_quant_weights(path: str, device="cpu") -> QuantWeights:
+def load_quant_weights(path: str, device="cuda") -> QuantWeights:
+    """A table saved by either package -> ``QuantWeights`` on ``device``
+    (the card unless the caller names another)."""
     d = np.load(path)
     if "terms" in d:  # round-1 stacked format
         stacked = d["terms"]

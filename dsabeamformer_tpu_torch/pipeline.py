@@ -1,18 +1,23 @@
 """Streaming driver: the per-block hot loop.
 
 Blocks come from a source, go to the device, through ``beamform_power``, and
-their averaged powers come back to a sink, with up to ``depth`` blocks in
-flight so that one block's transfers overlap another's kernel.
+their products come back to the sinks, with up to ``depth`` blocks in flight
+so that one block's transfers overlap another's kernel.  The deployed path
+adds, from the same kernel call: the 8-bit filterbank quantization
+(``FilterbankSink`` with ``nbits=8``), the incoherent sum
+(``incoherent_sink``) and the spectral-kurtosis accumulators of the RFI
+monitor (``rfi_monitor``), whose excisions swap in new weights mid-stream
+through ``update_weights``.
 
 On a CUDA device each block takes one of ``depth + 2`` slots.  A slot owns a
-pinned host staging buffer, a device wire buffer, a pinned host output
-buffer and three events:
+pinned host staging buffer, a device wire buffer, pinned host buffers for
+each product it brings back, and three events:
 
     host:   wait h2d_done(slot)  -> copy the source block into pinned staging
     copy:   wait kernel_done(slot) -> H2D staging -> device wire; record h2d_done
     compute: wait h2d_done         -> beamform_power kernel;     record kernel_done
-    d2h:    wait kernel_done       -> D2H powers -> pinned output; record d2h_done
-    drain:  sync d2h_done          -> sink.write(seq, powers)
+    d2h:    wait kernel_done       -> D2H products -> pinned;   record d2h_done
+    drain:  sync d2h_done          -> sinks, RFI monitor
 
 so a staging buffer is never overwritten before the H2D copy out of it has
 completed, and a device wire buffer never before the kernel reading it has
@@ -21,8 +26,8 @@ before refilling a staging buffer; with depth + 2 slots that event has
 already passed in steady state.
 
 On the CPU the same loop runs synchronously on plain tensors (the tests'
-path).  The sink receives a NumPy view of a buffer the driver reuses: it
-must consume or copy it before ``write`` returns.
+path).  A sink receives a NumPy view of a buffer the loop reuses: it must
+consume or copy it before ``write`` returns.
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ import numpy as np
 import torch
 
 from dsabeamformer_tpu_torch.config import ObsConfig
+from dsabeamformer_tpu_torch.ingest import dada
 from dsabeamformer_tpu_torch.ops.gemm import beamform_power
 from dsabeamformer_tpu_torch.ops.quantize import QuantWeights
 from dsabeamformer_tpu_torch.utils.metrics import BlockStats, StreamStats
@@ -97,7 +103,7 @@ class FileSource:
 # --------------------------------------------------------------------- #
 
 class CollectSink:
-    """Keeps copies of the power blocks in memory (tests / small runs)."""
+    """Keeps copies of the product blocks in memory (tests / small runs)."""
 
     def __init__(self):
         self.outputs: List[Tuple[int, np.ndarray]] = []
@@ -110,14 +116,41 @@ class CollectSink:
 
 
 class FileSink:
-    """Appends float32 power blocks to a raw file (the DADA-header variant
-    of the JAX package waits for the ``ingest/dada.py`` port)."""
+    """Appends float32 product blocks to a raw file.
 
-    def __init__(self, path: str | Path):
+    With a config and a ``.dada`` path, a DADA header block is written first
+    (``PAYLOAD=BEAM_POWERS``, or ``INCOHERENT_POWER`` for the incoherent
+    product, plus the output geometry), as the JAX package's ``FileSink``
+    writes it, so ``ingest.dada.read_product_file`` of either package reads
+    the file."""
+
+    def __init__(self, path: str | Path, cfg: Optional[ObsConfig] = None,
+                 products: str = "power", extra_header=None):
+        payload = {"power": "BEAM_POWERS", "incoherent": "INCOHERENT_POWER",
+                   "stokes": "BEAM_STOKES_IQUV"}.get(products)
+        if payload is None:
+            raise ValueError(f"unknown products {products!r}")
         self._f = open(path, "wb")
+        if cfg is not None and str(path).endswith(".dada"):
+            f_out, t_out, b_out = cfg.out_block_shape
+            extra = {"OUT_NSTOKES": 4} if products == "stokes" else {}
+            if products != "incoherent":
+                # The incoherent product has no beam axis ([F', T']).
+                extra["OUT_NBEAM"] = b_out
+            extra.update(extra_header or {})
+            text = dada.encode_header(
+                cfg,
+                HDR_SIZE=dada.DADA_HDR_SIZE,
+                PAYLOAD=payload,
+                OUT_DTYPE="float32",
+                OUT_NCHAN=f_out,
+                OUT_NTIME=t_out,
+                **extra,
+            ).encode("ascii")
+            self._f.write(text.ljust(dada.DADA_HDR_SIZE, b"\0"))
 
     def write(self, seq: int, powers: np.ndarray) -> None:
-        self._f.write(np.ascontiguousarray(powers, dtype=np.float32).tobytes())
+        self._f.write(np.ascontiguousarray(powers, dtype=np.float32))
 
     def close(self):
         self._f.close()
@@ -128,18 +161,26 @@ class FileSink:
 # --------------------------------------------------------------------- #
 
 class _Slot:
-    """One in-flight block's buffers and events on a CUDA device."""
+    """One in-flight block's buffers and events on a CUDA device.  The
+    pinned product buffers are made at first use, one per (name, dtype)."""
 
     def __init__(self, cfg: ObsConfig, device: torch.device):
         self.host_wire = torch.empty(cfg.device_wire_shape, dtype=torch.uint8,
                                      pin_memory=True)
         self.dev_wire = torch.empty(cfg.device_wire_shape, dtype=torch.uint8,
                                     device=device)
-        self.host_out = torch.empty(cfg.out_block_shape, dtype=torch.float32,
-                                    pin_memory=True)
+        self.host: dict = {}
         self.h2d_done = torch.cuda.Event()
         self.kernel_done = torch.cuda.Event()
         self.d2h_done = torch.cuda.Event()
+
+    def host_buffer(self, name: str, shape, dtype) -> torch.Tensor:
+        key = (name, dtype)
+        buf = self.host.get(key)
+        if buf is None or tuple(buf.shape) != tuple(shape):
+            buf = self.host[key] = torch.empty(shape, dtype=dtype,
+                                               pin_memory=True)
+        return buf
 
 
 class StreamingBeamformer:
@@ -148,6 +189,19 @@ class StreamingBeamformer:
     ``depth`` is the number of blocks allowed in flight; the device follows
     the weights (``qw.scales.device``).  ``update_weights`` swaps in new
     weights for subsequent blocks without draining the stream.
+
+    Optional, as in the JAX package's ``StreamingBeamformer``:
+
+    - ``incoherent_sink`` receives the incoherent sum ``[F', T']`` of every
+      block (without the antennas in ``flag_ants``);
+    - ``rfi_monitor`` (``ops.rfi.RFIMonitor``, attached after construction)
+      gets the kernel's SK accumulators on its sampling grid;
+    - a sink with ``nbits == 8`` and ``fused_quant8_scales``
+      (``FilterbankSink``) gets uint8 blocks from the kernel's epilogue once
+      its scales exist; its ``device_post`` runs on the device when that
+      does not apply;
+    - a sink's ``device_layout`` (the .fil file layout) runs on the device
+      before the D2H copy.
     """
 
     def __init__(
@@ -159,6 +213,8 @@ class StreamingBeamformer:
         *,
         depth: int = 2,
         on_block: Optional[Callable[[BlockStats], None]] = None,
+        incoherent_sink=None,
+        flag_ants: tuple = (),
     ):
         if depth < 0:
             raise ValueError(f"depth must be >= 0, got {depth}")
@@ -167,6 +223,17 @@ class StreamingBeamformer:
         self.sink = sink
         self.depth = depth
         self.on_block = on_block
+        self.incoherent_sink = incoherent_sink
+        # A sink that lays its blocks out on the device (FilterbankSink:
+        # beam-major, channels descending) gets them that way.
+        self._layout = getattr(sink, "device_layout", None)
+        # Bad antennas left out of the incoherent sum (the coherent product
+        # flags them on the weight side, models.weights.flag_antennas).
+        self.flag_ants = tuple(sorted(flag_ants))
+        # Optional streaming RFI monitor (ops/rfi.py): observed at dispatch,
+        # polled at drain; its on_event callback typically regenerates the
+        # weights and calls update_weights.
+        self.rfi_monitor = None
         self.device = weights.device
         self._cuda = self.device.type == "cuda"
         self._slots: list = []
@@ -213,8 +280,54 @@ class StreamingBeamformer:
         self._stats.skipped = getattr(self.source, "skipped", 0)
         return self._stats.finish()
 
-    def _enqueue(self, wire_np: np.ndarray):
-        """Start one block; returns what ``_drain_one`` needs to finish it."""
+    def _step(self, wire, quant8_scales=None, sk_stats=None):
+        """One block's kernel call -> ``(out, inco_or_None, sk_or_None)``.
+
+        ``sk_stats`` None means "whenever a monitor is attached"; the run
+        loop passes the monitor's sampling-grid answer instead."""
+        sk_on = (self.rfi_monitor is not None) if sk_stats is None \
+            else sk_stats
+        inco_on = self.incoherent_sink is not None
+        res = beamform_power(wire, self.weights, self.cfg,
+                             incoherent=inco_on,
+                             flag_ants=self.flag_ants if inco_on else (),
+                             quant8_scales=quant8_scales, sk_stats=sk_on)
+        res = list(res) if isinstance(res, tuple) else [res]
+        out = res.pop(0)
+        inco = res.pop(0) if inco_on else None
+        sk = res.pop(0) if sk_on else None
+        return out, inco, sk
+
+    def _fused_quant8(self):
+        """The sink's in-kernel quantization hook, when usable: navg_freq=1
+        (quantization must follow every average) and a sink with
+        ``nbits == 8`` that offers per-beam scales.  Returns a callable
+        giving the current scale vector on this device (None until the
+        sink's auto-calibration has seen a float32 block), or None when the
+        fused path does not apply (``device_post`` then covers it).  The
+        vector is made on the compute stream, ahead of the kernels that
+        read it."""
+        if self.cfg.navg_freq != 1:
+            return None
+        if getattr(self.sink, "nbits", None) != 8:
+            return None
+        hook = getattr(self.sink, "fused_quant8_scales", None)
+        if hook is None:
+            return None
+        return lambda: self._on_compute(hook, self.device)
+
+    def _on_compute(self, fn, *args, **kwargs):
+        """``fn(*args, **kwargs)`` with the compute stream current (so what
+        it makes on the device is ordered before the kernels that read
+        it)."""
+        if not self._cuda:
+            return fn(*args, **kwargs)
+        with torch.cuda.stream(self._compute):
+            return fn(*args, **kwargs)
+
+    def _enqueue(self, wire_np: np.ndarray, q8=None, sk_want=None,
+                 post=None):
+        """Start one block; returns what ``_fetch`` needs to finish it."""
         cfg = self.cfg
         if tuple(wire_np.shape) not in (cfg.wire_block_shape,
                                         cfg.device_wire_shape):
@@ -223,10 +336,14 @@ class StreamingBeamformer:
                 f"{cfg.wire_block_shape} nor {cfg.device_wire_shape}")
         wire = torch.as_tensor(wire_np).reshape(cfg.device_wire_shape)
         if not self._cuda:
-            return beamform_power(wire, self.weights, cfg).numpy()
-        if not self._slots:
-            self._slots = [_Slot(cfg, self.device)
-                           for _ in range(self.n_slots)]
+            out, inco, sk = self._step(wire, q8, sk_stats=sk_want)
+            if q8 is None and post is not None:
+                out = post(out)
+            if self._layout is not None:
+                out = self._layout(out)
+            return tuple(None if t is None else t.numpy()
+                         for t in (out, inco, sk))
+        self._make_slots()
         slot = self._slots[self._n_enq % len(self._slots)]
         self._n_enq += 1
         slot.h2d_done.synchronize()  # staging buffer's last H2D has completed
@@ -237,34 +354,92 @@ class StreamingBeamformer:
             slot.h2d_done.record(self._copy)
         with torch.cuda.stream(self._compute):
             self._compute.wait_event(slot.h2d_done)
-            out = beamform_power(slot.dev_wire, self.weights, cfg)
+            dev = list(self._step(slot.dev_wire, q8, sk_stats=sk_want))
+            if q8 is None and post is not None:
+                dev[0] = post(dev[0])
+            if self._layout is not None:
+                dev[0] = self._layout(dev[0])
             slot.kernel_done.record(self._compute)
+        host = [None, None, None]
         with torch.cuda.stream(self._d2h):
             self._d2h.wait_event(slot.kernel_done)
-            slot.host_out.copy_(out, non_blocking=True)
+            for i, (name, t) in enumerate(zip(("out", "inco", "sk"), dev)):
+                if t is not None:
+                    host[i] = slot.host_buffer(name, t.shape, t.dtype)
+                    host[i].copy_(t, non_blocking=True)
             slot.d2h_done.record(self._d2h)
-        # `out` stays referenced until the drain has synchronized d2h_done,
-        # so its memory is not reused while the D2H copy may still read it.
-        return slot, out
+        # The device products stay referenced until the drain has
+        # synchronized d2h_done, so their memory is not reused while the
+        # D2H copies may still read them.
+        return slot, dev, host
 
-    def _fetch(self, pending) -> np.ndarray:
+    def _fetch(self, pending) -> tuple:
+        """``(out, inco, sk)`` NumPy arrays of a started block, None where
+        the block has no such product."""
         if not self._cuda:
             return pending
-        slot, _out = pending
+        slot, _dev, host = pending
         slot.d2h_done.synchronize()
-        return slot.host_out.numpy()
+        return tuple(None if h is None else h.numpy() for h in host)
+
+    def _make_slots(self) -> None:
+        """The slots, each with the pinned buffers of every product this
+        stream's sinks and monitor will bring back."""
+        cfg = self.cfg
+        if not self._slots:
+            self._slots = [_Slot(cfg, self.device)
+                           for _ in range(self.n_slots)]
+        shape = (self.sink.layout_shape if self._layout is not None
+                 else cfg.out_block_shape)
+        need = [("out", shape, torch.float32)]
+        if getattr(self.sink, "nbits", None) == 8:
+            need.append(("out", shape, torch.uint8))
+        if self.incoherent_sink is not None:
+            need.append(("inco", cfg.out_block_shape[:2], torch.float32))
+        if self.rfi_monitor is not None:
+            need.append(("sk", (cfg.n_chan, 2), torch.float32))
+        for slot in self._slots:
+            for name, shape, dtype in need:
+                slot.host_buffer(name, shape, dtype)
 
     def warmup(self) -> None:
-        """Run one zero block through the full round trip (builds the
-        kernel and allocates the slots before a live stream attaches)."""
+        """Run a zero block once through every kernel variant the steady
+        state will launch (builds the kernel, allocates the slots and their
+        pinned buffers before a live stream attaches)."""
+        if self._cuda:
+            self._make_slots()
         zero = np.zeros(self.cfg.device_wire_shape, dtype=np.uint8)
-        self._fetch(self._enqueue(zero))
+        mon = self.rfi_monitor
+        sk_variants = [mon is not None]
+        if mon is not None and mon.sample > 1:
+            sk_variants.append(False)  # unsampled blocks skip the SK output
+        for sk in sk_variants:
+            self._fetch(self._enqueue(zero, sk_want=sk))
+        if self._fused_quant8() is not None:
+            # The steady state's uint8 variants, with unit scales (the
+            # sink's own exist only after the first live block).
+            ones = self._on_compute(torch.ones, self.cfg.n_beams,
+                                    dtype=torch.float32, device=self.device)
+            for sk in sk_variants:
+                self._fetch(self._enqueue(zero, ones, sk_want=sk))
+        elif getattr(self.sink, "device_post", None) is not None:
+            warm = self.sink.device_post
+            self._fetch(self._enqueue(zero, sk_want=sk_variants[0],
+                                      post=lambda o: warm(o, warmup=True)))
 
     def _drain_one(self) -> None:
-        seq, pending, t_enq = self._inflight.popleft()
-        arr = self._fetch(pending)  # D2H complete
-        if self.sink is not None:
-            self.sink.write(seq, arr)
+        seq, pending, sk_host, t_enq = self._inflight.popleft()
+        out, inco, sk = self._fetch(pending)  # D2H complete
+        if inco is not None:
+            self.incoherent_sink.write(seq, inco)
+        if self._layout is not None:
+            self.sink.write_beams(seq, out)
+        elif self.sink is not None:
+            self.sink.write(seq, out)
+        if sk_host is not None:
+            # The monitor holds this array since dispatch; it reads it only
+            # after this block has drained (poll below).
+            sk_host[...] = sk
         bs = BlockStats(
             block_idx=self._block_idx,
             seq=seq,
@@ -274,6 +449,10 @@ class StreamingBeamformer:
             skipped=getattr(self.source, "skipped", 0),
         )
         self._block_idx += 1
+        if self.rfi_monitor is not None:
+            # Only stats of drained blocks: touching a block still in
+            # flight would serialize the stream.
+            self.rfi_monitor.poll(self._block_idx)
         if self.on_block is not None:
             self.on_block(bs)
 
@@ -281,6 +460,12 @@ class StreamingBeamformer:
         cfg = self.cfg
         self._stats = stats = StreamStats(cfg_name=cfg.name,
                                           device_kind=self.device_kind)
+        # Device-side product transform offered by the sink (8-bit
+        # quantization, so the D2H copy moves 1 byte per sample).
+        post = getattr(self.sink, "device_post", None)
+        # In-kernel variant of the same: once the sink's per-beam scales
+        # exist, the kernel quantizes and device_post is bypassed.
+        fused_q8 = self._fused_quant8()
         n = 0
         while max_blocks is None or n < max_blocks:
             item = self.source.read_block()
@@ -288,15 +473,33 @@ class StreamingBeamformer:
                 break
             seq, wire_np = item
             t_enq = time.perf_counter()
-            self._inflight.append((seq, self._enqueue(wire_np), t_enq))
+            q8 = None if fused_q8 is None else fused_q8()
+            mon = self.rfi_monitor
+            # The SK output only on the monitor's sampling grid.
+            sk_want = mon is not None and mon.wants_stats()
+            pending = self._enqueue(wire_np, q8, sk_want, post)
+            sk_host = None
+            if mon is not None:
+                if sk_want:
+                    sk_host = np.empty((cfg.n_chan, 2), np.float32)
+                mon.observe_stats(sk_host)
+            self._inflight.append((seq, pending, sk_host, t_enq))
             stats.n_blocks += 1
             stats.bytes_in += cfg.wire_block_bytes
             stats.macs += cfg.macs_per_block * cfg.n_weight_terms
             n += 1
             while len(self._inflight) > self.depth:
                 self._drain_one()
+            if fused_q8 is not None and q8 is None:
+                # Auto-cal scales are learned when the sink sees the float32
+                # block.  Drain until they exist, so the uint8 kernel engages
+                # at block 1: a one-time startup stall.
+                while self._inflight and fused_q8() is None:
+                    self._drain_one()
         while self._inflight:
             self._drain_one()
+        if self.rfi_monitor is not None:
+            self.rfi_monitor.flush()
         stats.dropped = getattr(self.source, "dropped", 0)
         stats.skipped = getattr(self.source, "skipped", 0)
         return stats.finish()

@@ -56,6 +56,10 @@ def _weights(cfg, device, seed=3):
     return prepare_weights(cfg, make_weights(cfg, cal=cal, device=device))
 
 
+def _launches() -> int:
+    return sum(gemm.fused_detect.launches.values())
+
+
 def _to(qw, device):
     return type(qw)(tuple(t.to(device) for t in qw.terms), qw.scales.to(device))
 
@@ -69,16 +73,16 @@ def test_kernel_matches_plain(dev, geom, layout, mode, navg_freq):
                               navg_freq=navg_freq)
     wire = make_random_bytes_block(cfg, seed=11)
     qw = _weights(cfg, dev)
-    before = gemm.fused_detect.launches
+    before = _launches()
     got = gemm.beamform_power(torch.from_numpy(wire).to(dev), qw, cfg)
     torch.cuda.synchronize()
-    assert gemm.fused_detect.launches == before + 1
+    assert _launches() == before + 1
     assert got.device == dev and got.shape == cfg.out_block_shape
     # The plain version on the CPU (exact int32) and on the card (f32 GEMM).
     want_cpu = gemm.beamform_power(wire, _to(qw, "cpu"), cfg).numpy()
     x, tm = gemm._prepare_wire(torch.from_numpy(wire).to(dev), cfg)
-    want_dev = gemm.detect_power_plain(x, qw.terms, qw.scales, cfg, tm)
-    assert gemm.fused_detect.launches == before + 1
+    want_dev = gemm.detect_power_plain(x, qw.terms, qw.scales, cfg, tm)[0]
+    assert _launches() == before + 1
     got = got.cpu().numpy()
     assert np.isfinite(got).all()
     assert relative_power_error(got, want_cpu) <= KERNEL_RTOL
@@ -133,13 +137,13 @@ def test_cuda_stream_matches_cpu_stream(dev, depth):
                                  sink, depth=depth)
         if name == "cuda":
             bf.warmup()
-            before = gemm.fused_detect.launches
+            before = _launches()
         s1 = bf.run(max_blocks=4)
         bf.update_weights(_to(w2, device))
         s2 = bf.run()
         assert (s1.n_blocks, s2.n_blocks) == (4, 3)
         if name == "cuda":
-            assert gemm.fused_detect.launches == before + 7
+            assert _launches() == before + 7
             assert s2.device_kind == torch.cuda.get_device_name(dev)
         outs[name] = sink.outputs
     assert [s for s, _ in outs["cuda"]] == list(range(7))
@@ -147,3 +151,198 @@ def test_cuda_stream_matches_cpu_stream(dev, depth):
         assert sc == sg
         assert relative_power_error(pg, pc) <= KERNEL_RTOL
     assert relative_power_error(outs["cuda"][5][1], outs["cuda"][2][1]) > 1e-3
+
+
+# --------------------------------------------------------------------- #
+# The deployed path's variants: uint8 epilogue, incoherent and SK outputs
+# --------------------------------------------------------------------- #
+
+#: variant -> (quant8, incoherent, sk)
+SIDE_VARIANTS = {
+    "q8": (True, False, False),
+    "inco": (False, True, False),
+    "sk": (False, False, True),
+    "sk+q8": (True, False, True),
+    "sk+q8+inco": (True, True, True),
+}
+
+SIDE_GEOMS = dict(GEOMS, dsa10_sub=DSA10.replace(n_chan=64, t_block=1024),
+                  beams_600=TINY.replace(n_beams=600))
+
+
+def _beam_scales(power, cfg, seed):
+    """Per-beam 8-bit scales around mid-rail, spread so the rails engage."""
+    rng = np.random.default_rng(seed)
+    med = float(power.float().median())
+    s = 64.0 / med * rng.uniform(0.5, 4.0, cfg.n_beams)
+    return torch.from_numpy(s.astype(np.float32)).to(power.device)
+
+
+@pytest.mark.parametrize("variant", sorted(SIDE_VARIANTS))
+@pytest.mark.parametrize("layout", ["tfpa", "ftpa"])
+@pytest.mark.parametrize("geom", sorted(SIDE_GEOMS))
+def test_side_outputs_match_plain(dev, geom, layout, variant):
+    """Kernel vs plain version on the same inputs: incoherent and SK
+    equal; the uint8 product byte-equal to the rint/clip of the kernel's
+    own float32 product, and within 1 count of the plain version's (only
+    where the two float32 products differ)."""
+    q8, inco, sk = SIDE_VARIANTS[variant]
+    cfg = SIDE_GEOMS[geom].replace(input_layout=layout)
+    wire = make_random_bytes_block(cfg, seed=13)
+    qw = _weights(cfg, dev)
+    x, tm = gemm._prepare_wire(torch.from_numpy(wire).to(dev), cfg)
+    f32_k = gemm.fused_detect(x, qw.terms, qw.scales, cfg, tm)[0]
+    f32_p = gemm.detect_power_plain(x, qw.terms, qw.scales, cfg, tm)[0]
+    kw = dict(quant8_scales=_beam_scales(f32_k, cfg, 13) if q8 else None,
+              inco_mask=gemm.incoherent_mask(cfg, (1,)) if inco else None,
+              sk=sk)
+    before = gemm.fused_detect.launches[variant]
+    out_k, inco_k, sk_k = gemm.fused_detect(x, qw.terms, qw.scales, cfg, tm,
+                                            **kw)
+    out_p, inco_p, sk_p = gemm.detect_power_plain(x, qw.terms, qw.scales,
+                                                  cfg, tm, **kw)
+    torch.cuda.synchronize()
+    assert gemm.fused_detect.launches[variant] == before + 1
+    if q8:
+        assert out_k.dtype == torch.uint8
+        assert torch.equal(out_k, gemm.quantize_u8(f32_k, kw["quant8_scales"]))
+        diff = (out_k.int() - out_p.int()).abs()
+        assert int(diff.max()) <= 1
+        assert not diff[f32_k == f32_p].any()
+        assert bool((out_k == 255).any())  # the clip is exercised
+    else:
+        assert relative_power_error(out_k.cpu().numpy(),
+                                    out_p.cpu().numpy()) <= KERNEL_RTOL
+    assert (inco_k is None) == (not inco) and (sk_k is None) == (not sk)
+    if inco:
+        assert torch.equal(inco_k, inco_p)
+    if sk:
+        assert sk_k.dtype == torch.int64 and torch.equal(sk_k, sk_p)
+
+
+@pytest.mark.parametrize("n_beams", [32, 300, 600])
+def test_side_outputs_counted_once_per_span(dev, n_beams):
+    """With more than 256 beams the grid has several beam chunks; the side
+    outputs come from the first only, so they equal the standalone ops."""
+    from dsabeamformer_tpu_torch.ops.incoherent import (
+        incoherent_power,
+        sk_block_stats,
+    )
+
+    cfg = TINY.replace(n_beams=n_beams)
+    wire = make_random_bytes_block(cfg, seed=5)
+    qw = _weights(cfg, dev)
+    p, inco, sk = gemm.beamform_power(torch.from_numpy(wire).to(dev), qw, cfg,
+                                      incoherent=True, flag_ants=(4,),
+                                      sk_stats=True)
+    ref = sk_block_stats(wire, cfg)
+    assert torch.equal(sk.cpu(), torch.stack([ref["s1"], ref["s2"]], dim=1))
+    assert torch.equal(inco.cpu(), incoherent_power(wire, cfg, (4,)))
+    assert tuple(p.shape) == cfg.out_block_shape
+
+
+def test_sk_full_channel_exact_past_2_24(dev):
+    """A full-length DSA-10 channel: S2 is ~4e8 (past 2^24), still the
+    exact integer once rounded to float32."""
+    from dsabeamformer_tpu_torch.ops.incoherent import sk_block_stats
+
+    cfg = DSA10.replace(n_chan=4)
+    wire = make_random_bytes_block(cfg, seed=9)
+    qw = _weights(cfg, dev)
+    _, sk = gemm.beamform_power(torch.from_numpy(wire).to(dev), qw, cfg,
+                                sk_stats=True)
+    ref = sk_block_stats(wire, cfg)
+    assert float(sk[:, 1].min()) > 2 ** 24
+    assert torch.equal(sk.cpu(), torch.stack([ref["s1"], ref["s2"]], dim=1))
+
+
+def test_kernel_rejects_bad_side_operands(dev):
+    cfg = TINY
+    qw = _weights(cfg, dev)
+    x, tm = gemm._prepare_wire(
+        torch.from_numpy(make_noise_block(cfg, seed=1)).to(dev), cfg)
+    with pytest.raises(ValueError, match="quant8_scales must be float32"):
+        gemm.fused_detect(x, qw.terms, qw.scales, cfg, tm,
+                          quant8_scales=torch.ones(cfg.n_beams,
+                                                   dtype=torch.float64,
+                                                   device=dev))
+    with pytest.raises(ValueError, match="weights are on"):
+        gemm.fused_detect(x, qw.terms, qw.scales, cfg, tm,
+                          quant8_scales=torch.ones(cfg.n_beams))
+    with pytest.raises(ValueError, match="past a_compute"):
+        gemm.fused_detect(x, qw.terms, qw.scales, cfg, tm,
+                          inco_mask=1 << cfg.a_compute)
+
+
+@pytest.mark.parametrize("layout", ["tfpa", "ftpa"])
+def test_deployed_stream_matches_cpu_stream(dev, layout, tmp_path):
+    """The deployed path (8-bit filterbank from the kernel's epilogue,
+    incoherent .dada, RFI monitor with mid-stream excision) on the card
+    against the same stream on the CPU: the same events, .fil payloads
+    within 1 count, the incoherent file and the scales equal."""
+    from dsabeamformer_tpu_torch.ingest.dada import read_product_file
+    from dsabeamformer_tpu_torch.ingest.generator import make_tone_block
+    from dsabeamformer_tpu_torch.ingest.sigproc import (
+        FilterbankSink,
+        read_filterbank,
+    )
+    from dsabeamformer_tpu_torch.models.weights import zap_weights
+    from dsabeamformer_tpu_torch.ops.rfi import RFIMonitor
+    from dsabeamformer_tpu_torch.pipeline import FileSink
+
+    cfg = TINY.replace(input_layout=layout)
+    blocks = []
+    for s in range(4):
+        w = make_noise_block(cfg, rms=2.0, seed=60 + s).reshape(
+            cfg.wire_block_shape).copy()
+        tone = make_tone_block(cfg, chan=2, amplitude=6.0)
+        if layout == "tfpa":
+            w[:, 2] = tone[:, 2]
+        else:
+            w[2] = tone[2]
+        blocks.append(w)
+    runs = {}
+    for name, device in (("cpu", "cpu"), ("cuda", dev)):
+        events = []
+        qw = prepare_weights(cfg, make_weights(cfg, device=device))
+        fil = FilterbankSink(tmp_path / name, cfg, nbits=8)
+        inco = FileSink(tmp_path / f"{name}.dada", cfg, products="incoherent")
+        bf = StreamingBeamformer(cfg, qw, SyntheticSource(cfg, blocks, 8),
+                                 fil, depth=2, incoherent_sink=inco,
+                                 flag_ants=(1,))
+
+        def on_event(ev, bf=bf, device=device):
+            events.append(ev)
+            if ev["type"] == "excise" and not ev.get("final"):
+                w = zap_weights(make_weights(cfg, device=device),
+                                ev["zapped"], cfg)
+                bf.update_weights(prepare_weights(cfg, w))
+
+        bf.rfi_monitor = RFIMonitor(cfg, interval=2, sample=2,
+                                    on_event=on_event)
+        bf.warmup()
+        before = dict(gemm.fused_detect.launches)
+        stats = bf.run()
+        fil.close()
+        inco.close()
+        assert stats.n_blocks == 8 and stats.dropped == 0
+        if name == "cuda":
+            got = {k: v - before.get(k, 0)
+                   for k, v in gemm.fused_detect.launches.items()}
+            assert {k: v for k, v in got.items() if v} == {
+                "sk+inco": 1, "q8+inco": 4, "sk+q8+inco": 3}
+        runs[name] = events, fil.scales
+    assert runs["cuda"][0] == runs["cpu"][0]
+    assert [e["type"] for e in runs["cuda"][0]] == ["excise"]
+    assert runs["cuda"][0][0]["new"] == [2]
+    for b in range(cfg.n_beams):
+        np.testing.assert_allclose(runs["cuda"][1][b], runs["cpu"][1][b],
+                                   rtol=1e-6)
+        _, dc = read_filterbank(tmp_path / "cpu" / f"beam{b:04d}.fil")
+        _, dg = read_filterbank(tmp_path / "cuda" / f"beam{b:04d}.fil")
+        assert np.abs(dc.astype(int) - dg.astype(int)).max() <= 1
+        # Channel 2 (file column F-1-2) is zero once the new weights run.
+        assert not dg[-cfg.out_block_shape[1]:, 0, cfg.n_chan - 3].any()
+    _, ic = read_product_file(tmp_path / "cpu.dada")
+    _, ig = read_product_file(tmp_path / "cuda.dada")
+    np.testing.assert_array_equal(np.asarray(ig), np.asarray(ic))

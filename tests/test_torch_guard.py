@@ -93,6 +93,30 @@ def test_cuda_request_without_card_raises(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
 
 
+def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
+    """Named no device, the entry points ask for CUDA: with no card they
+    raise instead of returning CPU tensors."""
+    from dsabeamformer_tpu_torch.ingest.sigproc import FilterbankSink
+    from dsabeamformer_tpu_torch.ops.cplx import CVec
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    np.savez(tmp_path / "w.npz", scales=np.ones((1, 1), np.float32),
+             term0=np.zeros((1, 2, 2), np.int8))
+    calls = [
+        lambda: make_weights(TINY),
+        lambda: quantize.quant_weights_from_numpy(
+            [np.zeros((1, 2, 2), np.int8)], np.ones((1, 1), np.float32)),
+        lambda: quantize.load_quant_weights(str(tmp_path / "w.npz")),
+        lambda: CVec.from_numpy(np.ones((2, 3), np.complex64)),
+        lambda: FilterbankSink(tmp_path / "fil", TINY, nbits=8,
+                               scale=1.0).fused_quant8_scales(),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+            call()
+    assert make_weights(TINY, device="cpu").device == torch.device("cpu")
+
+
 def test_chip_smoke_fails_without_card_or_repo(tmp_path):
     alone = tmp_path / "chip_smoke.py"
     shutil.copy(REPO / "chip_smoke.py", alone)

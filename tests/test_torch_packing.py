@@ -134,7 +134,7 @@ def test_text_position_table(tmp_path):
 def test_cvec_roundtrip():
     rng = np.random.default_rng(2)
     z = rng.standard_normal((3, 4)) + 1j * rng.standard_normal((3, 4))
-    c = CVec.from_numpy(z)
+    c = CVec.from_numpy(z, device="cpu")
     assert c.re.dtype == torch.float32 and c.shape == (3, 4)
     assert c.device == torch.device("cpu")
     np.testing.assert_allclose(c.to_numpy(), z, rtol=1e-6, atol=1e-6)

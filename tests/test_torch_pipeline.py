@@ -27,7 +27,7 @@ def _weights_pair(cal_seed):
     qj = jq.prepare_weights(jc, jmake_weights(
         jc, cal=JCal.random(jc, seed=cal_seed, amp_sigma=0.5)))
     qp = pq.quant_weights_from_numpy([np.asarray(t) for t in qj.terms],
-                                     np.asarray(qj.scales))
+                                     np.asarray(qj.scales), device="cpu")
     return qj, qp
 
 
@@ -59,7 +59,7 @@ def test_stream_matches_jax_with_weight_update(depth):
 def test_stream_outputs_match_golden_and_stats():
     cfg = pcfg.TINY
     blocks = [make_noise_block(cfg, rms=2.0, seed=s) for s in range(3)]
-    qw = pq.prepare_weights(cfg, make_weights(cfg))
+    qw = pq.prepare_weights(cfg, make_weights(cfg, device="cpu"))
     sink, seen = ppipe.CollectSink(), []
     stats = ppipe.run_stream(cfg, qw, ppipe.SyntheticSource(cfg, blocks, 5),
                              sink, depth=3, on_block=seen.append)
@@ -84,7 +84,7 @@ def test_file_source_and_sink_roundtrip(tmp_path):
     blocks = [make_noise_block(cfg, rms=2.0, seed=s) for s in range(2)]
     raw = tmp_path / "blocks.raw"
     raw.write_bytes(b"H" * 16 + b"".join(b.tobytes() for b in blocks))
-    qw = pq.prepare_weights(cfg, make_weights(cfg))
+    qw = pq.prepare_weights(cfg, make_weights(cfg, device="cpu"))
     out = tmp_path / "powers.f32"
     sink = ppipe.FileSink(out)
     stats = ppipe.run_stream(cfg, qw, ppipe.FileSource(cfg, raw, offset=16),
@@ -99,7 +99,7 @@ def test_file_source_and_sink_roundtrip(tmp_path):
 
 def test_stream_rejects_bad_blocks_and_depth():
     cfg = pcfg.TINY
-    qw = pq.prepare_weights(cfg, make_weights(cfg))
+    qw = pq.prepare_weights(cfg, make_weights(cfg, device="cpu"))
     bad = ppipe.SyntheticSource(cfg, [np.zeros((3, 4), np.uint8)], 1)
     with pytest.raises(ValueError, match="source block shaped"):
         ppipe.run_stream(cfg, qw, bad)

@@ -37,7 +37,7 @@ def _both_weights(geom, cal_seed=None, pointing=0.0, fringe=0.0):
     a = jw.make_weights(jc, cal=jcal, pointing_rad=pointing,
                         fringe_delay_s=fringe)
     b = pw.make_weights(pc, cal=pcal, pointing_rad=pointing,
-                        fringe_delay_s=fringe)
+                        fringe_delay_s=fringe, device="cpu")
     return (jc, pc), a, b
 
 
@@ -63,13 +63,14 @@ def test_make_weights_vs_numpy_golden():
 def test_make_weights_rejects_mismatched_tables():
     pc = pcfg.TINY
     with pytest.raises(ValueError, match="calibration table shaped"):
-        pw.make_weights(pc, cal=PCal.unity(pc.replace(n_chan=4)))
+        pw.make_weights(pc, cal=PCal.unity(pc.replace(n_chan=4)),
+                        device="cpu")
     from dsabeamformer_tpu_torch.models.arrays import linear_array
 
     with pytest.raises(ValueError, match="active antennas"):
-        pw.make_weights(pc, layout=linear_array(16, 5, 5.0))
+        pw.make_weights(pc, layout=linear_array(16, 5, 5.0), device="cpu")
     with pytest.raises(ValueError, match="antennas, config"):
-        pw.make_weights(pc, layout=linear_array(20, 6, 5.0))
+        pw.make_weights(pc, layout=linear_array(20, 6, 5.0), device="cpu")
 
 
 @pytest.mark.parametrize("spec", ["12,100-110,500", " 3 , 5-5,,7", "0-2"])
@@ -149,7 +150,7 @@ def test_weight_files_load_in_both_packages(tmp_path):
     ja, pb = jq.prepare_weights(jc, a), pq.prepare_weights(pc, _carried(a))
     jq.save_quant_weights(str(tmp_path / "jax.npz"), ja)
     pq.save_quant_weights(str(tmp_path / "port.npz"), pb)
-    from_jax = pq.load_quant_weights(str(tmp_path / "jax.npz"))
+    from_jax = pq.load_quant_weights(str(tmp_path / "jax.npz"), device="cpu")
     from_port = jq.load_quant_weights(str(tmp_path / "port.npz"))
     for x, y, z in zip(ja.terms, from_jax.terms, from_port.terms):
         np.testing.assert_array_equal(y.numpy(), np.asarray(x))
@@ -160,7 +161,7 @@ def test_weight_files_load_in_both_packages(tmp_path):
     # The round-1 stacked format loads too.
     np.savez(tmp_path / "stacked.npz", scales=np.asarray(ja.scales),
              terms=np.stack([np.asarray(t) for t in ja.terms]))
-    st = pq.load_quant_weights(str(tmp_path / "stacked.npz"))
+    st = pq.load_quant_weights(str(tmp_path / "stacked.npz"), device="cpu")
     np.testing.assert_array_equal(st.terms[1].numpy(), np.asarray(ja.terms[1]))
 
 
@@ -168,7 +169,7 @@ def test_carry_across_from_numpy():
     (jc, _), a, _ = _both_weights("tiny", cal_seed=2)
     ja = jq.prepare_weights(jc, a)
     qw = pq.quant_weights_from_numpy([np.asarray(t) for t in ja.terms],
-                                     np.asarray(ja.scales))
+                                     np.asarray(ja.scales), device="cpu")
     assert qw.device == torch.device("cpu") and qw.n_terms == 2
     for x, y in zip(ja.terms, qw.terms):
         assert y.dtype == torch.int8 and y.is_contiguous()
@@ -178,10 +179,21 @@ def test_carry_across_from_numpy():
 
 @pytest.mark.parametrize("mode", pq.UNPORTED_MODES)
 def test_unported_modes_raise(mode):
-    w = CVec.from_numpy(np.ones((2, 4, 8), np.complex64))
+    w = CVec.from_numpy(np.ones((2, 4, 8), np.complex64), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pq.quantize_weights(w, mode)
     with pytest.raises(ValueError, match="unknown weight mode"):
         pq.quantize_weights(w, "int4")
     with pytest.raises(ValueError, match="out of range"):
         pq.cat_weights(w, a_compute=9)
+
+
+@pytest.mark.parametrize("navg_freq", [1, 2, 4])
+@pytest.mark.parametrize("spec", ["0", "1,3-4", [7, 2, 2], []])
+def test_zap_mask_avg_matches_jax(spec, navg_freq):
+    """The incoherent product's averaged-channel excision mask: 0 for any
+    averaged group holding a zapped raw channel."""
+    jc, pc = (c.replace(navg_freq=navg_freq) for c in GEOMS["tiny"])
+    got = pw.zap_mask_avg(spec, pc)
+    assert got.dtype == np.float32 and got.shape == (pc.n_chan // navg_freq,)
+    np.testing.assert_array_equal(got, jw.zap_mask_avg(spec, jc))
