@@ -7,8 +7,9 @@ Phases (each passes or raises; any failure exits non-zero with no result):
 
 1. device   -- a CUDA card is required; prints its name and
                ``nvidia-smi --query-gpu=name,power.limit``.
-2. build    -- compiles csrc/detect_power.cu with nvcc for sm_90a from the
-               checkout and prints ``ptxas -v``.
+2. build    -- compiles csrc/detect_power.cu and csrc/beam_voltages.cu with
+               nvcc for sm_90a from the checkout, one nvcc each, started
+               together, and prints ``ptxas -v``.
 3. kernel vs plain -- at the full DSA10 preset (and the dsa10c compact
                wire), on one random-bytes block: the CUDA kernel against its
                plain PyTorch version on the same inputs, relative power error
@@ -49,17 +50,52 @@ Phases (each passes or raises; any failure exits non-zero with no result):
                without the incoherent file, and a one-beam 32-bit .fil with
                it; between them and phases 6 and 9 every variant is launched
                on a main path.
+11. stokes variants -- the 8 Stokes variants of the detect kernel (``stokes``
+               and its q8 / inco / sk combinations) against the plain
+               version at full dsa10 on one random-bytes block: each plane
+               <= 1e-5 of the I-plane peak, the I plane equal to the power
+               kernel's output to the bit, incoherent and SK equal, uint8
+               byte-equal to the rint/clip of the kernel's own float32 times
+               the scales plus the Q/U/V offset and within 1 count of the
+               plain version's, only where the float32 values differ.
+12. stokes physics -- the sub-band point source at beam 100, tfpa and ftpa:
+               the I plane's argmax is beam 100, each plane <= 1e-3 of the I
+               peak against the float64 golden; with the Y-pol bytes zeroed,
+               Q == I and U == V == 0 exactly.
+13. resident stokes -- CUDA-event time of each Stokes variant at dsa10.
+14. stokes deployed -- dsa10, 6 blocks with the carrier channel:
+               StreamingBeamformer(products="stokes") -> 8-bit 4-IF
+               FilterbankSink for 64 beams (beam 100 among them), incoherent
+               .dada, RFIMonitor(interval=2, sample=2) with the excise-and-
+               swap handler; checks the launch pattern, one excise event,
+               nifs 4, ``__quv_offset__`` 128, block 1 of every file equal to
+               the resident uint8 Stokes output laid out, the carrier's
+               I = 0 and Q/U/V = 128 after the swap, 0 dropped.
+15. stokes deployments -- dsa10c, 6 blocks each: 8-bit Stokes .fil + RFI
+               monitor, a one-beam 32-bit Stokes .fil with the incoherent
+               file, and one without: every Stokes variant is launched on a
+               main path.
+16. voltages -- the 128-channel dsa10 sub-band at full per-channel width
+               (t_block 8192, tfpa) through beamform_voltages, the unfused
+               validation path: the kernel equal to its plain version to the
+               bit, its voltages detected and averaged within 1e-5 of
+               beamform_power, their Stokes parameters within 1e-5 of the I
+               peak of beamform_stokes; timed beside its bound.
+17. bounds to port -- the bound of each weight mode and of DSA-110, which
+               the kernel does not take yet (config arithmetic, no launch).
 
-Each streamed phase sets the launch counts to 0 just before its run and reads
-them just after.  The last two lines are a JSON record of the kernel variants
-(launches on the main paths, max error against the plain version, times, the
-bound) and ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
+Each streamed phase, and the voltage path, sets the launch counts to 0 just
+before its run and reads them just after.  The last two lines are a JSON
+record of the kernels (launches on the main paths, max error against the
+plain version, times, the bound) and ``{"ok": true, "device": {...}}``.
+Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import collections
 import json
+from concurrent.futures import ThreadPoolExecutor
 import subprocess
 import sys
 import tempfile
@@ -69,7 +105,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from dsabeamformer_tpu_torch.config import DSA10, DSA10_COMPACT
+from dsabeamformer_tpu_torch.config import DSA10, DSA10_COMPACT, DSA110
 from dsabeamformer_tpu_torch.ingest.generator import (
     make_point_source_block,
     make_random_bytes_block,
@@ -86,7 +122,10 @@ from dsabeamformer_tpu_torch.models.weights import (
 )
 from dsabeamformer_tpu_torch.ops import _build, gemm
 from dsabeamformer_tpu_torch.ops.quantize import prepare_weights
-from dsabeamformer_tpu_torch.ops.reference import beamform_block_ref
+from dsabeamformer_tpu_torch.ops.reference import (
+    beamform_block_ref,
+    beamform_stokes_ref,
+)
 from dsabeamformer_tpu_torch.ops.rfi import RFIMonitor
 from dsabeamformer_tpu_torch.pipeline import (
     FileSink,
@@ -150,11 +189,18 @@ def phase_device() -> tuple:
     return name, smi
 
 
+KERNEL_SOURCES = ("detect_power", "beam_voltages")
+
+
 def phase_build() -> None:
+    """One nvcc per source, all started together."""
     t0 = time.perf_counter()
-    so = _build.build("detect_power")
-    log(f"[build] {so.name} in {time.perf_counter() - t0:.1f} s")
-    log(_build.build_log("detect_power").strip())
+    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as ex:
+        libs = list(ex.map(_build.build, KERNEL_SOURCES))
+    log(f"[build] {[so.name for so in libs]} in "
+        f"{time.perf_counter() - t0:.1f} s (in parallel)")
+    for name in KERNEL_SOURCES:
+        log(_build.build_log(name).strip())
 
 
 def kernel_vs_plain(cfg, wire_np, qw) -> dict:
@@ -295,7 +341,7 @@ def phase_stream(cfg, blocks_np, qw, block0, smi) -> int:
     return launches
 
 
-#: variant -> (quant8, incoherent, sk), in the kernels line's order.
+#: power variant -> (quant8, incoherent, sk), in the kernels line's order.
 VARIANTS = {
     "base": (False, False, False),
     "sk": (False, False, True),
@@ -306,41 +352,50 @@ VARIANTS = {
     "q8+inco": (True, True, False),
     "sk+q8+inco": (True, True, True),
 }
+#: Stokes variant -> (quant8, incoherent, sk): "stokes", "stokes+sk", ...
+STOKES_VARIANTS = {gemm.variant_name(*flags, stokes=True): flags
+                   for flags in VARIANTS.values()}
+ALL_VARIANTS = {**VARIANTS, **STOKES_VARIANTS}
 FLAGGED_ANT = 3              # flagged out of the incoherent sum
 CARRIER_CHAN = 1234          # channel overwritten by a constant byte
 CARRIER_BYTE = 0x77          # re = im = 7: constant power, SK = 0
 N_DEPLOYED = 8               # blocks in the deployed stream
 H100_INT8_MACS_PER_S = 1979e12 / 2  # dense int8 peak (1,979 TOP/s)
+H100_BF16_MACS_PER_S = 989e12 / 2   # dense bf16 peak (989 TFLOP/s)
+H100_F32_MACS_PER_S = 67e12 / 2     # float32 outside the tensor cores
 H100_BYTES_PER_S = 3.35e12          # HBM3
 
 
 def side_kwargs(cfg, variant, f32_out):
     """fused_detect / detect_power_plain keywords of a variant; the 8-bit
-    scales put each beam's median near mid-rail 64, spread so the rails
-    engage."""
-    q8, inco, sk = VARIANTS[variant]
+    scales put each beam's median (of the power or Stokes-I plane) near
+    mid-rail 64, spread so the rails engage."""
+    q8, inco, sk = ALL_VARIANTS[variant]
+    stokes = variant in STOKES_VARIANTS
     scales = None
     if q8:
         rng = np.random.default_rng(7)
-        med = float(f32_out[:, ::8, ::8].float().median())
+        plane = f32_out[:, :, 0] if stokes else f32_out
+        med = float(plane[:, ::8, ::8].float().median())
         scales = torch.from_numpy((64.0 / med * rng.uniform(
             0.5, 4.0, cfg.n_beams)).astype(np.float32)).to(DEV)
     return dict(quant8_scales=scales,
                 inco_mask=(gemm.incoherent_mask(cfg, (FLAGGED_ANT,))
                            if inco else None),
-                sk=sk)
+                sk=sk, stokes=stokes)
 
 
 def bound_ms(cfg, variant) -> tuple:
     """Least time of one block on an H100 SXM: the larger of its int8 MACs
     over the dense int8 peak and its bytes (wire slots read, weights read,
     outputs written, each once) over the memory rate."""
-    q8, inco, sk = VARIANTS[variant]
+    q8, inco, sk = ALL_VARIANTS[variant]
+    planes = 4 if variant in STOKES_VARIANTS else 1
     f_out, t_out, b = cfg.out_block_shape
     nbytes = (cfg.t_block * cfg.n_chan * cfg.n_pol * cfg.a_compute
               + cfg.n_weight_terms * cfg.n_chan * cfg.gemm_k * 2 * b
               + cfg.n_chan * cfg.n_weight_terms * 4
-              + f_out * t_out * b * (1 if q8 else 4)
+              + f_out * t_out * planes * b * (1 if q8 else 4)
               + (b * 4 if q8 else 0)
               + (f_out * t_out * 4 if inco else 0)
               + (cfg.n_chan * 2 * cfg.a_compute * 8 if sk else 0))
@@ -349,11 +404,40 @@ def bound_ms(cfg, variant) -> tuple:
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
+def bounds_to_port() -> None:
+    """The bound of each configuration the detect kernel does not take yet
+    (ROADMAP.md Queue 2 items 1 and 2b): the larger of its MACs over the
+    peak for its operand type and its bytes (wire slots, weights, the
+    float32 power product) over the memory rate, from the config alone."""
+    peaks = {"int12": H100_INT8_MACS_PER_S, "int13": H100_INT8_MACS_PER_S,
+             "int8x2": H100_INT8_MACS_PER_S, "bf16": H100_BF16_MACS_PER_S,
+             "bf16x2": H100_BF16_MACS_PER_S, "f32": H100_F32_MACS_PER_S}
+    rows = [DSA10.replace(weight_mode=m) for m in
+            ("int12", "int13", "bf16", "bf16x2", "f32")] + [DSA110]
+    for cfg in rows:
+        item = 2 if cfg.weight_mode.startswith("bf16") else \
+            4 if cfg.weight_mode == "f32" else 1
+        f_out, t_out, b = cfg.out_block_shape
+        nbytes = (cfg.t_block * cfg.n_chan * cfg.n_pol * cfg.a_compute
+                  + cfg.n_weight_terms * cfg.n_chan * cfg.gemm_k * 2 * b * item
+                  + f_out * t_out * b * 4)
+        macs = cfg.macs_per_block * cfg.n_weight_terms
+        ops_ms = macs / peaks[cfg.weight_mode] * 1e3
+        bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
+        by = "operations" if ops_ms >= bytes_ms else "bytes"
+        log(f"[bounds to port] {cfg.name} {cfg.weight_mode} a_compute "
+            f"{cfg.a_compute} K {cfg.gemm_k}: {macs:.4g} MACs, "
+            f"{nbytes / 1e9:.3f} GB; bound {max(ops_ms, bytes_ms):.3f} ms "
+            f"by {by}")
+
+
 def check_variant(cfg, x, tm, qw, variant, f32_k, f32_p) -> dict:
     """One variant's kernel output against its plain version on the same
     inputs; raises on any disagreement.  Returns its max abs error (power
-    units for float32, counts for uint8) and the plain version's time."""
+    units for float32, counts for uint8) and the plain version's time.
+    Stokes planes are held against the I-plane peak."""
     kw = side_kwargs(cfg, variant, f32_k)
+    stokes = kw["stokes"]
     out_k, inco_k, sk_k = gemm.fused_detect(x, qw.terms, qw.scales, cfg, tm,
                                             **kw)
     start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -362,10 +446,10 @@ def check_variant(cfg, x, tm, qw, variant, f32_k, f32_p) -> dict:
                                                   cfg, tm, **kw)
     stop.record()
     torch.cuda.synchronize()
-    errs = []
     if kw["quant8_scales"] is not None:
-        own = gemm.quantize_u8(f32_k, kw["quant8_scales"])
-        if not torch.equal(out_k, own):
+        offsets = gemm.stokes_offsets(DEV) if stokes else None
+        if not torch.equal(out_k, gemm.quantize_u8(f32_k, kw["quant8_scales"],
+                                                   offsets)):
             raise RuntimeError(f"{cfg.name} {variant}: fused uint8 differs "
                                f"from the rint/clip of the kernel's float32")
         diff = (out_k.int() - out_p.int()).abs()
@@ -374,17 +458,30 @@ def check_variant(cfg, x, tm, qw, variant, f32_k, f32_p) -> dict:
             raise RuntimeError(f"{cfg.name} {variant}: uint8 vs plain "
                                f"differs by {int(diff.max())} counts or "
                                f"where the float32 products agree")
-        errs.append(float(diff.max()))
-        detail = (f"uint8 == rint/clip(kernel f32 x scale) byte for byte; "
+        err = float(diff.max())
+        detail = (f"uint8 == rint/clip(kernel f32 x scale"
+                  f"{' + [0,128,128,128]' if stokes else ''}) byte for byte; "
                   f"vs plain: {int((diff > 0).sum())} of {diff.numel()} "
                   f"bytes differ by 1, all where the f32 products differ; "
                   f"{int((out_k == 255).sum())} at the 255 rail")
+        if stokes:
+            detail += (f"; Q/U/V mean "
+                       f"{float(out_k[:, :, 1:].float().mean()):.2f}")
+        del diff, same
     else:
-        rel = relative_power_error(out_k.cpu().numpy(), out_p.cpu().numpy())
-        if rel > KERNEL_VS_PLAIN_RTOL or not bool(torch.isfinite(out_k).all()):
-            raise RuntimeError(f"{cfg.name} {variant}: f32 product {rel:.3e}")
-        errs.append(float((out_k - out_p).abs().max()))
-        detail = f"f32 product relative error {rel:.3e}"
+        if stokes:
+            errs = plane_errors(out_k, out_p)
+            bad = max(errs) > KERNEL_VS_PLAIN_RTOL
+            detail = ("per-plane max error / I peak " + " ".join(
+                f"{n}={e:.2e}" for n, e in zip("IQUV", errs)))
+        else:
+            rel = relative_power_error(out_k.cpu().numpy(),
+                                       out_p.cpu().numpy())
+            bad = rel > KERNEL_VS_PLAIN_RTOL
+            detail = f"f32 product relative error {rel:.3e}"
+        if bad or not bool(torch.isfinite(out_k).all()):
+            raise RuntimeError(f"{cfg.name} {variant}: {detail}")
+        err = float((out_k - out_p).abs().max())
     for what, k, p in (("incoherent", inco_k, inco_p), ("SK", sk_k, sk_p)):
         if (k is None) != (p is None):
             raise RuntimeError(f"{cfg.name} {variant}: {what} missing")
@@ -392,42 +489,57 @@ def check_variant(cfg, x, tm, qw, variant, f32_k, f32_p) -> dict:
             if not torch.equal(k, p):
                 raise RuntimeError(f"{cfg.name} {variant}: {what} differs "
                                    f"(max {float((k - p).abs().max())})")
-            errs.append(0.0)
             detail += f"; {what} {tuple(k.shape)} equal"
     plain_ms = start.elapsed_time(stop)
-    log(f"[variants] {cfg.name} {variant}: {detail}; plain {plain_ms:.1f} ms")
-    return {"max_abs_err": max(errs), "plain_ms": plain_ms}
+    log(f"[{'stokes ' if stokes else ''}variants] {cfg.name} {variant}: "
+        f"{detail}; plain {plain_ms:.1f} ms")
+    return {"max_abs_err": err, "plain_ms": plain_ms}
 
 
 def phase_variants(cfg, wire_np, qw, variants) -> dict:
-    """Every variant at full width on one random-bytes block."""
+    """Every variant at full width on one random-bytes block.  For the
+    Stokes variants, the I plane must equal the power kernel's output."""
     x, tm = gemm._prepare_wire(to_device(cfg, wire_np), cfg)
-    f32_k = gemm.fused_detect(x, qw.terms, qw.scales, cfg, tm)[0]
-    f32_p = gemm.detect_power_plain(x, qw.terms, qw.scales, cfg, tm)[0]
+    stokes = variants[0] in STOKES_VARIANTS
+    f32_k = gemm.fused_detect(x, qw.terms, qw.scales, cfg, tm,
+                              stokes=stokes)[0]
+    if stokes:
+        power_k = gemm.fused_detect(x, qw.terms, qw.scales, cfg, tm)[0]
+        if not torch.equal(f32_k[:, :, 0], power_k):
+            raise RuntimeError("Stokes I plane differs from the power "
+                               "kernel's output")
+        log(f"[stokes variants] {cfg.name} {tuple(f32_k.shape)}: the I plane "
+            f"equals the power kernel's output bit for bit")
+        del power_k
+    f32_p = gemm.detect_power_plain(x, qw.terms, qw.scales, cfg, tm,
+                                    stokes=stokes)[0]
     out = {v: check_variant(cfg, x, tm, qw, v, f32_k, f32_p)
            for v in variants}
     del x, f32_k, f32_p
     return out
 
 
-def phase_resident_variants(cfg, blocks_np, qw, plain, smi) -> dict:
+def phase_resident_variants(cfg, blocks_np, qw, plain, smi,
+                            variants=VARIANTS) -> dict:
     """CUDA-event time of each variant, 10 back-to-back launches on two
     resident blocks."""
     xs = [gemm._prepare_wire(to_device(cfg, b), cfg)[0] for b in blocks_np]
     tm = cfg.input_layout == "tfpa"
-    f32 = gemm.fused_detect(xs[0], qw.terms, qw.scales, cfg, tm)[0]
+    stokes = variants is STOKES_VARIANTS
+    f32 = gemm.fused_detect(xs[0], qw.terms, qw.scales, cfg, tm,
+                            stokes=stokes)[0]
     times = {}
-    for variant in VARIANTS:
+    for variant in variants:
         kw = side_kwargs(cfg, variant, f32)
         run = lambda i: gemm.fused_detect(xs[i % 2], qw.terms, qw.scales,
                                           cfg, tm, **kw)
         run(0)
         times[variant] = time_ms(run, N_TIMED)
-    base = times["base"]
+    base = next(iter(times.values()))
     for variant, ms in times.items():
         bnd, by = bound_ms(cfg, variant)
         log(f"[resident] {cfg.name} +{variant}: {ms:.3f} ms/block "
-            f"({ms - base:+.3f} vs base) = "
+            f"({ms - base:+.3f} vs {next(iter(times))}) = "
             f"{cfg.block_duration_s * 1e3 / ms:.4f}x realtime; bound "
             f"{bnd:.3f} ms by {by} ({bnd / ms * 100:.2f}%); plain "
             f"{plain[variant]['plain_ms']:.1f} ms, on {smi}")
@@ -446,31 +558,37 @@ def with_carrier(cfg, wire_np) -> np.ndarray:
     return wire_np
 
 
-def read_fil_block(path, cfg, k) -> np.ndarray:
-    """Block ``k`` of an 8-bit one-IF .fil file: ``[T', F']`` uint8."""
+def read_fil_block(path, cfg, k, nifs=1) -> np.ndarray:
+    """Block ``k`` of an 8-bit .fil file: ``[T', F']`` uint8 (one IF) or
+    ``[T', nifs, F']``."""
     _, off = read_filterbank_header(path)
     f_out, t_out, _ = cfg.out_block_shape
+    n = t_out * nifs * f_out
     with open(path, "rb") as f:
-        f.seek(off + k * t_out * f_out)
-        return np.frombuffer(f.read(t_out * f_out), np.uint8).reshape(
-            t_out, f_out)
+        f.seek(off + k * n)
+        blk = np.frombuffer(f.read(n), np.uint8)
+    return blk.reshape((t_out, f_out) if nifs == 1 else (t_out, nifs, f_out))
 
 
 def drive_stream(cfg, blocks_np, n_blocks, tmp, *, fil_bits, fil_beams=None,
-                 incoherent, rfi, smi):
-    """A deployed-style stream: StreamingBeamformer into a FilterbankSink
-    (and an incoherent .dada FileSink, and an RFIMonitor whose excisions
-    regenerate the weights on the card and swap them in mid-stream), with
-    every launch count set to 0 just before the run and read just after."""
+                 incoherent, rfi, smi, products="power"):
+    """A deployed-style stream of ``products`` (power or Stokes):
+    StreamingBeamformer into a FilterbankSink (and an incoherent .dada
+    FileSink, and an RFIMonitor whose excisions regenerate the weights on
+    the card and swap them in mid-stream), with every launch count set to 0
+    just before the run and read just after."""
     qw = prepare_weights(cfg, make_weights(cfg, device=DEV))
-    fil_dir = tmp / f"{cfg.name}-fil{fil_bits}"
-    fil = FilterbankSink(fil_dir, cfg, beams=fil_beams, nbits=fil_bits)
-    inco = (FileSink(tmp / f"{cfg.name}-inco.dada", cfg,
+    tag = f"{cfg.name}-{products}-fil{fil_bits}"
+    fil_dir = tmp / tag
+    fil = FilterbankSink(fil_dir, cfg, beams=fil_beams, nbits=fil_bits,
+                         products=products)
+    inco = (FileSink(tmp / f"{tag}-inco.dada", cfg,
                      products="incoherent") if incoherent else None)
     drained = []  # host clock at each block's drain
     bf = StreamingBeamformer(cfg, qw, SyntheticSource(cfg, blocks_np,
                                                       n_blocks),
-                             fil, depth=2, incoherent_sink=inco,
+                             fil, depth=2, products=products,
+                             incoherent_sink=inco,
                              flag_ants=(FLAGGED_ANT,) if incoherent else (),
                              on_block=lambda bs: drained.append(
                                  time.perf_counter()))
@@ -503,7 +621,9 @@ def drive_stream(cfg, blocks_np, n_blocks, tmp, *, fil_bits, fil_beams=None,
     # block 0 carries the sink's auto-calibration and the startup drain,
     # the last two blocks drain after the loop.
     steady_ms = (drained[n_blocks - 3] - drained[1]) / (n_blocks - 4) * 1e3
-    log(f"[deployed] {cfg.name} fil{fil_bits}"
+    log(f"[{'stokes ' if products == 'stokes' else ''}deployed] "
+        f"{cfg.name} fil{fil_bits}"
+        f"{'' if fil_beams is None else f' ({len(fil_beams)} beams)'}"
         f"{'+inco' if incoherent else ''}{'+rfi' if rfi else ''}: "
         f"{stats.n_blocks} blocks, {rec['realtime_factor']:.4f}x realtime "
         f"streamed ({stats.wall_s * 1e3 / stats.n_blocks:.2f} ms/block, "
@@ -517,17 +637,19 @@ def drive_stream(cfg, blocks_np, n_blocks, tmp, *, fil_bits, fil_beams=None,
         raise RuntimeError(f"streamed {stats.n_blocks} of {n_blocks} blocks, "
                            f"dropped {stats.dropped}")
     return {"qw": qw, "fil": fil, "fil_dir": fil_dir, "events": events,
-            "swaps": swaps, "launches": launches, "stats": stats}
+            "swaps": swaps, "launches": launches, "stats": stats,
+            "inco_path": tmp / f"{tag}-inco.dada", "steady_ms": steady_ms}
 
 
-def expected_launches(n_blocks, *, q8, incoherent, rfi) -> dict:
+def expected_launches(n_blocks, *, q8, incoherent, rfi,
+                      stokes=False) -> dict:
     """The kernel variants a deployed stream launches: block 0 in float32
     (the sink's auto-calibration), later blocks in uint8; the SK output on
     the monitor's sampling grid (every 2nd block)."""
     want = collections.Counter()
     for k in range(n_blocks):
         want[gemm.variant_name(q8 and k > 0, incoherent,
-                               rfi and k % 2 == 0)] += 1
+                               rfi and k % 2 == 0, stokes)] += 1
     return dict(want)
 
 
@@ -567,7 +689,7 @@ def phase_deployed(cfg, blocks_np, smi) -> dict:
             if tail[:, col].any() or not tail.any():
                 raise RuntimeError(f"beam {b}: carrier channel not zero (or "
                                    f"the block empty) after the swap")
-        _, inco = read_product_file(tmp / f"{cfg.name}-inco.dada")
+        _, inco = read_product_file(r["inco_path"])
         if inco.shape != (N_DEPLOYED, *cfg.out_block_shape[:2]) \
                 or not np.array_equal(inco[1], res_inco.cpu().numpy()):
             raise RuntimeError("incoherent .dada block 1 differs from the "
@@ -611,21 +733,250 @@ def phase_sink_layout(cfg, u8_dev, tmp, smi) -> None:
         f"{smi}")
 
 
-def phase_other_deployments(cfg, blocks_np, smi) -> collections.Counter:
-    """dsa10c deployments that launch the variants the full one does not:
-    8-bit filterbank + RFI monitor without the incoherent file (sk, q8,
-    sk+q8), and a 32-bit one-beam filterbank with the incoherent file
-    (inco)."""
-    total = collections.Counter()
+# --------------------------------------------------------------------- #
+# Full Stokes
+# --------------------------------------------------------------------- #
+
+N_STOKES_DEPLOYED = 6        # blocks in the Stokes deployed stream
+STOKES_FIL_BEAMS = list(range(TARGET_BEAM - 32, TARGET_BEAM + 32))  # 64
+QUV_OFFSET = 128
+
+
+def plane_errors(got, want) -> list:
+    """Max abs error of each Stokes plane over the I-plane peak (float64
+    on the card)."""
+    peak = float(want[:, :, 0].abs().max())
+    return [float((got[:, :, k].double() - want[:, :, k].double())
+                  .abs().max()) / peak for k in range(4)]
+
+
+def phase_stokes_physics() -> None:
+    """The sub-band point source through the Stokes kernel, against the
+    float64 golden model; then the pure-X case."""
+    cfg = DSA10.replace(n_chan=128, t_block=512)
+    wire = make_point_source_block(cfg, angle_rad=cfg.beam_angles_rad()[
+        TARGET_BEAM], noise_rms=0.4, seed=7)
+    ref = torch.from_numpy(beamform_stokes_ref(
+        weights_numpy_golden(cfg), wire, cfg.input_layout, cfg.navg_time))
+    for layout, blk in (("tfpa", wire),
+                        ("ftpa", np.ascontiguousarray(wire.transpose(1, 0, 2, 3)))):
+        c = cfg.replace(input_layout=layout)
+        qw = prepare_weights(c, make_weights(c, device=DEV))
+        st = gemm.beamform_stokes(to_device(c, blk), qw, c).cpu()
+        beam = int(st[:, :, 0].sum(dim=(0, 1)).argmax())
+        errs = plane_errors(st, ref)
+        log(f"[stokes physics] {layout} sub-band {tuple(st.shape)}: I argmax "
+            f"beam {beam} (want {TARGET_BEAM}), per-plane error / I peak vs "
+            f"float64 golden " + " ".join(f"{n}={e:.3e}" for n, e in
+                                          zip("IQUV", errs))
+            + f" (bar {GOLDEN_RTOL:.0e})")
+        if beam != TARGET_BEAM or max(errs) > GOLDEN_RTOL \
+                or not bool(torch.isfinite(st).all()):
+            raise RuntimeError(f"Stokes physics check failed for {layout}")
+        # Pure X: zero the Y-pol bytes (pol is dim 2 of both 4-D forms).
+        x_only = blk.copy()
+        x_only[:, :, 1] = 0
+        st = gemm.beamform_stokes(to_device(c, x_only), qw, c)
+        if float(st[:, :, 0].max()) <= 0 \
+                or not torch.equal(st[:, :, 1], st[:, :, 0]) \
+                or bool(st[:, :, 2:].any()):
+            raise RuntimeError(f"pure-X case: want Q == I and U == V == 0 "
+                               f"exactly ({layout})")
+        log(f"[stokes physics] {layout} Y-pol bytes zeroed: Q == I and "
+            f"U == V == 0 exactly")
+
+
+def phase_stokes_deployed(cfg, blocks_np, smi) -> dict:
+    """The full-Stokes deployed path at full width: 8-bit 4-IF filterbank
+    for 64 beams from the kernel's epilogue, incoherent .dada, RFI monitor
+    with mid-stream excision."""
+    n = N_STOKES_DEPLOYED
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
-        for kw in (dict(fil_bits=8, incoherent=False, rfi=True),
-                   dict(fil_bits=32, fil_beams=[TARGET_BEAM],
-                        incoherent=True, rfi=False)):
-            r = drive_stream(cfg, blocks_np, 6, tmp, smi=smi, **kw)
+        r = drive_stream(cfg, blocks_np, n, tmp, fil_bits=8,
+                         fil_beams=STOKES_FIL_BEAMS, incoherent=True,
+                         rfi=True, smi=smi, products="stokes")
+        want = expected_launches(n, q8=True, incoherent=True, rfi=True,
+                                 stokes=True)
+        if r["launches"] != want:
+            raise RuntimeError(f"launch pattern {r['launches']}, want {want}")
+        ex = [e for e in r["events"] if e["type"] == "excise"]
+        if len(r["events"]) != 1 or len(ex) != 1 \
+                or ex[0]["new"] != [CARRIER_CHAN]:
+            raise RuntimeError(f"want one excise event naming channel "
+                               f"{CARRIER_CHAN}, got {r['events']}")
+        side = json.loads((r["fil_dir"] / "scales.json").read_text())
+        if side.get("__quv_offset__") != QUV_OFFSET:
+            raise RuntimeError(f"scales.json __quv_offset__ "
+                               f"{side.get('__quv_offset__')}")
+        # Block 1 (uint8, before the swap) against the resident kernel on
+        # the same block with the sink's scales and the starting weights.
+        fil = r["fil"]
+        x1 = to_device(cfg, blocks_np[1 % len(blocks_np)])
+        res_u8, res_inco = gemm.beamform_stokes(
+            x1, r["qw"], cfg, incoherent=True, flag_ants=(FLAGGED_ANT,),
+            quant8_scales=fil.fused_quant8_scales(DEV))
+        expect = fil.device_layout(res_u8).cpu().numpy()  # [64, T', 4, F']
+        col = cfg.n_chan - 1 - CARRIER_CHAN  # descending channel order
+        last = n - 1
+        if last < r["swaps"][0] + 3:
+            raise RuntimeError(f"the swap at drain {r['swaps']} leaves no "
+                               f"block with the new weights")
+        for i, b in enumerate(STOKES_FIL_BEAMS):
+            path = r["fil_dir"] / f"beam{b:04d}.fil"
+            if read_filterbank_header(path)[0]["nifs"] != 4:
+                raise RuntimeError(f"{path.name}: nifs is not 4")
+            if not np.array_equal(read_fil_block(path, cfg, 1, 4), expect[i]):
+                raise RuntimeError(f"beam {b}: .fil block 1 differs from the "
+                                   f"resident uint8 Stokes output")
+            tail = read_fil_block(path, cfg, last, 4)
+            if tail[:, 0, col].any() or (tail[:, 1:, col] != QUV_OFFSET).any() \
+                    or not tail[:, 0].any():
+                raise RuntimeError(f"beam {b}: carrier channel not I = 0, "
+                                   f"Q/U/V = {QUV_OFFSET} after the swap")
+        _, inco = read_product_file(r["inco_path"])
+        if inco.shape != (n, *cfg.out_block_shape[:2]) \
+                or not np.array_equal(inco[1], res_inco.cpu().numpy()):
+            raise RuntimeError("incoherent .dada block 1 differs from the "
+                               "resident kernel's")
+        stats = r["stats"]
+        log(f"[stokes deployed] {cfg.name}: one excise event on channel "
+            f"{CARRIER_CHAN}; {len(STOKES_FIL_BEAMS)} 4-IF .fil files (nifs "
+            f"4, __quv_offset__ {side['__quv_offset__']}), block 1 equal to "
+            f"the resident uint8 Stokes output laid out; carrier I = 0, "
+            f"Q/U/V = {QUV_OFFSET} in block {last}; incoherent .dada "
+            f"{inco.shape} block 1 equal; dropped {stats.dropped}; steady "
+            f"state {r['steady_ms']:.2f} ms/block = "
+            f"{cfg.block_duration_s * 1e3 / r['steady_ms']:.4f}x realtime "
+            f"on {smi}")
+        del x1, res_u8, res_inco
+    return r["launches"]
+
+
+# --------------------------------------------------------------------- #
+# Beam voltages (the unfused validation path)
+# --------------------------------------------------------------------- #
+
+VOLTAGE_CHANNELS = 128
+
+
+def voltage_bound_ms(cfg) -> tuple:
+    """Least time of one beamform_voltages call on an H100 SXM: bytes (wire
+    slots and weights read, the float32 voltages written) over the memory
+    rate against the int8 MACs over the dense int8 peak."""
+    nbytes = (cfg.t_block * cfg.n_chan * cfg.n_pol * cfg.a_compute
+              + cfg.n_weight_terms * cfg.n_chan * cfg.gemm_k * 2 * cfg.n_beams
+              + cfg.n_chan * cfg.n_weight_terms * 4
+              + cfg.n_chan * cfg.t_block * cfg.n_pol * 2 * cfg.n_beams * 4)
+    ops_ms = cfg.macs_per_block * cfg.n_weight_terms / H100_INT8_MACS_PER_S * 1e3
+    bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def detect_voltages(bv, cfg) -> tuple:
+    """Power and Stokes of float32 voltages ``[F, T, P, 2B]``, summed over
+    navg_time, in float64 on the card, 16 channels at a time."""
+    b, navg = cfg.n_beams, cfg.navg_time
+    f_all, t = bv.shape[:2]
+    power = torch.empty((f_all, t // navg, b), dtype=torch.float64, device=DEV)
+    stokes = torch.empty((f_all, t // navg, 4, b), dtype=torch.float64,
+                         device=DEV)
+    for f0 in range(0, f_all, 16):
+        v = bv[f0:f0 + 16].double()
+        xr, xi, yr, yi = (v[:, :, 0, :b], v[:, :, 0, b:], v[:, :, 1, :b],
+                          v[:, :, 1, b:])
+        px, py = xr * xr + xi * xi, yr * yr + yi * yi
+        planes = torch.stack([px + py, px - py, 2 * (xr * yr + xi * yi),
+                              2 * (xi * yr - xr * yi)], dim=2)
+        fc = planes.shape[0]
+        stokes[f0:f0 + fc] = planes.reshape(fc, t // navg, navg, 4, b).sum(2)
+        power[f0:f0 + fc] = stokes[f0:f0 + fc, :, 0]
+    return power, stokes
+
+
+def phase_voltages(smi) -> dict:
+    """The unfused validation path on the 128-channel dsa10 sub-band at
+    full per-channel width: the kernel against its plain version and
+    against the fused power and Stokes kernels; then timed."""
+    cfg = DSA10.replace(n_chan=VOLTAGE_CHANNELS)
+    wire = make_random_bytes_block(cfg, seed=5)
+    qw = prepare_weights(cfg, make_weights(cfg, device=DEV))
+    x = to_device(cfg, wire)
+    gemm.beamform_voltages.launches = 0     # count the path's own call only
+    bv = gemm.beamform_voltages(x, qw, cfg)
+    launches = gemm.beamform_voltages.launches
+    xk, tm = gemm._prepare_wire(x, cfg)
+    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    bv_p = gemm.voltages_plain(xk, qw.terms, qw.scales, cfg, tm)
+    stop.record()
+    torch.cuda.synchronize()
+    plain_ms = start.elapsed_time(stop)
+    max_abs = float((bv - bv_p).abs().max())
+    if not torch.equal(bv, bv_p):
+        raise RuntimeError(f"voltage kernel differs from its plain version "
+                           f"(max {max_abs})")
+    del bv_p
+    power_u, stokes_u = detect_voltages(bv, cfg)
+    p_fused = gemm.beamform_power(x, qw, cfg).double()
+    s_fused = gemm.beamform_stokes(x, qw, cfg).double()
+    rel = float((p_fused - power_u).norm() / power_u.norm())
+    errs = plane_errors(s_fused, stokes_u)
+    log(f"[voltages] {cfg.name} sub-band {tuple(bv.shape)} "
+        f"({bv.numel() * 4 / 1e9:.3f} GB): kernel == plain bit for bit; "
+        f"fused power vs detected voltages {rel:.3e} (tol 1e-05); fused "
+        f"Stokes vs Stokes of the voltages / I peak "
+        + " ".join(f"{n}={e:.2e}" for n, e in zip("IQUV", errs)))
+    if rel > 1e-5 or max(errs) > 1e-5 or not bool(torch.isfinite(bv).all()):
+        raise RuntimeError("fused vs unfused check failed")
+    del power_u, stokes_u, p_fused, s_fused, bv
+    run = lambda i: gemm.beamform_voltages(x, qw, cfg)
+    run(0)
+    ms = time_ms(run, N_TIMED)
+    bnd, by = voltage_bound_ms(cfg)
+    log(f"[voltages] {cfg.name} sub-band kernel {ms:.3f} ms per call "
+        f"({VOLTAGE_CHANNELS} channels x {cfg.t_block} samples), bound "
+        f"{bnd:.3f} ms by {by} ({bnd / ms * 100:.2f}%), plain "
+        f"{plain_ms:.1f} ms, launches on the validation path {launches}, "
+        f"on {smi}")
+    if launches != 1:
+        raise RuntimeError(f"voltage path launched {launches} kernels")
+    return {"launches": launches, "max_abs_err": max_abs, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by}
+
+
+#: dsa10c deployments, per product, that launch the variants the full
+#: dsa10 one does not.
+OTHER_DEPLOYMENTS = {
+    # 8-bit filterbank + RFI monitor without the incoherent file (sk, q8,
+    # sk+q8), and a one-beam 32-bit filterbank with it (inco).
+    "power": (dict(fil_bits=8, incoherent=False, rfi=True),
+              dict(fil_bits=32, fil_beams=[TARGET_BEAM], incoherent=True,
+                   rfi=False)),
+    # The same for 64 beams of 8-bit 4-IF files, and a one-beam 32-bit
+    # Stokes file without the incoherent file (stokes).
+    "stokes": (dict(fil_bits=8, fil_beams=STOKES_FIL_BEAMS, incoherent=False,
+                    rfi=True),
+               dict(fil_bits=32, fil_beams=[TARGET_BEAM], incoherent=True,
+                    rfi=False),
+               dict(fil_bits=32, fil_beams=[TARGET_BEAM], incoherent=False,
+                    rfi=False)),
+}
+
+
+def phase_other_deployments(cfg, blocks_np, smi,
+                            products="power") -> collections.Counter:
+    """The dsa10c deployments of ``OTHER_DEPLOYMENTS[products]``, 6 blocks
+    each, with their launch patterns and excise events checked."""
+    total = collections.Counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, kw in enumerate(OTHER_DEPLOYMENTS[products]):
+            r = drive_stream(cfg, blocks_np, 6, Path(tmp) / f"run{i}",
+                             smi=smi, products=products, **kw)
             want = expected_launches(6, q8=kw["fil_bits"] == 8,
                                      incoherent=kw["incoherent"],
-                                     rfi=kw["rfi"])
+                                     rfi=kw["rfi"],
+                                     stokes=products == "stokes")
             if r["launches"] != want:
                 raise RuntimeError(f"launch pattern {r['launches']}, "
                                    f"want {want}")
@@ -666,23 +1017,37 @@ def main() -> None:
     phase_variants(cc, cc_block, cc_qw, ["q8", "inco", "sk", "sk+q8+inco"])
     times = phase_resident_variants(cfg, blocks, qw, checked, smi)
     times["base"] = res["ms"]
+
+    # The full-Stokes variants, kernel against plain, physics, then timed.
+    checked.update(phase_variants(cfg, blocks[0], qw,
+                                  list(STOKES_VARIANTS)))
+    phase_stokes_physics()
+    times.update(phase_resident_variants(cfg, blocks, qw, checked, smi,
+                                         STOKES_VARIANTS))
     del qw, cc_qw
 
     # The deployed streams (each driven with the counts set to 0).
     for b in blocks:
         with_carrier(cfg, b)
     launches.update(phase_deployed(cfg, blocks, smi))
+    launches.update(phase_stokes_deployed(cfg, blocks, smi))
     del blocks
     cc_blocks = [with_carrier(cc, cc_block),
                  with_carrier(cc, make_random_bytes_block(cc, seed=3))]
     launches.update(phase_other_deployments(cc, cc_blocks, smi))
-    missing = [v for v in VARIANTS if not launches[v]]
+    launches.update(phase_other_deployments(cc, cc_blocks, smi, "stokes"))
+    del cc_blocks
+    missing = [v for v in ALL_VARIANTS if not launches[v]]
     if missing:
         raise RuntimeError(f"variants never launched on a main path: "
                            f"{missing}")
 
+    # The unfused validation path (driven with its count set to 0).
+    volt = phase_voltages(smi)
+    bounds_to_port()
+
     kernels = []
-    for variant in VARIANTS:
+    for variant in ALL_VARIANTS:
         bnd, by = bound_ms(cfg, variant)
         kernels.append({
             "name": "detect_power" + ("" if variant == "base"
@@ -698,6 +1063,15 @@ def main() -> None:
             "bound_by": by,
             "library_ms": None,
         })
+    kernels.append({
+        "name": "beam_voltages",
+        "route": "cuda",
+        "source": "dsabeamformer_tpu_torch/csrc/beam_voltages.cu",
+        "replaces": "dsabeamformer_tpu/ops/gemm.py:932",
+        **{k: volt[k] for k in ("launches", "max_abs_err", "ms", "plain_ms",
+                                "bound_ms", "bound_by")},
+        "library_ms": None,
+    })
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

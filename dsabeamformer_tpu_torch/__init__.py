@@ -3,16 +3,21 @@
 A port of ``dsabeamformer_tpu`` (the JAX/Pallas package beside it, which
 stays the reference): the same module paths, public names and layouts at the
 public functions, so each counterpart is easy to find and the tests compare
-like with like.  The main path and the deployed path run today:
+like with like.  The main path, the deployed path and the full-Stokes path
+run today:
 
     config -> models.weights.make_weights -> ops.quantize.prepare_weights
-      -> pipeline.StreamingBeamformer: pinned staging -> H2D
-      -> ops.gemm.beamform_power (hand-written CUDA kernel,
-         csrc/detect_power.cu: power, uint8 epilogue, incoherent sum,
-         spectral-kurtosis accumulators) -> D2H
-      -> sinks (ingest.sigproc.FilterbankSink .fil, pipeline.FileSink .dada)
-         and ops.rfi.RFIMonitor, whose excisions regenerate the weights
-         mid-stream
+      -> pipeline.StreamingBeamformer(products="power" | "stokes"):
+         pinned staging -> H2D
+      -> ops.gemm.beamform_power / beamform_stokes (hand-written CUDA
+         kernel, csrc/detect_power.cu: power or I/Q/U/V, uint8 epilogue,
+         incoherent sum, spectral-kurtosis accumulators) -> D2H
+      -> sinks (ingest.sigproc.FilterbankSink .fil, 1 or 4 IFs;
+         pipeline.FileSink .dada) and ops.rfi.RFIMonitor, whose excisions
+         regenerate the weights mid-stream
+
+and the unfused validation path, ops.gemm.beamform_voltages
+(csrc/beam_voltages.cu), that the fused products are held against.
 
 Entry points run on the card unless the caller names another device.
 This package imports PyTorch and NumPy, never JAX.
@@ -31,6 +36,8 @@ __all__ = [
     "make_weights",
     "quantize_weights",
     "beamform_power",
+    "beamform_stokes",
+    "beamform_voltages",
     "StreamingBeamformer",
     "run_stream",
     "__version__",
@@ -47,10 +54,10 @@ def __getattr__(name):
         from dsabeamformer_tpu_torch.ops.quantize import quantize_weights
 
         return quantize_weights
-    if name == "beamform_power":
-        from dsabeamformer_tpu_torch.ops.gemm import beamform_power
+    if name in ("beamform_power", "beamform_stokes", "beamform_voltages"):
+        from dsabeamformer_tpu_torch.ops import gemm
 
-        return beamform_power
+        return getattr(gemm, name)
     if name in ("StreamingBeamformer", "run_stream"):
         from dsabeamformer_tpu_torch import pipeline
 

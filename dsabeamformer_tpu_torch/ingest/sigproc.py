@@ -1,7 +1,7 @@
 """SIGPROC filterbank output: the search stage's native on-disk format.
 
-The port of ``dsabeamformer_tpu/ingest/sigproc.py`` for the power product:
-the header encoder and reader, the per-beam ``FilterbankSink`` (32-bit, or
+The port of ``dsabeamformer_tpu/ingest/sigproc.py``: the header encoder and
+reader, the per-beam ``FilterbankSink`` (power or full Stokes; 32-bit, or
 8-bit with a per-beam scale), and the subband splice.  The headers are
 byte for byte the JAX package's, so files from either package read in the
 other and splice together.
@@ -12,7 +12,8 @@ Format (SIGPROC's ``filterbank`` flavor):
   values (int32 / float64), bracketed by ``HEADER_START`` / ``HEADER_END``;
   the payload follows immediately.
 - payload: time-major samples, each ``[nifs, nchans]`` float32 (``nbits=32``)
-  or uint8 (``nbits=8``); ``nifs=1`` for power.
+  or uint8 (``nbits=8``); ``nifs=1`` for power, ``nifs=4`` for full Stokes
+  (I, Q, U, V: SIGPROC's IF axis).
 - channels are written in DESCENDING frequency (``fch1`` = highest averaged
   channel centre, ``foff`` < 0), the convention dedispersion tools assume;
   the writer flips the channel axis.
@@ -20,8 +21,8 @@ Format (SIGPROC's ``filterbank`` flavor):
 The 8-bit quantizer runs where the product is: in the detection kernel's
 epilogue (``fused_quant8_scales``, the streaming path), on the device as
 torch ops (``device_post``, for ``navg_freq > 1``), or on the host for a
-float32 block.  All three compute ``clip(rint(x * scale_b), 0, 255)``.
-Full-Stokes files (``products="stokes"``) are not ported yet.
+float32 block.  All three compute ``clip(rint(x * scale_b), 0, 255)``; an
+8-bit Stokes file adds ``STOKES_QUV_OFFSET`` to its signed Q/U/V planes.
 """
 
 from __future__ import annotations
@@ -35,17 +36,16 @@ import numpy as np
 import torch
 
 from dsabeamformer_tpu_torch.config import ObsConfig
-from dsabeamformer_tpu_torch.ops.gemm import quantize_u8
+from dsabeamformer_tpu_torch.ops.gemm import (
+    STOKES_QUV_OFFSET,
+    quantize_u8,
+    stokes_offsets,
+)
 from dsabeamformer_tpu_torch.utils.device import resolve_device
 
 __all__ = ["encode_filterbank_header", "FilterbankSink", "read_filterbank",
            "read_filterbank_header", "splice_filterbanks",
            "STOKES_QUV_OFFSET"]
-
-# Signed Q/U/V planes of an 8-bit Stokes file ride the unsigned payload at
-# this fixed midpoint offset (recorded in scales.json; SIGPROC has no field
-# for it).  Kept for files written by the JAX package's Stokes sink.
-STOKES_QUV_OFFSET = 128.0
 
 
 def _kw(keyword: str) -> bytes:
@@ -120,10 +120,11 @@ class FilterbankSink:
     """Per-beam SIGPROC ``.fil`` writer with the pipeline sink API
     (``write(seq, block)`` / ``close()``).
 
-    ``block`` is the product the stream fetched: ``[F', T', B]`` float32, or
-    uint8 when it was quantized on the device (``F' = n_chan/navg_freq``,
-    ``T' = t_block/navg_time``).  Each selected beam appends ``T'`` samples
-    of ``[F']`` with the channel axis flipped to descending frequency.
+    ``block`` is the product the stream fetched: ``[F', T', B]`` for power,
+    ``[F', T', 4, B]`` for Stokes, float32, or uint8 when it was quantized
+    on the device (``F' = n_chan/navg_freq``, ``T' = t_block/navg_time``).
+    Each selected beam appends ``T'`` samples of ``[nifs, F']`` with the
+    channel axis flipped to descending frequency.
 
     ``nbits=8`` writes ``clip(rint(x * scale), 0, 255)`` uint8.  SIGPROC has
     no per-block scale field, so a file's scale is constant;
@@ -131,6 +132,12 @@ class FilterbankSink:
     median mapped to mid-rail 64) and keeps it.  The scales in effect are
     written to ``<dir>/scales.json`` on close, the only durable record of
     the counts-per-unit-power calibration.
+
+    8-bit Stokes (``products="stokes"``, nifs=4) stores the signed Q/U/V
+    planes at the fixed midpoint ``STOKES_QUV_OFFSET`` (recorded in the
+    sidecar as ``__quv_offset__``): ``counts = x * scale + offset``, with I
+    at offset 0 so intensity-only consumers read it as a power file.  The
+    auto scale comes from the I plane (``|Q|, |U|, |V| <= I`` per sample).
 
     Gaps in ``seq`` (dropped or skipped blocks) are zero-filled so the
     file's time axis stays contiguous for dedispersion;
@@ -154,16 +161,13 @@ class FilterbankSink:
         nbits: int = 32,
         scale: float | str = "auto",
     ):
-        if products == "stokes":
-            raise NotImplementedError(
-                "8/32-bit Stokes filterbanks are not ported yet (ROADMAP.md "
-                "Queue 1 item 12: Stokes)")
-        if products != "power":
+        if products not in ("power", "stokes"):
             raise ValueError(f"unknown products {products!r}")
         if nbits not in (8, 32):
             raise ValueError(f"nbits must be 8 or 32, got {nbits}")
         self.cfg = cfg
-        self.nifs = 1
+        self._stokes = products == "stokes"
+        self.nifs = 4 if self._stokes else 1
         self.nbits = nbits
         explicit = None if scale == "auto" else float(scale)
         if nbits == 8 and explicit is not None and explicit <= 0:
@@ -178,8 +182,10 @@ class FilterbankSink:
             b: explicit for b in self.beams}
         self._dev_scales: Dict[torch.device, torch.Tensor] = {}
         f_out, t_out, _ = cfg.out_block_shape
-        #: Shape of a block after ``device_layout``: [beams, T', F'].
-        self.layout_shape = (len(self.beams), t_out, f_out)
+        #: Shape of a block after ``device_layout``: [beams, T', F'], or
+        #: [beams, T', 4, F'] for Stokes.
+        self.layout_shape = (len(self.beams), t_out) \
+            + ((4,) if self._stokes else ()) + (f_out,)
         self._last_seq: Optional[int] = None
         self.n_splices = 0
         self.filled_samples = 0
@@ -202,34 +208,40 @@ class FilterbankSink:
         return dict(self._scales) if self.nbits == 8 else {}
 
     def device_post(self, out_dev, *, warmup: bool = False):
-        """Pipeline hook: quantize the power product to uint8 on its device
-        once the per-beam scales are known, so the D2H copy carries 1 byte
-        per sample instead of 4.  Returns ``out_dev`` unchanged at nbits=32
-        or while auto-calibration still needs a float32 block;
-        ``warmup=True`` runs the quantizer once with unit scales."""
+        """Pipeline hook: quantize the product to uint8 on its device once
+        the per-beam scales are known (Stokes Q/U/V at their midpoint), so
+        the D2H copy carries 1 byte per sample instead of 4.  Returns
+        ``out_dev`` unchanged at nbits=32 or while auto-calibration still
+        needs a float32 block; ``warmup=True`` runs the quantizer once with
+        unit scales."""
         if self.nbits != 8:
             return out_dev
         if warmup:
-            ones = torch.ones(out_dev.shape[-1], dtype=torch.float32,
-                              device=out_dev.device)
-            return quantize_u8(out_dev, ones)
-        s = self._device_scale_vec(out_dev.shape[-1], out_dev.device)
-        if s is None:
-            return out_dev
-        return quantize_u8(out_dev, s)
+            s = torch.ones(out_dev.shape[-1], dtype=torch.float32,
+                           device=out_dev.device)
+        else:
+            s = self._device_scale_vec(out_dev.shape[-1], out_dev.device)
+            if s is None:
+                return out_dev
+        return quantize_u8(out_dev, s, stokes_offsets(out_dev.device)
+                           if self._stokes else None)
 
     def device_layout(self, out_dev):
-        """``[F', T', B]`` product (float32 or uint8) -> the file layout
-        ``[selected beams, T', F']`` with channels descending, contiguous,
-        on the product's device; ``write_beams`` takes it."""
+        """``[F', T', B]`` (power) or ``[F', T', 4, B]`` (Stokes) product,
+        float32 or uint8 -> the file layout ``[selected beams, T', F']`` or
+        ``[selected beams, T', 4, F']`` with channels descending,
+        contiguous, on the product's device; ``write_beams`` takes it."""
         if len(self.beams) != out_dev.shape[-1]:
             out_dev = out_dev[..., self.beams]
+        if self._stokes:
+            return out_dev.permute(3, 1, 2, 0).flip(3).contiguous()
         return out_dev.permute(2, 1, 0).flip(2).contiguous()
 
     def fused_quant8_scales(self, device="cuda"):
         """Per-beam scale vector on ``device`` for the kernel's uint8
-        epilogue (``beamform_power(quant8_scales=...)``), or None while
-        auto-calibration still needs a float32 block, and at nbits=32.
+        epilogue (``quant8_scales`` of ``beamform_power`` and
+        ``beamform_stokes``), or None while auto-calibration still needs a
+        float32 block, and at nbits=32.
         The bytes are the same as ``device_post``'s; the float32 product
         then never reaches device memory."""
         if self.nbits != 8:
@@ -252,21 +264,24 @@ class FilterbankSink:
         return vec
 
     def write(self, seq: int, block) -> None:
-        """Append one ``[F', T', B]`` block (the product's layout)."""
-        # [F', T', B] -> per-beam [T', F'] views, channels descending.
-        view = np.transpose(np.asarray(block), (2, 1, 0))[..., ::-1]
+        """Append one ``[F', T', B]`` / ``[F', T', 4, B]`` block (the
+        product's layout)."""
+        # -> per-beam [T', F'] / [T', 4, F'] views, channels descending.
+        order = (3, 1, 2, 0) if self._stokes else (2, 1, 0)
+        view = np.transpose(np.asarray(block), order)[..., ::-1]
         self.write_beams(seq, [view[b] for b in self.beams])
 
     def write_beams(self, seq: int, slabs) -> None:
-        """Append one block given as the selected beams' ``[T', F']``
-        slabs, channels descending (``device_layout``'s form): float32, or
-        uint8 already scaled and clipped on the device."""
+        """Append one block given as the selected beams' ``[T', F']`` (power)
+        or ``[T', 4, F']`` (Stokes) slabs, channels descending
+        (``device_layout``'s form): float32, or uint8 already scaled and
+        clipped on the device."""
         pre_quantized = slabs[0].dtype == np.uint8
-        t_out, f_out = slabs[0].shape
+        t_out = slabs[0].shape[0]
         if self._last_seq is not None and seq > self._last_seq + 1:
             # Stream gap: zero-fill to keep the time axis contiguous.
             gap = (seq - self._last_seq - 1) * t_out
-            fill = np.zeros((gap, f_out),
+            fill = np.zeros((gap,) + slabs[0].shape[1:],
                             dtype=np.uint8 if self.nbits == 8 else np.float32)
             for f in self._files.values():
                 f.write(fill)
@@ -278,10 +293,16 @@ class FilterbankSink:
                 out = out.astype(np.float32, copy=False)
             if self.nbits == 8 and not pre_quantized:
                 if self._scales[b] is None:
-                    med = float(np.median(out))
+                    # Stokes calibrates on the I plane: it bounds the others.
+                    med = float(np.median(out[:, 0] if self._stokes
+                                          else out))
                     self._scales[b] = 64.0 / med if med > 0 else 1.0
-                out = np.clip(np.rint(out * np.float32(self._scales[b])),
-                              0, 255).astype(np.uint8)
+                out = out * np.float32(self._scales[b])
+                if self._stokes:
+                    # A rounding of its own, as in the JAX package's host
+                    # path (its device paths round once, as quantize_u8).
+                    out = out + stokes_offsets().numpy()[:, None]
+                out = np.clip(np.rint(out), 0, 255).astype(np.uint8)
             # One contiguous copy at most, no tobytes() duplicate.
             f.write(np.ascontiguousarray(out))
 
@@ -290,6 +311,9 @@ class FilterbankSink:
             f.close()
         if self.nbits == 8:
             rec = {f"beam{b:04d}.fil": s for b, s in self._scales.items()}
+            if self._stokes:
+                # counts = x * scale + offset (I: 0; Q/U/V: the midpoint).
+                rec["__quv_offset__"] = STOKES_QUV_OFFSET
             (self._dir / "scales.json").write_text(
                 json.dumps(rec, indent=0) + "\n")
 

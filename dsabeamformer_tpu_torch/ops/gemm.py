@@ -1,35 +1,46 @@
-"""The fused beamforming step: 4-bit wire block -> averaged beam powers,
-with the deployed path's side outputs.
+"""The fused beamforming step: 4-bit wire block -> averaged beam powers or
+full-Stokes spectra, with the deployed path's side outputs; and the unfused
+beam voltages that hold the fused products to account.
 
-One hand-written CUDA kernel (``csrc/detect_power.cu``) does what three
-stages of the original CUDA program did (unpack, complex GEMM, detect) and
-what the JAX package's Pallas kernel does (``dsabeamformer_tpu/ops/gemm.py``,
-``_detect_kernel`` with ``_power_epilogue``, launched by ``_fused_detect``):
-per channel, unpack the wire bytes of the first ``a_compute`` antennas of each
-pol into ``[re | im]``, multiply by each int8 weight term in int32, combine
-int8x2 terms as ``M_hi * 256 + M_lo``, convert to float32 once, then
-``|B|^2``, pol sum, ``navg_time`` sum and the channel's ``s^2``.  Unpacked
-voltages and beam voltages never reach device memory.  Optionally, from the
-same read of the wire bytes:
+Two hand-written CUDA kernels replace the JAX package's two Pallas kernels
+(``dsabeamformer_tpu/ops/gemm.py``):
 
-- ``quant8_scales``: the product is stored as uint8
-  ``clip(rint((p * s^2) * scale_b), 0, 255)`` (the 8-bit filterbank);
-- ``incoherent``: the incoherent sum ``[F, T/navg]`` over the active,
-  unflagged antennas;
-- ``sk_stats``: the spectral-kurtosis accumulators S1 = sum p, S2 = sum p^2
-  per channel (``ops.incoherent.sk_block_stats`` semantics).
+- ``csrc/detect_power.cu`` (``_detect_kernel`` launched by ``_fused_detect``,
+  with ``_power_epilogue`` or ``_stokes_epilogue``): per channel, unpack the
+  wire bytes of the first ``a_compute`` antennas of each pol into
+  ``[re | im]``, multiply by each int8 weight term in int32, combine int8x2
+  terms as ``M_hi * 256 + M_lo``, convert to float32 once, then detect:
+  ``|B|^2`` summed over pols (power), or I, Q, U, V (Stokes), summed over
+  ``navg_time`` samples and scaled by the channel's ``s^2``.  Unpacked
+  voltages and beam voltages never reach device memory.  Optionally, from
+  the same read of the wire bytes:
 
-``fused_detect`` is the wrapper: a CUDA tensor goes to the kernel (or the
-call raises), a CPU tensor to ``detect_power_plain``, the same function in
-plain PyTorch.  ``fused_detect.launches`` counts kernel launches per variant
-(``variant_name``).
+  - ``quant8_scales``: the product is stored as uint8
+    ``clip(rint((x * s^2) * scale_b [+ offset]), 0, 255)`` (the 8-bit
+    filterbank; Stokes Q/U/V at the midpoint offset ``STOKES_QUV_OFFSET``);
+  - ``incoherent``: the incoherent sum ``[F, T/navg]`` over the active,
+    unflagged antennas;
+  - ``sk_stats``: the spectral-kurtosis accumulators S1 = sum p,
+    S2 = sum p^2 per channel (``ops.incoherent.sk_block_stats`` semantics).
 
-Public API: ``beamform_power`` (power product, int8 / int8x2 weights).
+- ``csrc/beam_voltages.cu`` (``_voltage_kernel``, launched by
+  ``beamform_voltages``): the same unpack and GEMM, times the channel's
+  scale, stored as float32 ``[F, T, P, 2B]`` with no detection.
+
+``fused_detect`` and ``beamform_voltages`` are the wrappers: a CUDA tensor
+goes to the kernel (or the call raises), a CPU tensor to the plain PyTorch
+version of the same function (``detect_power_plain``, ``voltages_plain``).
+``fused_detect.launches`` counts kernel launches per variant
+(``variant_name``), ``beamform_voltages.launches`` the voltage kernel's.
+
+Public API: ``beamform_power``, ``beamform_stokes``, ``beamform_voltages``
+(int8 / int8x2 weights), ``voltages_to_complex``.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 
 import numpy as np
@@ -39,14 +50,18 @@ from dsabeamformer_tpu_torch.config import ObsConfig
 from dsabeamformer_tpu_torch.ops._build import load_library
 from dsabeamformer_tpu_torch.ops.quantize import QuantWeights
 
-#: Weight modes the kernel and its plain version compute.
+#: Weight modes the kernels and their plain versions compute.
 KERNEL_MODES = ("int8", "int8x2")
-#: Antenna counts the kernel is instantiated for (K = 2 * a_compute).
+#: Antenna counts the kernels are instantiated for (K = 2 * a_compute).
 KERNEL_A_COMPUTE = (8, 16, 32)
-#: Time samples the kernel stages per thread block (csrc: kSpanSamples).
+#: Time samples the kernels stage per thread block (csrc: kSpanSamples).
 _SPAN_SAMPLES = 256
-#: Shared memory the kernel may stage into: 48 KB less its SK scratch.
+#: Shared memory the detect kernel may stage into: 48 KB less its SK scratch.
 _MAX_SMEM = 48 * 1024 - 2 * 32 * 4
+#: Signed Q/U/V planes of an 8-bit Stokes product ride the unsigned payload
+#: at this fixed midpoint offset; I keeps offset 0 (the SIGPROC files'
+#: convention, recorded in their scales.json; csrc: kQuvOffset).
+STOKES_QUV_OFFSET = 128.0
 
 
 def _dtype_name(dtype) -> str:
@@ -69,6 +84,13 @@ def _check_weights(qw: QuantWeights, cfg: ObsConfig) -> None:
             f"weight scales shaped {tuple(qw.scales.shape)} do not match "
             f"[F, n_terms] = {(cfg.n_chan, len(qw.terms))}"
         )
+
+
+def _check_mode(cfg: ObsConfig) -> None:
+    if cfg.weight_mode not in KERNEL_MODES:
+        raise NotImplementedError(
+            f"weight mode {cfg.weight_mode!r} is not ported yet (ROADMAP.md "
+            f"Queue 2 item 1: the remaining weight modes)")
 
 
 def _prepare_wire(wire, cfg: ObsConfig) -> tuple:
@@ -127,12 +149,44 @@ def incoherent_mask(cfg: ObsConfig, flag_ants=()) -> int:
     return mask
 
 
-def variant_name(quant8: bool, incoherent: bool, sk: bool) -> str:
-    """Launch-count key of a kernel variant: ``"base"`` or the side outputs
-    joined by ``+`` (``"sk"``, ``"q8"``, ``"sk+q8+inco"``, ...)."""
-    parts = [n for n, on in (("sk", sk), ("q8", quant8), ("inco", incoherent))
-             if on]
+def variant_name(quant8: bool, incoherent: bool, sk: bool,
+                 stokes: bool = False) -> str:
+    """Launch-count key of a detect-kernel variant: the product (``"base"``
+    for power, ``"stokes"``) and the side outputs joined by ``+``
+    (``"sk"``, ``"q8"``, ``"sk+q8+inco"``, ``"stokes+sk+q8+inco"``, ...)."""
+    parts = [n for n, on in (("stokes", stokes), ("sk", sk), ("q8", quant8),
+                             ("inco", incoherent)) if on]
     return "+".join(parts) or "base"
+
+
+def _fma(a, b, c):
+    """``a * b + c`` with one rounding to float32: the contraction XLA makes
+    of the JAX kernel's ``x*y + z`` on the CPU (mirrored so that the plain
+    version and the JAX package agree to the bit).  Computed in float64,
+    where the product of two float32 is exact; so is the sum for the
+    detection products, whose operands are integers below 2^50.  For the
+    uint8 quantizer's ``x * scale + offset`` the float64 sum may round
+    first, which moves the float32 result only for values within 2^-53
+    (relative) of a float32 rounding midpoint."""
+    r = a.double() * b.double()
+    r += c.double()  # in place: a DSA-10 Stokes block is 8.6 GB in float64
+    return r.float()
+
+
+def _time_sum(z: torch.Tensor, navg: int) -> torch.Tensor:
+    """``[Fc, T, ...]`` -> ``[Fc, T/navg, ...]``: sums of ``navg`` adjacent
+    samples, as a halving tree (first half plus second half, repeated): the
+    order of XLA's CPU reduction of a 16-sample sum, so at the presets'
+    navg_time the plain version and the JAX package agree to the bit."""
+    fc, t = z.shape[:2]
+    z = z.reshape(fc, t // navg, navg, *z.shape[2:])
+    n = navg
+    while n > 1:
+        h = n // 2
+        head = z[:, :, :h] + z[:, :, h:2 * h]
+        z = torch.cat([head, z[:, :, 2 * h:]], dim=2) if n % 2 else head
+        n = z.shape[2]
+    return z[:, :, 0]
 
 
 def _power_epilogue(acc, n_time, n_beams, navg_time):
@@ -140,47 +194,120 @@ def _power_epilogue(acc, n_time, n_beams, navg_time):
     ``|B|^2``, pol sum, ``navg_time`` sum."""
     br = acc[..., :n_beams]
     bi = acc[..., n_beams:]
-    p = br * br + bi * bi
-    power = p[:, :n_time] + p[:, n_time:]
-    fc = acc.shape[0]
-    return power.reshape(fc, n_time // navg_time, navg_time, n_beams).sum(dim=2)
+    p = _fma(br, br, bi * bi)
+    return _time_sum(p[:, :n_time] + p[:, n_time:], navg_time)
 
 
-def quantize_u8(power: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
-    """``clip(rint(power * scale_b), 0, 255)`` as uint8, per beam (last
-    axis): the 8-bit filterbank quantizer, rounding half to even."""
-    return torch.clamp(torch.round(power * scales), 0, 255).to(torch.uint8)
+def _stokes_epilogue(acc, n_time, n_beams, navg_time):
+    """``[Fc, P*T, 2B]`` f32 (pol-major rows) -> ``[Fc, T/navg, 4, B]``:
+    I = |Bx|^2+|By|^2, Q = |Bx|^2-|By|^2, U = 2 Re(Bx By*),
+    V = 2 Im(Bx By*) (linear feeds, x = pol 0), each summed over
+    ``navg_time`` samples."""
+    bxr = acc[:, :n_time, :n_beams]
+    bxi = acc[:, :n_time, n_beams:]
+    byr = acc[:, n_time:, :n_beams]
+    byi = acc[:, n_time:, n_beams:]
+    px = _fma(bxr, bxr, bxi * bxi)
+    py = _fma(byr, byr, byi * byi)
+    cr = _fma(bxr, byr, bxi * byi)            # Re(Bx By*)
+    ci = _fma(bxi, byr, -(bxr * byi))         # Im(Bx By*)
+    planes = torch.stack([px + py, px - py, cr + cr, ci + ci], dim=2)
+    return _time_sum(planes, navg_time)
 
 
-def detect_power_plain(x, terms, scales, cfg: ObsConfig, time_major: bool,
-                       chan_chunk: int = 32, *, quant8_scales=None,
-                       inco_mask=None, sk: bool = False) -> tuple:
-    """The kernel's computation in plain PyTorch, on any device:
-    ``(out, inco, sk)``.
+def stokes_offsets(device=None) -> torch.Tensor:
+    """Per-plane uint8 offsets of the Stokes product: 0 for I,
+    ``STOKES_QUV_OFFSET`` for Q, U, V (float32 ``[4]``)."""
+    return torch.tensor([0.0] + [STOKES_QUV_OFFSET] * 3, dtype=torch.float32,
+                        device=device)
 
-    ``out`` is ``[F, T/navg_time, B]`` float32, channel ``f`` scaled by
-    ``scales[f, -1]**2`` (uint8 through ``quantize_u8`` with
-    ``quant8_scales``).  ``inco`` (with ``inco_mask``, see
-    ``incoherent_mask``) is the float32 ``[F, T/navg_time]`` incoherent sum;
-    ``sk`` the int64 ``[F, 2, a_compute]`` per-antenna S1 and S2.  Both are
-    exact integers, as the kernel's; None when not asked for.
+
+def quantize_u8(x: torch.Tensor, scales: torch.Tensor,
+                offsets: torch.Tensor | None = None) -> torch.Tensor:
+    """``clip(rint(x * scale_b), 0, 255)`` as uint8, per beam (last axis),
+    rounding half to even: the 8-bit filterbank quantizer.  ``offsets``
+    (one per Stokes plane, the second-last axis) are added in the same
+    rounding as the product, as XLA contracts the JAX package's
+    ``x * scale + offset`` on the CPU."""
+    v = x * scales if offsets is None else _fma(x, scales, offsets[:, None])
+    return torch.clamp(torch.round(v), 0, 255).to(torch.uint8)
+
+
+@contextlib.contextmanager
+def _exact_float32_matmul():
+    """TF32 off for the plain versions' float32 GEMMs on the card."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def _unpack_chunk(x, cfg: ObsConfig, time_major: bool, f0: int, f1: int):
+    """Channels ``f0:f1`` of the device wire form -> ``(re, im)`` int32
+    ``[Fc, T, P, a_compute]`` (high nibble re, low nibble im)."""
+    f_all, t = cfg.n_chan, cfg.t_block
+    p, a, ac = cfg.n_pol, cfg.n_ant, cfg.a_compute
+    if time_major:
+        w = x.view(t, f_all, p, a)[:, f0:f1].permute(1, 0, 2, 3)
+    else:
+        w = x.view(f_all, t, p, a)[f0:f1]
+    v = w[..., :ac].to(torch.int32)
+    return (((v >> 4) + 8) & 15) - 8, ((v + 8) & 15) - 8
+
+
+def _gemm_chunk(re, im, terms, f0: int, f1: int) -> torch.Tensor:
+    """``[re | im]`` of channels ``f0:f1`` times every weight term ->
+    ``[Fc, P*T, 2B]`` float32 in quantized units (pol-major rows; int8x2
+    terms combined as ``M_hi * 256 + M_lo``, converted to float32 once).
 
     On the CPU the operands are widened to int32 and multiplied exactly
     (``torch.matmul`` on int8 CPU tensors returns int8 and wraps).  On the
     card ``torch.matmul`` has no int32 kernel, so it multiplies in float32
     with TF32 off, which is exact here: every partial sum of one term is an
-    integer of magnitude at most 8 * 127 * K, below 2^24 for any K of
-    the presets (64 at DSA-10).  Terms combine in int64.
-    Runs ``chan_chunk`` channels at a time: at full DSA-10 width the
-    ``[F, 2T, 2B]`` f32 accumulator alone would be about 69 GB.
+    integer of magnitude at most 8 * 127 * K, below 2^24 for any K of the
+    presets (64 at DSA-10).  Terms combine in int64."""
+    fc, t, p, _ = re.shape
+    mm_dtype = torch.int32 if re.device.type == "cpu" else torch.float32
+    xk = torch.cat([re, im], dim=-1)              # [Fc, T, P, 2ac]
+    xk = xk.permute(0, 2, 1, 3).reshape(fc, p * t, -1).to(mm_dtype)
+    m = None
+    for term in terms:
+        part = torch.matmul(xk, term[f0:f1].to(mm_dtype)).to(torch.int64)
+        m = part if m is None else m * 256 + part
+    return m.to(torch.float32)
+
+
+def detect_power_plain(x, terms, scales, cfg: ObsConfig, time_major: bool,
+                       chan_chunk: int = 32, *, quant8_scales=None,
+                       inco_mask=None, sk: bool = False,
+                       stokes: bool = False) -> tuple:
+    """The detect kernel's computation in plain PyTorch, on any device:
+    ``(out, inco, sk)``.
+
+    ``out`` is float32 ``[F, T/navg_time, B]`` (power) or
+    ``[F, T/navg_time, 4, B]`` (``stokes``: I, Q, U, V), channel ``f``
+    scaled by ``scales[f, -1]**2`` (uint8 through ``quantize_u8`` with
+    ``quant8_scales``, Q/U/V at ``STOKES_QUV_OFFSET``).  ``inco`` (with
+    ``inco_mask``, see ``incoherent_mask``) is the float32
+    ``[F, T/navg_time]`` incoherent sum; ``sk`` the int64
+    ``[F, 2, a_compute]`` per-antenna S1 and S2.  Both are exact integers,
+    as the kernel's; None when not asked for.
+
+    The detection arithmetic is the JAX kernel's as XLA evaluates it on the
+    CPU (products contracted to FMAs, the time sum as a halving tree), so
+    on the CPU this agrees with the JAX package to the bit at the presets'
+    ``navg_time``; the CUDA kernel sums in sample order, within float32
+    rounding of this.  Runs ``chan_chunk`` channels at a time: at full
+    DSA-10 width the ``[F, 2T, 2B]`` f32 accumulator alone would be about
+    69 GB.
     """
     f_all, t, b = cfg.n_chan, cfg.t_block, cfg.n_beams
-    p, a, ac = cfg.n_pol, cfg.n_ant, cfg.a_compute
-    navg = cfg.navg_time
-    wire4 = x.view(t, f_all, p, a) if time_major else x.view(f_all, t, p, a)
-    mm_dtype = torch.int32 if x.device.type == "cpu" else torch.float32
-    out = torch.empty((f_all, t // navg, b), dtype=torch.float32,
-                      device=x.device)
+    ac, navg = cfg.a_compute, cfg.navg_time
+    shape = (f_all, t // navg) + ((4,) if stokes else ()) + (b,)
+    out = torch.empty(shape, dtype=torch.float32, device=x.device)
+    epilogue = _stokes_epilogue if stokes else _power_epilogue
     inco = sk_out = keep = None
     if inco_mask is not None:
         inco = torch.empty((f_all, t // navg), dtype=torch.float32,
@@ -191,17 +318,10 @@ def detect_power_plain(x, terms, scales, cfg: ObsConfig, time_major: bool,
         sk_out = torch.empty((f_all, 2, ac), dtype=torch.int64,
                              device=x.device)
     s = scales[:, -1]
-    prev_tf32 = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
+    with _exact_float32_matmul():
         for f0 in range(0, f_all, chan_chunk):
             f1 = min(f_all, f0 + chan_chunk)
-            w = wire4[:, f0:f1] if time_major else wire4[f0:f1]
-            if time_major:
-                w = w.permute(1, 0, 2, 3)                 # [Fc, T, P, A]
-            v = w[..., :ac].to(torch.int32)
-            re = (((v >> 4) + 8) & 15) - 8                # high nibble
-            im = ((v + 8) & 15) - 8                       # low nibble
+            re, im = _unpack_chunk(x, cfg, time_major, f0, f1)
             if inco is not None or sk_out is not None:
                 pw = re * re + im * im                    # [Fc, T, P, ac]
                 if inco is not None:
@@ -211,42 +331,57 @@ def detect_power_plain(x, terms, scales, cfg: ObsConfig, time_major: bool,
                 if sk_out is not None:
                     sk_out[f0:f1, 0] = pw.sum(dim=(1, 2))
                     sk_out[f0:f1, 1] = (pw * pw).sum(dim=(1, 2))
-            xk = torch.cat([re, im], dim=-1)              # [Fc, T, P, 2ac]
-            xk = xk.permute(0, 2, 1, 3).reshape(f1 - f0, p * t, 2 * ac)
-            xk = xk.to(mm_dtype)
-            m = None
-            for term in terms:
-                part = torch.matmul(xk, term[f0:f1].to(mm_dtype))
-                part = part.to(torch.int64)
-                m = part if m is None else m * 256 + part
-            acc = m.to(torch.float32)                     # [Fc, P*T, 2B]
+            acc = _gemm_chunk(re, im, terms, f0, f1)
             sc = s[f0:f1]
-            out[f0:f1] = _power_epilogue(acc, t, b, navg) \
-                * (sc * sc)[:, None, None]
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev_tf32
+            out[f0:f1] = epilogue(acc, t, b, navg) \
+                * (sc * sc).view(-1, *([1] * (out.dim() - 1)))
     if quant8_scales is not None:
-        out = quantize_u8(out, quant8_scales)
+        out = quantize_u8(out, quant8_scales,
+                          stokes_offsets(x.device) if stokes else None)
     return out, inco, sk_out
 
 
-def _kernel_lib() -> ctypes.CDLL:
-    lib = load_library("detect_power")
-    if lib.dsabf_detect_power.argtypes is None:
+def voltages_plain(x, terms, scales, cfg: ObsConfig, time_major: bool,
+                   chan_chunk: int = 32) -> torch.Tensor:
+    """The voltage kernel's computation in plain PyTorch, on any device:
+    float32 ``[F, T, P, 2B]`` beam voltages, ``[..., :B]`` Re and
+    ``[..., B:]`` Im, channel ``f`` the exact integer GEMM times
+    ``scales[f, -1]`` (one float32 multiply, so the kernel agrees to the
+    bit)."""
+    f_all, t, p, b = cfg.n_chan, cfg.t_block, cfg.n_pol, cfg.n_beams
+    out = torch.empty((f_all, t, p, 2 * b), dtype=torch.float32,
+                      device=x.device)
+    s = scales[:, -1]
+    with _exact_float32_matmul():
+        for f0 in range(0, f_all, chan_chunk):
+            f1 = min(f_all, f0 + chan_chunk)
+            re, im = _unpack_chunk(x, cfg, time_major, f0, f1)
+            acc = _gemm_chunk(re, im, terms, f0, f1) * s[f0:f1, None, None]
+            out[f0:f1] = acc.view(f1 - f0, p, t, 2 * b).permute(0, 2, 1, 3)
+    return out
+
+
+def _kernel_lib(name: str) -> ctypes.CDLL:
+    lib = load_library(name)
+    fn = getattr(lib, f"dsabf_{name}")
+    if fn.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.dsabf_detect_power.argtypes = [
-            p, p, p, p, p, p, p, p, ctypes.c_uint, i, i, i, i, i, i, i,
-            ll, ll, p]
-        lib.dsabf_detect_power.restype = i
+        if name == "detect_power":
+            fn.argtypes = [p, p, p, p, p, p, p, p, ctypes.c_uint, i, i, i, i,
+                           i, i, i, i, ll, ll, p]
+        else:
+            fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, ll, ll, p]
+        fn.restype = i
         lib.dsabf_error_string.argtypes = [i]
         lib.dsabf_error_string.restype = ctypes.c_char_p
     return lib
 
 
 def _check_kernel_operands(x, terms, scales, cfg: ObsConfig,
-                           time_major: bool, quant8_scales) -> None:
-    """Everything the kernel assumes about its pointers, checked before it
-    reads them."""
+                           time_major: bool, extra=()) -> None:
+    """Everything both kernels assume about their pointers, checked before
+    they read them (``extra``: more ``(name, tensor)`` that must be
+    contiguous)."""
     if x.dtype != torch.uint8 or tuple(x.shape) != cfg.device_wire_shape \
             or time_major != (cfg.input_layout == "tfpa"):
         raise ValueError(
@@ -255,15 +390,7 @@ def _check_kernel_operands(x, terms, scales, cfg: ObsConfig,
             f"{tuple(x.shape)} (time_major={time_major})")
     _check_weights(QuantWeights(tuple(terms), scales), cfg)
     operands = [("wire", x), ("scales", scales)] + [
-        (f"term{k}", w) for k, w in enumerate(terms)]
-    if quant8_scales is not None:
-        operands.append(("quant8_scales", quant8_scales))
-        if quant8_scales.dtype != torch.float32 \
-                or tuple(quant8_scales.shape) != (cfg.n_beams,):
-            raise ValueError(
-                f"quant8_scales must be float32 [{cfg.n_beams}], got "
-                f"{_dtype_name(quant8_scales.dtype)} "
-                f"{tuple(quant8_scales.shape)}")
+        (f"term{k}", w) for k, w in enumerate(terms)] + list(extra)
     for name, t in operands:
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
@@ -283,21 +410,36 @@ def _check_kernel_operands(x, terms, scales, cfg: ObsConfig,
             f"kernel is built for a_compute in {KERNEL_A_COMPUTE}, "
             f"config {cfg.name!r} has {cfg.a_compute} (ROADMAP.md Queue 2: "
             f"the a_compute > 32 case)")
-    if cfg.n_ant % 4:
-        raise ValueError(f"kernel needs n_ant % 4 == 0, got {cfg.n_ant}")
+    if cfg.n_ant % 4 or cfg.n_pol != 2:
+        raise ValueError(f"kernel needs n_ant % 4 == 0 and 2 pols, got "
+                         f"n_ant={cfg.n_ant}, n_pol={cfg.n_pol}")
     if cfg.n_chan > 65535:
         raise ValueError(f"kernel takes at most 65535 channels, got {cfg.n_chan}")
-    rows = max(1, _SPAN_SAMPLES // cfg.navg_time) * cfg.navg_time
-    if rows * 2 * (cfg.a_compute // 2) * 4 > _MAX_SMEM:
-        raise ValueError(
-            f"navg_time={cfg.navg_time} needs more shared memory than the "
-            f"kernel stages ({_MAX_SMEM} bytes)")
+
+
+def _check_same_device(x, tensors) -> None:
+    for t in tensors:
+        if t is not None and t.device != x.device:
+            raise ValueError(
+                f"weights are on {t.device}, wire on {x.device}: move both "
+                f"to one device")
+
+
+def _launch(lib, name: str, args: list, device) -> None:
+    """Call ``dsabf_<name>`` on ``device``'s current stream; raise on a
+    refused launch."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = getattr(lib, f"dsabf_{name}")(*args, stream)
+    if rc:
+        raise RuntimeError(f"{name} launch failed: error {rc}, "
+                           f"{lib.dsabf_error_string(rc).decode()}")
 
 
 def fused_detect(x, terms, scales, cfg: ObsConfig, time_major: bool, *,
-                 quant8_scales=None, inco_mask=None,
-                 sk: bool = False) -> tuple:
-    """Detect-power of one wire block and its side outputs:
+                 quant8_scales=None, inco_mask=None, sk: bool = False,
+                 stokes: bool = False) -> tuple:
+    """Detection product of one wire block and its side outputs:
     ``(out, inco, sk)`` as ``detect_power_plain`` returns them.
 
     ``x`` is the device wire form from ``_prepare_wire``.  A CPU tensor runs
@@ -305,29 +447,37 @@ def fused_detect(x, terms, scales, cfg: ObsConfig, time_major: bool, *,
     stream and counts it in ``fused_detect.launches[variant_name(...)]``, or
     raises.  Any other device raises.
     """
-    side = [t for t in (scales, *terms, quant8_scales) if t is not None]
-    for t in side:
-        if t.device != x.device:
-            raise ValueError(
-                f"weights are on {t.device}, wire on {x.device}: move both "
-                f"to one device")
+    _check_same_device(x, (scales, *terms, quant8_scales))
     if x.device.type == "cpu":
         return detect_power_plain(x, terms, scales, cfg, time_major,
                                   quant8_scales=quant8_scales,
-                                  inco_mask=inco_mask, sk=sk)
+                                  inco_mask=inco_mask, sk=sk, stokes=stokes)
     if x.device.type != "cuda":
         raise ValueError(
             f"fused_detect runs on CUDA (kernel) or CPU (plain) tensors, "
             f"got {x.device}")
-    _check_kernel_operands(x, terms, scales, cfg, time_major, quant8_scales)
     quant8 = quant8_scales is not None
+    _check_kernel_operands(
+        x, terms, scales, cfg, time_major,
+        [("quant8_scales", quant8_scales)] if quant8 else ())
+    if quant8 and (quant8_scales.dtype != torch.float32
+                   or tuple(quant8_scales.shape) != (cfg.n_beams,)):
+        raise ValueError(
+            f"quant8_scales must be float32 [{cfg.n_beams}], got "
+            f"{_dtype_name(quant8_scales.dtype)} "
+            f"{tuple(quant8_scales.shape)}")
+    rows = max(1, _SPAN_SAMPLES // cfg.navg_time) * cfg.navg_time
+    if rows * 2 * (cfg.a_compute // 2) * 4 > _MAX_SMEM:
+        raise ValueError(
+            f"navg_time={cfg.navg_time} needs more shared memory than the "
+            f"kernel stages ({_MAX_SMEM} bytes)")
     if inco_mask is not None and inco_mask >> cfg.a_compute:
         raise ValueError(
             f"incoherent mask {inco_mask:#x} selects antennas past "
             f"a_compute={cfg.a_compute}")
     n_out = cfg.t_block // cfg.navg_time
-    out = torch.empty((cfg.n_chan, n_out, cfg.n_beams),
-                      dtype=torch.uint8 if quant8 else torch.float32,
+    shape = (cfg.n_chan, n_out) + ((4,) if stokes else ()) + (cfg.n_beams,)
+    out = torch.empty(shape, dtype=torch.uint8 if quant8 else torch.float32,
                       device=x.device)
     inco = sk_out = None
     if inco_mask is not None:
@@ -338,57 +488,28 @@ def fused_detect(x, terms, scales, cfg: ObsConfig, time_major: bool, *,
         sk_out = torch.zeros((cfg.n_chan, 2, cfg.a_compute),
                              dtype=torch.int64, device=x.device)
     time_stride, chan_stride = _wire_strides(cfg, time_major)
-    lib = _kernel_lib()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.dsabf_detect_power(
-            x.data_ptr(), terms[0].data_ptr(), terms[-1].data_ptr(),
-            scales.data_ptr(),
-            quant8_scales.data_ptr() if quant8 else None, out.data_ptr(),
-            None if inco is None else inco.data_ptr(),
-            None if sk_out is None else sk_out.data_ptr(),
-            inco_mask or 0, cfg.n_chan, cfg.t_block, cfg.n_beams, cfg.n_ant,
-            cfg.a_compute, len(terms), cfg.navg_time, time_stride,
-            chan_stride, stream)
-    if rc:
-        raise RuntimeError(f"detect_power launch failed: error {rc}, "
-                           f"{lib.dsabf_error_string(rc).decode()}")
-    fused_detect.launches[variant_name(quant8, inco is not None, sk)] += 1
+    _launch(_kernel_lib("detect_power"), "detect_power", [
+        x.data_ptr(), terms[0].data_ptr(), terms[-1].data_ptr(),
+        scales.data_ptr(), quant8_scales.data_ptr() if quant8 else None,
+        out.data_ptr(), None if inco is None else inco.data_ptr(),
+        None if sk_out is None else sk_out.data_ptr(),
+        inco_mask or 0, cfg.n_chan, cfg.t_block, cfg.n_beams, cfg.n_ant,
+        cfg.a_compute, len(terms), cfg.navg_time, int(stokes), time_stride,
+        chan_stride], x.device)
+    fused_detect.launches[variant_name(quant8, inco is not None, sk,
+                                       stokes)] += 1
     return out, inco, sk_out
 
 
 fused_detect.launches = collections.Counter()
 
 
-def beamform_power(wire, qw: QuantWeights, cfg: ObsConfig,
-                   incoherent: bool = False, flag_ants: tuple = (),
-                   quant8_scales=None, sk_stats: bool = False):
-    """Fused pipeline: 4R4I wire block -> averaged beam powers.
-
-    Returns float32 ``[F/navg_freq, T/navg_time, B]`` (sum over navg_time
-    samples, both pols, and navg_freq adjacent channels -- matching
-    ``ops.reference.beamform_block_ref``) on the wire's device.  The wire may
-    be a tensor or a NumPy array (a CPU tensor without a copy).
-
-    As the JAX package's ``beamform_power``, the same kernel call can add,
-    in this order after the product (a tuple then comes back):
-
-    - ``incoherent=True``: the incoherent-sum total power
-      ``[F/navg_freq, T/navg_time]`` float32 (``ops.incoherent.
-      incoherent_power`` semantics), without the antennas in ``flag_ants``
-      (raw indices below ``n_ant_active``);
-    - ``sk_stats=True``: the per-raw-channel spectral-kurtosis accumulators
-      ``[n_chan, 2]`` float32 (S1, S2 over every active antenna, flagged
-      ones included: ``ops.incoherent.sk_block_stats`` semantics).
-
-    ``quant8_scales`` (``[n_beams]`` float32) stores the product as uint8
-    ``clip(rint(p * scale_b), 0, 255)``, byte for byte the rint/clip of the
-    float32 product times the scale; it needs ``navg_freq == 1``.
-    """
-    if cfg.weight_mode not in KERNEL_MODES:
-        raise NotImplementedError(
-            f"weight mode {cfg.weight_mode!r} is not ported yet (ROADMAP.md "
-            f"Queue 2 item 1: the remaining weight modes)")
+def _beamform(wire, qw: QuantWeights, cfg: ObsConfig, *, stokes: bool,
+              incoherent: bool, flag_ants: tuple, quant8_scales,
+              sk_stats: bool):
+    """``beamform_power`` / ``beamform_stokes``: the JAX package's checks,
+    the kernel call, the ``navg_freq`` sum and the return order."""
+    _check_mode(cfg)
     if quant8_scales is not None and cfg.navg_freq != 1:
         raise ValueError(
             f"quant8_scales requires navg_freq=1 (got {cfg.navg_freq}): "
@@ -418,12 +539,12 @@ def beamform_power(wire, qw: QuantWeights, cfg: ObsConfig,
     out, inco, sk = fused_detect(
         x, qw.terms, qw.scales, cfg, time_major, quant8_scales=quant8_scales,
         inco_mask=incoherent_mask(cfg, flag_ants) if incoherent else None,
-        sk=sk_stats)
-    if cfg.navg_freq > 1:
-        f, t, b = out.shape
-        out = out.reshape(f // cfg.navg_freq, cfg.navg_freq, t, b).sum(dim=1)
+        sk=sk_stats, stokes=stokes)
+    nf = cfg.navg_freq
+    if nf > 1:
+        out = out.reshape(out.shape[0] // nf, nf, *out.shape[1:]).sum(dim=1)
         if incoherent:
-            inco = inco.reshape(f // cfg.navg_freq, cfg.navg_freq, t).sum(dim=1)
+            inco = inco.reshape(inco.shape[0] // nf, nf, -1).sum(dim=1)
     parts = [out]
     if incoherent:
         parts.append(inco)
@@ -433,3 +554,109 @@ def beamform_power(wire, qw: QuantWeights, cfg: ObsConfig,
         parts.append(sk[:, :, :cfg.n_ant_active].sum(dim=2)
                      .to(torch.float32))
     return tuple(parts) if len(parts) > 1 else out
+
+
+def beamform_power(wire, qw: QuantWeights, cfg: ObsConfig,
+                   incoherent: bool = False, flag_ants: tuple = (),
+                   quant8_scales=None, sk_stats: bool = False):
+    """Fused pipeline: 4R4I wire block -> averaged beam powers.
+
+    Returns float32 ``[F/navg_freq, T/navg_time, B]`` (sum over navg_time
+    samples, both pols, and navg_freq adjacent channels -- matching
+    ``ops.reference.beamform_block_ref``) on the wire's device.  The wire may
+    be a tensor or a NumPy array (a CPU tensor without a copy).
+
+    As the JAX package's ``beamform_power``, the same kernel call can add,
+    in this order after the product (a tuple then comes back):
+
+    - ``incoherent=True``: the incoherent-sum total power
+      ``[F/navg_freq, T/navg_time]`` float32 (``ops.incoherent.
+      incoherent_power`` semantics), without the antennas in ``flag_ants``
+      (raw indices below ``n_ant_active``);
+    - ``sk_stats=True``: the per-raw-channel spectral-kurtosis accumulators
+      ``[n_chan, 2]`` float32 (S1, S2 over every active antenna, flagged
+      ones included: ``ops.incoherent.sk_block_stats`` semantics).
+
+    ``quant8_scales`` (``[n_beams]`` float32) stores the product as uint8
+    ``clip(rint(p * scale_b), 0, 255)``, byte for byte the rint/clip of the
+    float32 product times the scale; it needs ``navg_freq == 1``.
+    """
+    return _beamform(wire, qw, cfg, stokes=False, incoherent=incoherent,
+                     flag_ants=flag_ants, quant8_scales=quant8_scales,
+                     sk_stats=sk_stats)
+
+
+def beamform_stokes(wire, qw: QuantWeights, cfg: ObsConfig,
+                    incoherent: bool = False, flag_ants: tuple = (),
+                    quant8_scales=None, sk_stats: bool = False):
+    """Fused full-Stokes pipeline: 4R4I wire block -> averaged Stokes
+    spectra.
+
+    Returns float32 ``[F/navg_freq, T/navg_time, 4, B]`` with the Stokes
+    axis ordered ``[I, Q, U, V]`` for the linear-feed convention
+
+        I = |Bx|^2 + |By|^2        Q = |Bx|^2 - |By|^2
+        U = 2 Re(Bx conj(By))      V = 2 Im(Bx conj(By))
+
+    (x = pol 0, y = pol 1 of the wire block), on the wire's device;
+    ``[..., 0, :]`` is ``beamform_power``'s output (the CUDA kernel's to the
+    bit).  ``incoherent``, ``flag_ants`` and ``sk_stats`` add the same side
+    outputs, in the same order, as ``beamform_power``.
+
+    ``quant8_scales`` (``[n_beams]`` float32) stores the product as uint8
+    ``[F, T/navg, 4, B]``, ``counts = x * scale_b + offset`` with offset 0
+    for I and ``STOKES_QUV_OFFSET`` for Q/U/V, rounded half to even and
+    clipped to [0, 255]: the bytes of the two-pass
+    ``FilterbankSink.device_post`` quantizer.  Requires ``navg_freq == 1``.
+    """
+    return _beamform(wire, qw, cfg, stokes=True, incoherent=incoherent,
+                     flag_ants=flag_ants, quant8_scales=quant8_scales,
+                     sk_stats=sk_stats)
+
+
+def beamform_voltages(wire, qw: QuantWeights, cfg: ObsConfig):
+    """Unfused tail: 4R4I wire block -> beamformed voltages.
+
+    Returns float32 ``[F, T, P, 2B]`` where ``[..., :B]`` is Re and
+    ``[..., B:]`` is Im, in the units of the weights (the exact integer GEMM
+    times the channel's scale), on the wire's device.  Device-memory heavy by
+    design (a DSA-10 block's voltages are 68.7 GB; use a sub-band): this is
+    the validation path that the fused detection products are held against.
+
+    A CPU tensor runs ``voltages_plain``; a CUDA tensor launches
+    ``csrc/beam_voltages.cu`` on the current stream, which reads tfpa and
+    ftpa through strides, and counts it in ``beamform_voltages.launches``.
+    """
+    _check_mode(cfg)
+    _check_weights(qw, cfg)
+    x, time_major = _prepare_wire(wire, cfg)
+    _check_same_device(x, (qw.scales, *qw.terms))
+    if x.device.type == "cpu":
+        return voltages_plain(x, qw.terms, qw.scales, cfg, time_major)
+    if x.device.type != "cuda":
+        raise ValueError(
+            f"beamform_voltages runs on CUDA (kernel) or CPU (plain) "
+            f"tensors, got {x.device}")
+    _check_kernel_operands(x, qw.terms, qw.scales, cfg, time_major)
+    out = torch.empty((cfg.n_chan, cfg.t_block, cfg.n_pol, 2 * cfg.n_beams),
+                      dtype=torch.float32, device=x.device)
+    time_stride, chan_stride = _wire_strides(cfg, time_major)
+    _launch(_kernel_lib("beam_voltages"), "beam_voltages", [
+        x.data_ptr(), qw.terms[0].data_ptr(), qw.terms[-1].data_ptr(),
+        qw.scales.data_ptr(), out.data_ptr(), cfg.n_chan, cfg.t_block,
+        cfg.n_beams, cfg.n_ant, cfg.a_compute, len(qw.terms), time_stride,
+        chan_stride], x.device)
+    beamform_voltages.launches += 1
+    return out
+
+
+beamform_voltages.launches = 0
+
+
+def voltages_to_complex(bv):
+    """``[F, T, P, 2B]`` float32 -> ``[F, T, P, B]`` complex: NumPy in,
+    NumPy out (complex64); a tensor gives a complex64 tensor."""
+    b = bv.shape[-1] // 2
+    if isinstance(bv, np.ndarray):
+        return bv[..., :b] + 1j * bv[..., b:]
+    return torch.complex(bv[..., :b], bv[..., b:])

@@ -1,8 +1,9 @@
 """Streaming driver: the per-block hot loop.
 
-Blocks come from a source, go to the device, through ``beamform_power``, and
-their products come back to the sinks, with up to ``depth`` blocks in flight
-so that one block's transfers overlap another's kernel.  The deployed path
+Blocks come from a source, go to the device, through ``beamform_power`` (or
+``beamform_stokes``: ``products="stokes"``), and their products come back to
+the sinks, with up to ``depth`` blocks in flight so that one block's
+transfers overlap another's kernel.  The deployed path
 adds, from the same kernel call: the 8-bit filterbank quantization
 (``FilterbankSink`` with ``nbits=8``), the incoherent sum
 (``incoherent_sink``) and the spectral-kurtosis accumulators of the RFI
@@ -15,7 +16,7 @@ each product it brings back, and three events:
 
     host:   wait h2d_done(slot)  -> copy the source block into pinned staging
     copy:   wait kernel_done(slot) -> H2D staging -> device wire; record h2d_done
-    compute: wait h2d_done         -> beamform_power kernel;     record kernel_done
+    compute: wait h2d_done         -> detect kernel;             record kernel_done
     d2h:    wait kernel_done       -> D2H products -> pinned;   record d2h_done
     drain:  sync d2h_done          -> sinks, RFI monitor
 
@@ -42,7 +43,7 @@ import torch
 
 from dsabeamformer_tpu_torch.config import ObsConfig
 from dsabeamformer_tpu_torch.ingest import dada
-from dsabeamformer_tpu_torch.ops.gemm import beamform_power
+from dsabeamformer_tpu_torch.ops.gemm import beamform_power, beamform_stokes
 from dsabeamformer_tpu_torch.ops.quantize import QuantWeights
 from dsabeamformer_tpu_torch.utils.metrics import BlockStats, StreamStats
 
@@ -184,11 +185,13 @@ class _Slot:
 
 
 class StreamingBeamformer:
-    """The per-block streaming loop (power product).
+    """The per-block streaming loop.
 
-    ``depth`` is the number of blocks allowed in flight; the device follows
-    the weights (``qw.scales.device``).  ``update_weights`` swaps in new
-    weights for subsequent blocks without draining the stream.
+    ``products`` is the detection product: ``"power"`` (``[F', T', B]``
+    blocks) or ``"stokes"`` (full Stokes, ``[F', T', 4, B]`` blocks, I, Q,
+    U, V).  ``depth`` is the number of blocks allowed in flight; the device
+    follows the weights (``qw.scales.device``).  ``update_weights`` swaps
+    in new weights for subsequent blocks without draining the stream.
 
     Optional, as in the JAX package's ``StreamingBeamformer``:
 
@@ -198,8 +201,8 @@ class StreamingBeamformer:
       gets the kernel's SK accumulators on its sampling grid;
     - a sink with ``nbits == 8`` and ``fused_quant8_scales``
       (``FilterbankSink``) gets uint8 blocks from the kernel's epilogue once
-      its scales exist; its ``device_post`` runs on the device when that
-      does not apply;
+      its scales exist (Stokes Q/U/V at their midpoint offset); its
+      ``device_post`` runs on the device when that does not apply;
     - a sink's ``device_layout`` (the .fil file layout) runs on the device
       before the D2H copy.
     """
@@ -213,12 +216,18 @@ class StreamingBeamformer:
         *,
         depth: int = 2,
         on_block: Optional[Callable[[BlockStats], None]] = None,
+        products: str = "power",
         incoherent_sink=None,
         flag_ants: tuple = (),
     ):
         if depth < 0:
             raise ValueError(f"depth must be >= 0, got {depth}")
+        if products not in ("power", "stokes"):
+            raise ValueError(f"products must be power|stokes, got {products!r}")
         self.cfg = cfg
+        self.products = products
+        self._detect = beamform_stokes if products == "stokes" \
+            else beamform_power
         self.source = source
         self.sink = sink
         self.depth = depth
@@ -249,6 +258,14 @@ class StreamingBeamformer:
         self._inflight: collections.deque = collections.deque()
         self._block_idx = 0
         self._stats: Optional[StreamStats] = None
+
+    @property
+    def out_block_shape(self) -> tuple:
+        """Shape of one product block: ``[F', T', B]``, or ``[F', T', 4, B]``
+        for Stokes."""
+        f_out, t_out, b = self.cfg.out_block_shape
+        return (f_out, t_out, 4, b) if self.products == "stokes" \
+            else (f_out, t_out, b)
 
     @property
     def n_slots(self) -> int:
@@ -288,10 +305,9 @@ class StreamingBeamformer:
         sk_on = (self.rfi_monitor is not None) if sk_stats is None \
             else sk_stats
         inco_on = self.incoherent_sink is not None
-        res = beamform_power(wire, self.weights, self.cfg,
-                             incoherent=inco_on,
-                             flag_ants=self.flag_ants if inco_on else (),
-                             quant8_scales=quant8_scales, sk_stats=sk_on)
+        res = self._detect(wire, self.weights, self.cfg, incoherent=inco_on,
+                           flag_ants=self.flag_ants if inco_on else (),
+                           quant8_scales=quant8_scales, sk_stats=sk_on)
         res = list(res) if isinstance(res, tuple) else [res]
         out = res.pop(0)
         inco = res.pop(0) if inco_on else None
@@ -389,8 +405,8 @@ class StreamingBeamformer:
         if not self._slots:
             self._slots = [_Slot(cfg, self.device)
                            for _ in range(self.n_slots)]
-        shape = (self.sink.layout_shape if self._layout is not None
-                 else cfg.out_block_shape)
+        shape = self.sink.layout_shape if self._layout is not None \
+            else self.out_block_shape
         need = [("out", shape, torch.float32)]
         if getattr(self.sink, "nbits", None) == 8:
             need.append(("out", shape, torch.uint8))

@@ -1,6 +1,7 @@
-"""Card-only tests of the port: the CUDA detect-power kernel against its
-plain PyTorch version and the float64 golden model, at small shapes, and the
-streaming driver's CUDA path against its CPU path.
+"""Card-only tests of the port: the CUDA detect kernel (power and full
+Stokes, with its side outputs) and the beam-voltage kernel against their
+plain PyTorch versions and the float64 golden model, at small shapes, and
+the streaming loop's CUDA path against its CPU path.
 
 Marked ``cuda``; each test skips (inside a fixture) when no card is present.
 Imports no JAX, so on a machine with only PyTorch they run as
@@ -343,6 +344,192 @@ def test_deployed_stream_matches_cpu_stream(dev, layout, tmp_path):
         assert np.abs(dc.astype(int) - dg.astype(int)).max() <= 1
         # Channel 2 (file column F-1-2) is zero once the new weights run.
         assert not dg[-cfg.out_block_shape[1]:, 0, cfg.n_chan - 3].any()
+    _, ic = read_product_file(tmp_path / "cpu.dada")
+    _, ig = read_product_file(tmp_path / "cuda.dada")
+    np.testing.assert_array_equal(np.asarray(ig), np.asarray(ic))
+
+
+# --------------------------------------------------------------------- #
+# The full-Stokes epilogue and the beam-voltage kernel
+# --------------------------------------------------------------------- #
+
+#: Stokes kernel vs plain, per plane over the I peak: identical integers,
+#: float32 order and FMA contraction only.
+STOKES_RTOL = 1e-5
+
+#: Stokes variant -> (quant8, incoherent, sk)
+STOKES_VARIANTS = {
+    "stokes": (False, False, False),
+    "stokes+q8": (True, False, False),
+    "stokes+sk+inco": (False, True, True),
+    "stokes+sk+q8+inco": (True, True, True),
+}
+
+
+def _stokes_peak_errors(got, want):
+    got, want = got.double().cpu(), want.double().cpu()
+    peak = float(want[:, :, 0].abs().max())
+    return [float((got[:, :, k] - want[:, :, k]).abs().max()) / peak
+            for k in range(4)]
+
+
+@pytest.mark.parametrize("variant", sorted(STOKES_VARIANTS))
+@pytest.mark.parametrize("mode", ["int8x2", "int8"])
+@pytest.mark.parametrize("layout", ["tfpa", "ftpa"])
+@pytest.mark.parametrize("geom", sorted(SIDE_GEOMS))
+def test_stokes_kernel_matches_plain(dev, geom, layout, mode, variant):
+    """Kernel vs plain version on the same inputs (a_compute 8, 16 and 32;
+    1 and 2 terms): each plane within 1e-5 of the I peak, the I plane equal
+    to the power kernel's to the bit, incoherent and SK equal; uint8
+    byte-equal to the rint/clip of the kernel's own float32 times the
+    scales plus the Q/U/V offset, within 1 count of the plain version's
+    only where the float32 products differ."""
+    q8, inco, sk = STOKES_VARIANTS[variant]
+    cfg = SIDE_GEOMS[geom].replace(input_layout=layout, weight_mode=mode)
+    wire = make_random_bytes_block(cfg, seed=17)
+    qw = _weights(cfg, dev)
+    x, tm = gemm._prepare_wire(torch.from_numpy(wire).to(dev), cfg)
+    f32_k = gemm.fused_detect(x, qw.terms, qw.scales, cfg, tm, stokes=True)[0]
+    f32_p = gemm.detect_power_plain(x, qw.terms, qw.scales, cfg, tm,
+                                    stokes=True)[0]
+    power_k = gemm.fused_detect(x, qw.terms, qw.scales, cfg, tm)[0]
+    assert torch.equal(f32_k[:, :, 0], power_k)
+    kw = dict(quant8_scales=_beam_scales(f32_k[:, :, 0], cfg, 17) if q8
+              else None,
+              inco_mask=gemm.incoherent_mask(cfg, (1,)) if inco else None,
+              sk=sk, stokes=True)
+    before = gemm.fused_detect.launches[variant]
+    out_k, inco_k, sk_k = gemm.fused_detect(x, qw.terms, qw.scales, cfg, tm,
+                                            **kw)
+    out_p, inco_p, sk_p = gemm.detect_power_plain(x, qw.terms, qw.scales,
+                                                  cfg, tm, **kw)
+    torch.cuda.synchronize()
+    assert gemm.fused_detect.launches[variant] == before + 1
+    assert max(_stokes_peak_errors(f32_k, f32_p)) <= STOKES_RTOL
+    assert bool(torch.isfinite(f32_k).all())
+    if q8:
+        assert out_k.dtype == torch.uint8 and out_k.shape == f32_k.shape
+        own = gemm.quantize_u8(f32_k, kw["quant8_scales"],
+                               gemm.stokes_offsets(dev))
+        assert torch.equal(out_k, own)
+        diff = (out_k.int() - out_p.int()).abs()
+        assert int(diff.max()) <= 1
+        assert not diff[f32_k == f32_p].any()
+    else:
+        assert torch.equal(out_k, f32_k)
+    if inco:
+        assert torch.equal(inco_k, inco_p)
+    if sk:
+        assert torch.equal(sk_k, sk_p)
+
+
+@pytest.mark.parametrize("n_beams", [300, 600])
+def test_stokes_side_outputs_counted_once(dev, n_beams):
+    from dsabeamformer_tpu_torch.ops.incoherent import (
+        incoherent_power,
+        sk_block_stats,
+    )
+
+    cfg = TINY.replace(n_beams=n_beams)
+    wire = make_random_bytes_block(cfg, seed=6)
+    qw = _weights(cfg, dev)
+    st, inco, sk = gemm.beamform_stokes(torch.from_numpy(wire).to(dev), qw,
+                                        cfg, incoherent=True, flag_ants=(4,),
+                                        sk_stats=True)
+    ref = sk_block_stats(wire, cfg)
+    assert torch.equal(sk.cpu(), torch.stack([ref["s1"], ref["s2"]], dim=1))
+    assert torch.equal(inco.cpu(), incoherent_power(wire, cfg, (4,)))
+    f, t, b = cfg.out_block_shape
+    assert tuple(st.shape) == (f, t, 4, b)
+    want = gemm.beamform_stokes(wire, _to(qw, "cpu"), cfg)
+    assert max(_stokes_peak_errors(st, want)) <= STOKES_RTOL
+
+
+@pytest.mark.parametrize("mode", ["int8x2", "int8"])
+@pytest.mark.parametrize("layout", ["tfpa", "ftpa"])
+@pytest.mark.parametrize("geom", sorted(SIDE_GEOMS))
+def test_voltage_kernel_equals_plain(dev, geom, layout, mode):
+    """The voltage kernel equals its plain version bit for bit (on the card
+    and on the CPU), and its launch is counted."""
+    cfg = SIDE_GEOMS[geom].replace(input_layout=layout, weight_mode=mode)
+    wire = make_random_bytes_block(cfg, seed=21)
+    qw = _weights(cfg, dev)
+    before = gemm.beamform_voltages.launches
+    got = gemm.beamform_voltages(torch.from_numpy(wire).to(dev), qw, cfg)
+    torch.cuda.synchronize()
+    assert gemm.beamform_voltages.launches == before + 1
+    assert tuple(got.shape) == (cfg.n_chan, cfg.t_block, 2, 2 * cfg.n_beams)
+    x, tm = gemm._prepare_wire(torch.from_numpy(wire).to(dev), cfg)
+    assert torch.equal(got, gemm.voltages_plain(x, qw.terms, qw.scales, cfg,
+                                                tm))
+    assert torch.equal(got.cpu(),
+                       gemm.beamform_voltages(wire, _to(qw, "cpu"), cfg))
+    assert gemm.beamform_voltages.launches == before + 1
+
+
+def test_voltage_kernel_rejects_what_it_does_not_take(dev):
+    cfg = TINY
+    qw = _weights(cfg, dev)
+    x = torch.from_numpy(make_noise_block(cfg, seed=1)).to(dev)
+    with pytest.raises(ValueError, match="int8 weight terms"):
+        gemm.beamform_voltages(x, type(qw)(tuple(t.to(torch.int16)
+                                                 for t in qw.terms),
+                                           qw.scales), cfg)
+    with pytest.raises(ValueError, match="weights are on"):
+        gemm.beamform_voltages(x, _to(qw, "cpu"), cfg)
+    with pytest.raises(ValueError, match="scales must be float32"):
+        gemm.beamform_voltages(x, type(qw)(qw.terms, qw.scales.double()), cfg)
+    big = DSA110.replace(n_chan=4, t_block=64)
+    xb = torch.from_numpy(make_noise_block(big, seed=1)).to(dev)
+    with pytest.raises(ValueError, match="a_compute"):
+        gemm.beamform_voltages(xb, _weights(big, dev), big)
+    with pytest.raises(ValueError, match="a_compute"):
+        gemm.beamform_stokes(xb, _weights(big, dev), big)
+
+
+@pytest.mark.parametrize("layout", ["tfpa", "ftpa"])
+def test_stokes_stream_matches_cpu_stream(dev, layout, tmp_path):
+    """The 8-bit Stokes stream (uint8 4-IF .fil from the kernel's epilogue,
+    incoherent .dada) on the card against the same stream on the CPU:
+    .fil payloads within 1 count, the auto-calibrated scales within 1e-5
+    (the medians of block 0, whose float32 sums differ in order), the
+    incoherent file equal, and the Stokes launch pattern."""
+    from dsabeamformer_tpu_torch.ingest.dada import read_product_file
+    from dsabeamformer_tpu_torch.ingest.sigproc import (
+        FilterbankSink,
+        read_filterbank,
+    )
+    from dsabeamformer_tpu_torch.pipeline import FileSink
+
+    cfg = TINY.replace(input_layout=layout)
+    blocks = [make_noise_block(cfg, rms=2.0, seed=80 + s) for s in range(3)]
+    qw_cpu = prepare_weights(cfg, make_weights(cfg, device="cpu"))
+    runs = {}
+    for name, device in (("cpu", "cpu"), ("cuda", dev)):
+        qw = _to(qw_cpu, device)
+        fil = FilterbankSink(tmp_path / name, cfg, nbits=8, products="stokes")
+        inco = FileSink(tmp_path / f"{name}.dada", cfg, products="incoherent")
+        bf = StreamingBeamformer(cfg, qw, SyntheticSource(cfg, blocks, 5),
+                                 fil, depth=2, products="stokes",
+                                 incoherent_sink=inco)
+        bf.warmup()
+        before = dict(gemm.fused_detect.launches)
+        stats = bf.run()
+        fil.close()
+        inco.close()
+        assert stats.n_blocks == 5 and stats.dropped == 0
+        if name == "cuda":
+            got = {k: v - before.get(k, 0)
+                   for k, v in gemm.fused_detect.launches.items()}
+            assert {k: v for k, v in got.items() if v} == {
+                "stokes+inco": 1, "stokes+q8+inco": 4}
+        runs[name] = fil.scales
+    for b in range(cfg.n_beams):
+        np.testing.assert_allclose(runs["cuda"][b], runs["cpu"][b], rtol=1e-5)
+        hc, dc = read_filterbank(tmp_path / "cpu" / f"beam{b:04d}.fil")
+        _, dg = read_filterbank(tmp_path / "cuda" / f"beam{b:04d}.fil")
+        assert hc["nifs"] == 4 and dc.shape == dg.shape
+        assert np.abs(dc.astype(int) - dg.astype(int)).max() <= 1
     _, ic = read_product_file(tmp_path / "cpu.dada")
     _, ig = read_product_file(tmp_path / "cuda.dada")
     np.testing.assert_array_equal(np.asarray(ig), np.asarray(ic))

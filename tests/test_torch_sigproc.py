@@ -163,8 +163,12 @@ def test_sink_validation_and_stokes_not_ported(tmp_path):
         psig.FilterbankSink(tmp_path / "c", CFG, nbits=16)
     with pytest.raises(ValueError, match="positive"):
         psig.FilterbankSink(tmp_path / "d", CFG, nbits=8, scale=-1.0)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        psig.FilterbankSink(tmp_path / "e", CFG, products="stokes")
+    # Stokes sinks are ported now (tests/test_torch_stokes.py): 4 IFs.
+    st = psig.FilterbankSink(tmp_path / "e", CFG, products="stokes")
+    assert st.nifs == 4 and st.layout_shape[2] == 4
+    st.close()
+    assert psig.read_filterbank_header(tmp_path / "e" / "beam0000.fil")[0][
+        "nifs"] == 4
     assert psig.STOKES_QUV_OFFSET == jsig.STOKES_QUV_OFFSET
 
 
