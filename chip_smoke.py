@@ -81,14 +81,37 @@ Phases (each passes or raises; any failure exits non-zero with no result):
                bit, its voltages detected and averaged within 1e-5 of
                beamform_power, their Stokes parameters within 1e-5 of the I
                peak of beamform_stokes; timed beside its bound.
-17. bounds to port -- the bound of each weight mode and of DSA-110, which
-               the kernel does not take yet (config arithmetic, no launch).
+17. bounds to port -- the bound of each weight mode the kernel does not take
+               yet (config arithmetic, no launch).
 
-Each streamed phase, and the voltage path, sets the launch counts to 0 just
-before its run and reads them just after.  The last two lines are a JSON
+DSA-110 (a_compute 128: 110 active antennas in 128 slots, 512 beams), the
+kernels' staged-weight path:
+
+18. dsa110 kernel vs plain -- one random-bytes block at the full DSA110
+               preset: base, sk+q8+inco, stokes, stokes+sk+q8+inco against
+               the plain version (antenna 77 flagged: the mask's third
+               word), with the bars of phases 7 and 11.
+19. dsa110 physics -- a 128-channel, 512-sample sub-band point source at
+               beam 300, tfpa and ftpa: argmax and <= 1e-3 against the
+               float64 golden, power and Stokes (and the pure-X case).
+20. dsa110 resident -- CUDA-event times of those four variants on two
+               resident full-band blocks, beside their bounds and plain times.
+21. dsa110 streams -- the per-GPU deployment DSA110.subband(0, 256): a plain
+               power and a plain Stokes stream (6 blocks each, checksum
+               sink, block 0 equal to the resident output); the deployed
+               stream (8 blocks with a carrier in channel 210: 8-bit .fil
+               for all 512 beams, incoherent .dada with antenna 77 flagged,
+               RFIMonitor(interval=2, sample=2) with the excise-and-swap
+               handler), checked as phase 9; and the deployed Stokes stream
+               (6 blocks, 64 beams of 8-bit 4-IF .fil), checked as phase 14.
+22. dsa110 voltages -- a 128-channel DSA-110 sub-band (t_block 4096) through
+               beamform_voltages, checked and timed as phase 16.
+
+Each streamed phase, and the voltage paths, set the launch counts to 0 just
+before their run and read them just after.  The last two lines are a JSON
 record of the kernels (launches on the main paths, max error against the
-plain version, times, the bound) and ``{"ok": true, "device": {...}}``.
-Imports nothing of JAX.
+plain version, times, the bound; the DSA-110 rows carry ``[dsa110]``) and
+``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -221,10 +244,12 @@ def kernel_vs_plain(cfg, wire_np, qw) -> dict:
     return {"cfg": cfg.name, "rel_err": rel, "max_abs_err": max_abs}
 
 
-def phase_physics() -> None:
-    cfg = DSA10.replace(n_chan=128, t_block=512)
+def phase_physics(cfg=DSA10.replace(n_chan=128, t_block=512),
+                  target=TARGET_BEAM) -> None:
+    """A sub-band point source at beam ``target``, tfpa and ftpa, against
+    the float64 golden model."""
     angles = cfg.beam_angles_rad()
-    wire = make_point_source_block(cfg, angle_rad=angles[TARGET_BEAM],
+    wire = make_point_source_block(cfg, angle_rad=angles[target],
                                    noise_rms=0.4, seed=7)
     p_ref = beamform_block_ref(weights_numpy_golden(cfg), wire,
                                cfg.input_layout, cfg.navg_time)
@@ -236,10 +261,10 @@ def phase_physics() -> None:
         p = gemm.beamform_power(to_device(c, blk), qw, c).cpu().numpy()
         beam = int(np.argmax(p.sum(axis=(0, 1))))
         err = relative_power_error(p, p_ref)
-        log(f"[physics] {layout} sub-band {p.shape}: argmax beam {beam} "
-            f"(want {TARGET_BEAM}), error vs float64 golden {err:.3e} "
+        log(f"[physics] {cfg.name} {layout} sub-band {p.shape}: argmax beam "
+            f"{beam} (want {target}), error vs float64 golden {err:.3e} "
             f"(bar {GOLDEN_RTOL:.0e})")
-        if beam != TARGET_BEAM or err > GOLDEN_RTOL or not np.isfinite(p).all():
+        if beam != target or err > GOLDEN_RTOL or not np.isfinite(p).all():
             raise RuntimeError(f"physics check failed for {layout}")
 
 
@@ -308,28 +333,35 @@ def phase_transfers(cfg, block_np) -> None:
         f"1x realtime needs {cfg.realtime_bytes_per_s / 1e9:.2f} GB/s in")
 
 
-def phase_stream(cfg, blocks_np, qw, block0, smi) -> int:
+def phase_stream(cfg, blocks_np, qw, block0, smi, n_blocks=N_STREAM,
+                 products="power") -> int:
+    """StreamingBeamformer over ``n_blocks`` blocks into the checksum sink:
+    only the product's plain variant (``base`` or ``stokes``) launches,
+    once per block, and block 0 equals ``block0`` (the resident kernel's
+    output for it)."""
     sink = ChecksumSink(block0)
-    src = SyntheticSource(cfg, blocks_np, n_blocks=N_STREAM)
-    bf = StreamingBeamformer(cfg, qw, src, sink, depth=2)
+    src = SyntheticSource(cfg, blocks_np, n_blocks=n_blocks)
+    bf = StreamingBeamformer(cfg, qw, src, sink, depth=2, products=products)
     bf.warmup()
     gemm.fused_detect.launches.clear()      # count the main path's run only
     stats = bf.run()
-    launches = gemm.fused_detect.launches["base"]
+    variant = "stokes" if products == "stokes" else "base"
+    launches = gemm.fused_detect.launches[variant]
     if sum(gemm.fused_detect.launches.values()) != launches:
-        raise RuntimeError(f"the power-only stream launched other variants: "
+        raise RuntimeError(f"the {products} stream launched other variants: "
                            f"{dict(gemm.fused_detect.launches)}")
     rec = stats.record(cfg)
     log(f"[stream] {json.dumps(rec)}")
-    log(f"[stream] {cfg.name} {stats.n_blocks} blocks, depth {bf.depth}, "
-        f"{bf.n_slots} pinned staging slots: {rec['realtime_factor']:.4f}x "
-        f"realtime incl. host staging, H2D, kernel, D2H and sink "
-        f"({stats.wall_s * 1e3 / stats.n_blocks:.2f} ms/block), dropped "
-        f"{stats.dropped}, kernel launches {launches} on {smi}")
-    if stats.n_blocks != N_STREAM or launches != N_STREAM:
+    log(f"[stream] {cfg.name} {products} {stats.n_blocks} blocks, depth "
+        f"{bf.depth}, {bf.n_slots} pinned staging slots: "
+        f"{rec['realtime_factor']:.4f}x realtime incl. host staging, H2D, "
+        f"kernel, D2H and sink ({stats.wall_s * 1e3 / stats.n_blocks:.2f} "
+        f"ms/block), dropped {stats.dropped}, kernel launches {launches} on "
+        f"{smi}")
+    if stats.n_blocks != n_blocks or launches != n_blocks:
         raise RuntimeError(f"streamed {stats.n_blocks} blocks with {launches} "
-                           f"kernel launches, want {N_STREAM}")
-    if stats.dropped or [s for s, _ in sink.sums] != list(range(N_STREAM)):
+                           f"kernel launches, want {n_blocks}")
+    if stats.dropped or [s for s, _ in sink.sums] != list(range(n_blocks)):
         raise RuntimeError(f"dropped {stats.dropped}, sequence "
                            f"{[s for s, _ in sink.sums]}")
     if not all(np.isfinite(v) for _, v in sink.sums):
@@ -356,7 +388,8 @@ VARIANTS = {
 STOKES_VARIANTS = {gemm.variant_name(*flags, stokes=True): flags
                    for flags in VARIANTS.values()}
 ALL_VARIANTS = {**VARIANTS, **STOKES_VARIANTS}
-FLAGGED_ANT = 3              # flagged out of the incoherent sum
+FLAGGED_ANT = 3              # flagged out of the incoherent sum (DSA-10)
+FLAGGED_ANT_WIDE = 77        # DSA-110: a bit in the mask's third word
 CARRIER_CHAN = 1234          # channel overwritten by a constant byte
 CARRIER_BYTE = 0x77          # re = im = 7: constant power, SK = 0
 N_DEPLOYED = 8               # blocks in the deployed stream
@@ -364,6 +397,19 @@ H100_INT8_MACS_PER_S = 1979e12 / 2  # dense int8 peak (1,979 TOP/s)
 H100_BF16_MACS_PER_S = 989e12 / 2   # dense bf16 peak (989 TFLOP/s)
 H100_F32_MACS_PER_S = 67e12 / 2     # float32 outside the tensor cores
 H100_BYTES_PER_S = 3.35e12          # HBM3
+
+
+def flagged_ant(cfg) -> int:
+    """The antenna flagged out of the incoherent sum: 77 where it is active
+    (DSA-110; the mask's upper words), else 3."""
+    return FLAGGED_ANT_WIDE if cfg.n_ant_active > FLAGGED_ANT_WIDE \
+        else FLAGGED_ANT
+
+
+def carrier_chan(cfg) -> int:
+    """The carrier channel: 1234 of a full band, 1234 mod n_chan of a
+    sub-band (210 of 256)."""
+    return CARRIER_CHAN % cfg.n_chan
 
 
 def side_kwargs(cfg, variant, f32_out):
@@ -380,7 +426,7 @@ def side_kwargs(cfg, variant, f32_out):
         scales = torch.from_numpy((64.0 / med * rng.uniform(
             0.5, 4.0, cfg.n_beams)).astype(np.float32)).to(DEV)
     return dict(quant8_scales=scales,
-                inco_mask=(gemm.incoherent_mask(cfg, (FLAGGED_ANT,))
+                inco_mask=(gemm.incoherent_mask(cfg, (flagged_ant(cfg),))
                            if inco else None),
                 sk=sk, stokes=stokes)
 
@@ -405,15 +451,15 @@ def bound_ms(cfg, variant) -> tuple:
 
 
 def bounds_to_port() -> None:
-    """The bound of each configuration the detect kernel does not take yet
-    (ROADMAP.md Queue 2 items 1 and 2b): the larger of its MACs over the
-    peak for its operand type and its bytes (wire slots, weights, the
-    float32 power product) over the memory rate, from the config alone."""
+    """The bound of each weight mode the detect kernel does not take yet
+    (ROADMAP.md Queue 2 item 1): the larger of its MACs over the peak for
+    its operand type and its bytes (wire slots, weights, the float32 power
+    product) over the memory rate, from the config alone."""
     peaks = {"int12": H100_INT8_MACS_PER_S, "int13": H100_INT8_MACS_PER_S,
              "int8x2": H100_INT8_MACS_PER_S, "bf16": H100_BF16_MACS_PER_S,
              "bf16x2": H100_BF16_MACS_PER_S, "f32": H100_F32_MACS_PER_S}
     rows = [DSA10.replace(weight_mode=m) for m in
-            ("int12", "int13", "bf16", "bf16x2", "f32")] + [DSA110]
+            ("int12", "int13", "bf16", "bf16x2", "f32")]
     for cfg in rows:
         item = 2 if cfg.weight_mode.startswith("bf16") else \
             4 if cfg.weight_mode == "f32" else 1
@@ -525,12 +571,14 @@ def phase_resident_variants(cfg, blocks_np, qw, plain, smi,
     resident blocks."""
     xs = [gemm._prepare_wire(to_device(cfg, b), cfg)[0] for b in blocks_np]
     tm = cfg.input_layout == "tfpa"
-    stokes = variants is STOKES_VARIANTS
-    f32 = gemm.fused_detect(xs[0], qw.terms, qw.scales, cfg, tm,
-                            stokes=stokes)[0]
+    f32 = {}  # product (stokes?) -> its float32 output, for the 8-bit scales
     times = {}
     for variant in variants:
-        kw = side_kwargs(cfg, variant, f32)
+        stokes = variant in STOKES_VARIANTS
+        if stokes not in f32:
+            f32[stokes] = gemm.fused_detect(xs[0], qw.terms, qw.scales, cfg,
+                                            tm, stokes=stokes)[0]
+        kw = side_kwargs(cfg, variant, f32[stokes])
         run = lambda i: gemm.fused_detect(xs[i % 2], qw.terms, qw.scales,
                                           cfg, tm, **kw)
         run(0)
@@ -548,13 +596,15 @@ def phase_resident_variants(cfg, blocks_np, qw, plain, smi,
 
 
 def with_carrier(cfg, wire_np) -> np.ndarray:
-    """The block with channel CARRIER_CHAN's active antennas overwritten by
-    a constant byte: a carrier whose spectral kurtosis is 0 (in place)."""
+    """The block with channel carrier_chan(cfg)'s active antennas
+    overwritten by a constant byte: a carrier whose spectral kurtosis is 0
+    (in place)."""
     w = wire_np.reshape(cfg.wire_block_shape)
+    c = carrier_chan(cfg)
     if cfg.input_layout == "tfpa":
-        w[:, CARRIER_CHAN, :, :cfg.n_ant_active] = CARRIER_BYTE
+        w[:, c, :, :cfg.n_ant_active] = CARRIER_BYTE
     else:
-        w[CARRIER_CHAN, :, :, :cfg.n_ant_active] = CARRIER_BYTE
+        w[c, :, :, :cfg.n_ant_active] = CARRIER_BYTE
     return wire_np
 
 
@@ -589,7 +639,8 @@ def drive_stream(cfg, blocks_np, n_blocks, tmp, *, fil_bits, fil_beams=None,
                                                       n_blocks),
                              fil, depth=2, products=products,
                              incoherent_sink=inco,
-                             flag_ants=(FLAGGED_ANT,) if incoherent else (),
+                             flag_ants=(flagged_ant(cfg),) if incoherent
+                             else (),
                              on_block=lambda bs: drained.append(
                                  time.perf_counter()))
     events, swaps = [], []
@@ -656,6 +707,7 @@ def expected_launches(n_blocks, *, q8, incoherent, rfi,
 def phase_deployed(cfg, blocks_np, smi) -> dict:
     """The deployed path at full width: 8-bit filterbank from the kernel's
     epilogue, incoherent .dada, RFI monitor with mid-stream excision."""
+    carrier, flag = carrier_chan(cfg), flagged_ant(cfg)
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
         r = drive_stream(cfg, blocks_np, N_DEPLOYED, tmp, fil_bits=8,
@@ -666,19 +718,19 @@ def phase_deployed(cfg, blocks_np, smi) -> dict:
             raise RuntimeError(f"launch pattern {r['launches']}, want {want}")
         ex = [e for e in r["events"] if e["type"] == "excise"]
         if len(r["events"]) != 1 or len(ex) != 1 \
-                or ex[0]["new"] != [CARRIER_CHAN]:
+                or ex[0]["new"] != [carrier]:
             raise RuntimeError(f"want one excise event naming channel "
-                               f"{CARRIER_CHAN}, got {r['events']}")
+                               f"{carrier}, got {r['events']}")
         # Block 1 (uint8, before the swap) against the resident kernel on
         # the same block with the sink's scales and the starting weights.
         scales = r["fil"].fused_quant8_scales(DEV)
         qw = r["qw"]
         x1 = to_device(cfg, blocks_np[1 % len(blocks_np)])
         res_u8, res_inco = gemm.beamform_power(
-            x1, qw, cfg, incoherent=True, flag_ants=(FLAGGED_ANT,),
+            x1, qw, cfg, incoherent=True, flag_ants=(flag,),
             quant8_scales=scales)
         expect = res_u8.permute(2, 1, 0).flip(2).cpu().numpy()  # [B, T', F']
-        col = cfg.n_chan - 1 - CARRIER_CHAN  # descending channel order
+        col = cfg.n_chan - 1 - carrier  # descending channel order
         last = N_DEPLOYED - 1
         for b in range(cfg.n_beams):
             path = r["fil_dir"] / f"beam{b:04d}.fil"
@@ -696,9 +748,9 @@ def phase_deployed(cfg, blocks_np, smi) -> dict:
                                "resident kernel's")
         phase_sink_layout(cfg, res_u8, tmp, smi)
         log(f"[deployed] {cfg.name}: one excise event on channel "
-            f"{CARRIER_CHAN}; .fil block 1 equals the resident uint8 "
+            f"{carrier}; .fil block 1 equals the resident uint8 "
             f"output (transposed, channels flipped) for all {cfg.n_beams} "
-            f"beams; channel {CARRIER_CHAN} is 0 in block {last} of every "
+            f"beams; channel {carrier} is 0 in block {last} of every "
             f"beam; incoherent .dada {inco.shape} block 1 equal; scales "
             f"median {float(np.median(list(r['fil'].scales.values()))):.6g}")
         del x1, res_u8, res_inco
@@ -750,12 +802,12 @@ def plane_errors(got, want) -> list:
                   .abs().max()) / peak for k in range(4)]
 
 
-def phase_stokes_physics() -> None:
+def phase_stokes_physics(cfg=DSA10.replace(n_chan=128, t_block=512),
+                         target=TARGET_BEAM) -> None:
     """The sub-band point source through the Stokes kernel, against the
     float64 golden model; then the pure-X case."""
-    cfg = DSA10.replace(n_chan=128, t_block=512)
     wire = make_point_source_block(cfg, angle_rad=cfg.beam_angles_rad()[
-        TARGET_BEAM], noise_rms=0.4, seed=7)
+        target], noise_rms=0.4, seed=7)
     ref = torch.from_numpy(beamform_stokes_ref(
         weights_numpy_golden(cfg), wire, cfg.input_layout, cfg.navg_time))
     for layout, blk in (("tfpa", wire),
@@ -765,12 +817,13 @@ def phase_stokes_physics() -> None:
         st = gemm.beamform_stokes(to_device(c, blk), qw, c).cpu()
         beam = int(st[:, :, 0].sum(dim=(0, 1)).argmax())
         errs = plane_errors(st, ref)
-        log(f"[stokes physics] {layout} sub-band {tuple(st.shape)}: I argmax "
-            f"beam {beam} (want {TARGET_BEAM}), per-plane error / I peak vs "
+        log(f"[stokes physics] {cfg.name} {layout} sub-band "
+            f"{tuple(st.shape)}: I argmax beam {beam} (want {target}), "
+            f"per-plane error / I peak vs "
             f"float64 golden " + " ".join(f"{n}={e:.3e}" for n, e in
                                           zip("IQUV", errs))
             + f" (bar {GOLDEN_RTOL:.0e})")
-        if beam != TARGET_BEAM or max(errs) > GOLDEN_RTOL \
+        if beam != target or max(errs) > GOLDEN_RTOL \
                 or not bool(torch.isfinite(st).all()):
             raise RuntimeError(f"Stokes physics check failed for {layout}")
         # Pure X: zero the Y-pol bytes (pol is dim 2 of both 4-D forms).
@@ -782,14 +835,15 @@ def phase_stokes_physics() -> None:
                 or bool(st[:, :, 2:].any()):
             raise RuntimeError(f"pure-X case: want Q == I and U == V == 0 "
                                f"exactly ({layout})")
-        log(f"[stokes physics] {layout} Y-pol bytes zeroed: Q == I and "
-            f"U == V == 0 exactly")
+        log(f"[stokes physics] {cfg.name} {layout} Y-pol bytes zeroed: "
+            f"Q == I and U == V == 0 exactly")
 
 
 def phase_stokes_deployed(cfg, blocks_np, smi) -> dict:
     """The full-Stokes deployed path at full width: 8-bit 4-IF filterbank
     for 64 beams from the kernel's epilogue, incoherent .dada, RFI monitor
     with mid-stream excision."""
+    carrier, flag = carrier_chan(cfg), flagged_ant(cfg)
     n = N_STOKES_DEPLOYED
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
@@ -802,9 +856,9 @@ def phase_stokes_deployed(cfg, blocks_np, smi) -> dict:
             raise RuntimeError(f"launch pattern {r['launches']}, want {want}")
         ex = [e for e in r["events"] if e["type"] == "excise"]
         if len(r["events"]) != 1 or len(ex) != 1 \
-                or ex[0]["new"] != [CARRIER_CHAN]:
+                or ex[0]["new"] != [carrier]:
             raise RuntimeError(f"want one excise event naming channel "
-                               f"{CARRIER_CHAN}, got {r['events']}")
+                               f"{carrier}, got {r['events']}")
         side = json.loads((r["fil_dir"] / "scales.json").read_text())
         if side.get("__quv_offset__") != QUV_OFFSET:
             raise RuntimeError(f"scales.json __quv_offset__ "
@@ -814,10 +868,10 @@ def phase_stokes_deployed(cfg, blocks_np, smi) -> dict:
         fil = r["fil"]
         x1 = to_device(cfg, blocks_np[1 % len(blocks_np)])
         res_u8, res_inco = gemm.beamform_stokes(
-            x1, r["qw"], cfg, incoherent=True, flag_ants=(FLAGGED_ANT,),
+            x1, r["qw"], cfg, incoherent=True, flag_ants=(flag,),
             quant8_scales=fil.fused_quant8_scales(DEV))
         expect = fil.device_layout(res_u8).cpu().numpy()  # [64, T', 4, F']
-        col = cfg.n_chan - 1 - CARRIER_CHAN  # descending channel order
+        col = cfg.n_chan - 1 - carrier  # descending channel order
         last = n - 1
         if last < r["swaps"][0] + 3:
             raise RuntimeError(f"the swap at drain {r['swaps']} leaves no "
@@ -841,7 +895,7 @@ def phase_stokes_deployed(cfg, blocks_np, smi) -> dict:
                                "resident kernel's")
         stats = r["stats"]
         log(f"[stokes deployed] {cfg.name}: one excise event on channel "
-            f"{CARRIER_CHAN}; {len(STOKES_FIL_BEAMS)} 4-IF .fil files (nifs "
+            f"{carrier}; {len(STOKES_FIL_BEAMS)} 4-IF .fil files (nifs "
             f"4, __quv_offset__ {side['__quv_offset__']}), block 1 equal to "
             f"the resident uint8 Stokes output laid out; carrier I = 0, "
             f"Q/U/V = {QUV_OFFSET} in block {last}; incoherent .dada "
@@ -894,11 +948,10 @@ def detect_voltages(bv, cfg) -> tuple:
     return power, stokes
 
 
-def phase_voltages(smi) -> dict:
-    """The unfused validation path on the 128-channel dsa10 sub-band at
-    full per-channel width: the kernel against its plain version and
-    against the fused power and Stokes kernels; then timed."""
-    cfg = DSA10.replace(n_chan=VOLTAGE_CHANNELS)
+def phase_voltages(smi, cfg=DSA10.replace(n_chan=VOLTAGE_CHANNELS)) -> dict:
+    """The unfused validation path on a 128-channel sub-band at full
+    per-channel width: the kernel against its plain version and against
+    the fused power and Stokes kernels; then timed."""
     wire = make_random_bytes_block(cfg, seed=5)
     qw = prepare_weights(cfg, make_weights(cfg, device=DEV))
     x = to_device(cfg, wire)
@@ -935,7 +988,7 @@ def phase_voltages(smi) -> dict:
     ms = time_ms(run, N_TIMED)
     bnd, by = voltage_bound_ms(cfg)
     log(f"[voltages] {cfg.name} sub-band kernel {ms:.3f} ms per call "
-        f"({VOLTAGE_CHANNELS} channels x {cfg.t_block} samples), bound "
+        f"({cfg.n_chan} channels x {cfg.t_block} samples), bound "
         f"{bnd:.3f} ms by {by} ({bnd / ms * 100:.2f}%), plain "
         f"{plain_ms:.1f} ms, launches on the validation path {launches}, "
         f"on {smi}")
@@ -981,10 +1034,110 @@ def phase_other_deployments(cfg, blocks_np, smi,
                 raise RuntimeError(f"launch pattern {r['launches']}, "
                                    f"want {want}")
             if kw["rfi"] and [e.get("new") for e in r["events"]] \
-                    != [[CARRIER_CHAN]]:
+                    != [[carrier_chan(cfg)]]:
                 raise RuntimeError(f"events {r['events']}")
             total.update(r["launches"])
     return total
+
+
+# --------------------------------------------------------------------- #
+# DSA-110: the staged-weight path (a_compute 128, 512 beams)
+# --------------------------------------------------------------------- #
+
+#: DSA-110 variants held against the plain version at full band, timed, and
+#: reported as kernel rows of their own: the products and the deployed ones.
+DSA110_VARIANTS = ("base", "sk+q8+inco", "stokes", "stokes+sk+q8+inco")
+DSA110_TARGET = 300          # the point source's beam, of 512
+N_DSA110_STREAM = 6          # blocks in each plain sub-band stream
+#: The per-GPU deployment: one `dsabf run --subband i/8` process per card.
+DSA110_SUBBAND = DSA110.subband(0, 256)
+
+
+def phase_dsa110(smi) -> dict:
+    """DSA-110 on the staged-weight path: the kernel variants against the
+    plain version on a full-band block (antenna 77 flagged), the sub-band
+    point source, resident full-band times; then the per-GPU deployment
+    (``DSA110.subband(0, 256)``): the plain power and Stokes streams, the
+    deployed power stream (8-bit .fil for all 512 beams, incoherent .dada,
+    RFI monitor) and the deployed Stokes stream; and the voltage path on a
+    128-channel sub-band.  Each stream runs with the counts set to 0."""
+    cfg = DSA110
+    t0 = time.perf_counter()
+    blocks = [make_random_bytes_block(cfg, seed=s) for s in (10, 11)]
+    log(f"[data] two {cfg.name} blocks {cfg.wire_block_shape} "
+        f"({cfg.wire_block_bytes / 1e9:.3f} GB each) in "
+        f"{time.perf_counter() - t0:.1f} s; kernel path "
+        f"{gemm.kernel_path(cfg)} (a_compute {cfg.a_compute})")
+    qw = prepare_weights(cfg, make_weights(cfg, device=DEV))
+    checked = {}
+    for stokes in (False, True):
+        checked.update(phase_variants(cfg, blocks[0], qw, [
+            v for v in DSA110_VARIANTS if (v in STOKES_VARIANTS) == stokes]))
+    physics_cfg = DSA110.replace(n_chan=VOLTAGE_CHANNELS, t_block=512)
+    phase_physics(physics_cfg, DSA110_TARGET)
+    phase_stokes_physics(physics_cfg, DSA110_TARGET)
+    times = phase_resident_variants(cfg, blocks, qw, checked, smi,
+                                    DSA110_VARIANTS)
+    del qw, blocks
+
+    sub = DSA110_SUBBAND
+    sub_blocks = [make_random_bytes_block(sub, seed=s) for s in (12, 13)]
+    qs = prepare_weights(sub, make_weights(sub, device=DEV))
+    launches = collections.Counter()
+    for products in ("power", "stokes"):
+        detect = gemm.beamform_stokes if products == "stokes" \
+            else gemm.beamform_power
+        block0 = detect(to_device(sub, sub_blocks[0]), qs, sub).cpu()
+        launches["stokes" if products == "stokes" else "base"] += \
+            phase_stream(sub, sub_blocks, qs, block0, smi, N_DSA110_STREAM,
+                         products)
+        del block0
+    del qs
+    for b in sub_blocks:
+        with_carrier(sub, b)
+    launches.update(phase_deployed(sub, sub_blocks, smi))
+    launches.update(phase_stokes_deployed(sub, sub_blocks, smi))
+    missing = [v for v in DSA110_VARIANTS if not launches[v]]
+    if missing:
+        raise RuntimeError(f"DSA-110 variants never launched on a main path: "
+                           f"{missing}")
+    volt = phase_voltages(smi, DSA110.replace(n_chan=VOLTAGE_CHANNELS))
+    return {"checked": checked, "times": times, "launches": launches,
+            "volt": volt}
+
+
+def kernel_rows(cfg, variants, launches, checked, times, volt,
+                suffix="") -> list:
+    """The kernels line's rows of one configuration: each detect variant
+    (times at ``cfg``, launches on the main paths), then the voltage
+    kernel."""
+    rows = []
+    for variant in variants:
+        bnd, by = bound_ms(cfg, variant)
+        rows.append({
+            "name": "detect_power" + ("" if variant == "base"
+                                      else f"+{variant}") + suffix,
+            "route": "cuda",
+            "source": "dsabeamformer_tpu_torch/csrc/detect_power.cu",
+            "replaces": "dsabeamformer_tpu/ops/gemm.py:775",
+            "launches": launches[variant],
+            "max_abs_err": checked[variant]["max_abs_err"],
+            "ms": times[variant],
+            "plain_ms": checked[variant]["plain_ms"],
+            "bound_ms": bnd,
+            "bound_by": by,
+            "library_ms": None,
+        })
+    rows.append({
+        "name": "beam_voltages" + suffix,
+        "route": "cuda",
+        "source": "dsabeamformer_tpu_torch/csrc/beam_voltages.cu",
+        "replaces": "dsabeamformer_tpu/ops/gemm.py:932",
+        **{k: volt[k] for k in ("launches", "max_abs_err", "ms", "plain_ms",
+                                "bound_ms", "bound_by")},
+        "library_ms": None,
+    })
+    return rows
 
 
 def main() -> None:
@@ -1046,32 +1199,13 @@ def main() -> None:
     volt = phase_voltages(smi)
     bounds_to_port()
 
-    kernels = []
-    for variant in ALL_VARIANTS:
-        bnd, by = bound_ms(cfg, variant)
-        kernels.append({
-            "name": "detect_power" + ("" if variant == "base"
-                                      else f"+{variant}"),
-            "route": "cuda",
-            "source": "dsabeamformer_tpu_torch/csrc/detect_power.cu",
-            "replaces": "dsabeamformer_tpu/ops/gemm.py:775",
-            "launches": launches[variant],
-            "max_abs_err": checked[variant]["max_abs_err"],
-            "ms": times[variant],
-            "plain_ms": checked[variant]["plain_ms"],
-            "bound_ms": bnd,
-            "bound_by": by,
-            "library_ms": None,
-        })
-    kernels.append({
-        "name": "beam_voltages",
-        "route": "cuda",
-        "source": "dsabeamformer_tpu_torch/csrc/beam_voltages.cu",
-        "replaces": "dsabeamformer_tpu/ops/gemm.py:932",
-        **{k: volt[k] for k in ("launches", "max_abs_err", "ms", "plain_ms",
-                                "bound_ms", "bound_by")},
-        "library_ms": None,
-    })
+    # DSA-110 on the staged-weight path.
+    d110 = phase_dsa110(smi)
+
+    kernels = kernel_rows(cfg, ALL_VARIANTS, launches, checked, times, volt)
+    kernels += kernel_rows(DSA110, DSA110_VARIANTS, d110["launches"],
+                           d110["checked"], d110["times"], d110["volt"],
+                           "[dsa110]")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -8,7 +8,9 @@
 // or _stokes_epilogue (gemm.py:402, via beamform_stokes :795), in the int8
 // and int8x2 weight modes: the power and Stokes products, the quant8 branch
 // (gemm.py:261-278, Stokes offset :266-274), the incoherent branch
-// (:287-322) and the SK branch (:323-368), in any combination.
+// (:287-322) and the SK branch (:323-368), in any combination, for any
+// a_compute the TPU kernel takes up to 128 (DSA-110: 110 active antennas in
+// 128 slots, 512 beams).
 //
 // What it computes, per channel f, output row o and beam b:
 //   X[t, p, :] = [re | im] of the wire bytes of pol p, antennas 0..a_compute-1
@@ -24,7 +26,7 @@
 //           cr = xr*yr + xi*yi = Re(Bx By*), ci = xi*yr - xr*yi = Im(Bx By*)
 //   Every product and sum is rounded on its own (__fmul_rn / __fadd_rn),
 //   so nvcc contracts nothing: the Stokes I plane is the power output to
-//   the bit (the same sum in the same order).
+//   the bit (the same sum in the same order), on either weight path.
 // quant8 (q8_scales != null) stores instead
 //   clip(rint(out * q8_scales[b] + off), 0, 255) as uint8, off = 0 for power
 //   and I, kQuvOffset for Q/U/V; the multiply and the offset are rounded
@@ -32,10 +34,11 @@
 //   byte is exactly the rint/clip of the f32 output this kernel would store.
 // Side outputs, from the unpacked words the block already holds:
 //   inco[f, o]     = sum_{t in o} sum_p sum_{a in inco_mask} re^2 + im^2
-//                    (f32 of an exact integer below 2^24);
+//                    (f32 of an exact integer below 2^24; the mask is 128
+//                    bits, four words);
 //   sk[f, 0, a]   += sum_{t, p} p,  sk[f, 1, a] += sum_{t, p} p^2,
 //                    p = re^2 + im^2, every antenna a < a_compute
-//                    (int32 per span, then one 64-bit atomicAdd per block,
+//                    (int32 per span, then one 64-bit atomicAdd per span,
 //                    antenna and statistic: exact, whatever the block order).
 // Only the blocks of the first beam chunk (blockIdx.z == 0) emit them, so a
 // span is counted once however many beam chunks the grid has.
@@ -44,27 +47,36 @@
 // block (int8x2, a_compute=32) issues 2.2e12 int8 MACs against ~1.07 GB of
 // wire bytes read (only the a_compute antenna slots) and 1.07 GB of f32
 // powers written (0.27 GB as uint8; the Stokes product is 4x both), about
-// 2000 (500 for Stokes) MACs per byte of device memory traffic, so it is far
-// above the memory roofline.  This version runs the MACs as __dp4a on the
-// CUDA cores (4 MACs per instruction), not on the tensor cores, so its
+// 2000 (500 for Stokes) MACs per byte of device memory traffic; a DSA-110
+// block (a_compute 128, 512 beams) 8.8e12 MACs against ~3.2 GB, so both are
+// far above the memory roofline.  This version runs the MACs as __dp4a on
+// the CUDA cores (4 MACs per instruction), not on the tensor cores, so its
 // ceiling is the dp4a instruction rate, a few percent of the int8
 // tensor-core peak; mma/wgmma s8 with TMA staging is later work.
 // The side outputs add ~1/500 of the block's dp4a work, the Stokes epilogue
 // a few float operations per sample and beam.
 //
 // What the design does about it: every wire byte is read from device memory
-// once and every output once; nothing else touches device memory.
-//   - One thread block per (span of output rows, channel, chunk of beams).
-//     Blocks are independent: no sum is carried between them (the SK sums
+// once per beam chunk and every output once; nothing else touches device
+// memory.
+//   - The register path (a_compute 8, 16, 32; detect_power_kernel): one
+//     thread block per (span of output rows, channel, chunk of up to 256
+//     beams), a thread per beam with its weight columns in registers.
+//   - The staged path (a_compute 40..128; detect_staged_kernel): one block
+//     per (channel, chunk of 64 beams) and a share of the block's spans;
+//     the beam tile's weight columns are staged into shared memory once and
+//     serve every span the block walks; 4 groups of 64 threads take every
+//     4th output row of a 64-sample span, each weight word feeding 4 rows.
+//   - Blocks are independent: no sum is carried between them (the SK sums
 //     meet in integer atomics, whose order does not change the result).
-//   - The unpack into shared memory, the per-beam register weights and the
-//     dp4a row product are wire_gemm.cuh's.
+//   - The unpack into shared memory and the dp4a products are
+//     wire_gemm.cuh's.
 //   - The epilogue (detection, pol sum, navg_time sum, s^2, the uint8
 //     rounding) stays in registers; one coalesced store per output row and
 //     plane (Stokes: four, the planes of [F, T', 4, B]).
 //   - The side outputs reuse the staged words: a warp per output row sums
-//     the incoherent power with __dp4a(x, x & mask); a thread per (antenna,
-//     sample slice) sums p and p^2, reduced in shared memory.
+//     the incoherent power with __dp4a(x, x & mask); threads per (antenna,
+//     sample slice) sum p and p^2, reduced in shared memory.
 //   - The output type and the product are template parameters (they change
 //     the stores and the epilogue's registers); the side outputs branch at
 //     run time on block-uniform pointers.
@@ -92,6 +104,121 @@ __device__ __forceinline__ uint32_t byte_mask(uint32_t bits) {
   return spread * 0xFFu;
 }
 
+// Word i of the mask by selects (no dynamically indexed copy of the
+// by-value parameter in local memory).
+__device__ __forceinline__ uint32_t mask_word(const AntMask& m, int i) {
+  static_assert(kMaxAnt / 32 == 4, "mask_word selects among four words");
+  return i == 0 ? m.w[0] : i == 1 ? m.w[1] : i == 2 ? m.w[2] : m.w[3];
+}
+
+// The side outputs of the span staged in xs ([rows][pol][kw], n_rows_out
+// output rows of navg samples): the incoherent sums into inco_row[0 ..
+// n_rows_out) and the SK sums added to sk_chan[2 * ac] (either pointer
+// null = not computed; both block-uniform).  sk_part [2 * ac] must be zero
+// and xs complete (a __syncthreads) before the call.
+__device__ __forceinline__ void side_outputs(
+    const uint32_t* xs, int kw, int ac, int n_rows_out, int navg,
+    const AntMask& mask, float* inco_row, int* sk_part,
+    unsigned long long* sk_chan) {
+  const int aw = kw / 2;
+  const int rows = n_rows_out * navg;
+  if (inco_row) {
+    const int lane = threadIdx.x & 31;
+    const int n_warps = blockDim.x >> 5;
+    const int items = navg * 2 * aw;  // (sample, pol, word) of one row
+    for (int o = threadIdx.x >> 5; o < n_rows_out; o += n_warps) {
+      int acc = 0;
+      for (int i = lane; i < items; i += 32) {
+        const int w = i % aw;
+        const uint32_t* row = xs + (o * navg * 2 + i / aw) * kw;
+        const uint32_t m = byte_mask((mask_word(mask, w >> 3)
+                                      >> (4 * (w & 7))) & 0xFu);
+        const uint32_t re = row[w], im = row[aw + w];
+        acc = __dp4a(int(re), int(re & m), acc);
+        acc = __dp4a(int(im), int(im & m), acc);
+      }
+#pragma unroll
+      for (int d = 16; d > 0; d >>= 1) {
+        acc += __shfl_xor_sync(0xffffffffu, acc, d);
+      }
+      if (lane == 0) inco_row[o] = float(acc);
+    }
+  }
+  if (sk_chan) {
+    // `per` threads per antenna, each taking every per-th (sample, pol)
+    // row; the threads past per * ac sit out (ac need not divide the
+    // block).  Per span an antenna sums 2 * rows values of p <= 128
+    // (p^2 <= 2^14), and the span's staged rows (8 * a_compute bytes
+    // each) fit in 227 KB, so rows < 2^13 and S2 < 2^28: int32 is exact.
+    const int per = blockDim.x / ac;
+    if (threadIdx.x < per * ac) {
+      const int a = threadIdx.x % ac;
+      const int w = a >> 2;
+      const int sh = 8 * (a & 3);
+      int s1 = 0, s2 = 0;
+      for (int rp = threadIdx.x / ac; rp < rows * 2; rp += per) {
+        const uint32_t* row = xs + rp * kw;
+        const int re = int(int8_t(uint8_t(row[w] >> sh)));
+        const int im = int(int8_t(uint8_t(row[aw + w] >> sh)));
+        const int p = re * re + im * im;
+        s1 += p;
+        s2 += p * p;
+      }
+      atomicAdd(&sk_part[a], s1);
+      atomicAdd(&sk_part[ac + a], s2);
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < 2 * ac; i += blockDim.x) {
+      atomicAdd(sk_chan + i, (unsigned long long)sk_part[i]);
+    }
+  }
+}
+
+// One sample's detection added to the row sums: acc[0] (power, or I) and,
+// for Stokes, Q, U, V.  vr/vi: the beam voltage of pol x (0) and y (1).
+// Explicit rounding: no FMA contraction, so the Stokes I plane is the power
+// output to the bit.
+template <bool STOKES>
+__device__ __forceinline__ void detect_sample(const float (&vr)[2],
+                                              const float (&vi)[2],
+                                              float (&acc)[STOKES ? 4 : 1]) {
+  const float px = __fadd_rn(__fmul_rn(vr[0], vr[0]), __fmul_rn(vi[0], vi[0]));
+  const float py = __fadd_rn(__fmul_rn(vr[1], vr[1]), __fmul_rn(vi[1], vi[1]));
+  acc[0] = __fadd_rn(acc[0], __fadd_rn(px, py));
+  if constexpr (STOKES) {
+    const float cr = __fadd_rn(__fmul_rn(vr[0], vr[1]),
+                               __fmul_rn(vi[0], vi[1]));
+    const float ci = __fsub_rn(__fmul_rn(vi[0], vr[1]),
+                               __fmul_rn(vr[0], vi[1]));
+    acc[1] = __fadd_rn(acc[1], __fsub_rn(px, py));
+    acc[2] = __fadd_rn(acc[2], __fadd_rn(cr, cr));
+    acc[3] = __fadd_rn(acc[3], __fadd_rn(ci, ci));
+  }
+}
+
+// One output row's planes, scaled by s^2, to dst[k * n_beams] (float32, or
+// the uint8 epilogue with this beam's scale qs).
+template <typename OutT, bool STOKES>
+__device__ __forceinline__ void store_row(const float (&acc)[STOKES ? 4 : 1],
+                                          float s2, float qs, OutT* dst,
+                                          int n_beams) {
+  constexpr int NP = STOKES ? 4 : 1;
+#pragma unroll
+  for (int k = 0; k < NP; ++k) {
+    const float v = __fmul_rn(acc[k], s2);
+    if constexpr (std::is_same<OutT, uint8_t>::value) {
+      // rintf rounds half to even, as jnp.rint and torch.round do; the
+      // clamp follows the rounding, as in gemm.py:277.
+      const float y = k > 0 ? __fmaf_rn(v, qs, kQuvOffset) : __fmul_rn(v, qs);
+      dst[k * n_beams] = uint8_t(fminf(fmaxf(rintf(y), 0.f), 255.f));
+    } else {
+      dst[k * n_beams] = v;
+    }
+  }
+}
+
+// ----------------------------- register path ----------------------------
+
 template <int KW, int NTERMS, typename OutT, bool STOKES>
 __global__ void __launch_bounds__(kMaxThreads)
 detect_power_kernel(const uint8_t* __restrict__ wire,
@@ -102,7 +229,7 @@ detect_power_kernel(const uint8_t* __restrict__ wire,
                     OutT* __restrict__ out,
                     float* __restrict__ inco_out,
                     unsigned long long* __restrict__ sk_out,
-                    uint32_t inco_mask,
+                    AntMask inco_mask,
                     int n_time, int n_beams, int n_ant, int navg,
                     int rows_out_per_block,
                     long long time_stride, long long chan_stride) {
@@ -110,20 +237,18 @@ detect_power_kernel(const uint8_t* __restrict__ wire,
   constexpr int AW = KW / 2;
   constexpr int AC = 4 * AW;  // a_compute
   constexpr int NP = STOKES ? 4 : 1;  // output planes
-  constexpr bool kQuant8 = std::is_same<OutT, uint8_t>::value;
   extern __shared__ __align__(16) uint32_t xs[];  // [rows][pol][KW]
-  __shared__ int sk_part[2 * kMaxAnt];            // [stat][antenna]
+  __shared__ int sk_part[2 * kMaxRegAnt];         // [stat][antenna]
 
   const int f = blockIdx.y;
   const int n_out = n_time / navg;
   const int o0 = blockIdx.x * rows_out_per_block;
   const int o_end = min(o0 + rows_out_per_block, n_out);
-  const int rows = (o_end - o0) * navg;
   const bool side = blockIdx.z == 0;  // block-uniform
 
-  stage_rows<AW>(xs, wire + (long long)f * chan_stride
-                         + (long long)o0 * navg * time_stride,
-                 rows, time_stride, n_ant);
+  stage_rows(xs, wire + (long long)f * chan_stride
+                     + (long long)o0 * navg * time_stride,
+             (o_end - o0) * navg, time_stride, n_ant, AW);
   if (side && sk_out) {
     for (int i = threadIdx.x; i < 2 * AC; i += blockDim.x) sk_part[i] = 0;
   }
@@ -137,55 +262,17 @@ detect_power_kernel(const uint8_t* __restrict__ wire,
 
   // Side outputs, every thread of the block taking part (before the
   // inactive beams leave).
-  if (side && inco_out) {
-    const int lane = threadIdx.x & 31;
-    const int n_warps = blockDim.x >> 5;
-    const int items = navg * 2 * AW;  // (sample, pol, word) of one row
-    for (int o = threadIdx.x >> 5; o < o_end - o0; o += n_warps) {
-      int acc = 0;
-      for (int i = lane; i < items; i += 32) {
-        const int w = i % AW;
-        const uint32_t* row = xs + (o * navg * 2 + i / AW) * KW;
-        const uint32_t m = byte_mask((inco_mask >> (4 * w)) & 0xFu);
-        const uint32_t re = row[w], im = row[AW + w];
-        acc = __dp4a(int(re), int(re & m), acc);
-        acc = __dp4a(int(im), int(im & m), acc);
-      }
-#pragma unroll
-      for (int d = 16; d > 0; d >>= 1) {
-        acc += __shfl_xor_sync(0xffffffffu, acc, d);
-      }
-      if (lane == 0) inco_out[(long long)f * n_out + o0 + o] = float(acc);
-    }
-  }
-  if (side && sk_out) {
-    // Thread -> antenna a and every (blockDim/AC)-th (sample, pol) row.
-    const int a = threadIdx.x % AC;
-    const int w = a >> 2;
-    const int sh = 8 * (a & 3);
-    int s1 = 0, s2 = 0;  // per span: at most 768 * 128^2 < 2^31
-    for (int rp = threadIdx.x / AC; rp < rows * 2; rp += blockDim.x / AC) {
-      const uint32_t* row = xs + rp * KW;
-      const int re = int(int8_t(uint8_t(row[w] >> sh)));
-      const int im = int(int8_t(uint8_t(row[AW + w] >> sh)));
-      const int p = re * re + im * im;
-      s1 += p;
-      s2 += p * p;
-    }
-    atomicAdd(&sk_part[a], s1);
-    atomicAdd(&sk_part[AC + a], s2);
-    __syncthreads();
-    if (threadIdx.x < 2 * AC) {
-      atomicAdd(sk_out + (long long)f * 2 * AC + threadIdx.x,
-                (unsigned long long)sk_part[threadIdx.x]);
-    }
+  if (side) {
+    side_outputs(xs, KW, AC, o_end - o0, navg, inco_mask,
+                 inco_out ? inco_out + (long long)f * n_out + o0 : nullptr,
+                 sk_part,
+                 sk_out ? sk_out + (long long)f * 2 * AC : nullptr);
   }
   if (!active) return;
 
   const float s = scales[(long long)f * NTERMS + (NTERMS - 1)];
   const float s2 = __fmul_rn(s, s);
-  float qs = 0.f;
-  if constexpr (kQuant8) qs = q8_scales[b];
+  const float qs = std::is_same<OutT, uint8_t>::value ? q8_scales[b] : 0.f;
   OutT* orow = out + ((long long)f * n_out + o0) * NP * n_beams + b;
   for (int o = 0; o < o_end - o0; ++o) {
     float acc[NP];
@@ -200,39 +287,102 @@ detect_power_kernel(const uint8_t* __restrict__ wire,
         vr[p] = float(br);
         vi[p] = float(bi);
       }
-      // Explicit rounding: no FMA contraction, so the Stokes I plane is the
-      // power output to the bit.
-      const float px = __fadd_rn(__fmul_rn(vr[0], vr[0]),
-                                 __fmul_rn(vi[0], vi[0]));
-      const float py = __fadd_rn(__fmul_rn(vr[1], vr[1]),
-                                 __fmul_rn(vi[1], vi[1]));
-      acc[0] = __fadd_rn(acc[0], __fadd_rn(px, py));
-      if constexpr (STOKES) {
-        const float cr = __fadd_rn(__fmul_rn(vr[0], vr[1]),
-                                   __fmul_rn(vi[0], vi[1]));
-        const float ci = __fsub_rn(__fmul_rn(vi[0], vr[1]),
-                                   __fmul_rn(vr[0], vi[1]));
-        acc[1] = __fadd_rn(acc[1], __fsub_rn(px, py));
-        acc[2] = __fadd_rn(acc[2], __fadd_rn(cr, cr));
-        acc[3] = __fadd_rn(acc[3], __fadd_rn(ci, ci));
-      }
+      detect_sample<STOKES>(vr, vi, acc);
     }
+    store_row<OutT, STOKES>(acc, s2, qs, orow + (long long)o * NP * n_beams,
+                            n_beams);
+  }
+}
+
+// ------------------------------ staged path -----------------------------
+
+template <int NTERMS, typename OutT, bool STOKES>
+__global__ void __launch_bounds__(kStagedThreads, 2)
+detect_staged_kernel(const uint8_t* __restrict__ wire,
+                     const int8_t* __restrict__ w_hi,
+                     const int8_t* __restrict__ w_lo,
+                     const float* __restrict__ scales,
+                     const float* __restrict__ q8_scales,
+                     OutT* __restrict__ out,
+                     float* __restrict__ inco_out,
+                     unsigned long long* __restrict__ sk_out,
+                     AntMask inco_mask,
+                     int n_time, int n_beams, int n_ant, int kw, int navg,
+                     int rows_out_per_span,
+                     long long time_stride, long long chan_stride) {
+  constexpr int NP = STOKES ? 4 : 1;
+  extern __shared__ __align__(16) uint32_t smem[];
+  __shared__ int sk_part[2 * kMaxAnt];  // [stat][antenna]
+  uint32_t* ws = smem;                  // [term][col][kw][kStagedBeams]
+  uint32_t* xs = smem + staged_weight_words(NTERMS, kw);  // [rows][pol][kw]
+
+  const int f = blockIdx.y;
+  const int ac = 2 * kw;  // a_compute
+  const int n_out = n_time / navg;
+  const int n_spans = (n_out + rows_out_per_span - 1) / rows_out_per_span;
+  const bool side = blockIdx.z == 0;  // block-uniform
+  const int lb = threadIdx.x % kStagedBeams;
+  const int g = threadIdx.x / kStagedBeams;
+  const int b = blockIdx.z * kStagedBeams + lb;
+  const bool active = b < n_beams;
+
+  stage_beam_weights<NTERMS>(ws, w_hi, w_lo, f, blockIdx.z * kStagedBeams,
+                             n_beams, kw);
+  const float s = scales[(long long)f * NTERMS + (NTERMS - 1)];
+  const float s2 = __fmul_rn(s, s);
+  const float qs = std::is_same<OutT, uint8_t>::value && active
+                       ? q8_scales[b] : 0.f;
+  const uint8_t* wire_f = wire + (long long)f * chan_stride;
+
+  for (int span = blockIdx.x; span < n_spans; span += gridDim.x) {
+    const int o0 = span * rows_out_per_span;
+    const int o_end = min(o0 + rows_out_per_span, n_out);
+    __syncthreads();  // the previous span's readers are done
+    stage_rows(xs, wire_f + (long long)o0 * navg * time_stride,
+               (o_end - o0) * navg, time_stride, n_ant, kw / 2);
+    if (side && sk_out) {
+      for (int i = threadIdx.x; i < 2 * ac; i += blockDim.x) sk_part[i] = 0;
+    }
+    __syncthreads();
+    if (side) {
+      side_outputs(xs, kw, ac, o_end - o0, navg, inco_mask,
+                   inco_out ? inco_out + (long long)f * n_out + o0 : nullptr,
+                   sk_part,
+                   sk_out ? sk_out + (long long)f * 2 * ac : nullptr);
+    }
+    if (!active) continue;
+    for (int o = o0 + g; o < o_end; o += kStagedGroups) {
+      float acc[NP];
 #pragma unroll
-    for (int k = 0; k < NP; ++k) {
-      const float v = __fmul_rn(acc[k], s2);
-      OutT* dst = orow + ((long long)o * NP + k) * n_beams;
-      if constexpr (kQuant8) {
-        // rintf rounds half to even, as jnp.rint and torch.round do; the
-        // clamp follows the rounding, as in gemm.py:277.
-        const float y = k > 0 ? __fmaf_rn(v, qs, kQuvOffset)
-                              : __fmul_rn(v, qs);
-        *dst = uint8_t(fminf(fmaxf(rintf(y), 0.f), 255.f));
-      } else {
-        *dst = v;
+      for (int k = 0; k < NP; ++k) acc[k] = 0.f;
+      // Two samples (four rows) per step, summed in sample order.
+      for (int r = 0; r < navg; r += 2) {
+        const uint32_t* xa = xs + ((o - o0) * navg + r) * 2 * kw;
+        const bool two = r + 1 < navg;
+        int m[4][NTERMS][2];
+        staged_rows4<NTERMS>(xa, two ? xa + 2 * kw : xa, ws + lb, kw, m);
+#pragma unroll
+        for (int smp = 0; smp < 2; ++smp) {
+          if (smp == 1 && !two) break;
+          float vr[2], vi[2];
+#pragma unroll
+          for (int p = 0; p < 2; ++p) {
+            int br, bi;
+            staged_voltage<NTERMS>(m, 2 * smp + p, br, bi);
+            vr[p] = float(br);
+            vi[p] = float(bi);
+          }
+          detect_sample<STOKES>(vr, vi, acc);
+        }
       }
+      store_row<OutT, STOKES>(
+          acc, s2, qs, out + ((long long)f * n_out + o) * NP * n_beams + b,
+          n_beams);
     }
   }
 }
+
+// --------------------------------- launch --------------------------------
 
 struct Args {
   dim3 grid, block;
@@ -240,8 +390,8 @@ struct Args {
   cudaStream_t stream;
   const void *wire, *w_hi, *w_lo, *scales, *q8_scales;
   void *out, *inco_out, *sk_out;
-  uint32_t inco_mask;
-  int n_time, n_beams, n_ant, navg, rows_out_per_block;
+  AntMask inco_mask;
+  int n_time, n_beams, n_ant, kw, navg, rows_out;
   long long time_stride, chan_stride;
 };
 
@@ -256,8 +406,28 @@ cudaError_t launch(const Args& a) {
           static_cast<const float*>(a.q8_scales), static_cast<OutT*>(a.out),
           static_cast<float*>(a.inco_out),
           static_cast<unsigned long long*>(a.sk_out), a.inco_mask, a.n_time,
-          a.n_beams, a.n_ant, a.navg, a.rows_out_per_block, a.time_stride,
+          a.n_beams, a.n_ant, a.navg, a.rows_out, a.time_stride,
           a.chan_stride);
+  return cudaGetLastError();
+}
+
+// The staged kernels' shared memory is above the 48 KB default: raise the
+// instantiation's limit to what this launch needs, then launch.
+template <int NTERMS, typename OutT, bool STOKES>
+cudaError_t launch_staged(const Args& a) {
+  auto kernel = detect_staged_kernel<NTERMS, OutT, STOKES>;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(a.smem));
+  if (e != cudaSuccess) return e;
+  kernel<<<a.grid, a.block, a.smem, a.stream>>>(
+      static_cast<const uint8_t*>(a.wire),
+      static_cast<const int8_t*>(a.w_hi), static_cast<const int8_t*>(a.w_lo),
+      static_cast<const float*>(a.scales),
+      static_cast<const float*>(a.q8_scales), static_cast<OutT*>(a.out),
+      static_cast<float*>(a.inco_out),
+      static_cast<unsigned long long*>(a.sk_out), a.inco_mask, a.n_time,
+      a.n_beams, a.n_ant, a.kw, a.navg, a.rows_out, a.time_stride,
+      a.chan_stride);
   return cudaGetLastError();
 }
 
@@ -272,6 +442,17 @@ cudaError_t dispatch(const Args& a, bool stokes) {
             : launch<KW, NTERMS, float, false>(a);
 }
 
+template <int NTERMS>
+cudaError_t dispatch_staged(const Args& a, bool stokes) {
+  const bool q8 = a.q8_scales != nullptr;
+  if (stokes) {
+    return q8 ? launch_staged<NTERMS, uint8_t, true>(a)
+              : launch_staged<NTERMS, float, true>(a);
+  }
+  return q8 ? launch_staged<NTERMS, uint8_t, false>(a)
+            : launch_staged<NTERMS, float, false>(a);
+}
+
 }  // namespace
 
 extern "C" {
@@ -283,33 +464,51 @@ extern "C" {
 // (stokes == 0) or [n_chan, n_time/navg, 4, n_beams] (stokes != 0: I, Q, U,
 // V), or uint8 of that shape when q8_scales (f32 [n_beams]) is not null.
 // Optional (null = not computed): inco_out f32 [n_chan, n_time/navg] over
-// the antennas whose bit is set in inco_mask; sk_out uint64 [n_chan, 2,
-// a_compute], added to (the caller zeroes it).
+// the antennas whose bit is set in inco_mask (host memory, kMaxAnt / 32
+// words, bit a of word a / 32; read before this returns); sk_out uint64
+// [n_chan, 2, a_compute], added to (the caller zeroes it).
+// a_compute 8, 16, 32 run the register path; 40..128 in steps of 8 the
+// staged path; anything else is refused.
 int dsabf_detect_power(const void* wire, const void* w_hi, const void* w_lo,
                        const void* scales, const void* q8_scales, void* out,
-                       void* inco_out, void* sk_out, unsigned int inco_mask,
-                       int n_chan, int n_time, int n_beams, int n_ant,
-                       int a_compute, int n_terms, int navg, int stokes,
-                       long long time_stride, long long chan_stride,
-                       void* stream) {
+                       void* inco_out, void* sk_out,
+                       const unsigned int* inco_mask, int n_chan, int n_time,
+                       int n_beams, int n_ant, int a_compute, int n_terms,
+                       int navg, int stokes, long long time_stride,
+                       long long chan_stride, void* stream) {
   const int kw = a_compute / 2;
+  const bool staged = a_compute > kMaxRegAnt;
   if (n_chan < 1 || n_chan > 65535 || n_beams < 1 || navg < 1 ||
-      n_time % navg || n_ant % 4 || a_compute % 8 || a_compute > n_ant ||
-      a_compute > kMaxAnt || (n_terms != 1 && n_terms != 2)) {
+      n_time < navg || n_time % navg || n_ant % 4 || a_compute < 8 || a_compute % 8 ||
+      a_compute > n_ant || a_compute > kMaxAnt ||
+      (n_terms != 1 && n_terms != 2) || (inco_out && !inco_mask)) {
     return int(cudaErrorInvalidValue);
   }
-  const int rows_out = navg >= kSpanSamples ? 1 : kSpanSamples / navg;
-  const size_t smem = size_t(rows_out) * navg * 2 * kw * sizeof(uint32_t);
-  if (smem > kMaxStaticSmem - 2 * kMaxAnt * sizeof(int)) {
-    return int(cudaErrorInvalidValue);
-  }
-  const int threads = n_beams >= kMaxThreads ? kMaxThreads
-                                             : ((n_beams + 31) / 32) * 32;
   Args a;
-  a.block = dim3(threads);
-  a.grid = dim3((n_time / navg + rows_out - 1) / rows_out, n_chan,
-                (n_beams + threads - 1) / threads);
-  a.smem = smem;
+  const int n_out = n_time / navg;
+  if (staged) {
+    a.rows_out = navg >= kStagedSpan ? 1 : kStagedSpan / navg;
+    a.smem = (staged_weight_words(n_terms, kw)
+              + size_t(a.rows_out) * navg * 2 * kw) * sizeof(uint32_t);
+    if (a.smem > kMaxDynSmem - 2 * kMaxAnt * sizeof(int)) {
+      return int(cudaErrorInvalidValue);
+    }
+    const int n_spans = (n_out + a.rows_out - 1) / a.rows_out;
+    const int chunks = (n_beams + kStagedBeams - 1) / kStagedBeams;
+    a.block = dim3(kStagedThreads);
+    a.grid = dim3(staged_grid_x(n_spans, n_chan, chunks), n_chan, chunks);
+  } else {
+    a.rows_out = navg >= kSpanSamples ? 1 : kSpanSamples / navg;
+    a.smem = size_t(a.rows_out) * navg * 2 * kw * sizeof(uint32_t);
+    if (a.smem > kMaxStaticSmem - 2 * kMaxRegAnt * sizeof(int)) {
+      return int(cudaErrorInvalidValue);
+    }
+    const int threads = n_beams >= kMaxThreads ? kMaxThreads
+                                               : ((n_beams + 31) / 32) * 32;
+    a.block = dim3(threads);
+    a.grid = dim3((n_out + a.rows_out - 1) / a.rows_out, n_chan,
+                  (n_beams + threads - 1) / threads);
+  }
   a.stream = static_cast<cudaStream_t>(stream);
   a.wire = wire;
   a.w_hi = w_hi;
@@ -319,15 +518,21 @@ int dsabf_detect_power(const void* wire, const void* w_hi, const void* w_lo,
   a.out = out;
   a.inco_out = inco_out;
   a.sk_out = sk_out;
-  a.inco_mask = inco_mask;
+  for (int i = 0; i < kMaxAnt / 32; ++i) {
+    a.inco_mask.w[i] = inco_mask ? inco_mask[i] : 0u;
+  }
   a.n_time = n_time;
   a.n_beams = n_beams;
   a.n_ant = n_ant;
+  a.kw = kw;
   a.navg = navg;
-  a.rows_out_per_block = rows_out;
   a.time_stride = time_stride;
   a.chan_stride = chan_stride;
   const bool st = stokes != 0;
+  if (staged) {
+    return int(n_terms == 1 ? dispatch_staged<1>(a, st)
+                            : dispatch_staged<2>(a, st));
+  }
   switch (kw * 10 + n_terms) {
     case 41: return int(dispatch<4, 1>(a, st));
     case 42: return int(dispatch<4, 2>(a, st));

@@ -9,12 +9,31 @@
 //     stride arguments let one kernel read both the time-major tfpa form
 //     [T, F*P*A] and the channel-major ftpa form [F, T, P*A]; the corner
 //     turn happens in these loads.
-//   - load_beam_weights: each thread owns one beam and keeps that beam's Re
-//     (column b) and Im (column B + b) weight columns, for every term, in
-//     registers (K/4 words each).
-//   - beam_row: one staged row times those weights, the integer Re and Im
-//     of the beam voltage (int8x2: M_hi * 256 + M_lo, exact: |M| < 2^27).
-//     All threads of a warp read the same row, so the loads are broadcasts.
+//
+// Two ways to hold the weights, chosen by a_compute alone:
+//
+//   - The register path (a_compute 8, 16, 32): load_beam_weights gives each
+//     thread one beam and keeps that beam's Re (column b) and Im (column
+//     B + b) weight columns, for every term, in registers (K/4 words each);
+//     beam_row multiplies one staged row by them.  All threads of a warp
+//     read the same row, so the X loads are broadcasts.
+//   - The staged path (a_compute 40..128, any multiple of 8): at K = 256
+//     one beam's int8x2 columns are 2 terms x 2 columns x 64 words = 256
+//     registers, past the 255 a thread has, so a block stages a tile of
+//     kStagedBeams beams' columns, every term, into shared memory
+//     (stage_beam_weights), laid out [term][re|im][K word][beam]: the 32
+//     threads of a warp (32 consecutive beams) read 32 consecutive words,
+//     one per bank.  K is a run-time word count.  staged_rows4 multiplies
+//     four staged rows (both pols of two samples) at once, so each weight
+//     word loaded from shared memory feeds four __dp4a: one load per dp4a
+//     would bound the loop by shared-memory issue at about half the dp4a
+//     rate.
+//
+// Both paths give the integer Re and Im of the beam voltage, exact: one
+// term's |M| <= K * 8 * 127 = 260,096 < 2^18 at K = 256, and int8x2's
+// M_hi * 256 + M_lo < 2^27 stays inside int32.  The caller converts it to
+// float32 once (rounding above 2^24, as XLA's m.astype(f32), JAX
+// gemm.py:145, and the plain version's int64 -> float32 do).
 
 #pragma once
 
@@ -24,12 +43,30 @@
 
 namespace dsabf {
 
-// Time samples staged in shared memory per block: 256 samples * 2 pols *
-// 16 words * 4 B = 32 KB at a_compute=32.
+// Register path: time samples staged in shared memory per block: 256
+// samples * 2 pols * 16 words * 4 B = 32 KB at a_compute=32.
 constexpr int kSpanSamples = 256;
 constexpr int kMaxThreads = 256;
 constexpr int kMaxStaticSmem = 48 * 1024;
-constexpr int kMaxAnt = 32;  // a_compute of the largest instantiation
+constexpr int kMaxRegAnt = 32;  // a_compute of the largest register kernel
+
+// Staged path: a block is kStagedGroups groups of kStagedBeams threads, one
+// beam each; group g takes every kStagedGroups-th output row (or sample
+// pair) of the span, all groups share the staged weights.  At a_compute 128
+// int8x2 the weight tile is 64 KB and a 64-sample span 32 KB, so two blocks
+// (512 threads) fit on an SM and one's staging hides behind the other's
+// dp4a work.
+constexpr int kStagedBeams = 64;
+constexpr int kStagedGroups = 4;
+constexpr int kStagedThreads = kStagedBeams * kStagedGroups;
+constexpr int kStagedSpan = 64;
+constexpr int kMaxAnt = 128;                // largest a_compute of any path
+constexpr int kMaxDynSmem = 227 * 1024;     // per block on an H100
+
+// The incoherent sum's antenna selection: bit a of word a / 32.
+struct AntMask {
+  uint32_t w[kMaxAnt / 32];
+};
 
 // Four 4-bit two's-complement values, one in the low nibble of each byte,
 // to four int8 values.  (n & 8) * 0x1E is 0xF0 in every byte whose nibble
@@ -39,23 +76,32 @@ __device__ __forceinline__ uint32_t sign_extend_nibbles(uint32_t n) {
 }
 
 // Stage `rows` samples (both pols) starting at `base` into xs
-// [rows][pol][KW]: word w of (sample r, pol p) <- wire bytes 4w..4w+3 of
-// that pol; the first AW words hold re, the next AW im.
-template <int AW>
+// [rows][pol][2 * aw]: word w of (sample r, pol p) <- wire bytes 4w..4w+3 of
+// that pol; the first aw words hold re, the next aw im.  (The register
+// kernels pass a compile-time aw, which the inlined divisions fold.)
 __device__ __forceinline__ void stage_rows(uint32_t* xs, const uint8_t* base,
                                            int rows, long long time_stride,
-                                           int n_ant) {
-  constexpr int KW = 2 * AW;
-  for (int i = threadIdx.x; i < rows * 2 * AW; i += blockDim.x) {
-    const int w = i % AW;
-    const int rp = i / AW;  // r * 2 + p
+                                           int n_ant, int aw) {
+  const int kw = 2 * aw;
+  for (int i = threadIdx.x; i < rows * 2 * aw; i += blockDim.x) {
+    const int w = i % aw;
+    const int rp = i / aw;  // r * 2 + p
     const uint32_t v = *reinterpret_cast<const uint32_t*>(
         base + (long long)(rp >> 1) * time_stride + (rp & 1) * n_ant + 4 * w);
-    uint32_t* row = xs + rp * KW;
+    uint32_t* row = xs + rp * kw;
     row[w] = sign_extend_nibbles((v >> 4) & 0x0F0F0F0Fu);  // re: high nibbles
-    row[AW + w] = sign_extend_nibbles(v & 0x0F0F0F0Fu);    // im: low nibbles
+    row[aw + w] = sign_extend_nibbles(v & 0x0F0F0F0Fu);    // im: low nibbles
   }
 }
+
+// int8x2 terms combine as M_hi * 256 + M_lo: s_hi == 256 * s_lo exactly.  A
+// multiply, since a left shift of a negative int is undefined in C++17.
+template <int NTERMS>
+__device__ __forceinline__ int combine_terms(const int (&m)[NTERMS]) {
+  return NTERMS == 2 ? m[0] * 256 + m[NTERMS - 1] : m[0];
+}
+
+// ----------------------------- register path ----------------------------
 
 // Beam b's Re and Im weight columns of channel f, every term, packed four
 // K rows per word so that byte i pairs with X's byte i (zeros when the
@@ -110,14 +156,107 @@ __device__ __forceinline__ void beam_row(const uint32_t* xrow,
       }
     }
   }
-  br = mre[0];
-  bi = mim[0];
-  if (NTERMS == 2) {
-    // s_hi == 256 * s_lo exactly; a multiply, since a left shift of a
-    // negative int is undefined in C++17.
-    br = mre[0] * 256 + mre[1];
-    bi = mim[0] * 256 + mim[1];
+  br = combine_terms<NTERMS>(mre);
+  bi = combine_terms<NTERMS>(mim);
+}
+
+// ------------------------------ staged path -----------------------------
+
+// Shared memory of a staged block: the weight tile, then the span's rows.
+__host__ __device__ constexpr size_t staged_weight_words(int nterms, int kw) {
+  return size_t(nterms) * 2 * kw * kStagedBeams;
+}
+
+// gridDim.x of a staged launch: enough blocks (n_chan * chunks * x) for a
+// few waves of two per SM, each block walking every x-th span.
+inline int staged_grid_x(int n_spans, int n_chan, int chunks) {
+  const int want = (2048 + n_chan * chunks - 1) / (n_chan * chunks);
+  return want < n_spans ? want : n_spans;
+}
+
+// The weight tile of beams b0 .. b0 + kStagedBeams - 1 of channel f into
+// ws [term][col][kw][kStagedBeams] (col 0 = Re column b, 1 = Im column
+// B + b): word q of (term, col, beam) packs K rows 4q..4q+3, byte i with
+// X's byte i; zeros for beams past n_beams.  Consecutive threads take
+// consecutive beams, so each byte load of a warp is one 32-byte segment.
+template <int NTERMS>
+__device__ __forceinline__ void stage_beam_weights(
+    uint32_t* ws, const int8_t* w_hi, const int8_t* w_lo, int f, int b0,
+    int n_beams, int kw) {
+  const long long b2 = 2LL * n_beams;
+  const int total = int(staged_weight_words(NTERMS, kw));
+  for (int i = threadIdx.x; i < total; i += blockDim.x) {
+    const int b = b0 + i % kStagedBeams;
+    const int row = i / kStagedBeams;  // (term * 2 + col) * kw + q
+    const int q = row % kw;
+    const int tc = row / kw;
+    uint32_t v = 0;
+    if (b < n_beams) {
+      const int8_t* wt = ((tc >> 1) ? w_lo : w_hi) + (long long)f * (4 * kw) * b2
+                         + (long long)(4 * q) * b2 + (tc & 1) * n_beams + b;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        v |= uint32_t(uint8_t(wt[k * b2])) << (8 * k);
+      }
+    }
+    ws[i] = v;
   }
+}
+
+__device__ __forceinline__ int word_of(const uint4& x, int e) {
+  return int(e == 0 ? x.x : e == 1 ? x.y : e == 2 ? x.z : x.w);
+}
+
+// Four staged rows -- xa, xa + kw (sample A, pols x and y) and xb, xb + kw
+// (sample B) -- times this thread's beam's staged columns (wb = ws + the
+// beam's index in the tile).  m[row][term][col], col 0 Re, 1 Im.
+template <int NTERMS>
+__device__ __forceinline__ void staged_rows4(const uint32_t* xa,
+                                             const uint32_t* xb,
+                                             const uint32_t* wb, int kw,
+                                             int (&m)[4][NTERMS][2]) {
+  const uint4* xr[4] = {reinterpret_cast<const uint4*>(xa),
+                        reinterpret_cast<const uint4*>(xa + kw),
+                        reinterpret_cast<const uint4*>(xb),
+                        reinterpret_cast<const uint4*>(xb + kw)};
+  const int plane = kw * kStagedBeams;  // words between (term, col) planes
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+#pragma unroll
+    for (int tc = 0; tc < 2 * NTERMS; ++tc) m[r][tc >> 1][tc & 1] = 0;
+  }
+  for (int q4 = 0; q4 < kw / 4; ++q4) {
+    uint4 x[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) x[r] = xr[r][q4];
+    const uint32_t* wq = wb + q4 * 4 * kStagedBeams;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+#pragma unroll
+      for (int tc = 0; tc < 2 * NTERMS; ++tc) {
+        const int w = int(wq[tc * plane + e * kStagedBeams]);
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          m[r][tc >> 1][tc & 1] =
+              __dp4a(word_of(x[r], e), w, m[r][tc >> 1][tc & 1]);
+        }
+      }
+    }
+  }
+}
+
+// Row r (0..3) of staged_rows4's result: the beam voltage's integer Re, Im.
+template <int NTERMS>
+__device__ __forceinline__ void staged_voltage(const int (&m)[4][NTERMS][2],
+                                               int r, int& br, int& bi) {
+  int re[NTERMS], im[NTERMS];
+#pragma unroll
+  for (int t = 0; t < NTERMS; ++t) {
+    re[t] = m[r][t][0];
+    im[t] = m[r][t][1];
+  }
+  br = combine_terms<NTERMS>(re);
+  bi = combine_terms<NTERMS>(im);
 }
 
 }  // namespace dsabf

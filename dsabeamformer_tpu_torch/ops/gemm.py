@@ -27,6 +27,12 @@ Two hand-written CUDA kernels replace the JAX package's two Pallas kernels
   ``beamform_voltages``): the same unpack and GEMM, times the channel's
   scale, stored as float32 ``[F, T, P, 2B]`` with no detection.
 
+Both kernels have two weight paths, chosen by ``cfg.a_compute`` alone
+(``kernel_path``): a thread per beam with its weight columns in registers for
+a_compute 8, 16, 32 (DSA-10), and a 64-beam tile of weight columns staged in
+shared memory for every multiple of 8 from 40 to 128 (DSA-110: 110 active
+antennas in 128 slots).
+
 ``fused_detect`` and ``beamform_voltages`` are the wrappers: a CUDA tensor
 goes to the kernel (or the call raises), a CPU tensor to the plain PyTorch
 version of the same function (``detect_power_plain``, ``voltages_plain``).
@@ -52,12 +58,22 @@ from dsabeamformer_tpu_torch.ops.quantize import QuantWeights
 
 #: Weight modes the kernels and their plain versions compute.
 KERNEL_MODES = ("int8", "int8x2")
-#: Antenna counts the kernels are instantiated for (K = 2 * a_compute).
-KERNEL_A_COMPUTE = (8, 16, 32)
-#: Time samples the kernels stage per thread block (csrc: kSpanSamples).
+#: a_compute of the register-weight kernels (K = 2 * a_compute; csrc
+#: instantiates K/4 = 4, 8, 16 register words per beam and term).
+REGISTER_A_COMPUTE = (8, 16, 32)
+#: The staged-weight kernels take every multiple of 8 above 32 up to this
+#: (csrc: kMaxAnt; also the incoherent mask's width in bits).
+MAX_A_COMPUTE = 128
+#: Time samples a block stages per span: register path (csrc: kSpanSamples)
+#: and staged path (kStagedSpan); beams of a staged weight tile
+#: (kStagedBeams).
 _SPAN_SAMPLES = 256
-#: Shared memory the detect kernel may stage into: 48 KB less its SK scratch.
+_STAGED_SPAN = 64
+_STAGED_BEAMS = 64
+#: Shared memory the detect kernel may stage into, less its SK scratch: 48 KB
+#: (register path, static) and 227 KB (staged path, dynamic).
 _MAX_SMEM = 48 * 1024 - 2 * 32 * 4
+_MAX_STAGED_SMEM = 227 * 1024 - 2 * MAX_A_COMPUTE * 4
 #: Signed Q/U/V planes of an 8-bit Stokes product ride the unsigned payload
 #: at this fixed midpoint offset; I keeps offset 0 (the SIGPROC files'
 #: convention, recorded in their scales.json; csrc: kQuvOffset).
@@ -142,11 +158,50 @@ def _wire_strides(cfg: ObsConfig, time_major: bool) -> tuple:
 
 def incoherent_mask(cfg: ObsConfig, flag_ants=()) -> int:
     """Bit ``a`` set for every antenna the incoherent sum takes: ``a <
-    n_ant_active`` and not in ``flag_ants``."""
+    n_ant_active`` and not in ``flag_ants`` (a Python int, as wide as
+    ``n_ant_active``: 110 bits at DSA-110)."""
     mask = (1 << cfg.n_ant_active) - 1
     for a in flag_ants:
         mask &= ~(1 << int(a))
     return mask
+
+
+def _mask_words(mask: int):
+    """The mask as the kernel's ``MAX_A_COMPUTE / 32`` uint32 words (bit
+    ``a`` in word ``a // 32``), a ctypes array."""
+    n = MAX_A_COMPUTE // 32
+    return (ctypes.c_uint * n)(*((mask >> (32 * i)) & 0xFFFFFFFF
+                                 for i in range(n)))
+
+
+def kernel_path(cfg: ObsConfig) -> str:
+    """The kernels' weight path for ``cfg.a_compute``: ``"register"`` (8,
+    16, 32: each thread holds its beam's weight columns in registers) or
+    ``"staged"`` (multiples of 8 from 40 to ``MAX_A_COMPUTE``: a block
+    stages a 64-beam tile's columns in shared memory, since at K = 256 one
+    beam's int8x2 columns are 256 words, past a thread's 255 registers).
+    Raises ``ValueError`` for any other a_compute."""
+    ac = cfg.a_compute
+    if ac in REGISTER_A_COMPUTE:
+        return "register"
+    if REGISTER_A_COMPUTE[-1] < ac <= MAX_A_COMPUTE and ac % 8 == 0:
+        return "staged"
+    raise ValueError(
+        f"the kernels take a_compute in {REGISTER_A_COMPUTE} or a multiple "
+        f"of 8 in ({REGISTER_A_COMPUTE[-1]}, {MAX_A_COMPUTE}]; config "
+        f"{cfg.name!r} has {ac}")
+
+
+def _detect_smem(cfg: ObsConfig, n_terms: int) -> tuple:
+    """(bytes, limit) of the shared memory one detect-kernel block stages:
+    its span's unpacked rows, and on the staged path the weight tile."""
+    kw = cfg.a_compute // 2
+    if kernel_path(cfg) == "register":
+        rows = max(1, _SPAN_SAMPLES // cfg.navg_time) * cfg.navg_time
+        return rows * 2 * kw * 4, _MAX_SMEM
+    rows = max(1, _STAGED_SPAN // cfg.navg_time) * cfg.navg_time
+    return (n_terms * 2 * kw * _STAGED_BEAMS + rows * 2 * kw) * 4, \
+        _MAX_STAGED_SMEM
 
 
 def variant_name(quant8: bool, incoherent: bool, sk: bool,
@@ -267,7 +322,8 @@ def _gemm_chunk(re, im, terms, f0: int, f1: int) -> torch.Tensor:
     card ``torch.matmul`` has no int32 kernel, so it multiplies in float32
     with TF32 off, which is exact here: every partial sum of one term is an
     integer of magnitude at most 8 * 127 * K, below 2^24 for any K of the
-    presets (64 at DSA-10).  Terms combine in int64."""
+    presets (64 at DSA-10, 256 at DSA-110: 260,096).  Terms combine in
+    int64."""
     fc, t, p, _ = re.shape
     mm_dtype = torch.int32 if re.device.type == "cpu" else torch.float32
     xk = torch.cat([re, im], dim=-1)              # [Fc, T, P, 2ac]
@@ -301,7 +357,7 @@ def detect_power_plain(x, terms, scales, cfg: ObsConfig, time_major: bool,
     ``navg_time``; the CUDA kernel sums in sample order, within float32
     rounding of this.  Runs ``chan_chunk`` channels at a time: at full
     DSA-10 width the ``[F, 2T, 2B]`` f32 accumulator alone would be about
-    69 GB.
+    69 GB (DSA-110: the same), a 32-channel chunk's 1.1 GB.
     """
     f_all, t, b = cfg.n_chan, cfg.t_block, cfg.n_beams
     ac, navg = cfg.a_compute, cfg.navg_time
@@ -367,8 +423,9 @@ def _kernel_lib(name: str) -> ctypes.CDLL:
     if fn.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         if name == "detect_power":
-            fn.argtypes = [p, p, p, p, p, p, p, p, ctypes.c_uint, i, i, i, i,
-                           i, i, i, i, ll, ll, p]
+            fn.argtypes = [p, p, p, p, p, p, p, p,
+                           ctypes.POINTER(ctypes.c_uint), i, i, i, i, i, i,
+                           i, i, ll, ll, p]
         else:
             fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, ll, ll, p]
         fn.restype = i
@@ -405,11 +462,7 @@ def _check_kernel_operands(x, terms, scales, cfg: ObsConfig,
             f"scales must be float32, got {_dtype_name(scales.dtype)}")
     if len(terms) not in (1, 2):
         raise ValueError(f"kernel takes 1 or 2 weight terms, got {len(terms)}")
-    if cfg.a_compute not in KERNEL_A_COMPUTE:
-        raise ValueError(
-            f"kernel is built for a_compute in {KERNEL_A_COMPUTE}, "
-            f"config {cfg.name!r} has {cfg.a_compute} (ROADMAP.md Queue 2: "
-            f"the a_compute > 32 case)")
+    kernel_path(cfg)  # raises for an a_compute neither path takes
     if cfg.n_ant % 4 or cfg.n_pol != 2:
         raise ValueError(f"kernel needs n_ant % 4 == 0 and 2 pols, got "
                          f"n_ant={cfg.n_ant}, n_pol={cfg.n_pol}")
@@ -456,6 +509,22 @@ def fused_detect(x, terms, scales, cfg: ObsConfig, time_major: bool, *,
         raise ValueError(
             f"fused_detect runs on CUDA (kernel) or CPU (plain) tensors, "
             f"got {x.device}")
+    out = _launch_detect(x, terms, scales, cfg, time_major,
+                         quant8_scales=quant8_scales, inco_mask=inco_mask,
+                         sk=sk, stokes=stokes)
+    fused_detect.launches[variant_name(quant8_scales is not None,
+                                       inco_mask is not None, sk,
+                                       stokes)] += 1
+    return out
+
+
+fused_detect.launches = collections.Counter()
+
+
+def _launch_detect(x, terms, scales, cfg: ObsConfig, time_major: bool, *,
+                   quant8_scales, inco_mask, sk: bool, stokes: bool) -> tuple:
+    """Check the operands, allocate the outputs on ``x``'s device and launch
+    ``csrc/detect_power.cu``: ``(out, inco, sk)``."""
     quant8 = quant8_scales is not None
     _check_kernel_operands(
         x, terms, scales, cfg, time_major,
@@ -466,11 +535,11 @@ def fused_detect(x, terms, scales, cfg: ObsConfig, time_major: bool, *,
             f"quant8_scales must be float32 [{cfg.n_beams}], got "
             f"{_dtype_name(quant8_scales.dtype)} "
             f"{tuple(quant8_scales.shape)}")
-    rows = max(1, _SPAN_SAMPLES // cfg.navg_time) * cfg.navg_time
-    if rows * 2 * (cfg.a_compute // 2) * 4 > _MAX_SMEM:
+    need, limit = _detect_smem(cfg, len(terms))
+    if need > limit:
         raise ValueError(
-            f"navg_time={cfg.navg_time} needs more shared memory than the "
-            f"kernel stages ({_MAX_SMEM} bytes)")
+            f"navg_time={cfg.navg_time} needs {need} bytes of shared memory, "
+            f"more than the kernel stages ({limit} bytes)")
     if inco_mask is not None and inco_mask >> cfg.a_compute:
         raise ValueError(
             f"incoherent mask {inco_mask:#x} selects antennas past "
@@ -493,15 +562,10 @@ def fused_detect(x, terms, scales, cfg: ObsConfig, time_major: bool, *,
         scales.data_ptr(), quant8_scales.data_ptr() if quant8 else None,
         out.data_ptr(), None if inco is None else inco.data_ptr(),
         None if sk_out is None else sk_out.data_ptr(),
-        inco_mask or 0, cfg.n_chan, cfg.t_block, cfg.n_beams, cfg.n_ant,
-        cfg.a_compute, len(terms), cfg.navg_time, int(stokes), time_stride,
-        chan_stride], x.device)
-    fused_detect.launches[variant_name(quant8, inco is not None, sk,
-                                       stokes)] += 1
+        None if inco_mask is None else _mask_words(inco_mask), cfg.n_chan,
+        cfg.t_block, cfg.n_beams, cfg.n_ant, cfg.a_compute, len(terms),
+        cfg.navg_time, int(stokes), time_stride, chan_stride], x.device)
     return out, inco, sk_out
-
-
-fused_detect.launches = collections.Counter()
 
 
 def _beamform(wire, qw: QuantWeights, cfg: ObsConfig, *, stokes: bool,
@@ -637,20 +701,28 @@ def beamform_voltages(wire, qw: QuantWeights, cfg: ObsConfig):
         raise ValueError(
             f"beamform_voltages runs on CUDA (kernel) or CPU (plain) "
             f"tensors, got {x.device}")
-    _check_kernel_operands(x, qw.terms, qw.scales, cfg, time_major)
-    out = torch.empty((cfg.n_chan, cfg.t_block, cfg.n_pol, 2 * cfg.n_beams),
-                      dtype=torch.float32, device=x.device)
-    time_stride, chan_stride = _wire_strides(cfg, time_major)
-    _launch(_kernel_lib("beam_voltages"), "beam_voltages", [
-        x.data_ptr(), qw.terms[0].data_ptr(), qw.terms[-1].data_ptr(),
-        qw.scales.data_ptr(), out.data_ptr(), cfg.n_chan, cfg.t_block,
-        cfg.n_beams, cfg.n_ant, cfg.a_compute, len(qw.terms), time_stride,
-        chan_stride], x.device)
+    out = _launch_voltages(x, qw.terms, qw.scales, cfg, time_major)
     beamform_voltages.launches += 1
     return out
 
 
 beamform_voltages.launches = 0
+
+
+def _launch_voltages(x, terms, scales, cfg: ObsConfig,
+                     time_major: bool) -> torch.Tensor:
+    """Check the operands, allocate the output on ``x``'s device and launch
+    ``csrc/beam_voltages.cu``."""
+    _check_kernel_operands(x, terms, scales, cfg, time_major)
+    out = torch.empty((cfg.n_chan, cfg.t_block, cfg.n_pol, 2 * cfg.n_beams),
+                      dtype=torch.float32, device=x.device)
+    time_stride, chan_stride = _wire_strides(cfg, time_major)
+    _launch(_kernel_lib("beam_voltages"), "beam_voltages", [
+        x.data_ptr(), terms[0].data_ptr(), terms[-1].data_ptr(),
+        scales.data_ptr(), out.data_ptr(), cfg.n_chan, cfg.t_block,
+        cfg.n_beams, cfg.n_ant, cfg.a_compute, len(terms), time_stride,
+        chan_stride], x.device)
+    return out
 
 
 def voltages_to_complex(bv):

@@ -1,7 +1,9 @@
 """Card-only tests of the port: the CUDA detect kernel (power and full
 Stokes, with its side outputs) and the beam-voltage kernel against their
-plain PyTorch versions and the float64 golden model, at small shapes, and
-the streaming loop's CUDA path against its CPU path.
+plain PyTorch versions and the float64 golden model, at small shapes, on
+both weight paths (register: a_compute 8, 16, 32; staged: a_compute 64, 96,
+128, the DSA-110 width), and the streaming loop's CUDA path against its CPU
+path.
 
 Marked ``cuda``; each test skips (inside a fixture) when no card is present.
 Imports no JAX, so on a machine with only PyTorch they run as
@@ -42,7 +44,23 @@ GEOMS = {
     "dsa10c_small": DSA10_COMPACT.replace(n_chan=8, t_block=512),
     "odd_beams": TINY.replace(n_beams=300, navg_time=8),
     "narrow_k": TINY.replace(n_ant=8, n_ant_active=6),
+    # The staged-weight path: a_compute 128 (DSA-110: 110 active, 512 beams,
+    # 8 beam tiles), 96 and 64, with partial beam tiles and navg_time 8.
+    "dsa110_small": DSA110.replace(n_chan=4, t_block=256),
+    "ac96": DSA110.replace(n_chan=2, t_block=256, n_ant=96, n_ant_active=90,
+                           n_beams=130, navg_time=8),
+    "ac64": DSA110.replace(n_chan=2, t_block=256, n_ant_active=60,
+                           n_ant_compute=64, n_beams=100),
 }
+
+#: A config whose a_compute (160) neither weight path takes.
+TOO_WIDE = DSA110.replace(n_chan=4, t_block=64, n_ant=160, n_ant_active=150)
+
+
+def _flags(cfg) -> tuple:
+    """Antennas flagged out of the incoherent sum: 1, and 77 where it is
+    active (a bit in the mask's third word)."""
+    return (1, 77) if cfg.n_ant_active > 77 else (1,)
 
 
 @pytest.fixture()
@@ -118,11 +136,15 @@ def test_kernel_rejects_what_it_does_not_take(dev):
                           qw.scales, cfg, tm)
     with pytest.raises(ValueError, match="weights are on"):
         gemm.fused_detect(x2, qw.terms, qw.scales.cpu(), cfg, tm)
-    big = DSA110.replace(n_chan=4, t_block=64)
+    # Neither weight path takes a_compute 160: refused before any launch.
+    big = TOO_WIDE
+    assert big.a_compute == 160
     qwb = _weights(big, dev)
     xb = torch.from_numpy(make_noise_block(big, seed=1)).to(dev)
+    before = _launches()
     with pytest.raises(ValueError, match="a_compute"):
         gemm.beamform_power(xb, qwb, big)
+    assert _launches() == before
 
 
 @pytest.mark.parametrize("depth", [0, 1, 2])
@@ -195,7 +217,8 @@ def test_side_outputs_match_plain(dev, geom, layout, variant):
     f32_k = gemm.fused_detect(x, qw.terms, qw.scales, cfg, tm)[0]
     f32_p = gemm.detect_power_plain(x, qw.terms, qw.scales, cfg, tm)[0]
     kw = dict(quant8_scales=_beam_scales(f32_k, cfg, 13) if q8 else None,
-              inco_mask=gemm.incoherent_mask(cfg, (1,)) if inco else None,
+              inco_mask=gemm.incoherent_mask(cfg, _flags(cfg)) if inco
+              else None,
               sk=sk)
     before = gemm.fused_detect.launches[variant]
     out_k, inco_k, sk_k = gemm.fused_detect(x, qw.terms, qw.scales, cfg, tm,
@@ -242,6 +265,44 @@ def test_side_outputs_counted_once_per_span(dev, n_beams):
     assert tuple(p.shape) == cfg.out_block_shape
 
 
+def test_sk_with_fewer_threads_than_outputs(dev):
+    """32 beams at a_compute 32: a 32-thread block writes all 64 SK sums
+    of a channel (S2 as well as S1)."""
+    from dsabeamformer_tpu_torch.ops.incoherent import sk_block_stats
+
+    cfg = DSA10.replace(n_chan=4, t_block=512, n_beams=32)
+    wire = make_random_bytes_block(cfg, seed=8)
+    qw = _weights(cfg, dev)
+    _, sk = gemm.beamform_power(torch.from_numpy(wire).to(dev), qw, cfg,
+                                sk_stats=True)
+    ref = sk_block_stats(wire, cfg)
+    assert float(sk[:, 1].min()) > 0
+    assert torch.equal(sk.cpu(), torch.stack([ref["s1"], ref["s2"]], dim=1))
+
+
+@pytest.mark.parametrize("layout", ["tfpa", "ftpa"])
+def test_staged_point_source_vs_golden(dev, layout):
+    """The DSA-110 width (staged path): a point source at beam 300 of 512
+    peaks there, within 1e-3 of the float64 golden model, power and
+    Stokes."""
+    from dsabeamformer_tpu_torch.ops.reference import beamform_stokes_ref
+
+    cfg = DSA110.replace(n_chan=8, t_block=256, input_layout=layout)
+    wire = make_point_source_block(cfg, angle_rad=cfg.beam_angles_rad()[300],
+                                   noise_rms=0.4, seed=7)
+    qw = prepare_weights(cfg, make_weights(cfg, device=dev))
+    x = torch.from_numpy(wire).to(dev)
+    p = gemm.beamform_power(x, qw, cfg).cpu().numpy()
+    gold = weights_numpy_golden(cfg)
+    assert int(np.argmax(p.sum(axis=(0, 1)))) == 300
+    assert relative_power_error(
+        p, beamform_block_ref(gold, wire, layout, cfg.navg_time)) <= 1e-3
+    st = gemm.beamform_stokes(x, qw, cfg)
+    ref = torch.from_numpy(beamform_stokes_ref(gold, wire, layout,
+                                               cfg.navg_time))
+    assert max(_stokes_peak_errors(st, ref)) <= 1e-3
+
+
 def test_sk_full_channel_exact_past_2_24(dev):
     """A full-length DSA-10 channel: S2 is ~4e8 (past 2^24), still the
     exact integer once rounded to float32."""
@@ -273,6 +334,13 @@ def test_kernel_rejects_bad_side_operands(dev):
     with pytest.raises(ValueError, match="past a_compute"):
         gemm.fused_detect(x, qw.terms, qw.scales, cfg, tm,
                           inco_mask=1 << cfg.a_compute)
+    # The staged path's shared memory holds a span of at most 227 KB.
+    long = DSA110.replace(n_chan=1, t_block=4096, navg_time=4096)
+    qwl = _weights(long, dev)
+    xl, tml = gemm._prepare_wire(
+        torch.from_numpy(make_noise_block(long, seed=1)).to(dev), long)
+    with pytest.raises(ValueError, match="shared memory"):
+        gemm.fused_detect(xl, qwl.terms, qwl.scales, long, tml)
 
 
 @pytest.mark.parametrize("layout", ["tfpa", "ftpa"])
@@ -396,7 +464,8 @@ def test_stokes_kernel_matches_plain(dev, geom, layout, mode, variant):
     assert torch.equal(f32_k[:, :, 0], power_k)
     kw = dict(quant8_scales=_beam_scales(f32_k[:, :, 0], cfg, 17) if q8
               else None,
-              inco_mask=gemm.incoherent_mask(cfg, (1,)) if inco else None,
+              inco_mask=gemm.incoherent_mask(cfg, _flags(cfg)) if inco
+              else None,
               sk=sk, stokes=True)
     before = gemm.fused_detect.launches[variant]
     out_k, inco_k, sk_k = gemm.fused_detect(x, qw.terms, qw.scales, cfg, tm,
@@ -479,12 +548,15 @@ def test_voltage_kernel_rejects_what_it_does_not_take(dev):
         gemm.beamform_voltages(x, _to(qw, "cpu"), cfg)
     with pytest.raises(ValueError, match="scales must be float32"):
         gemm.beamform_voltages(x, type(qw)(qw.terms, qw.scales.double()), cfg)
-    big = DSA110.replace(n_chan=4, t_block=64)
+    # Neither weight path takes a_compute 160: refused before any launch.
+    big = TOO_WIDE
     xb = torch.from_numpy(make_noise_block(big, seed=1)).to(dev)
+    before = (gemm.beamform_voltages.launches, _launches())
     with pytest.raises(ValueError, match="a_compute"):
         gemm.beamform_voltages(xb, _weights(big, dev), big)
     with pytest.raises(ValueError, match="a_compute"):
         gemm.beamform_stokes(xb, _weights(big, dev), big)
+    assert (gemm.beamform_voltages.launches, _launches()) == before
 
 
 @pytest.mark.parametrize("layout", ["tfpa", "ftpa"])
