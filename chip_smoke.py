@@ -7,9 +7,10 @@ Phases (each passes or raises; any failure exits non-zero with no result):
 
 1. device   -- a CUDA card is required; prints its name and
                ``nvidia-smi --query-gpu=name,power.limit``.
-2. build    -- compiles csrc/detect_power.cu and csrc/beam_voltages.cu with
-               nvcc for sm_90a from the checkout, one nvcc each, started
-               together, and prints ``ptxas -v``.
+2. build    -- compiles the six CUDA sources (detect_power, beam_voltages,
+               their int13 builds and the float modes' detect_float and
+               beam_voltages_float) with nvcc for sm_90a from the checkout,
+               one nvcc each, started together, and prints ``ptxas -v``.
 3. kernel vs plain -- at the full DSA10 preset (and the dsa10c compact
                wire), on one random-bytes block: the CUDA kernel against its
                plain PyTorch version on the same inputs, relative power error
@@ -81,8 +82,8 @@ Phases (each passes or raises; any failure exits non-zero with no result):
                bit, its voltages detected and averaged within 1e-5 of
                beamform_power, their Stokes parameters within 1e-5 of the I
                peak of beamform_stokes; timed beside its bound.
-17. bounds to port -- the bound of each weight mode the kernel does not take
-               yet (config arithmetic, no launch).
+17. (no phase: ``bound_ms`` bounds every weight mode, and phases 23-28
+               measure the modes other than int8x2.)
 
 DSA-110 (a_compute 128: 110 active antennas in 128 slots, 512 beams), the
 kernels' staged-weight path:
@@ -107,11 +108,47 @@ kernels' staged-weight path:
 22. dsa110 voltages -- a 128-channel DSA-110 sub-band (t_block 4096) through
                beamform_voltages, checked and timed as phase 16.
 
+The weight modes int12, int13, bf16, bf16x2 and f32 (``cfg.weight_mode``;
+int8x2 is the mode of every phase above), at full dsa10 width, int13 at its
+own a_compute 16:
+
+23. modes   -- per mode, on one full block: base, sk+q8+inco, stokes and
+               stokes+sk+q8+inco against the plain version (float32 <= 1e-5
+               of the peak; uint8 byte-equal to the rint/clip of the kernel's
+               own float32 and within 1 count of the plain version's;
+               incoherent and SK equal), then the CUDA-event time of each on
+               two resident blocks beside its bound.
+24. modes physics -- per mode, the 128-channel sub-band: the point source's
+               argmax at beam 100 (error against the float64 golden within
+               the mode's point-source bar, f32 1e-4), and a calibrated noise
+               block
+               within the JAX package's bar for the mode (int13 5e-4, int12
+               8e-4, bf16x2 2e-4, bf16 1e-2, f32 1e-5: a TF32 product
+               anywhere would miss f32's by three orders).
+25. modes stream -- StreamingBeamformer with DSA10.replace(weight_mode=m):
+               int12 power-only (6 blocks), int13 deployed (6 blocks: 8-bit
+               .fil x256, incoherent .dada, the RFI monitor excising the
+               carrier, so the weights are re-quantized in int13 mid-stream),
+               bf16x2, bf16 and f32 power-only (3 blocks each); 0 dropped,
+               launches counted per mode; a mode never launched on a stream
+               fails the run.
+26. modes voltages -- per mode the 128-channel sub-band through
+               beamform_voltages: equal to the plain version for int12 and
+               int13, within 1e-5 of the largest voltage for the float modes;
+               the fused products within 1e-5 of the detected voltages.
+27. dsa110 modes -- int12, int13 (a_compute 112) and bf16 at full DSA-110
+               width: kernel against plain and resident times (int12, int13:
+               base and stokes; bf16: base).
+28. dsa110 mode streams -- DSA110.subband(0, 256) power-only in int12 (6
+               blocks), int13 (4) and bf16 (3).
+
 Each streamed phase, and the voltage paths, set the launch counts to 0 just
 before their run and read them just after.  The last two lines are a JSON
 record of the kernels (launches on the main paths, max error against the
-plain version, times, the bound; the DSA-110 rows carry ``[dsa110]``) and
-``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
+plain version, times, the bound; the DSA-110 rows carry ``[dsa110]``, the
+rows of phases 23-28 their mode, as ``detect_power[int12]``, with their
+variants under ``variants``) and ``{"ok": true, "device": {...}}``.  Imports
+nothing of JAX.
 """
 
 from __future__ import annotations
@@ -130,6 +167,7 @@ import torch
 
 from dsabeamformer_tpu_torch.config import DSA10, DSA10_COMPACT, DSA110
 from dsabeamformer_tpu_torch.ingest.generator import (
+    make_noise_block,
     make_point_source_block,
     make_random_bytes_block,
 )
@@ -138,6 +176,7 @@ from dsabeamformer_tpu_torch.ingest.sigproc import (
     FilterbankSink,
     read_filterbank_header,
 )
+from dsabeamformer_tpu_torch.models.calibration import CalTable
 from dsabeamformer_tpu_torch.models.weights import (
     make_weights,
     weights_numpy_golden,
@@ -212,7 +251,7 @@ def phase_device() -> tuple:
     return name, smi
 
 
-KERNEL_SOURCES = ("detect_power", "beam_voltages")
+KERNEL_SOURCES = gemm.KERNEL_SOURCES
 
 
 def phase_build() -> None:
@@ -223,7 +262,32 @@ def phase_build() -> None:
     log(f"[build] {[so.name for so in libs]} in "
         f"{time.perf_counter() - t0:.1f} s (in parallel)")
     for name in KERNEL_SOURCES:
-        log(_build.build_log(name).strip())
+        text = _build.build_log(name)
+        log(text.strip())
+        regs = [int(w.split()[0]) for w in text.split("Used ")[1:]]
+        spills = sum("0 bytes spill stores, 0 bytes spill loads" not in ln
+                     for ln in text.splitlines() if "spill" in ln)
+        log(f"[build] {name}: {len(regs)} kernels, {min(regs)}-{max(regs)} "
+            f"registers, {spills} with spills")
+
+
+def tag(cfg) -> str:
+    """The configuration's name, with its weight mode where that is not the
+    default."""
+    return cfg.name if cfg.weight_mode == "int8x2" \
+        else f"{cfg.name}[{cfg.weight_mode}]"
+
+
+def relative_power_error_on_card(p, p_ref) -> float:
+    """``utils.testing.relative_power_error`` of two tensors on the card, in
+    float64 there (the host takes seconds for a 1 GB block)."""
+    scale = float(p_ref.abs().max())
+    worst = 0.0
+    for a, b in zip(p.split(64), p_ref.split(64)):
+        b = b.double()
+        denom = torch.clamp_min(b.abs(), 1e-3 * scale)
+        worst = max(worst, float(((a.double() - b).abs() / denom).max()))
+    return worst
 
 
 def kernel_vs_plain(cfg, wire_np, qw) -> dict:
@@ -234,7 +298,7 @@ def kernel_vs_plain(cfg, wire_np, qw) -> dict:
     torch.cuda.synchronize()
     max_abs = float((out_k - out_p).abs().max())
     finite = bool(torch.isfinite(out_k).all())
-    rel = relative_power_error(out_k.cpu().numpy(), out_p.cpu().numpy())
+    rel = relative_power_error_on_card(out_k, out_p)
     log(f"[kernel vs plain] {cfg.name} {tuple(out_k.shape)}: relative power "
         f"error {rel:.3e} (tol {KERNEL_VS_PLAIN_RTOL:.0e}), max |diff| "
         f"{max_abs:.6g}, finite {finite}")
@@ -245,7 +309,7 @@ def kernel_vs_plain(cfg, wire_np, qw) -> dict:
 
 
 def phase_physics(cfg=DSA10.replace(n_chan=128, t_block=512),
-                  target=TARGET_BEAM) -> None:
+                  target=TARGET_BEAM, bar=GOLDEN_RTOL) -> None:
     """A sub-band point source at beam ``target``, tfpa and ftpa, against
     the float64 golden model."""
     angles = cfg.beam_angles_rad()
@@ -261,10 +325,10 @@ def phase_physics(cfg=DSA10.replace(n_chan=128, t_block=512),
         p = gemm.beamform_power(to_device(c, blk), qw, c).cpu().numpy()
         beam = int(np.argmax(p.sum(axis=(0, 1))))
         err = relative_power_error(p, p_ref)
-        log(f"[physics] {cfg.name} {layout} sub-band {p.shape}: argmax beam "
+        log(f"[physics] {tag(cfg)} {layout} sub-band {p.shape}: argmax beam "
             f"{beam} (want {target}), error vs float64 golden {err:.3e} "
-            f"(bar {GOLDEN_RTOL:.0e})")
-        if beam != target or err > GOLDEN_RTOL or not np.isfinite(p).all():
+            f"(bar {bar:.0e})")
+        if beam != target or err > bar or not np.isfinite(p).all():
             raise RuntimeError(f"physics check failed for {layout}")
 
 
@@ -333,6 +397,12 @@ def phase_transfers(cfg, block_np) -> None:
         f"1x realtime needs {cfg.realtime_bytes_per_s / 1e9:.2f} GB/s in")
 
 
+def clear_launches() -> None:
+    """Every launch count of the detect kernels to 0."""
+    gemm.fused_detect.launches.clear()
+    gemm.fused_detect.launches_by_mode.clear()
+
+
 def phase_stream(cfg, blocks_np, qw, block0, smi, n_blocks=N_STREAM,
                  products="power") -> int:
     """StreamingBeamformer over ``n_blocks`` blocks into the checksum sink:
@@ -343,16 +413,17 @@ def phase_stream(cfg, blocks_np, qw, block0, smi, n_blocks=N_STREAM,
     src = SyntheticSource(cfg, blocks_np, n_blocks=n_blocks)
     bf = StreamingBeamformer(cfg, qw, src, sink, depth=2, products=products)
     bf.warmup()
-    gemm.fused_detect.launches.clear()      # count the main path's run only
+    clear_launches()                        # count the main path's run only
     stats = bf.run()
     variant = "stokes" if products == "stokes" else "base"
-    launches = gemm.fused_detect.launches[variant]
+    launches = gemm.fused_detect.launches_by_mode[(cfg.weight_mode, variant)]
     if sum(gemm.fused_detect.launches.values()) != launches:
-        raise RuntimeError(f"the {products} stream launched other variants: "
-                           f"{dict(gemm.fused_detect.launches)}")
+        raise RuntimeError(f"the {products} stream launched other variants "
+                           f"or modes: "
+                           f"{dict(gemm.fused_detect.launches_by_mode)}")
     rec = stats.record(cfg)
     log(f"[stream] {json.dumps(rec)}")
-    log(f"[stream] {cfg.name} {products} {stats.n_blocks} blocks, depth "
+    log(f"[stream] {tag(cfg)} {products} {stats.n_blocks} blocks, depth "
         f"{bf.depth}, {bf.n_slots} pinned staging slots: "
         f"{rec['realtime_factor']:.4f}x realtime incl. host staging, H2D, "
         f"kernel, D2H and sink ({stats.wall_s * 1e3 / stats.n_blocks:.2f} "
@@ -431,50 +502,49 @@ def side_kwargs(cfg, variant, f32_out):
                 sk=sk, stokes=stokes)
 
 
+#: Peak MAC rate for the operand type of each weight mode, and the bytes of
+#: one element of its terms.
+MODE_PEAK_MACS_PER_S = {
+    "int8": H100_INT8_MACS_PER_S, "int8x2": H100_INT8_MACS_PER_S,
+    "int12": H100_INT8_MACS_PER_S, "int13": H100_INT8_MACS_PER_S,
+    "bf16": H100_BF16_MACS_PER_S, "bf16x2": H100_BF16_MACS_PER_S,
+    "f32": H100_F32_MACS_PER_S}
+TERM_ITEM_BYTES = {"bf16": 2, "bf16x2": 2, "f32": 4}
+
+
+def weight_bytes(cfg) -> int:
+    """Bytes of the weight terms and scales of ``cfg`` (each read once)."""
+    return (cfg.n_weight_terms * cfg.n_chan * cfg.gemm_k * 2 * cfg.n_beams
+            * TERM_ITEM_BYTES.get(cfg.weight_mode, 1)
+            + cfg.n_chan * cfg.n_weight_terms * 4)
+
+
+def ops_ms(cfg) -> float:
+    """The block's MACs (``cfg.macs_per_block`` per term: the JAX package's
+    contraction length for the mode, whatever implements it) over the peak
+    for the mode's operand type: the dense int8 or bfloat16 tensor-core
+    peak, or float32 outside the tensor cores for f32."""
+    return (cfg.macs_per_block * cfg.n_weight_terms
+            / MODE_PEAK_MACS_PER_S[cfg.weight_mode] * 1e3)
+
+
 def bound_ms(cfg, variant) -> tuple:
-    """Least time of one block on an H100 SXM: the larger of its int8 MACs
-    over the dense int8 peak and its bytes (wire slots read, weights read,
-    outputs written, each once) over the memory rate."""
+    """Least time of one block on an H100 SXM in ``cfg.weight_mode``: the
+    larger of its MACs over the peak for the operand type (``ops_ms``) and
+    its bytes (wire slots read, weights read, outputs written, each once)
+    over the memory rate."""
     q8, inco, sk = ALL_VARIANTS[variant]
     planes = 4 if variant in STOKES_VARIANTS else 1
     f_out, t_out, b = cfg.out_block_shape
     nbytes = (cfg.t_block * cfg.n_chan * cfg.n_pol * cfg.a_compute
-              + cfg.n_weight_terms * cfg.n_chan * cfg.gemm_k * 2 * b
-              + cfg.n_chan * cfg.n_weight_terms * 4
+              + weight_bytes(cfg)
               + f_out * t_out * planes * b * (1 if q8 else 4)
               + (b * 4 if q8 else 0)
               + (f_out * t_out * 4 if inco else 0)
               + (cfg.n_chan * 2 * cfg.a_compute * 8 if sk else 0))
-    ops_ms = cfg.macs_per_block * cfg.n_weight_terms / H100_INT8_MACS_PER_S * 1e3
     bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
-    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
-
-
-def bounds_to_port() -> None:
-    """The bound of each weight mode the detect kernel does not take yet
-    (ROADMAP.md Queue 2 item 1): the larger of its MACs over the peak for
-    its operand type and its bytes (wire slots, weights, the float32 power
-    product) over the memory rate, from the config alone."""
-    peaks = {"int12": H100_INT8_MACS_PER_S, "int13": H100_INT8_MACS_PER_S,
-             "int8x2": H100_INT8_MACS_PER_S, "bf16": H100_BF16_MACS_PER_S,
-             "bf16x2": H100_BF16_MACS_PER_S, "f32": H100_F32_MACS_PER_S}
-    rows = [DSA10.replace(weight_mode=m) for m in
-            ("int12", "int13", "bf16", "bf16x2", "f32")]
-    for cfg in rows:
-        item = 2 if cfg.weight_mode.startswith("bf16") else \
-            4 if cfg.weight_mode == "f32" else 1
-        f_out, t_out, b = cfg.out_block_shape
-        nbytes = (cfg.t_block * cfg.n_chan * cfg.n_pol * cfg.a_compute
-                  + cfg.n_weight_terms * cfg.n_chan * cfg.gemm_k * 2 * b * item
-                  + f_out * t_out * b * 4)
-        macs = cfg.macs_per_block * cfg.n_weight_terms
-        ops_ms = macs / peaks[cfg.weight_mode] * 1e3
-        bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
-        by = "operations" if ops_ms >= bytes_ms else "bytes"
-        log(f"[bounds to port] {cfg.name} {cfg.weight_mode} a_compute "
-            f"{cfg.a_compute} K {cfg.gemm_k}: {macs:.4g} MACs, "
-            f"{nbytes / 1e9:.3f} GB; bound {max(ops_ms, bytes_ms):.3f} ms "
-            f"by {by}")
+    return (ops_ms(cfg), "operations") if ops_ms(cfg) >= bytes_ms \
+        else (bytes_ms, "bytes")
 
 
 def check_variant(cfg, x, tm, qw, variant, f32_k, f32_p) -> dict:
@@ -496,7 +566,7 @@ def check_variant(cfg, x, tm, qw, variant, f32_k, f32_p) -> dict:
         offsets = gemm.stokes_offsets(DEV) if stokes else None
         if not torch.equal(out_k, gemm.quantize_u8(f32_k, kw["quant8_scales"],
                                                    offsets)):
-            raise RuntimeError(f"{cfg.name} {variant}: fused uint8 differs "
+            raise RuntimeError(f"{tag(cfg)} {variant}: fused uint8 differs "
                                f"from the rint/clip of the kernel's float32")
         diff = (out_k.int() - out_p.int()).abs()
         same = f32_k == f32_p
@@ -521,8 +591,7 @@ def check_variant(cfg, x, tm, qw, variant, f32_k, f32_p) -> dict:
             detail = ("per-plane max error / I peak " + " ".join(
                 f"{n}={e:.2e}" for n, e in zip("IQUV", errs)))
         else:
-            rel = relative_power_error(out_k.cpu().numpy(),
-                                       out_p.cpu().numpy())
+            rel = relative_power_error_on_card(out_k, out_p)
             bad = rel > KERNEL_VS_PLAIN_RTOL
             detail = f"f32 product relative error {rel:.3e}"
         if bad or not bool(torch.isfinite(out_k).all()):
@@ -537,7 +606,7 @@ def check_variant(cfg, x, tm, qw, variant, f32_k, f32_p) -> dict:
                                    f"(max {float((k - p).abs().max())})")
             detail += f"; {what} {tuple(k.shape)} equal"
     plain_ms = start.elapsed_time(stop)
-    log(f"[{'stokes ' if stokes else ''}variants] {cfg.name} {variant}: "
+    log(f"[{'stokes ' if stokes else ''}variants] {tag(cfg)} {variant}: "
         f"{detail}; plain {plain_ms:.1f} ms")
     return {"max_abs_err": err, "plain_ms": plain_ms}
 
@@ -554,7 +623,7 @@ def phase_variants(cfg, wire_np, qw, variants) -> dict:
         if not torch.equal(f32_k[:, :, 0], power_k):
             raise RuntimeError("Stokes I plane differs from the power "
                                "kernel's output")
-        log(f"[stokes variants] {cfg.name} {tuple(f32_k.shape)}: the I plane "
+        log(f"[stokes variants] {tag(cfg)} {tuple(f32_k.shape)}: the I plane "
             f"equals the power kernel's output bit for bit")
         del power_k
     f32_p = gemm.detect_power_plain(x, qw.terms, qw.scales, cfg, tm,
@@ -566,8 +635,8 @@ def phase_variants(cfg, wire_np, qw, variants) -> dict:
 
 
 def phase_resident_variants(cfg, blocks_np, qw, plain, smi,
-                            variants=VARIANTS) -> dict:
-    """CUDA-event time of each variant, 10 back-to-back launches on two
+                            variants=VARIANTS, n=N_TIMED) -> dict:
+    """CUDA-event time of each variant, ``n`` back-to-back launches on two
     resident blocks."""
     xs = [gemm._prepare_wire(to_device(cfg, b), cfg)[0] for b in blocks_np]
     tm = cfg.input_layout == "tfpa"
@@ -582,11 +651,11 @@ def phase_resident_variants(cfg, blocks_np, qw, plain, smi,
         run = lambda i: gemm.fused_detect(xs[i % 2], qw.terms, qw.scales,
                                           cfg, tm, **kw)
         run(0)
-        times[variant] = time_ms(run, N_TIMED)
+        times[variant] = time_ms(run, n)
     base = next(iter(times.values()))
     for variant, ms in times.items():
         bnd, by = bound_ms(cfg, variant)
-        log(f"[resident] {cfg.name} +{variant}: {ms:.3f} ms/block "
+        log(f"[resident] {tag(cfg)} +{variant}: {ms:.3f} ms/block "
             f"({ms - base:+.3f} vs {next(iter(times))}) = "
             f"{cfg.block_duration_s * 1e3 / ms:.4f}x realtime; bound "
             f"{bnd:.3f} ms by {by} ({bnd / ms * 100:.2f}%); plain "
@@ -628,11 +697,11 @@ def drive_stream(cfg, blocks_np, n_blocks, tmp, *, fil_bits, fil_beams=None,
     the card and swap them in mid-stream), with every launch count set to 0
     just before the run and read just after."""
     qw = prepare_weights(cfg, make_weights(cfg, device=DEV))
-    tag = f"{cfg.name}-{products}-fil{fil_bits}"
-    fil_dir = tmp / tag
+    run = f"{cfg.name}-{products}-fil{fil_bits}"
+    fil_dir = tmp / run
     fil = FilterbankSink(fil_dir, cfg, beams=fil_beams, nbits=fil_bits,
                          products=products)
-    inco = (FileSink(tmp / f"{tag}-inco.dada", cfg,
+    inco = (FileSink(tmp / f"{run}-inco.dada", cfg,
                      products="incoherent") if incoherent else None)
     drained = []  # host clock at each block's drain
     bf = StreamingBeamformer(cfg, qw, SyntheticSource(cfg, blocks_np,
@@ -659,9 +728,13 @@ def drive_stream(cfg, blocks_np, n_blocks, tmp, *, fil_bits, fil_beams=None,
         bf.rfi_monitor = RFIMonitor(cfg, interval=2, sample=2,
                                     on_event=excise)
     bf.warmup()
-    gemm.fused_detect.launches.clear()      # count the main path's run only
+    clear_launches()                        # count the main path's run only
     stats = bf.run()
     launches = dict(gemm.fused_detect.launches)
+    if set(gemm.fused_detect.launches_by_mode) != {
+            (cfg.weight_mode, v) for v in launches}:
+        raise RuntimeError(f"the stream launched another mode's kernels: "
+                           f"{dict(gemm.fused_detect.launches_by_mode)}")
     fil.close()
     if inco is not None:
         inco.close()
@@ -673,7 +746,7 @@ def drive_stream(cfg, blocks_np, n_blocks, tmp, *, fil_bits, fil_beams=None,
     # the last two blocks drain after the loop.
     steady_ms = (drained[n_blocks - 3] - drained[1]) / (n_blocks - 4) * 1e3
     log(f"[{'stokes ' if products == 'stokes' else ''}deployed] "
-        f"{cfg.name} fil{fil_bits}"
+        f"{tag(cfg)} fil{fil_bits}"
         f"{'' if fil_beams is None else f' ({len(fil_beams)} beams)'}"
         f"{'+inco' if incoherent else ''}{'+rfi' if rfi else ''}: "
         f"{stats.n_blocks} blocks, {rec['realtime_factor']:.4f}x realtime "
@@ -689,7 +762,7 @@ def drive_stream(cfg, blocks_np, n_blocks, tmp, *, fil_bits, fil_beams=None,
                            f"dropped {stats.dropped}")
     return {"qw": qw, "fil": fil, "fil_dir": fil_dir, "events": events,
             "swaps": swaps, "launches": launches, "stats": stats,
-            "inco_path": tmp / f"{tag}-inco.dada", "steady_ms": steady_ms}
+            "inco_path": tmp / f"{run}-inco.dada", "steady_ms": steady_ms}
 
 
 def expected_launches(n_blocks, *, q8, incoherent, rfi,
@@ -704,15 +777,16 @@ def expected_launches(n_blocks, *, q8, incoherent, rfi,
     return dict(want)
 
 
-def phase_deployed(cfg, blocks_np, smi) -> dict:
+def phase_deployed(cfg, blocks_np, smi, n_blocks=N_DEPLOYED,
+                   time_sink=True) -> dict:
     """The deployed path at full width: 8-bit filterbank from the kernel's
     epilogue, incoherent .dada, RFI monitor with mid-stream excision."""
     carrier, flag = carrier_chan(cfg), flagged_ant(cfg)
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
-        r = drive_stream(cfg, blocks_np, N_DEPLOYED, tmp, fil_bits=8,
+        r = drive_stream(cfg, blocks_np, n_blocks, tmp, fil_bits=8,
                          incoherent=True, rfi=True, smi=smi)
-        want = expected_launches(N_DEPLOYED, q8=True, incoherent=True,
+        want = expected_launches(n_blocks, q8=True, incoherent=True,
                                  rfi=True)
         if r["launches"] != want:
             raise RuntimeError(f"launch pattern {r['launches']}, want {want}")
@@ -731,7 +805,10 @@ def phase_deployed(cfg, blocks_np, smi) -> dict:
             quant8_scales=scales)
         expect = res_u8.permute(2, 1, 0).flip(2).cpu().numpy()  # [B, T', F']
         col = cfg.n_chan - 1 - carrier  # descending channel order
-        last = N_DEPLOYED - 1
+        last = n_blocks - 1
+        if last < r["swaps"][0] + 3:
+            raise RuntimeError(f"the swap at drain {r['swaps']} leaves no "
+                               f"block with the new weights")
         for b in range(cfg.n_beams):
             path = r["fil_dir"] / f"beam{b:04d}.fil"
             if not np.array_equal(read_fil_block(path, cfg, 1), expect[b]):
@@ -742,12 +819,13 @@ def phase_deployed(cfg, blocks_np, smi) -> dict:
                 raise RuntimeError(f"beam {b}: carrier channel not zero (or "
                                    f"the block empty) after the swap")
         _, inco = read_product_file(r["inco_path"])
-        if inco.shape != (N_DEPLOYED, *cfg.out_block_shape[:2]) \
+        if inco.shape != (n_blocks, *cfg.out_block_shape[:2]) \
                 or not np.array_equal(inco[1], res_inco.cpu().numpy()):
             raise RuntimeError("incoherent .dada block 1 differs from the "
                                "resident kernel's")
-        phase_sink_layout(cfg, res_u8, tmp, smi)
-        log(f"[deployed] {cfg.name}: one excise event on channel "
+        if time_sink:
+            phase_sink_layout(cfg, res_u8, tmp, smi)
+        log(f"[deployed] {tag(cfg)}: one excise event on channel "
             f"{carrier}; .fil block 1 equals the resident uint8 "
             f"output (transposed, channels flipped) for all {cfg.n_beams} "
             f"beams; channel {carrier} is 0 in block {last} of every "
@@ -917,14 +995,13 @@ VOLTAGE_CHANNELS = 128
 def voltage_bound_ms(cfg) -> tuple:
     """Least time of one beamform_voltages call on an H100 SXM: bytes (wire
     slots and weights read, the float32 voltages written) over the memory
-    rate against the int8 MACs over the dense int8 peak."""
+    rate against the MACs over the peak for the mode's operand type."""
     nbytes = (cfg.t_block * cfg.n_chan * cfg.n_pol * cfg.a_compute
-              + cfg.n_weight_terms * cfg.n_chan * cfg.gemm_k * 2 * cfg.n_beams
-              + cfg.n_chan * cfg.n_weight_terms * 4
+              + weight_bytes(cfg)
               + cfg.n_chan * cfg.t_block * cfg.n_pol * 2 * cfg.n_beams * 4)
-    ops_ms = cfg.macs_per_block * cfg.n_weight_terms / H100_INT8_MACS_PER_S * 1e3
     bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
-    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+    return (ops_ms(cfg), "operations") if ops_ms(cfg) >= bytes_ms \
+        else (bytes_ms, "bytes")
 
 
 def detect_voltages(bv, cfg) -> tuple:
@@ -956,8 +1033,9 @@ def phase_voltages(smi, cfg=DSA10.replace(n_chan=VOLTAGE_CHANNELS)) -> dict:
     qw = prepare_weights(cfg, make_weights(cfg, device=DEV))
     x = to_device(cfg, wire)
     gemm.beamform_voltages.launches = 0     # count the path's own call only
+    gemm.beamform_voltages.launches_by_mode.clear()
     bv = gemm.beamform_voltages(x, qw, cfg)
-    launches = gemm.beamform_voltages.launches
+    launches = gemm.beamform_voltages.launches_by_mode[cfg.weight_mode]
     xk, tm = gemm._prepare_wire(x, cfg)
     start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     start.record()
@@ -966,17 +1044,25 @@ def phase_voltages(smi, cfg=DSA10.replace(n_chan=VOLTAGE_CHANNELS)) -> dict:
     torch.cuda.synchronize()
     plain_ms = start.elapsed_time(stop)
     max_abs = float((bv - bv_p).abs().max())
-    if not torch.equal(bv, bv_p):
+    if cfg.weight_mode in gemm.FLOAT_MODES:
+        # The K-sum of float32 products in another order than the library
+        # GEMM's: held to 1e-5 of the largest voltage.
+        limit = KERNEL_VS_PLAIN_RTOL * float(bv_p.abs().max())
+        how = f"within {max_abs:.3g} of its plain version (limit {limit:.3g})"
+    else:
+        limit = 0.0
+        how = "== plain bit for bit"
+    if max_abs > limit:
         raise RuntimeError(f"voltage kernel differs from its plain version "
-                           f"(max {max_abs})")
+                           f"(max {max_abs}, limit {limit})")
     del bv_p
     power_u, stokes_u = detect_voltages(bv, cfg)
     p_fused = gemm.beamform_power(x, qw, cfg).double()
     s_fused = gemm.beamform_stokes(x, qw, cfg).double()
     rel = float((p_fused - power_u).norm() / power_u.norm())
     errs = plane_errors(s_fused, stokes_u)
-    log(f"[voltages] {cfg.name} sub-band {tuple(bv.shape)} "
-        f"({bv.numel() * 4 / 1e9:.3f} GB): kernel == plain bit for bit; "
+    log(f"[voltages] {tag(cfg)} sub-band {tuple(bv.shape)} "
+        f"({bv.numel() * 4 / 1e9:.3f} GB): kernel {how}; "
         f"fused power vs detected voltages {rel:.3e} (tol 1e-05); fused "
         f"Stokes vs Stokes of the voltages / I peak "
         + " ".join(f"{n}={e:.2e}" for n, e in zip("IQUV", errs)))
@@ -987,7 +1073,7 @@ def phase_voltages(smi, cfg=DSA10.replace(n_chan=VOLTAGE_CHANNELS)) -> dict:
     run(0)
     ms = time_ms(run, N_TIMED)
     bnd, by = voltage_bound_ms(cfg)
-    log(f"[voltages] {cfg.name} sub-band kernel {ms:.3f} ms per call "
+    log(f"[voltages] {tag(cfg)} sub-band kernel {ms:.3f} ms per call "
         f"({cfg.n_chan} channels x {cfg.t_block} samples), bound "
         f"{bnd:.3f} ms by {by} ({bnd / ms * 100:.2f}%), plain "
         f"{plain_ms:.1f} ms, launches on the validation path {launches}, "
@@ -1078,10 +1164,12 @@ def phase_dsa110(smi) -> dict:
     phase_stokes_physics(physics_cfg, DSA110_TARGET)
     times = phase_resident_variants(cfg, blocks, qw, checked, smi,
                                     DSA110_VARIANTS)
-    del qw, blocks
+    del qw
 
     sub = DSA110_SUBBAND
     sub_blocks = [make_random_bytes_block(sub, seed=s) for s in (12, 13)]
+    modes = phase_dsa110_modes(blocks, sub_blocks, smi)
+    del blocks
     qs = prepare_weights(sub, make_weights(sub, device=DEV))
     launches = collections.Counter()
     for products in ("power", "stokes"):
@@ -1103,7 +1191,168 @@ def phase_dsa110(smi) -> dict:
                            f"{missing}")
     volt = phase_voltages(smi, DSA110.replace(n_chan=VOLTAGE_CHANNELS))
     return {"checked": checked, "times": times, "launches": launches,
-            "volt": volt}
+            "volt": volt, "modes": modes}
+
+
+# --------------------------------------------------------------------- #
+# The weight modes int12, int13, bf16, bf16x2, f32
+# --------------------------------------------------------------------- #
+
+NEW_MODES = ("int12", "int13", "bf16", "bf16x2", "f32")
+#: Variants held against the plain version and timed in every new mode.
+MODE_VARIANTS = ("base", "sk+q8+inco", "stokes", "stokes+sk+q8+inco")
+N_MODE_TIMED = 4             # back-to-back launches in the modes' timings
+#: Calibrated noise against the float64 golden: the JAX package's bar for
+#: each mode (its tests/test_gemm.py).
+NOISE_BARS = {"int13": 5e-4, "int12": 8e-4, "bf16x2": 2e-4, "f32": 1e-5,
+              "bf16": 1e-2}
+#: The point source against the golden: a coherent source amplifies weight
+#: error into the -30 dB sidelobe bins, so the 12- and 13-bit modes get the
+#: JAX package's point-source bar (1e-2), bf16 (8 bits) five times that;
+#: f32's float32 K-sums of a coherent source leave 1.4e-5 in the floored
+#: bins (a TF32 product would leave 1e-2 or more).
+POINT_BARS = {"int13": 1e-2, "int12": 1e-2, "bf16x2": GOLDEN_RTOL,
+              "f32": 1e-4, "bf16": 5e-2}
+#: mode -> blocks of its dsa10 stream (int13: the deployed stream).
+MODE_STREAM_BLOCKS = {"int12": 6, "int13": 6, "bf16x2": 3, "bf16": 3,
+                      "f32": 3}
+#: mode -> (variants checked and timed at full DSA-110 width, blocks of its
+#: DSA110.subband(0, 256) power-only stream).
+DSA110_MODES = {"int12": (("base", "stokes"), 6),
+                "int13": (("base", "stokes"), 4),
+                "bf16": (("base",), 3)}
+
+
+def check_and_time(cfg, blocks_np, smi, variants, n) -> tuple:
+    """``variants`` of ``cfg`` against the plain version on blocks_np[0],
+    then their resident times: ``(checked, times)``."""
+    qw = prepare_weights(cfg, make_weights(cfg, device=DEV))
+    checked = {}
+    for stokes in (False, True):
+        family = [v for v in variants if (v in STOKES_VARIANTS) == stokes]
+        if family:
+            checked.update(phase_variants(cfg, blocks_np[0], qw, family))
+    times = phase_resident_variants(cfg, blocks_np, qw, checked, smi,
+                                    variants, n)
+    return checked, times
+
+
+def phase_mode_physics(mode) -> None:
+    """The sub-band point source (argmax, the mode's point-source bar) and a
+    calibrated noise block (the JAX package's bar for the mode) against the
+    float64 golden model."""
+    cfg = DSA10.replace(n_chan=128, t_block=512, weight_mode=mode)
+    phase_physics(cfg, TARGET_BEAM, POINT_BARS[mode])
+    cal = CalTable.random(cfg, seed=11)
+    wire = make_noise_block(cfg, rms=2.5, seed=21)
+    qw = prepare_weights(cfg, make_weights(cfg, cal=cal, device=DEV))
+    p = gemm.beamform_power(to_device(cfg, wire), qw, cfg).cpu().numpy()
+    ref = beamform_block_ref(weights_numpy_golden(cfg, cal=cal), wire,
+                             cfg.input_layout, cfg.navg_time)
+    err = relative_power_error(p, ref)
+    log(f"[modes physics] {tag(cfg)} calibrated noise sub-band {p.shape}: "
+        f"error vs float64 golden {err:.3e} (bar {NOISE_BARS[mode]:.0e})")
+    if err > NOISE_BARS[mode] or not np.isfinite(p).all():
+        raise RuntimeError(f"{mode}: noise block misses its golden bar")
+
+
+def plain_stream(cfg, blocks_np, n_blocks, smi) -> collections.Counter:
+    """A power-only stream of ``cfg`` into the checksum sink; its launches
+    per variant."""
+    qw = prepare_weights(cfg, make_weights(cfg, device=DEV))
+    block0 = gemm.beamform_power(to_device(cfg, blocks_np[0]), qw, cfg).cpu()
+    return collections.Counter(
+        base=phase_stream(cfg, blocks_np, qw, block0, smi, n_blocks))
+
+
+def phase_modes(blocks_np, smi) -> dict:
+    """Phases 23-26 at full dsa10 width; ``blocks_np`` carry the carrier
+    channel.  mode -> its checks, times, stream launches and voltage row."""
+    out = {}
+    for mode in NEW_MODES:
+        cfg = DSA10.replace(weight_mode=mode)
+        log(f"[modes] {tag(cfg)}: a_compute {cfg.a_compute}, K "
+            f"{cfg.gemm_k}, kernel path {gemm.kernel_path(cfg)}, source "
+            f"{gemm.kernel_library(cfg, 'detect_power')}.cu")
+        checked, times = check_and_time(cfg, blocks_np, smi, MODE_VARIANTS,
+                                        N_MODE_TIMED)
+        phase_mode_physics(mode)
+        n = MODE_STREAM_BLOCKS[mode]
+        if mode == "int13":
+            launches = collections.Counter(
+                phase_deployed(cfg, blocks_np, smi, n, time_sink=False))
+        else:
+            launches = plain_stream(cfg, blocks_np, n, smi)
+        if not launches:
+            raise RuntimeError(f"mode {mode} never launched on a stream")
+        volt = phase_voltages(smi, cfg.replace(n_chan=VOLTAGE_CHANNELS))
+        out[mode] = {"cfg": cfg, "checked": checked, "times": times,
+                     "launches": launches, "volt": volt}
+    return out
+
+
+def phase_dsa110_modes(blocks_np, sub_blocks_np, smi) -> dict:
+    """Phases 27-28: the modes of ``DSA110_MODES`` at full DSA-110 width
+    (kernel against plain, resident times) and as power-only streams of the
+    per-GPU sub-band."""
+    out = {}
+    for mode, (variants, n_stream) in DSA110_MODES.items():
+        cfg = DSA110.replace(weight_mode=mode)
+        log(f"[dsa110 modes] {tag(cfg)}: a_compute {cfg.a_compute}, K "
+            f"{cfg.gemm_k}, kernel path {gemm.kernel_path(cfg)}")
+        checked, times = check_and_time(cfg, blocks_np, smi, variants, 3)
+        sub = DSA110_SUBBAND.replace(weight_mode=mode)
+        launches = plain_stream(sub, sub_blocks_np, n_stream, smi)
+        out[mode] = {"cfg": cfg, "checked": checked, "times": times,
+                     "launches": launches}
+    return out
+
+
+def mode_rows(res, suffix="") -> list:
+    """The kernels line's rows of the newer modes: per mode one row of its
+    detect kernel (the base variant's numbers; ``launches`` counts every
+    variant its stream launched; each checked variant under ``variants``)
+    and, where the voltage path ran, one of its voltage kernel."""
+    rows = []
+    for mode, r in res.items():
+        cfg = r["cfg"]
+        bnd, by = bound_ms(cfg, "base")
+        variants = {}
+        for v, chk in r["checked"].items():
+            vb, vby = bound_ms(cfg, v)
+            variants[v] = {"launches": r["launches"][v],
+                           "max_abs_err": chk["max_abs_err"],
+                           "ms": r["times"][v], "plain_ms": chk["plain_ms"],
+                           "bound_ms": vb, "bound_by": vby}
+        src = gemm.kernel_library(cfg, "detect_power")
+        rows.append({
+            "name": f"detect_power[{mode}]{suffix}",
+            "route": "cuda",
+            "source": f"dsabeamformer_tpu_torch/csrc/{src}.cu",
+            "replaces": "dsabeamformer_tpu/ops/gemm.py:775",
+            "launches": sum(r["launches"].values()),
+            "max_abs_err": r["checked"]["base"]["max_abs_err"],
+            "ms": r["times"]["base"],
+            "plain_ms": r["checked"]["base"]["plain_ms"],
+            "bound_ms": bnd,
+            "bound_by": by,
+            "library_ms": None,
+            "variants": variants,
+            "stream_launches": dict(r["launches"]),
+        })
+        if "volt" in r:
+            src = gemm.kernel_library(cfg, "beam_voltages")
+            rows.append({
+                "name": f"beam_voltages[{mode}]{suffix}",
+                "route": "cuda",
+                "source": f"dsabeamformer_tpu_torch/csrc/{src}.cu",
+                "replaces": "dsabeamformer_tpu/ops/gemm.py:932",
+                **{k: r["volt"][k] for k in (
+                    "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                    "bound_by")},
+                "library_ms": None,
+            })
+    return rows
 
 
 def kernel_rows(cfg, variants, launches, checked, times, volt,
@@ -1184,6 +1433,8 @@ def main() -> None:
         with_carrier(cfg, b)
     launches.update(phase_deployed(cfg, blocks, smi))
     launches.update(phase_stokes_deployed(cfg, blocks, smi))
+    # The other weight modes on the same two blocks (carrier included).
+    modes = phase_modes(blocks, smi)
     del blocks
     cc_blocks = [with_carrier(cc, cc_block),
                  with_carrier(cc, make_random_bytes_block(cc, seed=3))]
@@ -1197,7 +1448,6 @@ def main() -> None:
 
     # The unfused validation path (driven with its count set to 0).
     volt = phase_voltages(smi)
-    bounds_to_port()
 
     # DSA-110 on the staged-weight path.
     d110 = phase_dsa110(smi)
@@ -1206,6 +1456,7 @@ def main() -> None:
     kernels += kernel_rows(DSA110, DSA110_VARIANTS, d110["launches"],
                            d110["checked"], d110["times"], d110["volt"],
                            "[dsa110]")
+    kernels += mode_rows(modes) + mode_rows(d110["modes"], "[dsa110]")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -47,8 +47,7 @@ class ObsConfig:
     beam_span_deg: float = 2.6   # full fan width, beams uniform in sin(theta)
     # --- numerics ---
     weight_mode: str = "int8x2"  # int13 | int12 | int8x2 | int8 | bf16
-                                 # | bf16x2 | f32 (the port computes int8x2
-                                 # and int8; see ops/quantize.py)
+                                 # | bf16x2 | f32 (see ops/quantize.py)
     n_ant_compute: int = 0       # antennas contracted; 0 = auto (a_compute)
     input_layout: str = "tfpa"   # wire layout delivered by the capture
 

@@ -5,20 +5,24 @@
 // Replaces: the Pallas TPU kernel launched by
 //   dsabeamformer_tpu/ops/gemm.py::_fused_detect (pl.pallas_call, gemm.py:775)
 // with body _detect_kernel (gemm.py:183) and _power_epilogue (gemm.py:390)
-// or _stokes_epilogue (gemm.py:402, via beamform_stokes :795), in the int8
-// and int8x2 weight modes: the power and Stokes products, the quant8 branch
-// (gemm.py:261-278, Stokes offset :266-274), the incoherent branch
-// (:287-322) and the SK branch (:323-368), in any combination, for any
-// a_compute the TPU kernel takes up to 128 (DSA-110: 110 active antennas in
-// 128 slots, 512 beams).
+// or _stokes_epilogue (gemm.py:402, via beamform_stokes :795), in the int8,
+// int8x2, int12 and (through detect_power_int13.cu) int13 weight modes; the
+// float modes are detect_float.cu.  The power and Stokes products, the
+// quant8 branch (gemm.py:261-278, Stokes offset :266-274), the incoherent
+// branch (:287-322) and the SK branch (:323-368), in any combination, for
+// any a_compute the TPU kernel takes up to 128 (DSA-110: 110 active antennas
+// in 128 slots, 512 beams).
 //
 // What it computes, per channel f, output row o and beam b:
 //   X[t, p, :] = [re | im] of the wire bytes of pol p, antennas 0..a_compute-1
 //                (re = high nibble, im = low nibble, 4-bit two's complement)
-//   M[t, p, c] = sum_k X[t, p, k] * W_term[f, k, c]      (int32, exact)
+//   M[t, p, c] = sum_k X[t, p, k] * W_sub[f, k, c]       (int32, exact)
 //                int8x2 combines M_hi * 256 + M_lo        (exact, |M| < 2^27)
+//                int12  M_hi * 16 + M_lo, int13 (M_h1 + M_h2) * 16 + M_l1 +
+//                M_l2: the JAX kernel's [16X | X] operand against its one
+//                term, without staging the 16x planes (wire_gemm.cuh)
 //   with M converted to f32 once (x = pol 0, y = pol 1, r = column b,
-//   i = column B + b) and s = scales[f, n_terms-1]:
+//   i = column B + b) and s = the channel's (last) scale:
 //   power:  out[f, o, b]    = s^2 * sum_{t in o} (px + py),
 //           px = xr^2 + xi^2, py = yr^2 + yi^2
 //   Stokes: out[f, o, k, b] = s^2 * sum_{t in o} of, for k = I, Q, U, V,
@@ -70,7 +74,8 @@
 //   - Blocks are independent: no sum is carried between them (the SK sums
 //     meet in integer atomics, whose order does not change the result).
 //   - The unpack into shared memory and the dp4a products are
-//     wire_gemm.cuh's.
+//     wire_gemm.cuh's; detection, stores and side outputs
+//     detect_epilogue.cuh's.
 //   - The epilogue (detection, pol sum, navg_time sum, s^2, the uint8
 //     rounding) stays in registers; one coalesced store per output row and
 //     plane (Stokes: four, the planes of [F, T', 4, B]).
@@ -86,144 +91,19 @@
 
 #include <cuda_runtime.h>
 
+#include "detect_epilogue.cuh"
 #include "wire_gemm.cuh"
 
 namespace {
 
 using namespace dsabf;
 
-// Midpoint of the signed Q/U/V planes in an 8-bit Stokes product
-// (ops/gemm.py STOKES_QUV_OFFSET).
-constexpr float kQuvOffset = 128.f;
-
-// Four mask bits (one per antenna of a word) to a byte mask: 0xFF in byte i
-// when bit i is set.
-__device__ __forceinline__ uint32_t byte_mask(uint32_t bits) {
-  const uint32_t spread = (bits & 1u) | ((bits & 2u) << 7) |
-                          ((bits & 4u) << 14) | ((bits & 8u) << 21);
-  return spread * 0xFFu;
-}
-
-// Word i of the mask by selects (no dynamically indexed copy of the
-// by-value parameter in local memory).
-__device__ __forceinline__ uint32_t mask_word(const AntMask& m, int i) {
-  static_assert(kMaxAnt / 32 == 4, "mask_word selects among four words");
-  return i == 0 ? m.w[0] : i == 1 ? m.w[1] : i == 2 ? m.w[2] : m.w[3];
-}
-
-// The side outputs of the span staged in xs ([rows][pol][kw], n_rows_out
-// output rows of navg samples): the incoherent sums into inco_row[0 ..
-// n_rows_out) and the SK sums added to sk_chan[2 * ac] (either pointer
-// null = not computed; both block-uniform).  sk_part [2 * ac] must be zero
-// and xs complete (a __syncthreads) before the call.
-__device__ __forceinline__ void side_outputs(
-    const uint32_t* xs, int kw, int ac, int n_rows_out, int navg,
-    const AntMask& mask, float* inco_row, int* sk_part,
-    unsigned long long* sk_chan) {
-  const int aw = kw / 2;
-  const int rows = n_rows_out * navg;
-  if (inco_row) {
-    const int lane = threadIdx.x & 31;
-    const int n_warps = blockDim.x >> 5;
-    const int items = navg * 2 * aw;  // (sample, pol, word) of one row
-    for (int o = threadIdx.x >> 5; o < n_rows_out; o += n_warps) {
-      int acc = 0;
-      for (int i = lane; i < items; i += 32) {
-        const int w = i % aw;
-        const uint32_t* row = xs + (o * navg * 2 + i / aw) * kw;
-        const uint32_t m = byte_mask((mask_word(mask, w >> 3)
-                                      >> (4 * (w & 7))) & 0xFu);
-        const uint32_t re = row[w], im = row[aw + w];
-        acc = __dp4a(int(re), int(re & m), acc);
-        acc = __dp4a(int(im), int(im & m), acc);
-      }
-#pragma unroll
-      for (int d = 16; d > 0; d >>= 1) {
-        acc += __shfl_xor_sync(0xffffffffu, acc, d);
-      }
-      if (lane == 0) inco_row[o] = float(acc);
-    }
-  }
-  if (sk_chan) {
-    // `per` threads per antenna, each taking every per-th (sample, pol)
-    // row; the threads past per * ac sit out (ac need not divide the
-    // block).  Per span an antenna sums 2 * rows values of p <= 128
-    // (p^2 <= 2^14), and the span's staged rows (8 * a_compute bytes
-    // each) fit in 227 KB, so rows < 2^13 and S2 < 2^28: int32 is exact.
-    const int per = blockDim.x / ac;
-    if (threadIdx.x < per * ac) {
-      const int a = threadIdx.x % ac;
-      const int w = a >> 2;
-      const int sh = 8 * (a & 3);
-      int s1 = 0, s2 = 0;
-      for (int rp = threadIdx.x / ac; rp < rows * 2; rp += per) {
-        const uint32_t* row = xs + rp * kw;
-        const int re = int(int8_t(uint8_t(row[w] >> sh)));
-        const int im = int(int8_t(uint8_t(row[aw + w] >> sh)));
-        const int p = re * re + im * im;
-        s1 += p;
-        s2 += p * p;
-      }
-      atomicAdd(&sk_part[a], s1);
-      atomicAdd(&sk_part[ac + a], s2);
-    }
-    __syncthreads();
-    for (int i = threadIdx.x; i < 2 * ac; i += blockDim.x) {
-      atomicAdd(sk_chan + i, (unsigned long long)sk_part[i]);
-    }
-  }
-}
-
-// One sample's detection added to the row sums: acc[0] (power, or I) and,
-// for Stokes, Q, U, V.  vr/vi: the beam voltage of pol x (0) and y (1).
-// Explicit rounding: no FMA contraction, so the Stokes I plane is the power
-// output to the bit.
-template <bool STOKES>
-__device__ __forceinline__ void detect_sample(const float (&vr)[2],
-                                              const float (&vi)[2],
-                                              float (&acc)[STOKES ? 4 : 1]) {
-  const float px = __fadd_rn(__fmul_rn(vr[0], vr[0]), __fmul_rn(vi[0], vi[0]));
-  const float py = __fadd_rn(__fmul_rn(vr[1], vr[1]), __fmul_rn(vi[1], vi[1]));
-  acc[0] = __fadd_rn(acc[0], __fadd_rn(px, py));
-  if constexpr (STOKES) {
-    const float cr = __fadd_rn(__fmul_rn(vr[0], vr[1]),
-                               __fmul_rn(vi[0], vi[1]));
-    const float ci = __fsub_rn(__fmul_rn(vi[0], vr[1]),
-                               __fmul_rn(vr[0], vi[1]));
-    acc[1] = __fadd_rn(acc[1], __fsub_rn(px, py));
-    acc[2] = __fadd_rn(acc[2], __fadd_rn(cr, cr));
-    acc[3] = __fadd_rn(acc[3], __fadd_rn(ci, ci));
-  }
-}
-
-// One output row's planes, scaled by s^2, to dst[k * n_beams] (float32, or
-// the uint8 epilogue with this beam's scale qs).
-template <typename OutT, bool STOKES>
-__device__ __forceinline__ void store_row(const float (&acc)[STOKES ? 4 : 1],
-                                          float s2, float qs, OutT* dst,
-                                          int n_beams) {
-  constexpr int NP = STOKES ? 4 : 1;
-#pragma unroll
-  for (int k = 0; k < NP; ++k) {
-    const float v = __fmul_rn(acc[k], s2);
-    if constexpr (std::is_same<OutT, uint8_t>::value) {
-      // rintf rounds half to even, as jnp.rint and torch.round do; the
-      // clamp follows the rounding, as in gemm.py:277.
-      const float y = k > 0 ? __fmaf_rn(v, qs, kQuvOffset) : __fmul_rn(v, qs);
-      dst[k * n_beams] = uint8_t(fminf(fmaxf(rintf(y), 0.f), 255.f));
-    } else {
-      dst[k * n_beams] = v;
-    }
-  }
-}
-
 // ----------------------------- register path ----------------------------
 
 template <int KW, int NTERMS, typename OutT, bool STOKES>
 __global__ void __launch_bounds__(kMaxThreads)
 detect_power_kernel(const uint8_t* __restrict__ wire,
-                    const int8_t* __restrict__ w_hi,
-                    const int8_t* __restrict__ w_lo,
+                    IntWeights w,
                     const float* __restrict__ scales,
                     const float* __restrict__ q8_scales,
                     OutT* __restrict__ out,
@@ -257,7 +137,7 @@ detect_power_kernel(const uint8_t* __restrict__ wire,
   const bool active = b < n_beams;
   uint32_t wre[NTERMS][KW];
   uint32_t wim[NTERMS][KW];
-  load_beam_weights<KW, NTERMS>(wre, wim, w_hi, w_lo, f, b, n_beams, active);
+  load_beam_weights<KW, NTERMS>(wre, wim, w, f, b, n_beams, active);
   __syncthreads();
 
   // Side outputs, every thread of the block taking part (before the
@@ -270,7 +150,7 @@ detect_power_kernel(const uint8_t* __restrict__ wire,
   }
   if (!active) return;
 
-  const float s = scales[(long long)f * NTERMS + (NTERMS - 1)];
+  const float s = scales[(long long)f * w.n_scales + (w.n_scales - 1)];
   const float s2 = __fmul_rn(s, s);
   const float qs = std::is_same<OutT, uint8_t>::value ? q8_scales[b] : 0.f;
   OutT* orow = out + ((long long)f * n_out + o0) * NP * n_beams + b;
@@ -283,7 +163,8 @@ detect_power_kernel(const uint8_t* __restrict__ wire,
 #pragma unroll
       for (int p = 0; p < 2; ++p) {
         int br, bi;
-        beam_row<KW, NTERMS>(xs + (r * 2 + p) * KW, wre, wim, br, bi);
+        beam_row<KW, NTERMS>(xs + (r * 2 + p) * KW, wre, wim, w.factor, br,
+                             bi);
         vr[p] = float(br);
         vi[p] = float(bi);
       }
@@ -296,11 +177,12 @@ detect_power_kernel(const uint8_t* __restrict__ wire,
 
 // ------------------------------ staged path -----------------------------
 
+// Two blocks per SM, except with int13's four sub-terms, whose 128 KB weight
+// tile at a_compute 128 leaves room for one.
 template <int NTERMS, typename OutT, bool STOKES>
-__global__ void __launch_bounds__(kStagedThreads, 2)
+__global__ void __launch_bounds__(kStagedThreads, NTERMS == 4 ? 1 : 2)
 detect_staged_kernel(const uint8_t* __restrict__ wire,
-                     const int8_t* __restrict__ w_hi,
-                     const int8_t* __restrict__ w_lo,
+                     IntWeights w,
                      const float* __restrict__ scales,
                      const float* __restrict__ q8_scales,
                      OutT* __restrict__ out,
@@ -326,9 +208,9 @@ detect_staged_kernel(const uint8_t* __restrict__ wire,
   const int b = blockIdx.z * kStagedBeams + lb;
   const bool active = b < n_beams;
 
-  stage_beam_weights<NTERMS>(ws, w_hi, w_lo, f, blockIdx.z * kStagedBeams,
-                             n_beams, kw);
-  const float s = scales[(long long)f * NTERMS + (NTERMS - 1)];
+  stage_beam_weights<NTERMS>(ws, w, f, blockIdx.z * kStagedBeams, n_beams,
+                             kw);
+  const float s = scales[(long long)f * w.n_scales + (w.n_scales - 1)];
   const float s2 = __fmul_rn(s, s);
   const float qs = std::is_same<OutT, uint8_t>::value && active
                        ? q8_scales[b] : 0.f;
@@ -359,7 +241,7 @@ detect_staged_kernel(const uint8_t* __restrict__ wire,
       for (int r = 0; r < navg; r += 2) {
         const uint32_t* xa = xs + ((o - o0) * navg + r) * 2 * kw;
         const bool two = r + 1 < navg;
-        int m[4][NTERMS][2];
+        int m[4][n_acc(NTERMS)][2];
         staged_rows4<NTERMS>(xa, two ? xa + 2 * kw : xa, ws + lb, kw, m);
 #pragma unroll
         for (int smp = 0; smp < 2; ++smp) {
@@ -368,7 +250,7 @@ detect_staged_kernel(const uint8_t* __restrict__ wire,
 #pragma unroll
           for (int p = 0; p < 2; ++p) {
             int br, bi;
-            staged_voltage<NTERMS>(m, 2 * smp + p, br, bi);
+            staged_voltage<n_acc(NTERMS)>(m, 2 * smp + p, w.factor, br, bi);
             vr[p] = float(br);
             vi[p] = float(bi);
           }
@@ -388,7 +270,8 @@ struct Args {
   dim3 grid, block;
   size_t smem;
   cudaStream_t stream;
-  const void *wire, *w_hi, *w_lo, *scales, *q8_scales;
+  IntWeights w;
+  const void *wire, *scales, *q8_scales;
   void *out, *inco_out, *sk_out;
   AntMask inco_mask;
   int n_time, n_beams, n_ant, kw, navg, rows_out;
@@ -399,9 +282,7 @@ template <int KW, int NTERMS, typename OutT, bool STOKES>
 cudaError_t launch(const Args& a) {
   detect_power_kernel<KW, NTERMS, OutT, STOKES>
       <<<a.grid, a.block, a.smem, a.stream>>>(
-          static_cast<const uint8_t*>(a.wire),
-          static_cast<const int8_t*>(a.w_hi),
-          static_cast<const int8_t*>(a.w_lo),
+          static_cast<const uint8_t*>(a.wire), a.w,
           static_cast<const float*>(a.scales),
           static_cast<const float*>(a.q8_scales), static_cast<OutT*>(a.out),
           static_cast<float*>(a.inco_out),
@@ -420,8 +301,7 @@ cudaError_t launch_staged(const Args& a) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(a.smem));
   if (e != cudaSuccess) return e;
   kernel<<<a.grid, a.block, a.smem, a.stream>>>(
-      static_cast<const uint8_t*>(a.wire),
-      static_cast<const int8_t*>(a.w_hi), static_cast<const int8_t*>(a.w_lo),
+      static_cast<const uint8_t*>(a.wire), a.w,
       static_cast<const float*>(a.scales),
       static_cast<const float*>(a.q8_scales), static_cast<OutT*>(a.out),
       static_cast<float*>(a.inco_out),
@@ -455,40 +335,59 @@ cudaError_t dispatch_staged(const Args& a, bool stokes) {
 
 }  // namespace
 
+// This source builds two libraries, so that two compilers run side by side:
+// as it stands, the kernels of one or two sub-terms (int8, int8x2, int12)
+// behind dsabf_detect_power; included by detect_power_int13.cu, which
+// defines DSABF_INT13, those of four sub-terms behind
+// dsabf_detect_power_int13.  With four sub-terms a beam's columns fill the
+// registers at a_compute 16 already (4 x 2 x 8 = 64 words, as int8x2 at 32),
+// so a_compute 32 takes the staged path there.
+#ifdef DSABF_INT13
+#define DSABF_ENTRY dsabf_detect_power_int13
+constexpr int kRegAntLimit = 16;
+#else
+#define DSABF_ENTRY dsabf_detect_power
+constexpr int kRegAntLimit = kMaxRegAnt;
+#endif
+
 extern "C" {
 
 // Launch on `stream`; returns the cudaError_t of the launch (0 = queued).
-// Pointers: wire uint8 (see time_stride/chan_stride), w_hi/w_lo int8
-// [n_chan, 2*a_compute, 2*n_beams] (w_lo unused when n_terms == 1), scales
-// f32 [n_chan, n_terms].  out is f32 [n_chan, n_time/navg, n_beams]
-// (stokes == 0) or [n_chan, n_time/navg, 4, n_beams] (stokes != 0: I, Q, U,
-// V), or uint8 of that shape when q8_scales (f32 [n_beams]) is not null.
+// Pointers: wire uint8 (see time_stride/chan_stride); the int8 weights as
+// make_int_weights (wire_gemm.cuh) takes them: fold == 0, n_sub (1 or 2)
+// tensors w0, w1 [n_chan, 2*a_compute, 2*n_beams] (w1 unused when n_sub ==
+// 1) and scales f32 [n_chan, n_sub]; fold != 0, one tensor w0 [n_chan,
+// n_sub*2*a_compute, 2*n_beams] of n_sub (2 or 4) sub-terms and scales f32
+// [n_chan, 1].  This library takes n_sub 1 and 2 (int13's: 4).  out is f32
+// [n_chan, n_time/navg, n_beams] (stokes == 0) or [n_chan, n_time/navg, 4,
+// n_beams] (stokes != 0: I, Q, U, V), or uint8 of that shape when q8_scales
+// (f32 [n_beams]) is not null.
 // Optional (null = not computed): inco_out f32 [n_chan, n_time/navg] over
 // the antennas whose bit is set in inco_mask (host memory, kMaxAnt / 32
 // words, bit a of word a / 32; read before this returns); sk_out uint64
 // [n_chan, 2, a_compute], added to (the caller zeroes it).
-// a_compute 8, 16, 32 run the register path; 40..128 in steps of 8 the
-// staged path; anything else is refused.
-int dsabf_detect_power(const void* wire, const void* w_hi, const void* w_lo,
-                       const void* scales, const void* q8_scales, void* out,
-                       void* inco_out, void* sk_out,
-                       const unsigned int* inco_mask, int n_chan, int n_time,
-                       int n_beams, int n_ant, int a_compute, int n_terms,
-                       int navg, int stokes, long long time_stride,
-                       long long chan_stride, void* stream) {
+// a_compute 8, 16, 32 (int13's library: 8, 16) run the register path;
+// above that to 128 in steps of 8 the staged path; anything else is refused.
+int DSABF_ENTRY(const void* wire, const void* w0, const void* w1,
+                const void* scales, const void* q8_scales, void* out,
+                void* inco_out, void* sk_out, const unsigned int* inco_mask,
+                int n_chan, int n_time, int n_beams, int n_ant, int a_compute,
+                int n_sub, int fold, int navg, int stokes,
+                long long time_stride, long long chan_stride, void* stream) {
   const int kw = a_compute / 2;
-  const bool staged = a_compute > kMaxRegAnt;
+  const bool staged = a_compute > kRegAntLimit;
+  Args a;
   if (n_chan < 1 || n_chan > 65535 || n_beams < 1 || navg < 1 ||
-      n_time < navg || n_time % navg || n_ant % 4 || a_compute < 8 || a_compute % 8 ||
-      a_compute > n_ant || a_compute > kMaxAnt ||
-      (n_terms != 1 && n_terms != 2) || (inco_out && !inco_mask)) {
+      n_time < navg || n_time % navg || n_ant % 4 || a_compute < 8 ||
+      a_compute % 8 || a_compute > n_ant || a_compute > kMaxAnt ||
+      (inco_out && !inco_mask) ||
+      !make_int_weights(a.w, w0, w1, n_sub, fold, a_compute, n_beams)) {
     return int(cudaErrorInvalidValue);
   }
-  Args a;
   const int n_out = n_time / navg;
   if (staged) {
     a.rows_out = navg >= kStagedSpan ? 1 : kStagedSpan / navg;
-    a.smem = (staged_weight_words(n_terms, kw)
+    a.smem = (staged_weight_words(n_sub, kw)
               + size_t(a.rows_out) * navg * 2 * kw) * sizeof(uint32_t);
     if (a.smem > kMaxDynSmem - 2 * kMaxAnt * sizeof(int)) {
       return int(cudaErrorInvalidValue);
@@ -511,8 +410,6 @@ int dsabf_detect_power(const void* wire, const void* w_hi, const void* w_lo,
   }
   a.stream = static_cast<cudaStream_t>(stream);
   a.wire = wire;
-  a.w_hi = w_hi;
-  a.w_lo = w_lo;
   a.scales = scales;
   a.q8_scales = q8_scales;
   a.out = out;
@@ -529,11 +426,17 @@ int dsabf_detect_power(const void* wire, const void* w_hi, const void* w_lo,
   a.time_stride = time_stride;
   a.chan_stride = chan_stride;
   const bool st = stokes != 0;
+#ifdef DSABF_INT13
+  if (n_sub != 4) return int(cudaErrorInvalidValue);
+  if (staged) return int(dispatch_staged<4>(a, st));
+  return int(kw == 4 ? dispatch<4, 4>(a, st) : dispatch<8, 4>(a, st));
+#else
+  if (n_sub > 2) return int(cudaErrorInvalidValue);
   if (staged) {
-    return int(n_terms == 1 ? dispatch_staged<1>(a, st)
-                            : dispatch_staged<2>(a, st));
+    return int(n_sub == 1 ? dispatch_staged<1>(a, st)
+                          : dispatch_staged<2>(a, st));
   }
-  switch (kw * 10 + n_terms) {
+  switch (kw * 10 + n_sub) {
     case 41: return int(dispatch<4, 1>(a, st));
     case 42: return int(dispatch<4, 2>(a, st));
     case 81: return int(dispatch<8, 1>(a, st));
@@ -542,6 +445,7 @@ int dsabf_detect_power(const void* wire, const void* w_hi, const void* w_lo,
     case 162: return int(dispatch<16, 2>(a, st));
     default: return int(cudaErrorInvalidValue);
   }
+#endif
 }
 
 const char* dsabf_error_string(int code) {

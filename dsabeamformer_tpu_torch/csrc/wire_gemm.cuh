@@ -1,7 +1,20 @@
 // The unpack and GEMM that both beamforming kernels start from
 // (detect_power.cu, beam_voltages.cu): the JAX package's _build_x and
-// _accumulate (dsabeamformer_tpu/ops/gemm.py:97-145) for the int8 and
-// int8x2 weight modes, as __dp4a on the CUDA cores.
+// _accumulate (dsabeamformer_tpu/ops/gemm.py:97-145) for the int8 weight
+// modes (int8, int8x2, int12, int13), as __dp4a on the CUDA cores.  The
+// float modes' GEMM is float_gemm.cuh.
+//
+// A mode is a set of 1, 2 or 4 int8 sub-terms [2 * a_compute, 2B] per
+// channel (IntWeights) and a combine factor:
+//   int8    one sub-term;
+//   int8x2  two tensors, M_hi * 256 + M_lo;
+//   int12   one tensor [[hi], [lo]] along K, M_hi * 16 + M_lo;
+//   int13   one tensor [[h1], [l1], [h2], [l2]], (M_h1 + M_h2) * 16 +
+//           (M_l1 + M_l2): h1 + h2 does not fit int8, so all four stay,
+//           but the even and the odd sub-terms share an accumulator.
+// The JAX kernel folds the 16 into its data operand ([16X | X], K = 4a or
+// 8a); here the [re | im] rows staged once are multiplied by every
+// sub-term and the factor is applied to the int32 sums: the same integer.
 //
 //   - stage_rows: a block stages its span's wire bytes once into shared
 //     memory, already unpacked into int8 [re | im] words (four antennas per
@@ -30,10 +43,11 @@
 //     rate.
 //
 // Both paths give the integer Re and Im of the beam voltage, exact: one
-// term's |M| <= K * 8 * 127 = 260,096 < 2^18 at K = 256, and int8x2's
-// M_hi * 256 + M_lo < 2^27 stays inside int32.  The caller converts it to
-// float32 once (rounding above 2^24, as XLA's m.astype(f32), JAX
-// gemm.py:145, and the plain version's int64 -> float32 do).
+// sub-term's |M| <= K * 8 * 127 = 260,096 < 2^18 at K = 2 * a_compute = 256,
+// and int8x2's M_hi * 256 + M_lo < 2^27, int13's 17 * 2 * 260,096 < 2^24
+// stay inside int32.  The caller converts it to float32 once (rounding
+// above 2^24, as XLA's m.astype(f32), JAX gemm.py:145, and the plain
+// version's int64 -> float32 do).
 
 #pragma once
 
@@ -53,9 +67,10 @@ constexpr int kMaxRegAnt = 32;  // a_compute of the largest register kernel
 // Staged path: a block is kStagedGroups groups of kStagedBeams threads, one
 // beam each; group g takes every kStagedGroups-th output row (or sample
 // pair) of the span, all groups share the staged weights.  At a_compute 128
-// int8x2 the weight tile is 64 KB and a 64-sample span 32 KB, so two blocks
-// (512 threads) fit on an SM and one's staging hides behind the other's
-// dp4a work.
+// a two-sub-term weight tile (int8x2, int12) is 64 KB and a 64-sample span
+// 32 KB, so two blocks (512 threads) fit on an SM and one's staging hides
+// behind the other's dp4a work; int13's four sub-terms are 128 KB, one
+// block per SM.
 constexpr int kStagedBeams = 64;
 constexpr int kStagedGroups = 4;
 constexpr int kStagedThreads = kStagedBeams * kStagedGroups;
@@ -94,27 +109,74 @@ __device__ __forceinline__ void stage_rows(uint32_t* xs, const uint8_t* base,
   }
 }
 
-// int8x2 terms combine as M_hi * 256 + M_lo: s_hi == 256 * s_lo exactly.  A
-// multiply, since a left shift of a negative int is undefined in C++17.
-template <int NTERMS>
-__device__ __forceinline__ int combine_terms(const int (&m)[NTERMS]) {
-  return NTERMS == 2 ? m[0] * 256 + m[NTERMS - 1] : m[0];
+// The int8 sub-terms of a weight mode (by value to the kernels): sub-term t
+// of channel f starts at sub[t] + f * chan_stride and is [2 * a_compute,
+// 2 * n_beams]; `factor` combines the hi and lo sums; the channel's scale is
+// scales[f * n_scales + n_scales - 1].
+constexpr int kMaxSubTerms = 4;
+struct IntWeights {
+  const int8_t* sub[kMaxSubTerms];
+  long long chan_stride;
+  int factor;
+  int n_scales;
+};
+
+// Fill an IntWeights from the C interface's arguments: `fold` == 0 takes
+// n_sub (1 or 2) separate tensors w0, w1 (int8, int8x2: factor 256, a scale
+// per tensor); `fold` != 0 takes n_sub (2 or 4) sub-terms stacked along K
+// in the one tensor w0 (int12, int13: factor 16, one scale).
+inline bool make_int_weights(IntWeights& w, const void* w0, const void* w1,
+                             int n_sub, int fold, int a_compute,
+                             int n_beams) {
+  const long long sub_elems = 2LL * a_compute * 2 * n_beams;
+  if (fold ? (n_sub != 2 && n_sub != 4) : (n_sub != 1 && n_sub != 2)) {
+    return false;
+  }
+  for (int t = 0; t < kMaxSubTerms; ++t) {
+    const int8_t* base = static_cast<const int8_t*>(fold || t == 0 ? w0 : w1);
+    w.sub[t] = t < n_sub ? base + (fold ? t * sub_elems : 0) : nullptr;
+  }
+  w.chan_stride = fold ? n_sub * sub_elems : sub_elems;
+  w.factor = fold ? 16 : 256;
+  w.n_scales = fold ? 1 : n_sub;
+  return true;
+}
+
+// Sub-term t's pointer by selects (no dynamically indexed copy of the
+// by-value parameter in local memory).
+__device__ __forceinline__ const int8_t* sub_term(const IntWeights& w, int t) {
+  static_assert(kMaxSubTerms == 4, "sub_term selects among four pointers");
+  return t == 0 ? w.sub[0] : t == 1 ? w.sub[1] : t == 2 ? w.sub[2] : w.sub[3];
+}
+
+// Accumulators per output: sub-term t adds into t % n_acc(NTERMS) (hi sums
+// in 0, lo sums in 1; a single term in 0).
+__host__ __device__ constexpr int n_acc(int nterms) {
+  return nterms < 2 ? 1 : 2;
+}
+
+// hi and lo sums combine as M_hi * factor + M_lo (int8x2: s_hi == 256 *
+// s_lo exactly; the folded modes: 16).  A multiply, since a left shift of a
+// negative int is undefined in C++17.
+template <int NACC>
+__device__ __forceinline__ int combine_terms(const int (&m)[NACC],
+                                             int factor) {
+  return NACC == 2 ? m[0] * factor + m[NACC - 1] : m[0];
 }
 
 // ----------------------------- register path ----------------------------
 
 // Beam b's Re and Im weight columns of channel f, every term, packed four
 // K rows per word so that byte i pairs with X's byte i (zeros when the
-// thread has no beam).  Terms are int8 [n_chan, 4*KW, 2*n_beams].
+// thread has no beam).  Sub-terms are int8 [4*KW, 2*n_beams] per channel.
 template <int KW, int NTERMS>
 __device__ __forceinline__ void load_beam_weights(
     uint32_t (&wre)[NTERMS][KW], uint32_t (&wim)[NTERMS][KW],
-    const int8_t* w_hi, const int8_t* w_lo, int f, int b, int n_beams,
-    bool active) {
+    const IntWeights& w, int f, int b, int n_beams, bool active) {
   const long long b2 = 2LL * n_beams;
 #pragma unroll
   for (int term = 0; term < NTERMS; ++term) {
-    const int8_t* wt = (term == 0 ? w_hi : w_lo) + (long long)f * (4 * KW) * b2;
+    const int8_t* wt = w.sub[term] + (long long)f * w.chan_stride;
 #pragma unroll
     for (int q = 0; q < KW; ++q) {
       uint32_t r = 0, m = 0;
@@ -138,11 +200,12 @@ template <int KW, int NTERMS>
 __device__ __forceinline__ void beam_row(const uint32_t* xrow,
                                          const uint32_t (&wre)[NTERMS][KW],
                                          const uint32_t (&wim)[NTERMS][KW],
-                                         int& br, int& bi) {
+                                         int factor, int& br, int& bi) {
+  constexpr int NACC = n_acc(NTERMS);
   const uint4* x4 = reinterpret_cast<const uint4*>(xrow);
-  int mre[NTERMS], mim[NTERMS];
+  int mre[NACC], mim[NACC];
 #pragma unroll
-  for (int term = 0; term < NTERMS; ++term) mre[term] = mim[term] = 0;
+  for (int a = 0; a < NACC; ++a) mre[a] = mim[a] = 0;
 #pragma unroll
   for (int q = 0; q < KW / 4; ++q) {
     const uint4 x = x4[q];
@@ -151,13 +214,15 @@ __device__ __forceinline__ void beam_row(const uint32_t* xrow,
     for (int e = 0; e < 4; ++e) {
 #pragma unroll
       for (int term = 0; term < NTERMS; ++term) {
-        mre[term] = __dp4a(xw[e], int(wre[term][4 * q + e]), mre[term]);
-        mim[term] = __dp4a(xw[e], int(wim[term][4 * q + e]), mim[term]);
+        mre[term % NACC] =
+            __dp4a(xw[e], int(wre[term][4 * q + e]), mre[term % NACC]);
+        mim[term % NACC] =
+            __dp4a(xw[e], int(wim[term][4 * q + e]), mim[term % NACC]);
       }
     }
   }
-  br = combine_terms<NTERMS>(mre);
-  bi = combine_terms<NTERMS>(mim);
+  br = combine_terms<NACC>(mre, factor);
+  bi = combine_terms<NACC>(mim, factor);
 }
 
 // ------------------------------ staged path -----------------------------
@@ -181,8 +246,7 @@ inline int staged_grid_x(int n_spans, int n_chan, int chunks) {
 // consecutive beams, so each byte load of a warp is one 32-byte segment.
 template <int NTERMS>
 __device__ __forceinline__ void stage_beam_weights(
-    uint32_t* ws, const int8_t* w_hi, const int8_t* w_lo, int f, int b0,
-    int n_beams, int kw) {
+    uint32_t* ws, const IntWeights& w, int f, int b0, int n_beams, int kw) {
   const long long b2 = 2LL * n_beams;
   const int total = int(staged_weight_words(NTERMS, kw));
   for (int i = threadIdx.x; i < total; i += blockDim.x) {
@@ -192,7 +256,7 @@ __device__ __forceinline__ void stage_beam_weights(
     const int tc = row / kw;
     uint32_t v = 0;
     if (b < n_beams) {
-      const int8_t* wt = ((tc >> 1) ? w_lo : w_hi) + (long long)f * (4 * kw) * b2
+      const int8_t* wt = sub_term(w, tc >> 1) + (long long)f * w.chan_stride
                          + (long long)(4 * q) * b2 + (tc & 1) * n_beams + b;
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
@@ -209,12 +273,13 @@ __device__ __forceinline__ int word_of(const uint4& x, int e) {
 
 // Four staged rows -- xa, xa + kw (sample A, pols x and y) and xb, xb + kw
 // (sample B) -- times this thread's beam's staged columns (wb = ws + the
-// beam's index in the tile).  m[row][term][col], col 0 Re, 1 Im.
+// beam's index in the tile).  m[row][acc][col], acc = term % n_acc, col 0
+// Re, 1 Im.
 template <int NTERMS>
-__device__ __forceinline__ void staged_rows4(const uint32_t* xa,
-                                             const uint32_t* xb,
-                                             const uint32_t* wb, int kw,
-                                             int (&m)[4][NTERMS][2]) {
+__device__ __forceinline__ void staged_rows4(
+    const uint32_t* xa, const uint32_t* xb, const uint32_t* wb, int kw,
+    int (&m)[4][n_acc(NTERMS)][2]) {
+  constexpr int NACC = n_acc(NTERMS);
   const uint4* xr[4] = {reinterpret_cast<const uint4*>(xa),
                         reinterpret_cast<const uint4*>(xa + kw),
                         reinterpret_cast<const uint4*>(xb),
@@ -223,7 +288,7 @@ __device__ __forceinline__ void staged_rows4(const uint32_t* xa,
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
 #pragma unroll
-    for (int tc = 0; tc < 2 * NTERMS; ++tc) m[r][tc >> 1][tc & 1] = 0;
+    for (int ac = 0; ac < 2 * NACC; ++ac) m[r][ac >> 1][ac & 1] = 0;
   }
   for (int q4 = 0; q4 < kw / 4; ++q4) {
     uint4 x[4];
@@ -237,8 +302,8 @@ __device__ __forceinline__ void staged_rows4(const uint32_t* xa,
         const int w = int(wq[tc * plane + e * kStagedBeams]);
 #pragma unroll
         for (int r = 0; r < 4; ++r) {
-          m[r][tc >> 1][tc & 1] =
-              __dp4a(word_of(x[r], e), w, m[r][tc >> 1][tc & 1]);
+          m[r][(tc >> 1) % NACC][tc & 1] =
+              __dp4a(word_of(x[r], e), w, m[r][(tc >> 1) % NACC][tc & 1]);
         }
       }
     }
@@ -246,17 +311,18 @@ __device__ __forceinline__ void staged_rows4(const uint32_t* xa,
 }
 
 // Row r (0..3) of staged_rows4's result: the beam voltage's integer Re, Im.
-template <int NTERMS>
-__device__ __forceinline__ void staged_voltage(const int (&m)[4][NTERMS][2],
-                                               int r, int& br, int& bi) {
-  int re[NTERMS], im[NTERMS];
+template <int NACC>
+__device__ __forceinline__ void staged_voltage(const int (&m)[4][NACC][2],
+                                               int r, int factor, int& br,
+                                               int& bi) {
+  int re[NACC], im[NACC];
 #pragma unroll
-  for (int t = 0; t < NTERMS; ++t) {
+  for (int t = 0; t < NACC; ++t) {
     re[t] = m[r][t][0];
     im[t] = m[r][t][1];
   }
-  br = combine_terms<NTERMS>(re);
-  bi = combine_terms<NTERMS>(im);
+  br = combine_terms<NACC>(re, factor);
+  bi = combine_terms<NACC>(im, factor);
 }
 
 }  // namespace dsabf

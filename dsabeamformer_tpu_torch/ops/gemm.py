@@ -2,14 +2,18 @@
 full-Stokes spectra, with the deployed path's side outputs; and the unfused
 beam voltages that hold the fused products to account.
 
-Two hand-written CUDA kernels replace the JAX package's two Pallas kernels
-(``dsabeamformer_tpu/ops/gemm.py``):
+Hand-written CUDA kernels replace the JAX package's two Pallas kernels
+(``dsabeamformer_tpu/ops/gemm.py``) in all seven weight modes:
 
 - ``csrc/detect_power.cu`` (``_detect_kernel`` launched by ``_fused_detect``,
   with ``_power_epilogue`` or ``_stokes_epilogue``): per channel, unpack the
   wire bytes of the first ``a_compute`` antennas of each pol into
-  ``[re | im]``, multiply by each int8 weight term in int32, combine int8x2
-  terms as ``M_hi * 256 + M_lo``, convert to float32 once, then detect:
+  ``[re | im]``, multiply by each int8 sub-term in int32, combine them
+  (int8x2 ``M_hi * 256 + M_lo``; int12 ``M_hi * 16 + M_lo``; int13, built
+  from ``csrc/detect_power_int13.cu``, ``(M_h1 + M_h2) * 16 + M_l1 + M_l2``),
+  convert to float32 once (the float modes, ``csrc/detect_float.cu``:
+  multiply by each bfloat16 or float32 term in float32 and add the terms'
+  partial sums), then detect:
   ``|B|^2`` summed over pols (power), or I, Q, U, V (Stokes), summed over
   ``navg_time`` samples and scaled by the channel's ``s^2``.  Unpacked
   voltages and beam voltages never reach device memory.  Optionally, from
@@ -24,23 +28,27 @@ Two hand-written CUDA kernels replace the JAX package's two Pallas kernels
     S2 = sum p^2 per channel (``ops.incoherent.sk_block_stats`` semantics).
 
 - ``csrc/beam_voltages.cu`` (``_voltage_kernel``, launched by
-  ``beamform_voltages``): the same unpack and GEMM, times the channel's
-  scale, stored as float32 ``[F, T, P, 2B]`` with no detection.
+  ``beamform_voltages``; ``csrc/beam_voltages_int13.cu``,
+  ``csrc/beam_voltages_float.cu``): the same unpack and GEMM, times the
+  channel's scale, stored as float32 ``[F, T, P, 2B]`` with no detection.
 
-Both kernels have two weight paths, chosen by ``cfg.a_compute`` alone
-(``kernel_path``): a thread per beam with its weight columns in registers for
-a_compute 8, 16, 32 (DSA-10), and a 64-beam tile of weight columns staged in
-shared memory for every multiple of 8 from 40 to 128 (DSA-110: 110 active
-antennas in 128 slots).
+The int8 modes' kernels have two weight paths (``kernel_path``): a thread per
+beam with its weight columns in registers for a_compute 8, 16, 32 (int13,
+with four sub-terms: 8, 16), and a 64-beam tile of weight columns staged in
+shared memory for every multiple of 8 above that up to 128 (DSA-110: 110
+active antennas in 128 slots).  The float modes' kernels stage a 32-beam
+tile as float32 for every a_compute.
 
 ``fused_detect`` and ``beamform_voltages`` are the wrappers: a CUDA tensor
 goes to the kernel (or the call raises), a CPU tensor to the plain PyTorch
 version of the same function (``detect_power_plain``, ``voltages_plain``).
 ``fused_detect.launches`` counts kernel launches per variant
-(``variant_name``), ``beamform_voltages.launches`` the voltage kernel's.
+(``variant_name``) and ``fused_detect.launches_by_mode`` per ``(weight_mode,
+variant)``; ``beamform_voltages.launches`` counts the voltage kernels'
+launches and ``beamform_voltages.launches_by_mode`` those per weight mode.
 
-Public API: ``beamform_power``, ``beamform_stokes``, ``beamform_voltages``
-(int8 / int8x2 weights), ``voltages_to_complex``.
+Public API: ``beamform_power``, ``beamform_stokes``, ``beamform_voltages``,
+``voltages_to_complex``.
 """
 
 from __future__ import annotations
@@ -54,13 +62,21 @@ import torch
 
 from dsabeamformer_tpu_torch.config import ObsConfig
 from dsabeamformer_tpu_torch.ops._build import load_library
-from dsabeamformer_tpu_torch.ops.quantize import QuantWeights
+from dsabeamformer_tpu_torch.ops.quantize import (
+    FOLDED_SUBTERMS,
+    TERM_DTYPES,
+    QuantWeights,
+)
 
-#: Weight modes the kernels and their plain versions compute.
-KERNEL_MODES = ("int8", "int8x2")
+#: Weight modes the kernels and their plain versions compute: all of them.
+KERNEL_MODES = tuple(TERM_DTYPES)
+#: Modes whose terms are float (bfloat16 or float32), scales all 1.
+FLOAT_MODES = ("bf16", "bf16x2", "f32")
 #: a_compute of the register-weight kernels (K = 2 * a_compute; csrc
-#: instantiates K/4 = 4, 8, 16 register words per beam and term).
+#: instantiates K/4 = 4, 8, 16 register words per beam and sub-term).  With
+#: int13's four sub-terms a beam's columns fill the registers at 16.
 REGISTER_A_COMPUTE = (8, 16, 32)
+REGISTER_A_COMPUTE_INT13 = (8, 16)
 #: The staged-weight kernels take every multiple of 8 above 32 up to this
 #: (csrc: kMaxAnt; also the incoherent mask's width in bits).
 MAX_A_COMPUTE = 128
@@ -74,6 +90,12 @@ _STAGED_BEAMS = 64
 #: (register path, static) and 227 KB (staged path, dynamic).
 _MAX_SMEM = 48 * 1024 - 2 * 32 * 4
 _MAX_STAGED_SMEM = 227 * 1024 - 2 * MAX_A_COMPUTE * 4
+#: The float kernels (csrc/float_gemm.cuh): beams of a weight tile
+#: (kFloatBeams), warps of a block (kFloatGroups), most samples a voltage
+#: block stages (kFloatVoltSpan).
+_FLOAT_BEAMS = 32
+_FLOAT_GROUPS = 8
+_FLOAT_VOLT_SPAN = 64
 #: Signed Q/U/V planes of an 8-bit Stokes product ride the unsigned payload
 #: at this fixed midpoint offset; I keeps offset 0 (the SIGPROC files'
 #: convention, recorded in their scales.json; csrc: kQuvOffset).
@@ -100,13 +122,22 @@ def _check_weights(qw: QuantWeights, cfg: ObsConfig) -> None:
             f"weight scales shaped {tuple(qw.scales.shape)} do not match "
             f"[F, n_terms] = {(cfg.n_chan, len(qw.terms))}"
         )
+    want = TERM_DTYPES[cfg.weight_mode]
+    if len(qw.terms) != cfg.n_weight_terms \
+            or any(w.dtype != want for w in qw.terms):
+        raise ValueError(
+            f"mode {cfg.weight_mode!r} takes {cfg.n_weight_terms} "
+            f"{_dtype_name(want)} weight terms, got "
+            f"{[_dtype_name(w.dtype) for w in qw.terms]}")
+    if qw.scales.dtype != torch.float32:
+        raise ValueError(
+            f"scales must be float32, got {_dtype_name(qw.scales.dtype)}")
 
 
-def _check_mode(cfg: ObsConfig) -> None:
-    if cfg.weight_mode not in KERNEL_MODES:
-        raise NotImplementedError(
-            f"weight mode {cfg.weight_mode!r} is not ported yet (ROADMAP.md "
-            f"Queue 2 item 1: the remaining weight modes)")
+def n_subterms(cfg: ObsConfig) -> int:
+    """int8 sub-terms ``[2*a_compute, 2B]`` the mode multiplies per channel
+    (int8 1, int8x2 and int12 2, int13 4), or its float terms (bf16x2 2)."""
+    return FOLDED_SUBTERMS.get(cfg.weight_mode, cfg.n_weight_terms)
 
 
 def _prepare_wire(wire, cfg: ObsConfig) -> tuple:
@@ -175,33 +206,65 @@ def _mask_words(mask: int):
 
 
 def kernel_path(cfg: ObsConfig) -> str:
-    """The kernels' weight path for ``cfg.a_compute``: ``"register"`` (8,
-    16, 32: each thread holds its beam's weight columns in registers) or
-    ``"staged"`` (multiples of 8 from 40 to ``MAX_A_COMPUTE``: a block
-    stages a 64-beam tile's columns in shared memory, since at K = 256 one
-    beam's int8x2 columns are 256 words, past a thread's 255 registers).
-    Raises ``ValueError`` for any other a_compute."""
+    """The kernels' weight path for ``cfg.weight_mode`` and
+    ``cfg.a_compute``: ``"float"`` for the float modes (a 32-beam tile
+    staged as float32, any a_compute); for the int8 modes ``"register"`` (8,
+    16, 32, int13: 8, 16: each thread holds its beam's weight columns in
+    registers) or ``"staged"`` (the multiples of 8 above that up to
+    ``MAX_A_COMPUTE``: a block stages a 64-beam tile's columns in shared
+    memory, since at K = 256 one beam's two sub-terms are 256 words, past a
+    thread's 255 registers; int13's four are 128 words at a_compute 32).
+    Raises ``ValueError`` for an a_compute the int8 kernels do not take."""
     ac = cfg.a_compute
-    if ac in REGISTER_A_COMPUTE:
-        return "register"
-    if REGISTER_A_COMPUTE[-1] < ac <= MAX_A_COMPUTE and ac % 8 == 0:
-        return "staged"
+    reg = REGISTER_A_COMPUTE_INT13 if cfg.weight_mode == "int13" \
+        else REGISTER_A_COMPUTE
+    ok = REGISTER_A_COMPUTE[-1] < ac <= MAX_A_COMPUTE and ac % 8 == 0
+    if ac in REGISTER_A_COMPUTE or ok:
+        if cfg.weight_mode in FLOAT_MODES:
+            return "float"
+        return "register" if ac in reg else "staged"
     raise ValueError(
         f"the kernels take a_compute in {REGISTER_A_COMPUTE} or a multiple "
         f"of 8 in ({REGISTER_A_COMPUTE[-1]}, {MAX_A_COMPUTE}]; config "
         f"{cfg.name!r} has {ac}")
 
 
-def _detect_smem(cfg: ObsConfig, n_terms: int) -> tuple:
-    """(bytes, limit) of the shared memory one detect-kernel block stages:
-    its span's unpacked rows, and on the staged path the weight tile."""
+def _float_smem(cfg: ObsConfig) -> tuple:
+    """(bytes of a float-kernel block's weight tile, bytes it stages per
+    sample: both pols' float rows and int8 words): csrc float_weight_words,
+    float_sample_bytes."""
     kw = cfg.a_compute // 2
-    if kernel_path(cfg) == "register":
-        rows = max(1, _SPAN_SAMPLES // cfg.navg_time) * cfg.navg_time
+    return (cfg.n_weight_terms * 2 * 4 * kw * _FLOAT_BEAMS * 4,
+            2 * 4 * kw * 4 + 2 * kw * 4)
+
+
+def _float_span_samples(cfg: ObsConfig, least: int, most: int) -> int:
+    """Samples a float-kernel block stages beside its weight tile, at least
+    ``least`` and at most ``most`` (0: ``least`` do not fit): csrc
+    float_span_samples."""
+    wbytes, per = _float_smem(cfg)
+    if wbytes + per * least > _MAX_STAGED_SMEM:
+        return 0
+    return min(most, (_MAX_STAGED_SMEM - wbytes) // per)
+
+
+def _detect_smem(cfg: ObsConfig) -> tuple:
+    """(bytes, limit) of the shared memory one detect-kernel block stages:
+    its span's unpacked rows, and on the staged and float paths the weight
+    tile."""
+    kw, navg = cfg.a_compute // 2, cfg.navg_time
+    path = kernel_path(cfg)
+    if path == "register":
+        rows = max(1, _SPAN_SAMPLES // navg) * navg
         return rows * 2 * kw * 4, _MAX_SMEM
-    rows = max(1, _STAGED_SPAN // cfg.navg_time) * cfg.navg_time
-    return (n_terms * 2 * kw * _STAGED_BEAMS + rows * 2 * kw) * 4, \
-        _MAX_STAGED_SMEM
+    if path == "staged":
+        rows = max(1, _STAGED_SPAN // navg) * navg
+        return (n_subterms(cfg) * 2 * kw * _STAGED_BEAMS + rows * 2 * kw) \
+            * 4, _MAX_STAGED_SMEM
+    wbytes, per = _float_smem(cfg)
+    rows = max(1, _float_span_samples(cfg, navg, _FLOAT_GROUPS * navg)
+               // navg) * navg
+    return wbytes + rows * per, _MAX_STAGED_SMEM
 
 
 def variant_name(quant8: bool, incoherent: bool, sk: bool,
@@ -290,13 +353,16 @@ def quantize_u8(x: torch.Tensor, scales: torch.Tensor,
 
 @contextlib.contextmanager
 def _exact_float32_matmul():
-    """TF32 off for the plain versions' float32 GEMMs on the card."""
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
+    """TF32 and reduced-precision bfloat16 reductions off for the plain
+    versions' float32 GEMMs on the card."""
+    mm = torch.backends.cuda.matmul
+    prev = (mm.allow_tf32, mm.allow_bf16_reduced_precision_reduction)
+    mm.allow_tf32 = False
+    mm.allow_bf16_reduced_precision_reduction = False
     try:
         yield
     finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
+        mm.allow_tf32, mm.allow_bf16_reduced_precision_reduction = prev
 
 
 def _unpack_chunk(x, cfg: ObsConfig, time_major: bool, f0: int, f1: int):
@@ -312,22 +378,46 @@ def _unpack_chunk(x, cfg: ObsConfig, time_major: bool, f0: int, f1: int):
     return (((v >> 4) + 8) & 15) - 8, ((v + 8) & 15) - 8
 
 
-def _gemm_chunk(re, im, terms, f0: int, f1: int) -> torch.Tensor:
-    """``[re | im]`` of channels ``f0:f1`` times every weight term ->
-    ``[Fc, P*T, 2B]`` float32 in quantized units (pol-major rows; int8x2
-    terms combined as ``M_hi * 256 + M_lo``, converted to float32 once).
+def _gemm_chunk(re, im, terms, f0: int, f1: int, mode: str) -> torch.Tensor:
+    """The X operand of channels ``f0:f1`` times every weight term ->
+    ``[Fc, P*T, 2B]`` float32 in quantized units (pol-major rows), as the
+    JAX kernel's ``_build_x`` and ``_accumulate`` do it for ``mode``:
 
-    On the CPU the operands are widened to int32 and multiplied exactly
-    (``torch.matmul`` on int8 CPU tensors returns int8 and wraps).  On the
-    card ``torch.matmul`` has no int32 kernel, so it multiplies in float32
-    with TF32 off, which is exact here: every partial sum of one term is an
-    integer of magnitude at most 8 * 127 * K, below 2^24 for any K of the
-    presets (64 at DSA-10, 256 at DSA-110: 260,096).  Terms combine in
-    int64."""
+    - int8, int8x2: ``[re | im]``; int8x2 terms combined as ``M_hi * 256 +
+      M_lo``, converted to float32 once;
+    - int12: the operand ``[16re | 16im | re | im]`` against the one term
+      ``[[hi], [lo]]``; int13: that block twice against ``[[h1], [l1],
+      [h2], [l2]]`` (built literally, so this checks the CUDA kernels'
+      ``M_hi * 16 + M_lo`` algebra independently);
+    - bf16, bf16x2, f32: ``[re | im]`` as float32 times each term widened to
+      float32, the terms' partial sums added in term order.
+
+    On the CPU the integer operands are widened to int32 and multiplied
+    exactly (``torch.matmul`` on int8 CPU tensors returns int8 and wraps).
+    On the card ``torch.matmul`` has no int32 kernel, so it multiplies in
+    float32 with TF32 off, which is exact here: whatever order the sum is
+    taken in, every partial sum of one term is an integer of magnitude at
+    most 8 * 127 * K for the plain operand (260,096 at K = 256) and
+    (128 + 8) * 127 * K / 2 with the 16x planes, which at DSA-110 int13
+    (K = 1024) is 8,843,264: below 2^24.  Terms combine in int64.  The
+    float modes' products are exact in float32 for bfloat16 weights (8 + 4
+    significant bits), so only the order of the K-sum separates this from
+    the kernels and from XLA."""
     fc, t, p, _ = re.shape
+    planes = [re, im]
+    if mode in FOLDED_SUBTERMS:
+        planes = [16 * re, 16 * im, re, im] * (FOLDED_SUBTERMS[mode] // 2)
+    xk = torch.cat(planes, dim=-1)                # [Fc, T, P, K]
+    xk = xk.permute(0, 2, 1, 3).reshape(fc, p * t, -1)
+    if mode in FLOAT_MODES:
+        xk = xk.to(torch.float32)
+        acc = None
+        for term in terms:
+            part = torch.matmul(xk, term[f0:f1].to(torch.float32))
+            acc = part if acc is None else acc + part
+        return acc
     mm_dtype = torch.int32 if re.device.type == "cpu" else torch.float32
-    xk = torch.cat([re, im], dim=-1)              # [Fc, T, P, 2ac]
-    xk = xk.permute(0, 2, 1, 3).reshape(fc, p * t, -1).to(mm_dtype)
+    xk = xk.to(mm_dtype)
     m = None
     for term in terms:
         part = torch.matmul(xk, term[f0:f1].to(mm_dtype)).to(torch.int64)
@@ -387,7 +477,7 @@ def detect_power_plain(x, terms, scales, cfg: ObsConfig, time_major: bool,
                 if sk_out is not None:
                     sk_out[f0:f1, 0] = pw.sum(dim=(1, 2))
                     sk_out[f0:f1, 1] = (pw * pw).sum(dim=(1, 2))
-            acc = _gemm_chunk(re, im, terms, f0, f1)
+            acc = _gemm_chunk(re, im, terms, f0, f1, cfg.weight_mode)
             sc = s[f0:f1]
             out[f0:f1] = epilogue(acc, t, b, navg) \
                 * (sc * sc).view(-1, *([1] * (out.dim() - 1)))
@@ -401,9 +491,9 @@ def voltages_plain(x, terms, scales, cfg: ObsConfig, time_major: bool,
                    chan_chunk: int = 32) -> torch.Tensor:
     """The voltage kernel's computation in plain PyTorch, on any device:
     float32 ``[F, T, P, 2B]`` beam voltages, ``[..., :B]`` Re and
-    ``[..., B:]`` Im, channel ``f`` the exact integer GEMM times
-    ``scales[f, -1]`` (one float32 multiply, so the kernel agrees to the
-    bit)."""
+    ``[..., B:]`` Im, channel ``f`` the GEMM of ``_gemm_chunk`` times
+    ``scales[f, -1]`` (for the int8 modes an exact integer and one float32
+    multiply, so the kernel agrees to the bit)."""
     f_all, t, p, b = cfg.n_chan, cfg.t_block, cfg.n_pol, cfg.n_beams
     out = torch.empty((f_all, t, p, 2 * b), dtype=torch.float32,
                       device=x.device)
@@ -412,9 +502,25 @@ def voltages_plain(x, terms, scales, cfg: ObsConfig, time_major: bool,
         for f0 in range(0, f_all, chan_chunk):
             f1 = min(f_all, f0 + chan_chunk)
             re, im = _unpack_chunk(x, cfg, time_major, f0, f1)
-            acc = _gemm_chunk(re, im, terms, f0, f1) * s[f0:f1, None, None]
+            acc = _gemm_chunk(re, im, terms, f0, f1, cfg.weight_mode) \
+                * s[f0:f1, None, None]
             out[f0:f1] = acc.view(f1 - f0, p, t, 2 * b).permute(0, 2, 1, 3)
     return out
+
+
+def kernel_library(cfg: ObsConfig, kernel: str) -> str:
+    """The CUDA source (``csrc/<name>.cu``) that holds ``kernel``
+    (``"detect_power"`` or ``"beam_voltages"``) for ``cfg.weight_mode``."""
+    if cfg.weight_mode in FLOAT_MODES:
+        return {"detect_power": "detect_float",
+                "beam_voltages": "beam_voltages_float"}[kernel]
+    return kernel + ("_int13" if cfg.weight_mode == "int13" else "")
+
+
+#: Every CUDA source with a C entry point ``dsabf_<name>``.
+KERNEL_SOURCES = ("detect_power", "detect_power_int13", "detect_float",
+                  "beam_voltages", "beam_voltages_int13",
+                  "beam_voltages_float")
 
 
 def _kernel_lib(name: str) -> ctypes.CDLL:
@@ -422,12 +528,15 @@ def _kernel_lib(name: str) -> ctypes.CDLL:
     fn = getattr(lib, f"dsabf_{name}")
     if fn.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        if name == "detect_power":
+        # Both kinds of library take the same argument types: after the
+        # sizes, (n_sub, fold) for the int8 modes, (n_terms, elem_size) for
+        # the float ones.
+        if name.startswith("detect"):
             fn.argtypes = [p, p, p, p, p, p, p, p,
                            ctypes.POINTER(ctypes.c_uint), i, i, i, i, i, i,
-                           i, i, ll, ll, p]
+                           i, i, i, ll, ll, p]
         else:
-            fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, ll, ll, p]
+            fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, ll, ll, p]
         fn.restype = i
         lib.dsabf_error_string.argtypes = [i]
         lib.dsabf_error_string.restype = ctypes.c_char_p
@@ -453,15 +562,6 @@ def _check_kernel_operands(x, terms, scales, cfg: ObsConfig,
             raise ValueError(f"{name} must be contiguous")
     if x.data_ptr() % 4:
         raise ValueError("wire must start on a 4-byte boundary")
-    if any(w.dtype != torch.int8 for w in terms):
-        raise ValueError(
-            f"kernel takes int8 weight terms, got "
-            f"{[_dtype_name(w.dtype) for w in terms]}")
-    if scales.dtype != torch.float32:
-        raise ValueError(
-            f"scales must be float32, got {_dtype_name(scales.dtype)}")
-    if len(terms) not in (1, 2):
-        raise ValueError(f"kernel takes 1 or 2 weight terms, got {len(terms)}")
     kernel_path(cfg)  # raises for an a_compute neither path takes
     if cfg.n_ant % 4 or cfg.n_pol != 2:
         raise ValueError(f"kernel needs n_ant % 4 == 0 and 2 pols, got "
@@ -476,6 +576,15 @@ def _check_same_device(x, tensors) -> None:
             raise ValueError(
                 f"weights are on {t.device}, wire on {x.device}: move both "
                 f"to one device")
+
+
+def _mode_args(cfg: ObsConfig, terms) -> list:
+    """The two integers that tell a kernel library how to read the terms:
+    ``(n_sub, fold)`` for the int8 modes, ``(n_terms, element size)`` for
+    the float ones."""
+    if cfg.weight_mode in FLOAT_MODES:
+        return [len(terms), terms[0].element_size()]
+    return [n_subterms(cfg), int(cfg.weight_mode in FOLDED_SUBTERMS)]
 
 
 def _launch(lib, name: str, args: list, device) -> None:
@@ -497,7 +606,8 @@ def fused_detect(x, terms, scales, cfg: ObsConfig, time_major: bool, *,
 
     ``x`` is the device wire form from ``_prepare_wire``.  A CPU tensor runs
     ``detect_power_plain``; a CUDA tensor launches the kernel on the current
-    stream and counts it in ``fused_detect.launches[variant_name(...)]``, or
+    stream and counts it in ``fused_detect.launches[variant_name(...)]`` and
+    in ``fused_detect.launches_by_mode[(cfg.weight_mode, variant)]``, or
     raises.  Any other device raises.
     """
     _check_same_device(x, (scales, *terms, quant8_scales))
@@ -512,19 +622,21 @@ def fused_detect(x, terms, scales, cfg: ObsConfig, time_major: bool, *,
     out = _launch_detect(x, terms, scales, cfg, time_major,
                          quant8_scales=quant8_scales, inco_mask=inco_mask,
                          sk=sk, stokes=stokes)
-    fused_detect.launches[variant_name(quant8_scales is not None,
-                                       inco_mask is not None, sk,
-                                       stokes)] += 1
+    variant = variant_name(quant8_scales is not None, inco_mask is not None,
+                           sk, stokes)
+    fused_detect.launches[variant] += 1
+    fused_detect.launches_by_mode[(cfg.weight_mode, variant)] += 1
     return out
 
 
 fused_detect.launches = collections.Counter()
+fused_detect.launches_by_mode = collections.Counter()
 
 
 def _launch_detect(x, terms, scales, cfg: ObsConfig, time_major: bool, *,
                    quant8_scales, inco_mask, sk: bool, stokes: bool) -> tuple:
     """Check the operands, allocate the outputs on ``x``'s device and launch
-    ``csrc/detect_power.cu``: ``(out, inco, sk)``."""
+    the mode's detect kernel (``kernel_library``): ``(out, inco, sk)``."""
     quant8 = quant8_scales is not None
     _check_kernel_operands(
         x, terms, scales, cfg, time_major,
@@ -535,7 +647,7 @@ def _launch_detect(x, terms, scales, cfg: ObsConfig, time_major: bool, *,
             f"quant8_scales must be float32 [{cfg.n_beams}], got "
             f"{_dtype_name(quant8_scales.dtype)} "
             f"{tuple(quant8_scales.shape)}")
-    need, limit = _detect_smem(cfg, len(terms))
+    need, limit = _detect_smem(cfg)
     if need > limit:
         raise ValueError(
             f"navg_time={cfg.navg_time} needs {need} bytes of shared memory, "
@@ -557,14 +669,16 @@ def _launch_detect(x, terms, scales, cfg: ObsConfig, time_major: bool, *,
         sk_out = torch.zeros((cfg.n_chan, 2, cfg.a_compute),
                              dtype=torch.int64, device=x.device)
     time_stride, chan_stride = _wire_strides(cfg, time_major)
-    _launch(_kernel_lib("detect_power"), "detect_power", [
+    name = kernel_library(cfg, "detect_power")
+    _launch(_kernel_lib(name), name, [
         x.data_ptr(), terms[0].data_ptr(), terms[-1].data_ptr(),
         scales.data_ptr(), quant8_scales.data_ptr() if quant8 else None,
         out.data_ptr(), None if inco is None else inco.data_ptr(),
         None if sk_out is None else sk_out.data_ptr(),
         None if inco_mask is None else _mask_words(inco_mask), cfg.n_chan,
-        cfg.t_block, cfg.n_beams, cfg.n_ant, cfg.a_compute, len(terms),
-        cfg.navg_time, int(stokes), time_stride, chan_stride], x.device)
+        cfg.t_block, cfg.n_beams, cfg.n_ant, cfg.a_compute,
+        *_mode_args(cfg, terms), cfg.navg_time, int(stokes), time_stride,
+        chan_stride], x.device)
     return out, inco, sk_out
 
 
@@ -573,7 +687,6 @@ def _beamform(wire, qw: QuantWeights, cfg: ObsConfig, *, stokes: bool,
               sk_stats: bool):
     """``beamform_power`` / ``beamform_stokes``: the JAX package's checks,
     the kernel call, the ``navg_freq`` sum and the return order."""
-    _check_mode(cfg)
     if quant8_scales is not None and cfg.navg_freq != 1:
         raise ValueError(
             f"quant8_scales requires navg_freq=1 (got {cfg.navg_freq}): "
@@ -683,15 +796,17 @@ def beamform_voltages(wire, qw: QuantWeights, cfg: ObsConfig):
 
     Returns float32 ``[F, T, P, 2B]`` where ``[..., :B]`` is Re and
     ``[..., B:]`` is Im, in the units of the weights (the exact integer GEMM
-    times the channel's scale), on the wire's device.  Device-memory heavy by
+    times the channel's scale; the float modes' float32 GEMM), on the wire's
+    device.  Device-memory heavy by
     design (a DSA-10 block's voltages are 68.7 GB; use a sub-band): this is
     the validation path that the fused detection products are held against.
 
-    A CPU tensor runs ``voltages_plain``; a CUDA tensor launches
-    ``csrc/beam_voltages.cu`` on the current stream, which reads tfpa and
-    ftpa through strides, and counts it in ``beamform_voltages.launches``.
+    A CPU tensor runs ``voltages_plain``; a CUDA tensor launches the mode's
+    voltage kernel (``kernel_library``) on the current stream, which reads
+    tfpa and ftpa through strides, and counts it in
+    ``beamform_voltages.launches`` and
+    ``beamform_voltages.launches_by_mode[cfg.weight_mode]``.
     """
-    _check_mode(cfg)
     _check_weights(qw, cfg)
     x, time_major = _prepare_wire(wire, cfg)
     _check_same_device(x, (qw.scales, *qw.terms))
@@ -703,25 +818,33 @@ def beamform_voltages(wire, qw: QuantWeights, cfg: ObsConfig):
             f"tensors, got {x.device}")
     out = _launch_voltages(x, qw.terms, qw.scales, cfg, time_major)
     beamform_voltages.launches += 1
+    beamform_voltages.launches_by_mode[cfg.weight_mode] += 1
     return out
 
 
 beamform_voltages.launches = 0
+beamform_voltages.launches_by_mode = collections.Counter()
 
 
 def _launch_voltages(x, terms, scales, cfg: ObsConfig,
                      time_major: bool) -> torch.Tensor:
     """Check the operands, allocate the output on ``x``'s device and launch
-    ``csrc/beam_voltages.cu``."""
+    the mode's voltage kernel (``kernel_library``)."""
     _check_kernel_operands(x, terms, scales, cfg, time_major)
+    if kernel_path(cfg) == "float" and _float_span_samples(
+            cfg, 2, _FLOAT_VOLT_SPAN) < 2:
+        raise ValueError(
+            f"a_compute={cfg.a_compute} in mode {cfg.weight_mode!r} leaves "
+            f"no shared memory for a span of samples")
     out = torch.empty((cfg.n_chan, cfg.t_block, cfg.n_pol, 2 * cfg.n_beams),
                       dtype=torch.float32, device=x.device)
     time_stride, chan_stride = _wire_strides(cfg, time_major)
-    _launch(_kernel_lib("beam_voltages"), "beam_voltages", [
+    name = kernel_library(cfg, "beam_voltages")
+    _launch(_kernel_lib(name), name, [
         x.data_ptr(), terms[0].data_ptr(), terms[-1].data_ptr(),
         scales.data_ptr(), out.data_ptr(), cfg.n_chan, cfg.t_block,
-        cfg.n_beams, cfg.n_ant, cfg.a_compute, len(terms), time_stride,
-        chan_stride], x.device)
+        cfg.n_beams, cfg.n_ant, cfg.a_compute, *_mode_args(cfg, terms),
+        time_stride, chan_stride], x.device)
     return out
 
 

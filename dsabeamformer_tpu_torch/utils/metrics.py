@@ -1,10 +1,12 @@
 """Per-block metrics and the stream's stats record.
 
 The same records as ``dsabeamformer_tpu/utils/metrics.py``, with the
-utilization taken against the published dense int8 tensor-core peak of the
-card the run used, found from ``torch.cuda.get_device_name``.  A device the
-table does not know (the CPU included) has no peak, and its utilization is
-reported as ``None``, never guessed.
+utilization taken against the published dense tensor-core peak, for the
+operand type of ``cfg.weight_mode`` (int8 or bfloat16), of the card the run
+used, found from ``torch.cuda.get_device_name``.  A device the table does
+not know (the CPU included) has no peak, and neither has the f32 mode, whose
+MACs do not run on the tensor cores: the utilization is then reported as
+``None``, never guessed.
 """
 
 from __future__ import annotations
@@ -16,39 +18,50 @@ from typing import Optional
 
 from dsabeamformer_tpu_torch.config import ObsConfig
 
-#: Dense (no sparsity) int8 tensor-core peaks, TOP/s, from NVIDIA's data
-#: sheets, by a substring of ``torch.cuda.get_device_name``.  Checked in
-#: order: the PCIe and NVL parts of the H100 are named apart from the SXM
-#: part ("NVIDIA H100 80GB HBM3").
-_PEAK_INT8_TOPS = (
-    ("h100 pcie", 1513e12),
-    ("h100 nvl", 1670.5e12),
-    ("h100", 1979e12),
-    ("h200", 1979e12),
+#: Dense (no sparsity) tensor-core peaks, (int8 TOP/s, bf16 TFLOP/s), from
+#: NVIDIA's data sheets, by a substring of ``torch.cuda.get_device_name``.
+#: Checked in order: the PCIe and NVL parts of the H100 are named apart from
+#: the SXM part ("NVIDIA H100 80GB HBM3").
+_PEAK_TOPS = (
+    ("h100 pcie", (1513e12, 756e12)),
+    ("h100 nvl", (1670.5e12, 835.5e12)),
+    ("h100", (1979e12, 989e12)),
+    ("h200", (1979e12, 989e12)),
 )
 
+#: Operand type of each weight mode's MACs: index into ``_PEAK_TOPS``, or
+#: None for f32, which has no tensor-core path (TF32 is not float32).
+_MODE_OPERAND = {"int8": 0, "int8x2": 0, "int12": 0, "int13": 0,
+                 "bf16": 1, "bf16x2": 1, "f32": None}
 
-def peak_int8_macs_per_s(device_kind: str) -> Optional[float]:
-    """Dense int8 tensor-core peak in MAC/s (TOP/s / 2) of the card named
-    ``device_kind``, or None for a device the table does not know."""
+
+def peak_macs_per_s(device_kind: str,
+                    weight_mode: str = "int8x2") -> Optional[float]:
+    """Dense tensor-core peak in MAC/s (operations / 2) of the card named
+    ``device_kind`` for the operand type of ``weight_mode``; None for a
+    device the table does not know and for the f32 mode."""
+    operand = _MODE_OPERAND[weight_mode]
+    if operand is None:
+        return None
     kind = device_kind.lower()
-    for key, tops in _PEAK_INT8_TOPS:
+    for key, tops in _PEAK_TOPS:
         if key in kind:
-            return tops / 2.0
+            return tops[operand] / 2.0
     return None
 
 
 def tensor_core_utilization(macs: int, wall_s: float, cfg: ObsConfig,
                             device_kind: str) -> Optional[dict]:
-    """Two labeled accountings of one measurement against the int8 peak:
+    """Two labeled accountings of one measurement against the peak for
+    ``cfg.weight_mode``'s operand type (``peak_macs_per_s``):
 
     - ``issued``: MACs the kernel issues (the a_compute-sliced contraction)
       per second / peak.
     - ``padded_k``: the same time booked with the full zero-padded ``n_ant``
       contraction, ``n_ant/a_compute`` more nominal MACs.
 
-    None when the device has no known peak or the time is zero."""
-    peak = peak_int8_macs_per_s(device_kind)
+    None when the device or the mode has no peak, or the time is zero."""
+    peak = peak_macs_per_s(device_kind, cfg.weight_mode)
     if peak is None or not wall_s:
         return None
     issued = macs / wall_s / peak

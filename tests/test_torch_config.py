@@ -13,7 +13,7 @@ import dsabeamformer_tpu_torch.config as pcfg
 import dsabeamformer_tpu_torch.utils.testing as ptesting
 from dsabeamformer_tpu_torch.utils.metrics import (
     StreamStats,
-    peak_int8_macs_per_s,
+    peak_macs_per_s,
     tensor_core_utilization,
 )
 
@@ -95,8 +95,34 @@ def test_relative_power_error_matches_jax(seed):
     ("NVIDIA A100-SXM4-80GB", None),
 ])
 def test_peak_table(kind, tops):
-    got = peak_int8_macs_per_s(kind)
+    got = peak_macs_per_s(kind, "int8")
     assert got == (None if tops is None else tops / 2)
+
+
+@pytest.mark.parametrize("mode,macs_per_s", [
+    ("int8", 989.5e12), ("int8x2", 989.5e12), ("int12", 989.5e12),
+    ("int13", 989.5e12), ("bf16", 494.5e12), ("bf16x2", 494.5e12),
+    ("f32", None),
+])
+def test_peak_follows_the_operand_type(mode, macs_per_s):
+    """The utilization is booked against the dense peak for the mode's
+    operand type (the JAX package: int8 or bf16); f32 runs outside the
+    tensor cores and has none."""
+    kind = "NVIDIA H100 80GB HBM3"
+    assert peak_macs_per_s(kind, mode) == macs_per_s
+    assert peak_macs_per_s("cpu", mode) is None
+    cfg = pcfg.DSA10.replace(weight_mode=mode)
+    macs = cfg.macs_per_block * cfg.n_weight_terms
+    u = tensor_core_utilization(macs, 2.0, cfg, kind)
+    rec = StreamStats(cfg_name="dsa10", device_kind=kind, n_blocks=1,
+                      macs=macs).finish().record(cfg)
+    if macs_per_s is None:
+        assert u is None and rec["tc_utilization_issued"] is None
+    else:
+        assert u["issued"] == pytest.approx(macs / 2.0 / macs_per_s)
+        assert u["padded_k"] == pytest.approx(
+            u["issued"] * cfg.n_ant / cfg.a_compute)
+        assert rec["tc_utilization_issued"] > 0
 
 
 def test_utilization_accounting():

@@ -605,3 +605,140 @@ def test_stokes_stream_matches_cpu_stream(dev, layout, tmp_path):
     _, ic = read_product_file(tmp_path / "cpu.dada")
     _, ig = read_product_file(tmp_path / "cuda.dada")
     np.testing.assert_array_equal(np.asarray(ig), np.asarray(ic))
+
+
+# --------------------------------------------------------------------- #
+# The other weight modes: int12, int13, bf16, bf16x2, f32
+# --------------------------------------------------------------------- #
+
+NEW_MODES = ("int12", "int13", "bf16", "bf16x2", "f32")
+
+#: a_compute -> a small geometry contracting exactly that many antennas
+#: (set explicitly: int13's automatic a_compute rounds to 16, not 32).
+MODE_GEOMS = {
+    8: TINY.replace(n_ant=8, n_ant_active=6, n_ant_compute=8),
+    16: TINY.replace(n_ant_compute=16, n_beams=40),
+    32: DSA10.replace(n_chan=4, t_block=256, n_ant_compute=32),
+    64: DSA110.replace(n_chan=2, t_block=128, n_ant_active=60,
+                       n_ant_compute=64, n_beams=100),
+    128: DSA110.replace(n_chan=2, t_block=128, n_ant_compute=128,
+                        n_beams=130, navg_time=8),
+}
+
+
+def _mode_rtol(mode) -> float:
+    """Kernel vs plain, relative to the block's peak: the int8 modes give
+    identical integers (float32 summation order of the detection only); the
+    float modes also sum K = 2 * a_compute <= 256 float32 products in
+    another order than the library GEMM of the plain version."""
+    return 1e-5 if mode in gemm.FLOAT_MODES else KERNEL_RTOL
+
+
+@pytest.mark.parametrize("layout", ["tfpa", "ftpa"])
+@pytest.mark.parametrize("side", [False, True], ids=["plain", "sk+q8+inco"])
+@pytest.mark.parametrize("stokes", [False, True], ids=["power", "stokes"])
+@pytest.mark.parametrize("ac", sorted(MODE_GEOMS))
+@pytest.mark.parametrize("mode", NEW_MODES)
+def test_mode_kernels_match_plain(dev, mode, ac, stokes, side, layout):
+    """Every weight mode's detect kernel against its plain version, power
+    and Stokes, without and with all side outputs: float32 within
+    ``_mode_rtol`` of the peak, the uint8 product byte-equal to the
+    rint/clip of the kernel's own float32 and within 1 count of the plain
+    version's, incoherent and SK equal."""
+    cfg = MODE_GEOMS[ac].replace(input_layout=layout, weight_mode=mode)
+    assert cfg.a_compute == ac
+    wire = make_random_bytes_block(cfg, seed=13)
+    qw = _weights(cfg, dev)
+    x, tm = gemm._prepare_wire(torch.from_numpy(wire).to(dev), cfg)
+    variant = gemm.variant_name(side, side, side, stokes)
+    before = gemm.fused_detect.launches_by_mode[(mode, variant)]
+    f32_k = gemm.fused_detect(x, qw.terms, qw.scales, cfg, tm,
+                              stokes=stokes)[0]
+    f32_p = gemm.detect_power_plain(x, qw.terms, qw.scales, cfg, tm,
+                                    stokes=stokes)[0]
+    peak = float(f32_p.abs().max())
+    assert bool(torch.isfinite(f32_k).all())
+    assert float((f32_k - f32_p).abs().max()) <= _mode_rtol(mode) * peak
+    if not side:
+        assert gemm.fused_detect.launches_by_mode[(mode, variant)] \
+            == before + 1
+        return
+    plane = f32_k[:, :, 0] if stokes else f32_k
+    kw = dict(quant8_scales=_beam_scales(plane, cfg, 13),
+              inco_mask=gemm.incoherent_mask(cfg, _flags(cfg)), sk=True,
+              stokes=stokes)
+    out_k, inco_k, sk_k = gemm.fused_detect(x, qw.terms, qw.scales, cfg, tm,
+                                            **kw)
+    out_p, inco_p, sk_p = gemm.detect_power_plain(x, qw.terms, qw.scales,
+                                                  cfg, tm, **kw)
+    torch.cuda.synchronize()
+    assert gemm.fused_detect.launches_by_mode[(mode, variant)] == before + 1
+    offsets = gemm.stokes_offsets(dev) if stokes else None
+    assert out_k.dtype == torch.uint8
+    assert torch.equal(out_k, gemm.quantize_u8(f32_k, kw["quant8_scales"],
+                                               offsets))
+    assert int((out_k.int() - out_p.int()).abs().max()) <= 1
+    assert torch.equal(inco_k, inco_p)
+    assert sk_k.dtype == torch.int64 and torch.equal(sk_k, sk_p)
+
+
+@pytest.mark.parametrize("layout", ["tfpa", "ftpa"])
+@pytest.mark.parametrize("ac", sorted(MODE_GEOMS))
+@pytest.mark.parametrize("mode", NEW_MODES)
+def test_mode_voltages_match_plain(dev, mode, ac, layout):
+    """Every weight mode's voltage kernel against its plain version: equal
+    for the int8 modes, within ``_mode_rtol`` of the largest voltage for
+    the float ones."""
+    cfg = MODE_GEOMS[ac].replace(input_layout=layout, weight_mode=mode)
+    wire = make_random_bytes_block(cfg, seed=19)
+    qw = _weights(cfg, dev)
+    before = gemm.beamform_voltages.launches_by_mode[mode]
+    got = gemm.beamform_voltages(torch.from_numpy(wire).to(dev), qw, cfg)
+    torch.cuda.synchronize()
+    assert gemm.beamform_voltages.launches_by_mode[mode] == before + 1
+    x, tm = gemm._prepare_wire(torch.from_numpy(wire).to(dev), cfg)
+    want = gemm.voltages_plain(x, qw.terms, qw.scales, cfg, tm)
+    if mode in gemm.FLOAT_MODES:
+        assert float((got - want).abs().max()) \
+            <= _mode_rtol(mode) * float(want.abs().max())
+    else:
+        assert torch.equal(got, want)
+
+
+#: The JAX package's golden bars (its tests/test_gemm.py) per mode.
+GOLDEN_BARS = {"int13": 5e-4, "int12": 8e-4, "bf16x2": 2e-4, "f32": 1e-5,
+               "bf16": 1e-2}
+
+
+@pytest.mark.parametrize("mode", NEW_MODES)
+def test_mode_kernel_vs_golden(dev, mode):
+    """Calibrated noise through each mode's kernel against the float64
+    golden model, at the JAX package's bar for the mode (f32 at 1e-5: a
+    TF32 product anywhere would miss it by three orders)."""
+    cfg = TINY.replace(weight_mode=mode)
+    cal = CalTable.random(cfg, seed=11)
+    wire = make_noise_block(cfg, rms=2.5, seed=21)
+    qw = prepare_weights(cfg, make_weights(cfg, cal=cal, device=dev))
+    p = gemm.beamform_power(torch.from_numpy(wire).to(dev), qw, cfg)
+    ref = beamform_block_ref(weights_numpy_golden(cfg, cal=cal), wire,
+                             cfg.input_layout, cfg.navg_time)
+    assert relative_power_error(p.cpu().numpy(), ref) <= GOLDEN_BARS[mode]
+
+
+@pytest.mark.parametrize("mode", ["int12", "bf16x2"])
+def test_mode_stream_cuda_equals_cpu(dev, mode):
+    """The streaming loop in another weight mode: the CUDA path's blocks
+    against the CPU path's (the plain version), block for block."""
+    cfg = DSA10.replace(n_chan=8, t_block=256, weight_mode=mode)
+    blocks = [make_random_bytes_block(cfg, seed=s) for s in (1, 2, 3)]
+    outs = {}
+    qw_dev = prepare_weights(cfg, make_weights(cfg, device=dev))
+    for where in ("cpu", dev):
+        qw = _to(qw_dev, where)  # the same terms on both devices
+        sink = CollectSink()
+        stats = StreamingBeamformer(cfg, qw, SyntheticSource(cfg, blocks, 5),
+                                    sink).run()
+        assert stats.n_blocks == 5 and stats.dropped == 0
+        outs[str(where)] = [b for _, b in sink.outputs]
+    for a, b in zip(outs["cpu"], outs[str(dev)]):
+        assert relative_power_error(b, a) <= _mode_rtol(mode)

@@ -168,12 +168,6 @@ def test_prepare_wire_errors_match_jax(bad):
     assert str(ep.value) == str(ej.value)
 
 
-def test_unported_mode_raises():
-    pc = pcfg.TINY.replace(weight_mode="int12")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pgemm.beamform_power(make_random_bytes_block(pc), None, pc)
-
-
 def test_no_fallback_for_other_devices():
     """A tensor that is not on the CPU never takes the plain version."""
     pc = pcfg.TINY

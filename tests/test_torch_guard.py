@@ -1,5 +1,6 @@
 """Guards of the port's boundaries: it imports no JAX (nor the JAX
-package), asking for a card that is absent raises instead of running on the
+package, nor ml_dtypes, which the machine with the card need not have),
+asking for a card that is absent raises instead of running on the
 CPU, the kernel build module imports on a machine with no nvcc, and
 chip_smoke.py fails without a card or without the repository."""
 
@@ -51,13 +52,29 @@ def test_port_imports_no_jax():
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'dsabeamformer_tpu'))\n"
+        "('jax', 'jaxlib', 'dsabeamformer_tpu', 'ml_dtypes'))\n"
         "print('LOADED', len(sys.modules), 'BAD', bad)\n"
         "assert not bad, bad\n"
     )
     proc = _run(code)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "BAD []" in proc.stdout
+
+
+def test_chip_smoke_imports_no_jax():
+    """chip_smoke.py names none of jax, the JAX package or ml_dtypes in an
+    import (it cannot be imported here: it needs a card)."""
+    import ast
+
+    tree = ast.parse((REPO / "chip_smoke.py").read_text())
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            names.add((node.module or "").split(".")[0])
+    assert "dsabeamformer_tpu_torch" in names
+    assert not names & {"jax", "jaxlib", "dsabeamformer_tpu", "ml_dtypes"}
 
 
 def test_build_module_imports_without_nvcc(tmp_path):

@@ -135,7 +135,7 @@ def test_plain_voltages_chunking_and_counter():
 def test_voltage_errors():
     _, pc, _, qp = _pair()
     wire = make_noise_block(pc, seed=1)
-    with pytest.raises(NotImplementedError, match="Queue 2 item 1"):
+    with pytest.raises(ValueError, match="takes 1 bfloat16 weight term"):
         pgemm.beamform_voltages(wire, qp, pc.replace(weight_mode="bf16"))
     with pytest.raises(ValueError, match="does not match"):
         pgemm.beamform_voltages(wire, qp, pc.replace(n_beams=64))

@@ -1,5 +1,5 @@
-"""Port vs JAX package: steering weights, zap/flag edits, int8 / int8x2
-quantization and the weight-table file format."""
+"""Port vs JAX package: steering weights, zap/flag edits, quantization in
+every weight mode and the weight-table file format."""
 
 import numpy as np
 import pytest
@@ -109,17 +109,26 @@ def _wc(geom, seed):
 
 @pytest.mark.parametrize("seed", range(3))
 @pytest.mark.parametrize("geom", sorted(GEOMS))
-@pytest.mark.parametrize("mode", ["int8x2", "int8"])
+@pytest.mark.parametrize("mode", sorted(pq.TERM_DTYPES))
 def test_quantizers_byte_identical(mode, geom, seed):
-    """Same Wc into both -> the same int8 terms and equal scales."""
+    """Same Wc into both -> the same terms, byte for byte, and equal
+    scales, in every weight mode."""
     wc = _wc(geom, seed)
     jterms, jscales = jq._QUANTIZERS[mode](wc)
     pterms, pscales = pq._QUANTIZERS[mode](torch.from_numpy(wc.copy()))
     assert len(pterms) == len(jterms)
     for a, b in zip(jterms, pterms):
-        assert b.dtype == torch.int8
-        np.testing.assert_array_equal(b.numpy(), np.asarray(a))
+        assert b.dtype == pq.TERM_DTYPES[mode]
+        assert tuple(b.shape) == a.shape
+        np.testing.assert_array_equal(_bits(pq._term_to_numpy(b)),
+                                      _bits(np.asarray(a)))
     np.testing.assert_array_equal(pscales.numpy(), np.asarray(jscales))
+
+
+def _bits(a: np.ndarray) -> np.ndarray:
+    """The array's bytes (bfloat16 arrives as an extension dtype or as
+    two-byte records)."""
+    return np.ascontiguousarray(a).view(np.uint8)
 
 
 def _carried(a) -> CVec:
@@ -177,15 +186,15 @@ def test_carry_across_from_numpy():
     assert qw.scales.dtype == torch.float32
 
 
-@pytest.mark.parametrize("mode", pq.UNPORTED_MODES)
-def test_unported_modes_raise(mode):
+def test_quantize_rejects_unknown_mode_and_width():
     w = CVec.from_numpy(np.ones((2, 4, 8), np.complex64), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pq.quantize_weights(w, mode)
     with pytest.raises(ValueError, match="unknown weight mode"):
         pq.quantize_weights(w, "int4")
     with pytest.raises(ValueError, match="out of range"):
         pq.cat_weights(w, a_compute=9)
+    with pytest.raises(ValueError, match="none of int8, float32"):
+        pq.quant_weights_from_numpy([np.zeros((1, 2, 2), np.float64)],
+                                    np.ones((1, 1), np.float32), device="cpu")
 
 
 @pytest.mark.parametrize("navg_freq", [1, 2, 4])
