@@ -7,8 +7,8 @@ Phases (each passes or raises; any failure exits non-zero with no result):
 
 1. device   -- a CUDA card is required; prints its name and
                ``nvidia-smi --query-gpu=name,power.limit``.
-2. build    -- compiles the six CUDA sources (detect_power, beam_voltages,
-               their int13 builds and the float modes' detect_float and
+2. build    -- compiles the five CUDA sources (detect_power, beam_voltages
+               and its int13 build, and the float modes' detect_float and
                beam_voltages_float) with nvcc for sm_90a from the checkout,
                one nvcc each, started together, and prints ``ptxas -v``.
 3. kernel vs plain -- at the full DSA10 preset (and the dsa10c compact
@@ -19,7 +19,8 @@ Phases (each passes or raises; any failure exits non-zero with no result):
                beam 100, tfpa and ftpa: argmax beam 100 and <= 1e-3 against
                the float64 golden model.
 5. device-resident rate -- two resident DSA10 blocks, back-to-back kernel
-               launches timed with CUDA events, beside the plain version.
+               launches timed with CUDA events, beside the plain version; the
+               int8x2 kernel must take less than ``DSA10_BASE_LIMIT_MS``.
 6. streamed run -- StreamingBeamformer.run over DSA10 blocks from a
                SyntheticSource (pinned staging, H2D on a copy stream, D2H to a
                checksum sink); the kernel's launch count must equal the block
@@ -85,8 +86,9 @@ Phases (each passes or raises; any failure exits non-zero with no result):
 17. (no phase: ``bound_ms`` bounds every weight mode, and phases 23-28
                measure the modes other than int8x2.)
 
-DSA-110 (a_compute 128: 110 active antennas in 128 slots, 512 beams), the
-kernels' staged-weight path:
+DSA-110 (a_compute 128: 110 active antennas in 128 slots, 512 beams): eight
+k32 steps a sub-term in the tensor-core detect kernel, the staged-weight path
+of the voltage kernels:
 
 18. dsa110 kernel vs plain -- one random-bytes block at the full DSA110
                preset: base, sk+q8+inco, stokes, stokes+sk+q8+inco against
@@ -108,44 +110,60 @@ kernels' staged-weight path:
 22. dsa110 voltages -- a 128-channel DSA-110 sub-band (t_block 4096) through
                beamform_voltages, checked and timed as phase 16.
 
-The weight modes int12, int13, bf16, bf16x2 and f32 (``cfg.weight_mode``;
-int8x2 is the mode of every phase above), at full dsa10 width, int13 at its
-own a_compute 16:
+The weight modes int8, int12, int13, bf16, bf16x2 and f32
+(``cfg.weight_mode``; int8x2 is the mode of every phase above), at full dsa10
+width, int13 at its own a_compute 16:
 
 23. modes   -- per mode, on one full block: base, sk+q8+inco, stokes and
-               stokes+sk+q8+inco against the plain version (float32 <= 1e-5
-               of the peak; uint8 byte-equal to the rint/clip of the kernel's
-               own float32 and within 1 count of the plain version's;
-               incoherent and SK equal), then the CUDA-event time of each on
-               two resident blocks beside its bound.
+               stokes+sk+q8+inco (the int8 modes, whose kernel is the
+               tensor-core one: all 16 variants) against the plain version
+               (float32 <= 1e-5 of the peak; uint8 byte-equal to the rint/clip
+               of the kernel's own float32 and within 1 count of the plain
+               version's; incoherent and SK equal), then the CUDA-event time
+               of those four on two resident blocks beside its bound and the
+               issued share of the operand type's tensor-core peak.
 24. modes physics -- per mode, the 128-channel sub-band: the point source's
                argmax at beam 100 (error against the float64 golden within
                the mode's point-source bar, f32 1e-4), and a calibrated noise
                block
                within the JAX package's bar for the mode (int13 5e-4, int12
-               8e-4, bf16x2 2e-4, bf16 1e-2, f32 1e-5: a TF32 product
-               anywhere would miss f32's by three orders).
+               8e-4, int8 2e-2, bf16x2 2e-4, bf16 1e-2, f32 1e-5: a TF32
+               product anywhere would miss f32's by three orders).
 25. modes stream -- StreamingBeamformer with DSA10.replace(weight_mode=m):
                int12 power-only (6 blocks), int13 deployed (6 blocks: 8-bit
                .fil x256, incoherent .dada, the RFI monitor excising the
                carrier, so the weights are re-quantized in int13 mid-stream),
-               bf16x2, bf16 and f32 power-only (3 blocks each); 0 dropped,
+               int8, bf16x2, bf16 and f32 power-only (3 blocks each); 0 dropped,
                launches counted per mode; a mode never launched on a stream
                fails the run.
 26. modes voltages -- per mode the 128-channel sub-band through
                beamform_voltages: equal to the plain version for int12 and
                int13, within 1e-5 of the largest voltage for the float modes;
                the fused products within 1e-5 of the detected voltages.
-27. dsa110 modes -- int12, int13 (a_compute 112) and bf16 at full DSA-110
-               width: kernel against plain and resident times (int12, int13:
-               base and stokes; bf16: base).
+27. dsa110 modes -- int8, int12, int13 (a_compute 112) and bf16 at full
+               DSA-110 width: kernel against plain and resident times (the
+               int8 modes: base, sk+q8+inco, stokes, stokes+sk+q8+inco; bf16:
+               base).
 28. dsa110 mode streams -- DSA110.subband(0, 256) power-only in int12 (6
-               blocks), int13 (4) and bf16 (3).
+               blocks), int13 (4), int8 and bf16 (3).
+
+Widths and shapes off the presets (the tensor-core kernel walks K in steps of
+32 bytes and pads what does not fill one):
+
+29. widths  -- a_compute 24, 40 and 112 on a 128-channel sub-band, int8x2 and
+               int13, base and stokes+sk+q8+inco, tfpa and ftpa, kernel
+               against plain with the bars of phases 7 and 11; a_compute 24
+               in all seven modes through the detect and the voltage kernels;
+               and the ten random geometries of
+               ``utils.testing.random_geometry`` (8-32 antennas, 8-32 beams,
+               navg_time 2-16, one to three windows, both layouts, five
+               modes) against the plain version and the float64 golden.
 
 Each streamed phase, and the voltage paths, set the launch counts to 0 just
 before their run and read them just after.  The last two lines are a JSON
 record of the kernels (launches on the main paths, max error against the
-plain version, times, the bound; the DSA-110 rows carry ``[dsa110]``, the
+plain version, times, the bound, and for the detect rows the instruction
+their products run on under ``mma``; the DSA-110 rows carry ``[dsa110]``, the
 rows of phases 23-28 their mode, as ``detect_power[int12]``, with their
 variants under ``variants``) and ``{"ok": true, "device": {...}}``.  Imports
 nothing of JAX.
@@ -195,13 +213,21 @@ from dsabeamformer_tpu_torch.pipeline import (
     SyntheticSource,
 )
 from dsabeamformer_tpu_torch.utils.metrics import tensor_core_utilization
-from dsabeamformer_tpu_torch.utils.testing import relative_power_error
+from dsabeamformer_tpu_torch.utils.testing import (
+    FUZZ_RTOL,
+    random_geometry,
+    relative_power_error,
+)
 
 KERNEL_VS_PLAIN_RTOL = 1e-5  # same integers in both; f32 summation order only
 GOLDEN_RTOL = 1e-3           # the accuracy bar against the float64 golden
 TARGET_BEAM = 100
 N_TIMED = 10                 # back-to-back launches in the resident timing
 N_STREAM = 12                # blocks in the streamed run
+#: The int8x2 detect kernel at full dsa10 width must be faster than this:
+#: half of the 37.49 ms its dp4a predecessor took on an H100 80GB HBM3 at
+#: 700 W (kernel times moved <= 1.4 % between runs and machines).
+DSA10_BASE_LIMIT_MS = 18.7
 DEV = torch.device("cuda", 0)
 
 
@@ -371,6 +397,10 @@ def phase_resident(cfg, blocks_np, qw, name, smi) -> dict:
         f"{cfg.block_duration_s * 1e3 / plain_ms:.4f}x realtime; "
         f"kernel/plain time {ms / plain_ms:.4f}")
     del xs
+    if cfg.name == "dsa10" and cfg.weight_mode == "int8x2" \
+            and ms >= DSA10_BASE_LIMIT_MS:
+        raise RuntimeError(f"the int8x2 detect kernel took {ms:.3f} ms at "
+                           f"dsa10, not below {DSA10_BASE_LIMIT_MS} ms")
     return {"ms": ms, "plain_ms": plain_ms, "block0": block0}
 
 
@@ -570,7 +600,7 @@ def check_variant(cfg, x, tm, qw, variant, f32_k, f32_p) -> dict:
                                f"from the rint/clip of the kernel's float32")
         diff = (out_k.int() - out_p.int()).abs()
         same = f32_k == f32_p
-        if int(diff.max()) > 1 or bool(diff[same].any()):
+        if int(diff.max()) > 1 or bool(((diff > 0) & same).any()):
             raise RuntimeError(f"{cfg.name} {variant}: uint8 vs plain "
                                f"differs by {int(diff.max())} counts or "
                                f"where the float32 products agree")
@@ -634,6 +664,15 @@ def phase_variants(cfg, wire_np, qw, variants) -> dict:
     return out
 
 
+def issued_share(cfg, ms) -> str:
+    """The MACs the kernel issues per second over the dense tensor-core peak
+    for the mode's operand type, as a percentage ("n/a" for f32)."""
+    util = tensor_core_utilization(cfg.macs_per_block * cfg.n_weight_terms,
+                                   ms / 1e3, cfg,
+                                   torch.cuda.get_device_name(0))
+    return "n/a" if util is None else f"{util['issued'] * 100:.2f}%"
+
+
 def phase_resident_variants(cfg, blocks_np, qw, plain, smi,
                             variants=VARIANTS, n=N_TIMED) -> dict:
     """CUDA-event time of each variant, ``n`` back-to-back launches on two
@@ -658,7 +697,8 @@ def phase_resident_variants(cfg, blocks_np, qw, plain, smi,
         log(f"[resident] {tag(cfg)} +{variant}: {ms:.3f} ms/block "
             f"({ms - base:+.3f} vs {next(iter(times))}) = "
             f"{cfg.block_duration_s * 1e3 / ms:.4f}x realtime; bound "
-            f"{bnd:.3f} ms by {by} ({bnd / ms * 100:.2f}%); plain "
+            f"{bnd:.3f} ms by {by} ({bnd / ms * 100:.2f}%); issued share of "
+            f"the tensor-core peak {issued_share(cfg, ms)}; plain "
             f"{plain[variant]['plain_ms']:.1f} ms, on {smi}")
     del xs, f32
     return times
@@ -1127,7 +1167,7 @@ def phase_other_deployments(cfg, blocks_np, smi,
 
 
 # --------------------------------------------------------------------- #
-# DSA-110: the staged-weight path (a_compute 128, 512 beams)
+# DSA-110 (a_compute 128, 512 beams)
 # --------------------------------------------------------------------- #
 
 #: DSA-110 variants held against the plain version at full band, timed, and
@@ -1140,7 +1180,7 @@ DSA110_SUBBAND = DSA110.subband(0, 256)
 
 
 def phase_dsa110(smi) -> dict:
-    """DSA-110 on the staged-weight path: the kernel variants against the
+    """DSA-110 (a_compute 128): the kernel variants against the
     plain version on a full-band block (antenna 77 flagged), the sub-band
     point source, resident full-band times; then the per-GPU deployment
     (``DSA110.subband(0, 256)``): the plain power and Stokes streams, the
@@ -1198,38 +1238,43 @@ def phase_dsa110(smi) -> dict:
 # The weight modes int12, int13, bf16, bf16x2, f32
 # --------------------------------------------------------------------- #
 
-NEW_MODES = ("int12", "int13", "bf16", "bf16x2", "f32")
-#: Variants held against the plain version and timed in every new mode.
+NEW_MODES = ("int8", "int12", "int13", "bf16", "bf16x2", "f32")
+#: Variants timed in every new mode, and held against the plain version in
+#: the float modes; the int8 modes' tensor-core kernel is held to all 16.
 MODE_VARIANTS = ("base", "sk+q8+inco", "stokes", "stokes+sk+q8+inco")
 N_MODE_TIMED = 4             # back-to-back launches in the modes' timings
 #: Calibrated noise against the float64 golden: the JAX package's bar for
 #: each mode (its tests/test_gemm.py).
 NOISE_BARS = {"int13": 5e-4, "int12": 8e-4, "bf16x2": 2e-4, "f32": 1e-5,
-              "bf16": 1e-2}
+              "bf16": 1e-2, "int8": 2e-2}
 #: The point source against the golden: a coherent source amplifies weight
 #: error into the -30 dB sidelobe bins, so the 12- and 13-bit modes get the
-#: JAX package's point-source bar (1e-2), bf16 (8 bits) five times that;
+#: JAX package's point-source bar (1e-2), bf16 (8 bits) five times that,
+#: int8 (8 bits of the channel's largest weight, not of each weight) 2e-1;
 #: f32's float32 K-sums of a coherent source leave 1.4e-5 in the floored
 #: bins (a TF32 product would leave 1e-2 or more).
 POINT_BARS = {"int13": 1e-2, "int12": 1e-2, "bf16x2": GOLDEN_RTOL,
-              "f32": 1e-4, "bf16": 5e-2}
+              "f32": 1e-4, "bf16": 5e-2, "int8": 2e-1}
 #: mode -> blocks of its dsa10 stream (int13: the deployed stream).
-MODE_STREAM_BLOCKS = {"int12": 6, "int13": 6, "bf16x2": 3, "bf16": 3,
-                      "f32": 3}
+MODE_STREAM_BLOCKS = {"int8": 3, "int12": 6, "int13": 6, "bf16x2": 3,
+                      "bf16": 3, "f32": 3}
 #: mode -> (variants checked and timed at full DSA-110 width, blocks of its
 #: DSA110.subband(0, 256) power-only stream).
-DSA110_MODES = {"int12": (("base", "stokes"), 6),
-                "int13": (("base", "stokes"), 4),
+DSA110_MODES = {"int8": (MODE_VARIANTS, 3),
+                "int12": (MODE_VARIANTS, 6),
+                "int13": (MODE_VARIANTS, 4),
                 "bf16": (("base",), 3)}
 
 
-def check_and_time(cfg, blocks_np, smi, variants, n) -> tuple:
-    """``variants`` of ``cfg`` against the plain version on blocks_np[0],
-    then their resident times: ``(checked, times)``."""
+def check_and_time(cfg, blocks_np, smi, variants, n, check=None) -> tuple:
+    """The variants ``check`` (default: ``variants``) of ``cfg`` against the
+    plain version on blocks_np[0], then the resident times of ``variants``:
+    ``(checked, times)``."""
     qw = prepare_weights(cfg, make_weights(cfg, device=DEV))
     checked = {}
     for stokes in (False, True):
-        family = [v for v in variants if (v in STOKES_VARIANTS) == stokes]
+        family = [v for v in (check or variants)
+                  if (v in STOKES_VARIANTS) == stokes]
         if family:
             checked.update(phase_variants(cfg, blocks_np[0], qw, family))
     times = phase_resident_variants(cfg, blocks_np, qw, checked, smi,
@@ -1274,8 +1319,10 @@ def phase_modes(blocks_np, smi) -> dict:
         log(f"[modes] {tag(cfg)}: a_compute {cfg.a_compute}, K "
             f"{cfg.gemm_k}, kernel path {gemm.kernel_path(cfg)}, source "
             f"{gemm.kernel_library(cfg, 'detect_power')}.cu")
-        checked, times = check_and_time(cfg, blocks_np, smi, MODE_VARIANTS,
-                                        N_MODE_TIMED)
+        int_mode = mode not in gemm.FLOAT_MODES
+        checked, times = check_and_time(
+            cfg, blocks_np, smi, MODE_VARIANTS, N_MODE_TIMED,
+            check=tuple(ALL_VARIANTS) if int_mode else None)
         phase_mode_physics(mode)
         n = MODE_STREAM_BLOCKS[mode]
         if mode == "int13":
@@ -1308,6 +1355,94 @@ def phase_dsa110_modes(blocks_np, sub_blocks_np, smi) -> dict:
     return out
 
 
+def detect_mma(cfg):
+    """The tensor-core instruction of ``cfg``'s detect kernel; None for the
+    float modes, whose products run as ``fmaf`` on the CUDA cores."""
+    path = gemm.kernel_path(cfg)
+    return path if path == gemm.DETECT_MMA else None
+
+
+#: Phase 29: a_compute off the presets' 16, 32 and 128; the modes of one and
+#: of four sub-terms; the products' plain and fully loaded variants.
+WIDTHS = (24, 40, 112)
+WIDTH_MODES = ("int8x2", "int13")
+WIDTH_VARIANTS = ("base", "stokes+sk+q8+inco")
+N_GEOMETRIES = 10
+
+
+def width_cfg(ac, n_chan=VOLTAGE_CHANNELS, **kw):
+    """A DSA-110 sub-band contracting exactly ``ac`` antennas, two of its
+    slots inactive."""
+    return DSA110.replace(name=f"dsa110-ac{ac}", n_chan=n_chan,
+                          n_ant_active=ac - 2, n_ant_compute=ac, **kw)
+
+
+def phase_widths() -> None:
+    """Phase 29 (see the module's text)."""
+    for ac in WIDTHS:
+        for mode in WIDTH_MODES:
+            for layout in ("tfpa", "ftpa"):
+                cfg = width_cfg(ac, weight_mode=mode, input_layout=layout)
+                if cfg.a_compute != ac:
+                    raise RuntimeError(f"a_compute {cfg.a_compute}, want {ac}")
+                wire = make_random_bytes_block(cfg, seed=ac)
+                qw = prepare_weights(cfg, make_weights(
+                    cfg, cal=CalTable.random(cfg, seed=ac), device=DEV))
+                for v in WIDTH_VARIANTS:
+                    phase_variants(cfg, wire, qw, [v])
+    # a_compute 24 in every mode, detect and voltages, on a 16-channel slice
+    # (its voltages are 0.5 GB).
+    for mode in gemm.KERNEL_MODES:
+        cfg = width_cfg(24, n_chan=16, weight_mode=mode)
+        wire = make_random_bytes_block(cfg, seed=24)
+        qw = prepare_weights(cfg, make_weights(cfg, device=DEV))
+        x, tm = gemm._prepare_wire(to_device(cfg, wire), cfg)
+        out_k = gemm.fused_detect(x, qw.terms, qw.scales, cfg, tm)[0]
+        out_p = gemm.detect_power_plain(x, qw.terms, qw.scales, cfg, tm)[0]
+        rel = relative_power_error_on_card(out_k, out_p)
+        bv = gemm.beamform_voltages(x, qw, cfg)
+        bv_p = gemm.voltages_plain(x, qw.terms, qw.scales, cfg, tm)
+        torch.cuda.synchronize()
+        verr = float((bv - bv_p).abs().max()) / float(bv_p.abs().max())
+        vlim = KERNEL_VS_PLAIN_RTOL if mode in gemm.FLOAT_MODES else 0.0
+        log(f"[widths] {tag(cfg)} a_compute 24: detect relative error "
+            f"{rel:.3e} (tol {KERNEL_VS_PLAIN_RTOL:.0e}), voltages max error / "
+            f"peak {verr:.3e} (limit {vlim:.0e})")
+        if rel > KERNEL_VS_PLAIN_RTOL or verr > vlim \
+                or not bool(torch.isfinite(out_k).all()):
+            raise RuntimeError(f"a_compute 24 in {mode}: kernel disagrees "
+                               f"with its plain version")
+    for i in range(N_GEOMETRIES):
+        cfg, _ = random_geometry(i)
+        cal = CalTable.random(cfg, seed=i)
+        wire = make_noise_block(cfg, rms=2.0, seed=i)
+        qw = prepare_weights(cfg, make_weights(cfg, cal=cal, device=DEV))
+        x, tm = gemm._prepare_wire(to_device(cfg, wire), cfg)
+        peak_err = []
+        for stokes in (False, True):
+            k = gemm.fused_detect(x, qw.terms, qw.scales, cfg, tm,
+                                  stokes=stokes)[0]
+            p = gemm.detect_power_plain(x, qw.terms, qw.scales, cfg, tm,
+                                        stokes=stokes)[0]
+            peak_err.append(float((k - p).abs().max()) / float(p.abs().max()))
+        got = gemm.beamform_power(x, qw, cfg).cpu().numpy()
+        ref = beamform_block_ref(weights_numpy_golden(cfg, cal=cal), wire,
+                                 cfg.input_layout, cfg.navg_time,
+                                 cfg.navg_freq)
+        err = relative_power_error(got, ref)
+        log(f"[widths] {cfg.name} {cfg.weight_mode} {cfg.input_layout} "
+            f"A={cfg.n_ant}/{cfg.n_ant_active} a_compute {cfg.a_compute} "
+            f"B={cfg.n_beams} F={cfg.n_chan} T={cfg.t_block} navg "
+            f"{cfg.navg_time}x{cfg.navg_freq}: kernel vs plain / peak "
+            f"{peak_err[0]:.2e} (Stokes {peak_err[1]:.2e}, tol "
+            f"{KERNEL_VS_PLAIN_RTOL:.0e}), vs float64 golden {err:.3e} (bar "
+            f"{FUZZ_RTOL[cfg.weight_mode]:.0e})")
+        if max(peak_err) > KERNEL_VS_PLAIN_RTOL \
+                or err > FUZZ_RTOL[cfg.weight_mode] \
+                or got.shape != cfg.out_block_shape:
+            raise RuntimeError(f"random geometry {i} failed")
+
+
 def mode_rows(res, suffix="") -> list:
     """The kernels line's rows of the newer modes: per mode one row of its
     detect kernel (the base variant's numbers; ``launches`` counts every
@@ -1322,12 +1457,13 @@ def mode_rows(res, suffix="") -> list:
             vb, vby = bound_ms(cfg, v)
             variants[v] = {"launches": r["launches"][v],
                            "max_abs_err": chk["max_abs_err"],
-                           "ms": r["times"][v], "plain_ms": chk["plain_ms"],
+                           "ms": r["times"].get(v), "plain_ms": chk["plain_ms"],
                            "bound_ms": vb, "bound_by": vby}
         src = gemm.kernel_library(cfg, "detect_power")
         rows.append({
             "name": f"detect_power[{mode}]{suffix}",
             "route": "cuda",
+            "mma": detect_mma(cfg),
             "source": f"dsabeamformer_tpu_torch/csrc/{src}.cu",
             "replaces": "dsabeamformer_tpu/ops/gemm.py:775",
             "launches": sum(r["launches"].values()),
@@ -1367,6 +1503,7 @@ def kernel_rows(cfg, variants, launches, checked, times, volt,
             "name": "detect_power" + ("" if variant == "base"
                                       else f"+{variant}") + suffix,
             "route": "cuda",
+            "mma": detect_mma(cfg),
             "source": "dsabeamformer_tpu_torch/csrc/detect_power.cu",
             "replaces": "dsabeamformer_tpu/ops/gemm.py:775",
             "launches": launches[variant],
@@ -1449,8 +1586,11 @@ def main() -> None:
     # The unfused validation path (driven with its count set to 0).
     volt = phase_voltages(smi)
 
-    # DSA-110 on the staged-weight path.
+    # DSA-110.
     d110 = phase_dsa110(smi)
+
+    # Widths and shapes off the presets.
+    phase_widths()
 
     kernels = kernel_rows(cfg, ALL_VARIANTS, launches, checked, times, volt)
     kernels += kernel_rows(DSA110, DSA110_VARIANTS, d110["launches"],

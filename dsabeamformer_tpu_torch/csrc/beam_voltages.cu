@@ -39,7 +39,7 @@
 //     block per (span of kSpanSamples samples, channel, chunk of beams); the
 //     span is staged once into shared memory, unpacked (wire_gemm.cuh), and
 //     every thread owns one beam with its weight columns in registers.
-//   - Staged path (a_compute 40..128; beam_voltages_staged_kernel): one
+//   - Staged path (a_compute 24 and 40..128; beam_voltages_staged_kernel): one
 //     block per (channel, chunk of 64 beams) and a share of its spans of
 //     kStagedSpan samples; the beam tile's weight columns are staged into
 //     shared memory once (wire_gemm.cuh), and 4 groups of 64 threads take
@@ -197,8 +197,9 @@ extern "C" {
 // Pointers: wire uint8 (see time_stride/chan_stride); w0, w1, n_sub, fold
 // and scales as dsabf_detect_power takes them (make_int_weights,
 // wire_gemm.cuh); out f32 [n_chan, n_time, 2, 2*n_beams].
-// a_compute 8, 16, 32 (int13's library: 8, 16) run the register path; above
-// that to 128 in steps of 8 the staged path; anything else is refused.
+// a_compute 8, 16, 32 (int13's library: 8, 16) run the register path; every
+// other multiple of 8 up to 128 (24 too) the staged path, whose K is a
+// run-time count; anything else is refused.
 int DSABF_ENTRY(const void* wire, const void* w0, const void* w1,
                 const void* scales, void* out, int n_chan, int n_time,
                 int n_beams, int n_ant, int a_compute, int n_sub, int fold,
@@ -217,7 +218,8 @@ int DSABF_ENTRY(const void* wire, const void* w0, const void* w1,
 #else
   if (n_sub > 2) return int(cudaErrorInvalidValue);
 #endif
-  if (a_compute > kRegAntLimit) {
+  const bool reg_width = a_compute == 8 || a_compute == 16 || a_compute == 32;
+  if (a_compute > kRegAntLimit || !reg_width) {
     const size_t smem = (staged_weight_words(n_sub, kw)
                          + size_t(kStagedSpan) * 2 * kw) * sizeof(uint32_t);
     const int n_spans = (n_time + kStagedSpan - 1) / kStagedSpan;

@@ -28,6 +28,14 @@ __device__ __forceinline__ uint32_t byte_mask(uint32_t bits) {
   return spread * 0xFFu;
 }
 
+// re^2 + im^2 summed over the antennas (bytes) of one unpacked word pair
+// that the byte mask m selects, added to acc.
+__device__ __forceinline__ int masked_power(uint32_t re, uint32_t im,
+                                            uint32_t m, int acc) {
+  acc = __dp4a(int(re), int(re & m), acc);
+  return __dp4a(int(im), int(im & m), acc);
+}
+
 // Word i of the mask by selects (no dynamically indexed copy of the
 // by-value parameter in local memory).
 __device__ __forceinline__ uint32_t mask_word(const AntMask& m, int i) {
@@ -57,9 +65,7 @@ __device__ __forceinline__ void side_outputs(
         const uint32_t* row = xs + (o * navg * 2 + i / aw) * kw;
         const uint32_t m = byte_mask((mask_word(mask, w >> 3)
                                       >> (4 * (w & 7))) & 0xFu);
-        const uint32_t re = row[w], im = row[aw + w];
-        acc = __dp4a(int(re), int(re & m), acc);
-        acc = __dp4a(int(im), int(im & m), acc);
+        acc = masked_power(row[w], row[aw + w], m, acc);
       }
 #pragma unroll
       for (int d = 16; d > 0; d >>= 1) {

@@ -6,12 +6,11 @@
 //   dsabeamformer_tpu/ops/gemm.py::_fused_detect (pl.pallas_call, gemm.py:775)
 // with body _detect_kernel (gemm.py:183) and _power_epilogue (gemm.py:390)
 // or _stokes_epilogue (gemm.py:402, via beamform_stokes :795), in the int8,
-// int8x2, int12 and (through detect_power_int13.cu) int13 weight modes; the
-// float modes are detect_float.cu.  The power and Stokes products, the
+// int8x2, int12 and int13 weight modes; the float modes are detect_float.cu.  The power and Stokes products, the
 // quant8 branch (gemm.py:261-278, Stokes offset :266-274), the incoherent
 // branch (:287-322) and the SK branch (:323-368), in any combination, for
-// any a_compute the TPU kernel takes up to 128 (DSA-110: 110 active antennas
-// in 128 slots, 512 beams).
+// every a_compute that is a multiple of 8 up to 128 (DSA-110: 110 active
+// antennas in 128 slots, 512 beams), on the tensor cores (wgmma s8).
 //
 // What it computes, per channel f, output row o and beam b:
 //   X[t, p, :] = [re | im] of the wire bytes of pol p, antennas 0..a_compute-1
@@ -20,7 +19,7 @@
 //                int8x2 combines M_hi * 256 + M_lo        (exact, |M| < 2^27)
 //                int12  M_hi * 16 + M_lo, int13 (M_h1 + M_h2) * 16 + M_l1 +
 //                M_l2: the JAX kernel's [16X | X] operand against its one
-//                term, without staging the 16x planes (wire_gemm.cuh)
+//                term, without staging the 16x planes (mma_gemm.cuh)
 //   with M converted to f32 once (x = pol 0, y = pol 1, r = column b,
 //   i = column B + b) and s = the channel's (last) scale:
 //   power:  out[f, o, b]    = s^2 * sum_{t in o} (px + py),
@@ -30,7 +29,7 @@
 //           cr = xr*yr + xi*yi = Re(Bx By*), ci = xi*yr - xr*yi = Im(Bx By*)
 //   Every product and sum is rounded on its own (__fmul_rn / __fadd_rn),
 //   so nvcc contracts nothing: the Stokes I plane is the power output to
-//   the bit (the same sum in the same order), on either weight path.
+//   the bit (the same sum in the same order).
 // quant8 (q8_scales != null) stores instead
 //   clip(rint(out * q8_scales[b] + off), 0, 255) as uint8, off = 0 for power
 //   and I, kQuvOffset for Q/U/V; the multiply and the offset are rounded
@@ -44,47 +43,61 @@
 //                    p = re^2 + im^2, every antenna a < a_compute
 //                    (int32 per span, then one 64-bit atomicAdd per span,
 //                    antenna and statistic: exact, whatever the block order).
-// Only the blocks of the first beam chunk (blockIdx.z == 0) emit them, so a
+// Only the blocks of the first beam tile (blockIdx.x == 0) emit them, so a
 // span is counted once however many beam chunks the grid has.
 //
-// What bounds it on an H100: integer multiply-accumulates.  One DSA-10
-// block (int8x2, a_compute=32) issues 2.2e12 int8 MACs against ~1.07 GB of
-// wire bytes read (only the a_compute antenna slots) and 1.07 GB of f32
-// powers written (0.27 GB as uint8; the Stokes product is 4x both), about
-// 2000 (500 for Stokes) MACs per byte of device memory traffic; a DSA-110
-// block (a_compute 128, 512 beams) 8.8e12 MACs against ~3.2 GB, so both are
-// far above the memory roofline.  This version runs the MACs as __dp4a on
-// the CUDA cores (4 MACs per instruction), not on the tensor cores, so its
-// ceiling is the dp4a instruction rate, a few percent of the int8
-// tensor-core peak; mma/wgmma s8 with TMA staging is later work.
-// The side outputs add ~1/500 of the block's dp4a work, the Stokes epilogue
-// a few float operations per sample and beam.
+// What bounds it on an H100: operations, the integer multiply-accumulates
+// and the detection that follows them.  One DSA-10 block (int8x2, a_compute
+// 32) is 2.2e12 int8 MACs against ~1.07 GB of wire bytes read (only the
+// a_compute antenna slots) and 1.07 GB of f32 powers written (0.27 GB as
+// uint8; the Stokes product is 4x both), about 2000 (500 for Stokes) MACs
+// per byte of device memory traffic; a DSA-110 block (a_compute 128, 512
+// beams) 8.8e12 MACs against ~3.2 GB, so both are far above the memory
+// roofline.  The GEMM's result is never stored: 16 samples x 2 pols x
+// (Re, Im) collapse into one float32 per beam and output row, which costs
+// the CUDA cores two conversions, two multiplies and two adds per (sample,
+// pol, beam) and is, at K = 64, of the same order as the tensor cores' time.
 //
-// What the design does about it: every wire byte is read from device memory
-// once per beam chunk and every output once; nothing else touches device
-// memory.
-//   - The register path (a_compute 8, 16, 32; detect_power_kernel): one
-//     thread block per (span of output rows, channel, chunk of up to 256
-//     beams), a thread per beam with its weight columns in registers.
-//   - The staged path (a_compute 40..128; detect_staged_kernel): one block
-//     per (channel, chunk of 64 beams) and a share of the block's spans;
-//     the beam tile's weight columns are staged into shared memory once and
-//     serve every span the block walks; 4 groups of 64 threads take every
-//     4th output row of a 64-sample span, each weight word feeding 4 rows.
+// What the design does about it:
+//   - The products run on the tensor cores as wgmma s8 (mma_gemm.cuh:
+//     m64n128k32, A from registers, B from shared memory), and the operand
+//     layouts are chosen so that one thread's accumulator fragment is xr,
+//     xi, yr, yi of one (sample, beam): detection starts from the registers
+//     the product ended in, with no exchange between threads.
+//   - Nothing is unpacked into memory.  In the chosen K order a thread's A
+//     fragment is the re and im nibbles of one wire word per row, so the
+//     wire bytes stay packed in shared memory and each thread makes its
+//     fragment with two loads and a few logic operations per step.
+//   - One block per (channel, tile of 64 beams) and a share of the
+//     channel's spans: the tile's weight columns are staged (and turned
+//     K-major) once and serve every span the block walks.
+//   - A warpgroup is the unit of work.  Its four warps take four output
+//     rows at a time (one m-tile each per step, the tile's 64 beams wide),
+//     it walks its own spans with its own two wire buffers (cp.async brings
+//     the next span while this one multiplies) and its own barrier, and it
+//     shares only the weight tile with the block's other warpgroups (up to
+//     four; two for Stokes, whose running sums take the registers): while
+//     one detects, the others' products keep the tensor cores busy.
+//   - A span's wire bytes are scattered 32-byte pieces of the time-major
+//     block, and every beam tile needs them again: the beam tiles of a
+//     channel are neighbours in the grid, so the first brings them into the
+//     L2 cache for the others.
+//   - K is walked in steps of 32 bytes, so every a_compute that is a
+//     multiple of 8 runs the same kernel; the sub-terms of a mode share one
+//     set of accumulators (mma_gemm.cuh).
+//   - The samples of an output row sit in different lanes of a warp; the
+//     sum over them is a butterfly of fourteen shuffles per plane that
+//     leaves each lane with two beams' sums, four neighbouring lanes with
+//     four neighbouring beams.
 //   - Blocks are independent: no sum is carried between them (the SK sums
 //     meet in integer atomics, whose order does not change the result).
-//   - The unpack into shared memory and the dp4a products are
-//     wire_gemm.cuh's; detection, stores and side outputs
-//     detect_epilogue.cuh's.
-//   - The epilogue (detection, pol sum, navg_time sum, s^2, the uint8
-//     rounding) stays in registers; one coalesced store per output row and
-//     plane (Stokes: four, the planes of [F, T', 4, B]).
-//   - The side outputs reuse the staged words: a warp per output row sums
-//     the incoherent power with __dp4a(x, x & mask); threads per (antenna,
-//     sample slice) sum p and p^2, reduced in shared memory.
+//   - The side outputs read the staged wire bytes: a warp per output row
+//     sums the incoherent power of the masked antennas (masked_power,
+//     detect_epilogue.cuh); threads per (antenna, row slice) sum p and p^2,
+//     reduced in shared memory.
 //   - The output type and the product are template parameters (they change
-//     the stores and the epilogue's registers); the side outputs branch at
-//     run time on block-uniform pointers.
+//     the stores and the epilogue's registers); the weight mode, a_compute
+//     and navg are run-time values, so the library is four kernels.
 
 #include <cstdint>
 #include <type_traits>
@@ -92,174 +105,256 @@
 #include <cuda_runtime.h>
 
 #include "detect_epilogue.cuh"
-#include "wire_gemm.cuh"
+#include "mma_gemm.cuh"
 
 namespace {
 
 using namespace dsabf;
 
-// ----------------------------- register path ----------------------------
-
-template <int KW, int NTERMS, typename OutT, bool STOKES>
-__global__ void __launch_bounds__(kMaxThreads)
-detect_power_kernel(const uint8_t* __restrict__ wire,
-                    IntWeights w,
-                    const float* __restrict__ scales,
-                    const float* __restrict__ q8_scales,
-                    OutT* __restrict__ out,
-                    float* __restrict__ inco_out,
-                    unsigned long long* __restrict__ sk_out,
-                    AntMask inco_mask,
-                    int n_time, int n_beams, int n_ant, int navg,
-                    int rows_out_per_block,
-                    long long time_stride, long long chan_stride) {
-  // KW = K/4 words per X row; the first AW hold re, the next AW hold im.
-  constexpr int AW = KW / 2;
-  constexpr int AC = 4 * AW;  // a_compute
-  constexpr int NP = STOKES ? 4 : 1;  // output planes
-  extern __shared__ __align__(16) uint32_t xs[];  // [rows][pol][KW]
-  __shared__ int sk_part[2 * kMaxRegAnt];         // [stat][antenna]
-
-  const int f = blockIdx.y;
-  const int n_out = n_time / navg;
-  const int o0 = blockIdx.x * rows_out_per_block;
-  const int o_end = min(o0 + rows_out_per_block, n_out);
-  const bool side = blockIdx.z == 0;  // block-uniform
-
-  stage_rows(xs, wire + (long long)f * chan_stride
-                     + (long long)o0 * navg * time_stride,
-             (o_end - o0) * navg, time_stride, n_ant, AW);
-  if (side && sk_out) {
-    for (int i = threadIdx.x; i < 2 * AC; i += blockDim.x) sk_part[i] = 0;
-  }
-
-  const int b = blockIdx.z * blockDim.x + threadIdx.x;
-  const bool active = b < n_beams;
-  uint32_t wre[NTERMS][KW];
-  uint32_t wim[NTERMS][KW];
-  load_beam_weights<KW, NTERMS>(wre, wim, w, f, b, n_beams, active);
-  __syncthreads();
-
-  // Side outputs, every thread of the block taking part (before the
-  // inactive beams leave).
-  if (side) {
-    side_outputs(xs, KW, AC, o_end - o0, navg, inco_mask,
-                 inco_out ? inco_out + (long long)f * n_out + o0 : nullptr,
-                 sk_part,
-                 sk_out ? sk_out + (long long)f * 2 * AC : nullptr);
-  }
-  if (!active) return;
-
-  const float s = scales[(long long)f * w.n_scales + (w.n_scales - 1)];
-  const float s2 = __fmul_rn(s, s);
-  const float qs = std::is_same<OutT, uint8_t>::value ? q8_scales[b] : 0.f;
-  OutT* orow = out + ((long long)f * n_out + o0) * NP * n_beams + b;
-  for (int o = 0; o < o_end - o0; ++o) {
-    float acc[NP];
-#pragma unroll
-    for (int k = 0; k < NP; ++k) acc[k] = 0.f;
-    for (int r = o * navg; r < (o + 1) * navg; ++r) {
-      float vr[2], vi[2];  // Re, Im of the beam voltage of pol x (0), y (1)
+// The side outputs of the span whose wire bytes fetch_span_wire brought into
+// raw (n_rows_out output rows): the incoherent sums into inco_row[0 ..
+// n_rows_out) and the SK sums added to sk_chan[2 * a_compute] (either pointer
+// null = not computed; both uniform).  Called by the threads of warpgroup
+// `group` (tid: the thread's rank in it); sk_part [2 * a_compute] is the
+// warpgroup's, must be zero, and raw complete (a group_sync) before the call.
+__device__ __forceinline__ void side_outputs_wire(
+    const uint8_t* raw, const MmaGeom& g, int n_rows_out, const AntMask& mask,
+    float* inco_row, int* sk_part, unsigned long long* sk_chan, int group,
+    int tid) {
+  const int aw = g.a_compute / 4;
+  if (inco_row) {
+    const int lane = tid & 31;
+    const int n_warps = kGroupThreads >> 5;
+    const int items = g.navg * aw;  // (sample, wire word) of one row and pol
+    for (int o = tid >> 5; o < n_rows_out; o += n_warps) {
+      int acc = 0;
 #pragma unroll
       for (int p = 0; p < 2; ++p) {
-        int br, bi;
-        beam_row<KW, NTERMS>(xs + (r * 2 + p) * KW, wre, wim, w.factor, br,
-                             bi);
-        vr[p] = float(br);
-        vi[p] = float(bi);
+        const uint8_t* rows = raw + (p * g.span_samples + o * g.navg)
+                                        * g.raw_stride;
+        for (int i = lane; i < items; i += 32) {
+          const int smp = fast_div(i, g.words);
+          const int q = i - smp * aw;
+          const uint32_t v = *reinterpret_cast<const uint32_t*>(
+              rows + smp * g.raw_stride + 4 * q);
+          const uint32_t m = byte_mask((mask_word(mask, q >> 3)
+                                        >> (4 * (q & 7))) & 0xFu);
+          acc = masked_power(sign_extend_nibbles((v >> 4) & 0x0F0F0F0Fu),
+                             sign_extend_nibbles(v & 0x0F0F0F0Fu), m, acc);
+        }
       }
-      detect_sample<STOKES>(vr, vi, acc);
+#pragma unroll
+      for (int d = 16; d > 0; d >>= 1) {
+        acc += __shfl_xor_sync(0xffffffffu, acc, d);
+      }
+      if (lane == 0) inco_row[o] = float(acc);
     }
-    store_row<OutT, STOKES>(acc, s2, qs, orow + (long long)o * NP * n_beams,
-                            n_beams);
+  }
+  if (sk_chan) {
+    // `per` threads per antenna, each taking every per-th (pol, sample) row;
+    // the threads past per * ac sit out.  Per span an antenna sums at most
+    // 2^13 values of p <= 128 (p^2 <= 2^14): the span's rows (at least 16
+    // bytes each, in two buffers) fit in 227 KB, so S2 < 2^27 and int32 is
+    // exact.
+    const int ac = g.a_compute;
+    const int per = kGroupThreads / ac;
+    const int samples = n_rows_out * g.navg;
+    if (tid < per * ac) {
+      const int a = tid % ac;
+      int s1 = 0, s2 = 0;
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        const uint8_t* col = raw + p * g.span_samples * g.raw_stride + a;
+        for (int r = tid / ac; r < samples; r += per) {
+          const uint32_t v = col[r * g.raw_stride];
+          const int re = int(int8_t(v)) >> 4;           // high nibble, signed
+          const int im = int(int8_t(uint8_t(v << 4))) >> 4;  // low nibble
+          const int pw = re * re + im * im;
+          s1 += pw;
+          s2 += pw * pw;
+        }
+      }
+      atomicAdd(&sk_part[a], s1);
+      atomicAdd(&sk_part[ac + a], s2);
+    }
+    group_sync(group);
+    for (int i = tid; i < 2 * ac; i += kGroupThreads) {
+      atomicAdd(sk_chan + i, (unsigned long long)sk_part[i]);
+    }
   }
 }
 
-// ------------------------------ staged path -----------------------------
+// One step of sum_row_lanes: the lanes whose row-lane index g has bit B set
+// keep n-tiles H .. 2H - 1 and send 0 .. H - 1 to their partner (the lane
+// 4 * B away), the others the reverse; each adds what it receives.
+template <int H, int B, int NP>
+__device__ __forceinline__ void fold_row_lanes(float (&v)[kWarpNTiles][NP],
+                                               int g) {
+  const bool up = (g & B) != 0;
+#pragma unroll
+  for (int i = 0; i < H; ++i) {
+#pragma unroll
+    for (int k = 0; k < NP; ++k) {
+      const float send = up ? v[i][k] : v[i + H][k];
+      const float keep = up ? v[i + H][k] : v[i][k];
+      v[i][k] = __fadd_rn(keep, __shfl_xor_sync(0xffffffffu, send, 4 * B));
+    }
+  }
+}
 
-// Two blocks per SM, except with int13's four sub-terms, whose 128 KB weight
-// tile at a_compute 128 leaves room for one.
-template <int NTERMS, typename OutT, bool STOKES>
-__global__ void __launch_bounds__(kStagedThreads, NTERMS == 4 ? 1 : 2)
-detect_staged_kernel(const uint8_t* __restrict__ wire,
-                     IntWeights w,
-                     const float* __restrict__ scales,
-                     const float* __restrict__ q8_scales,
-                     OutT* __restrict__ out,
-                     float* __restrict__ inco_out,
-                     unsigned long long* __restrict__ sk_out,
-                     AntMask inco_mask,
-                     int n_time, int n_beams, int n_ant, int kw, int navg,
-                     int rows_out_per_span,
-                     long long time_stride, long long chan_stride) {
+// The sums of one output row, held as v[n-tile][plane] with the row's
+// samples spread over the eight row-lanes (lane / 4) of the warp: a butterfly
+// in which each step halves the n-tiles a lane keeps, so that lane l ends
+// with the whole sums of n-tiles 2 (l / 4) and 2 (l / 4) + 1 in v[0] and
+// v[1], i.e. of beams 8 (l / 4) + l % 4 and 4 more.  The same adds in the
+// same order for every plane.
+template <int NP>
+__device__ __forceinline__ void sum_row_lanes(float (&v)[kWarpNTiles][NP],
+                                              int lane) {
+  static_assert(kWarpNTiles == 16, "three steps leave two of sixteen");
+  fold_row_lanes<8, 4, NP>(v, lane >> 2);
+  fold_row_lanes<4, 2, NP>(v, lane >> 2);
+  fold_row_lanes<2, 1, NP>(v, lane >> 2);
+}
+
+// One m-tile's accumulators (eight samples, both pols, the tile's 64 beams)
+// detected and added to the running sums of its output row.
+template <bool STOKES>
+__device__ __forceinline__ void detect_tile(
+    const int (&acc)[kWarpNTiles][4],
+    float (&run)[kWarpNTiles][STOKES ? 4 : 1]) {
+#pragma unroll
+  for (int nt = 0; nt < kWarpNTiles; ++nt) {
+    const float vr[2] = {float(acc[nt][0]), float(acc[nt][2])};
+    const float vi[2] = {float(acc[nt][1]), float(acc[nt][3])};
+    detect_sample<STOKES>(vr, vi, run[nt]);
+  }
+}
+
+// The most warpgroups of a block: the power product's kernels keep to 128
+// registers a thread, the Stokes epilogue's running sums (four planes for
+// each of sixteen n-tiles) need about twice that.
+__host__ __device__ constexpr int max_groups(bool stokes) {
+  return stokes ? 2 : kMaxGroups;
+}
+
+template <typename OutT, bool STOKES>
+__global__ void __launch_bounds__(kGroupThreads * max_groups(STOKES), 1)
+detect_mma_kernel(const uint8_t* __restrict__ wire,
+                  IntWeights w,
+                  const float* __restrict__ scales,
+                  const float* __restrict__ q8_scales,
+                  OutT* __restrict__ out,
+                  float* __restrict__ inco_out,
+                  unsigned long long* __restrict__ sk_out,
+                  AntMask inco_mask, MmaGeom g,
+                  int n_time, int n_beams, int n_ant,
+                  long long time_stride, long long chan_stride) {
   constexpr int NP = STOKES ? 4 : 1;
-  extern __shared__ __align__(16) uint32_t smem[];
-  __shared__ int sk_part[2 * kMaxAnt];  // [stat][antenna]
-  uint32_t* ws = smem;                  // [term][col][kw][kStagedBeams]
-  uint32_t* xs = smem + staged_weight_words(NTERMS, kw);  // [rows][pol][kw]
+  extern __shared__ __align__(128) uint8_t smem[];
+  __shared__ int sk_parts[max_groups(STOKES)][2 * kMaxAnt];  // [stat][antenna]
 
   const int f = blockIdx.y;
-  const int ac = 2 * kw;  // a_compute
-  const int n_out = n_time / navg;
-  const int n_spans = (n_out + rows_out_per_span - 1) / rows_out_per_span;
-  const bool side = blockIdx.z == 0;  // block-uniform
-  const int lb = threadIdx.x % kStagedBeams;
-  const int g = threadIdx.x / kStagedBeams;
-  const int b = blockIdx.z * kStagedBeams + lb;
-  const bool active = b < n_beams;
+  const int n_out = n_time / g.navg;
+  const int n_spans = (n_out + g.rows_out - 1) / g.rows_out;
+  const bool side = blockIdx.x == 0;  // block-uniform
+  const int lane = threadIdx.x & 31;
+  const int group = threadIdx.x / kGroupThreads;
+  const int tid = threadIdx.x % kGroupThreads;
+  const int warp = tid >> 5;          // of the warpgroup
+  const int row_lane = lane >> 2;     // the sample of an m-tile this lane holds
+  // After sum_row_lanes: this lane's two beams.
+  const int b0 = blockIdx.x * kTileBeams + 8 * row_lane + (lane & 3);
+  const int b1 = b0 + 4;
 
-  stage_beam_weights<NTERMS>(ws, w, f, blockIdx.z * kStagedBeams, n_beams,
-                             kw);
-  const float s = scales[(long long)f * w.n_scales + (w.n_scales - 1)];
-  const float s2 = __fmul_rn(s, s);
-  const float qs = std::is_same<OutT, uint8_t>::value && active
-                       ? q8_scales[b] : 0.f;
+  uint8_t* ws = smem;                   // the weight tile (mma_gemm.cuh)
+  const size_t raw_bytes = span_wire_bytes(g);
+  // This warpgroup's two buffers of wire rows.
+  uint8_t* raw0 = smem + weight_tile_bytes(g) + group * 2 * raw_bytes;
+  int* sk_part = sk_parts[group];
+
+  // This warpgroup's spans: every stride-th from first.
+  const int first = blockIdx.z * g.n_groups + group;
+  const int stride = gridDim.z * g.n_groups;
   const uint8_t* wire_f = wire + (long long)f * chan_stride;
+  // The first span's wire bytes travel while the weight tile is staged.
+  if (first < n_spans) {
+    fetch_span_wire(
+        raw0, wire_f + (long long)first * g.rows_out * g.navg * time_stride,
+        min(g.rows_out, n_out - first * g.rows_out), g, time_stride, n_ant);
+  }
+  stage_weight_tile(ws, w, g, f, blockIdx.x * kTileBeams, n_beams);
+  __syncthreads();  // ws is complete; from here the warpgroups go their ways
+  const float s = scales[(long long)f * w.n_scales + (w.n_scales - 1)];
+  // The voltages come as product_scale times M, the detected sums as its
+  // square times theirs: a power of two, so every rounding on the way is
+  // the one M's would have had, and dividing it out here is exact.
+  const int ps = product_scale(g.fold != 0);
+  const float s2 = __fmul_rn(__fmul_rn(s, s), 1.f / float(ps * ps));
+  float qs0 = 0.f, qs1 = 0.f;
+  if (std::is_same<OutT, uint8_t>::value) {
+    if (b0 < n_beams) qs0 = q8_scales[b0];
+    if (b1 < n_beams) qs1 = q8_scales[b1];
+  }
+  const int plane = g.span_samples * g.raw_stride;  // pol x rows to pol y's
+  const int rounds = (g.rows_out + kRoundRows - 1) / kRoundRows;
 
-  for (int span = blockIdx.x; span < n_spans; span += gridDim.x) {
-    const int o0 = span * rows_out_per_span;
-    const int o_end = min(o0 + rows_out_per_span, n_out);
-    __syncthreads();  // the previous span's readers are done
-    stage_rows(xs, wire_f + (long long)o0 * navg * time_stride,
-               (o_end - o0) * navg, time_stride, n_ant, kw / 2);
-    if (side && sk_out) {
-      for (int i = threadIdx.x; i < 2 * ac; i += blockDim.x) sk_part[i] = 0;
+  int buf = 0;
+  for (int span = first; span < n_spans; span += stride, buf ^= 1) {
+    const int o0 = span * g.rows_out;
+    const int rows_here = min(g.rows_out, n_out - o0);
+    const uint8_t* raw = raw0 + buf * raw_bytes;
+    wait_span_wire();
+    group_sync(group);  // raw is complete; the other buffer's readers are done
+    const int next = span + stride;
+    if (next < n_spans) {
+      fetch_span_wire(
+          raw0 + (buf ^ 1) * raw_bytes,
+          wire_f + (long long)next * g.rows_out * g.navg * time_stride,
+          min(g.rows_out, n_out - next * g.rows_out), g, time_stride, n_ant);
     }
-    __syncthreads();
     if (side) {
-      side_outputs(xs, kw, ac, o_end - o0, navg, inco_mask,
-                   inco_out ? inco_out + (long long)f * n_out + o0 : nullptr,
-                   sk_part,
-                   sk_out ? sk_out + (long long)f * 2 * ac : nullptr);
-    }
-    if (!active) continue;
-    for (int o = o0 + g; o < o_end; o += kStagedGroups) {
-      float acc[NP];
-#pragma unroll
-      for (int k = 0; k < NP; ++k) acc[k] = 0.f;
-      // Two samples (four rows) per step, summed in sample order.
-      for (int r = 0; r < navg; r += 2) {
-        const uint32_t* xa = xs + ((o - o0) * navg + r) * 2 * kw;
-        const bool two = r + 1 < navg;
-        int m[4][n_acc(NTERMS)][2];
-        staged_rows4<NTERMS>(xa, two ? xa + 2 * kw : xa, ws + lb, kw, m);
-#pragma unroll
-        for (int smp = 0; smp < 2; ++smp) {
-          if (smp == 1 && !two) break;
-          float vr[2], vi[2];
-#pragma unroll
-          for (int p = 0; p < 2; ++p) {
-            int br, bi;
-            staged_voltage<n_acc(NTERMS)>(m, 2 * smp + p, w.factor, br, bi);
-            vr[p] = float(br);
-            vi[p] = float(bi);
-          }
-          detect_sample<STOKES>(vr, vi, acc);
+      if (sk_out) {
+        for (int i = tid; i < 2 * g.a_compute; i += kGroupThreads) {
+          sk_part[i] = 0;
         }
+        group_sync(group);
       }
-      store_row<OutT, STOKES>(
-          acc, s2, qs, out + ((long long)f * n_out + o) * NP * n_beams + b,
-          n_beams);
+      side_outputs_wire(
+          raw, g, rows_here, inco_mask,
+          inco_out ? inco_out + (long long)f * n_out + o0 : nullptr, sk_part,
+          sk_out ? sk_out + (long long)f * 2 * g.a_compute : nullptr, group,
+          tid);
+    }
+
+    // A warp takes one output row of each round of kRoundRows, its m-tiles
+    // one after the other.  Every warp walks every m-tile (the warps of a
+    // warpgroup multiply together); one without a row multiplies zeros.
+    for (int round = 0; round < rounds; ++round) {
+      const int o = round * kRoundRows + warp;
+      const bool row_live = o < rows_here;
+      float run[kWarpNTiles][NP];
+#pragma unroll
+      for (int nt = 0; nt < kWarpNTiles; ++nt) {
+#pragma unroll
+        for (int k = 0; k < NP; ++k) run[nt][k] = 0.f;
+      }
+      for (int j = 0; j < g.mpr; ++j) {
+        const int smp = 8 * j + row_lane;  // of the output row's navg
+        int acc[kWarpNTiles][4];
+        tile_product(acc, raw + (o * g.navg + smp) * g.raw_stride, plane,
+                     row_live && smp < g.navg, ws, g, lane);
+        if (row_live) detect_tile<STOKES>(acc, run);
+      }
+      if (!row_live) continue;
+      sum_row_lanes<NP>(run, lane);
+      OutT* dst = out + ((long long)f * n_out + o0 + o) * NP * n_beams;
+      if (b0 < n_beams) {
+        store_row<OutT, STOKES>(run[0], s2, qs0, dst + b0, n_beams);
+      }
+      if (b1 < n_beams) {
+        store_row<OutT, STOKES>(run[1], s2, qs1, dst + b1, n_beams);
+      }
     }
   }
 }
@@ -267,88 +362,42 @@ detect_staged_kernel(const uint8_t* __restrict__ wire,
 // --------------------------------- launch --------------------------------
 
 struct Args {
-  dim3 grid, block;
+  dim3 grid;
   size_t smem;
   cudaStream_t stream;
   IntWeights w;
+  MmaGeom g;
   const void *wire, *scales, *q8_scales;
   void *out, *inco_out, *sk_out;
   AntMask inco_mask;
-  int n_time, n_beams, n_ant, kw, navg, rows_out;
+  int n_time, n_beams, n_ant;
   long long time_stride, chan_stride;
 };
 
-template <int KW, int NTERMS, typename OutT, bool STOKES>
-cudaError_t launch(const Args& a) {
-  detect_power_kernel<KW, NTERMS, OutT, STOKES>
-      <<<a.grid, a.block, a.smem, a.stream>>>(
-          static_cast<const uint8_t*>(a.wire), a.w,
-          static_cast<const float*>(a.scales),
-          static_cast<const float*>(a.q8_scales), static_cast<OutT*>(a.out),
-          static_cast<float*>(a.inco_out),
-          static_cast<unsigned long long*>(a.sk_out), a.inco_mask, a.n_time,
-          a.n_beams, a.n_ant, a.navg, a.rows_out, a.time_stride,
-          a.chan_stride);
-  return cudaGetLastError();
-}
-
-// The staged kernels' shared memory is above the 48 KB default: raise the
+// The shared memory may be above the 48 KB default: raise the
 // instantiation's limit to what this launch needs, then launch.
-template <int NTERMS, typename OutT, bool STOKES>
-cudaError_t launch_staged(const Args& a) {
-  auto kernel = detect_staged_kernel<NTERMS, OutT, STOKES>;
-  const cudaError_t e = cudaFuncSetAttribute(
+template <typename OutT, bool STOKES>
+cudaError_t launch(const Args& a) {
+  auto kernel = detect_mma_kernel<OutT, STOKES>;
+  cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(a.smem));
   if (e != cudaSuccess) return e;
-  kernel<<<a.grid, a.block, a.smem, a.stream>>>(
+  // All of the SM's L1 as shared memory.
+  e = cudaFuncSetAttribute(kernel,
+                           cudaFuncAttributePreferredSharedMemoryCarveout,
+                           cudaSharedmemCarveoutMaxShared);
+  if (e != cudaSuccess) return e;
+  kernel<<<a.grid, dim3(kGroupThreads * a.g.n_groups), a.smem, a.stream>>>(
       static_cast<const uint8_t*>(a.wire), a.w,
       static_cast<const float*>(a.scales),
       static_cast<const float*>(a.q8_scales), static_cast<OutT*>(a.out),
       static_cast<float*>(a.inco_out),
-      static_cast<unsigned long long*>(a.sk_out), a.inco_mask, a.n_time,
-      a.n_beams, a.n_ant, a.kw, a.navg, a.rows_out, a.time_stride,
-      a.chan_stride);
+      static_cast<unsigned long long*>(a.sk_out), a.inco_mask, a.g, a.n_time,
+      a.n_beams, a.n_ant, a.time_stride, a.chan_stride);
   return cudaGetLastError();
 }
 
-template <int KW, int NTERMS>
-cudaError_t dispatch(const Args& a, bool stokes) {
-  const bool q8 = a.q8_scales != nullptr;
-  if (stokes) {
-    return q8 ? launch<KW, NTERMS, uint8_t, true>(a)
-              : launch<KW, NTERMS, float, true>(a);
-  }
-  return q8 ? launch<KW, NTERMS, uint8_t, false>(a)
-            : launch<KW, NTERMS, float, false>(a);
-}
-
-template <int NTERMS>
-cudaError_t dispatch_staged(const Args& a, bool stokes) {
-  const bool q8 = a.q8_scales != nullptr;
-  if (stokes) {
-    return q8 ? launch_staged<NTERMS, uint8_t, true>(a)
-              : launch_staged<NTERMS, float, true>(a);
-  }
-  return q8 ? launch_staged<NTERMS, uint8_t, false>(a)
-            : launch_staged<NTERMS, float, false>(a);
-}
-
 }  // namespace
-
-// This source builds two libraries, so that two compilers run side by side:
-// as it stands, the kernels of one or two sub-terms (int8, int8x2, int12)
-// behind dsabf_detect_power; included by detect_power_int13.cu, which
-// defines DSABF_INT13, those of four sub-terms behind
-// dsabf_detect_power_int13.  With four sub-terms a beam's columns fill the
-// registers at a_compute 16 already (4 x 2 x 8 = 64 words, as int8x2 at 32),
-// so a_compute 32 takes the staged path there.
-#ifdef DSABF_INT13
-#define DSABF_ENTRY dsabf_detect_power_int13
-constexpr int kRegAntLimit = 16;
-#else
-#define DSABF_ENTRY dsabf_detect_power
-constexpr int kRegAntLimit = kMaxRegAnt;
-#endif
 
 extern "C" {
 
@@ -358,24 +407,23 @@ extern "C" {
 // tensors w0, w1 [n_chan, 2*a_compute, 2*n_beams] (w1 unused when n_sub ==
 // 1) and scales f32 [n_chan, n_sub]; fold != 0, one tensor w0 [n_chan,
 // n_sub*2*a_compute, 2*n_beams] of n_sub (2 or 4) sub-terms and scales f32
-// [n_chan, 1].  This library takes n_sub 1 and 2 (int13's: 4).  out is f32
-// [n_chan, n_time/navg, n_beams] (stokes == 0) or [n_chan, n_time/navg, 4,
-// n_beams] (stokes != 0: I, Q, U, V), or uint8 of that shape when q8_scales
-// (f32 [n_beams]) is not null.
+// [n_chan, 1].  out is f32 [n_chan, n_time/navg, n_beams] (stokes == 0) or
+// [n_chan, n_time/navg, 4, n_beams] (stokes != 0: I, Q, U, V), or uint8 of
+// that shape when q8_scales (f32 [n_beams]) is not null.
 // Optional (null = not computed): inco_out f32 [n_chan, n_time/navg] over
 // the antennas whose bit is set in inco_mask (host memory, kMaxAnt / 32
 // words, bit a of word a / 32; read before this returns); sk_out uint64
 // [n_chan, 2, a_compute], added to (the caller zeroes it).
-// a_compute 8, 16, 32 (int13's library: 8, 16) run the register path;
-// above that to 128 in steps of 8 the staged path; anything else is refused.
-int DSABF_ENTRY(const void* wire, const void* w0, const void* w1,
-                const void* scales, const void* q8_scales, void* out,
-                void* inco_out, void* sk_out, const unsigned int* inco_mask,
-                int n_chan, int n_time, int n_beams, int n_ant, int a_compute,
-                int n_sub, int fold, int navg, int stokes,
-                long long time_stride, long long chan_stride, void* stream) {
-  const int kw = a_compute / 2;
-  const bool staged = a_compute > kRegAntLimit;
+// a_compute: every multiple of 8 up to 128; anything else is refused, and
+// so is a navg whose output row does not fit in shared memory beside the
+// weight tile.
+int dsabf_detect_power(const void* wire, const void* w0, const void* w1,
+                       const void* scales, const void* q8_scales, void* out,
+                       void* inco_out, void* sk_out,
+                       const unsigned int* inco_mask, int n_chan, int n_time,
+                       int n_beams, int n_ant, int a_compute, int n_sub,
+                       int fold, int navg, int stokes, long long time_stride,
+                       long long chan_stride, void* stream) {
   Args a;
   if (n_chan < 1 || n_chan > 65535 || n_beams < 1 || navg < 1 ||
       n_time < navg || n_time % navg || n_ant % 4 || a_compute < 8 ||
@@ -385,29 +433,21 @@ int DSABF_ENTRY(const void* wire, const void* w0, const void* w1,
     return int(cudaErrorInvalidValue);
   }
   const int n_out = n_time / navg;
-  if (staged) {
-    a.rows_out = navg >= kStagedSpan ? 1 : kStagedSpan / navg;
-    a.smem = (staged_weight_words(n_sub, kw)
-              + size_t(a.rows_out) * navg * 2 * kw) * sizeof(uint32_t);
-    if (a.smem > kMaxDynSmem - 2 * kMaxAnt * sizeof(int)) {
-      return int(cudaErrorInvalidValue);
-    }
-    const int n_spans = (n_out + a.rows_out - 1) / a.rows_out;
-    const int chunks = (n_beams + kStagedBeams - 1) / kStagedBeams;
-    a.block = dim3(kStagedThreads);
-    a.grid = dim3(staged_grid_x(n_spans, n_chan, chunks), n_chan, chunks);
-  } else {
-    a.rows_out = navg >= kSpanSamples ? 1 : kSpanSamples / navg;
-    a.smem = size_t(a.rows_out) * navg * 2 * kw * sizeof(uint32_t);
-    if (a.smem > kMaxStaticSmem - 2 * kMaxRegAnt * sizeof(int)) {
-      return int(cudaErrorInvalidValue);
-    }
-    const int threads = n_beams >= kMaxThreads ? kMaxThreads
-                                               : ((n_beams + 31) / 32) * 32;
-    a.block = dim3(threads);
-    a.grid = dim3((n_out + a.rows_out - 1) / a.rows_out, n_chan,
-                  (n_beams + threads - 1) / threads);
+  // What every address of a wire row is a multiple of: 16 lets cp.async
+  // move 16 bytes at a time.
+  const bool wide = !(reinterpret_cast<uintptr_t>(wire) % 16 || n_ant % 16 ||
+                      time_stride % 16 || chan_stride % 16);
+  if (!make_mma_geom(a.g, a.smem, a_compute, n_sub, fold, a.w.factor, navg,
+                     n_out, wide ? 16 : 4, max_groups(stokes != 0))) {
+    return int(cudaErrorInvalidValue);
   }
+  const int n_spans = (n_out + a.g.rows_out - 1) / a.g.rows_out;
+  const int chunks = (n_beams + kTileBeams - 1) / kTileBeams;
+  // Beam tiles fastest: the blocks that read the same wire bytes run
+  // together, so all but the first find them in the L2 cache.
+  a.grid = dim3(chunks, n_chan,
+                staged_grid_x((n_spans + a.g.n_groups - 1) / a.g.n_groups,
+                              n_chan, chunks));
   a.stream = static_cast<cudaStream_t>(stream);
   a.wire = wire;
   a.scales = scales;
@@ -421,31 +461,12 @@ int DSABF_ENTRY(const void* wire, const void* w0, const void* w1,
   a.n_time = n_time;
   a.n_beams = n_beams;
   a.n_ant = n_ant;
-  a.kw = kw;
-  a.navg = navg;
   a.time_stride = time_stride;
   a.chan_stride = chan_stride;
-  const bool st = stokes != 0;
-#ifdef DSABF_INT13
-  if (n_sub != 4) return int(cudaErrorInvalidValue);
-  if (staged) return int(dispatch_staged<4>(a, st));
-  return int(kw == 4 ? dispatch<4, 4>(a, st) : dispatch<8, 4>(a, st));
-#else
-  if (n_sub > 2) return int(cudaErrorInvalidValue);
-  if (staged) {
-    return int(n_sub == 1 ? dispatch_staged<1>(a, st)
-                          : dispatch_staged<2>(a, st));
+  if (stokes) {
+    return int(q8_scales ? launch<uint8_t, true>(a) : launch<float, true>(a));
   }
-  switch (kw * 10 + n_sub) {
-    case 41: return int(dispatch<4, 1>(a, st));
-    case 42: return int(dispatch<4, 2>(a, st));
-    case 81: return int(dispatch<8, 1>(a, st));
-    case 82: return int(dispatch<8, 2>(a, st));
-    case 161: return int(dispatch<16, 1>(a, st));
-    case 162: return int(dispatch<16, 2>(a, st));
-    default: return int(cudaErrorInvalidValue);
-  }
-#endif
+  return int(q8_scales ? launch<uint8_t, false>(a) : launch<float, false>(a));
 }
 
 const char* dsabf_error_string(int code) {

@@ -1,0 +1,451 @@
+// The int8 beamforming GEMM on the tensor cores: the JAX package's
+// _unpack_tile / _build_x / _accumulate (dsabeamformer_tpu/ops/gemm.py:73-160)
+// for the int8 weight modes (int8, int8x2, int12, int13), as
+//   wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8
+// (one warpgroup: A from registers, B from shared memory through a matrix
+// descriptor).  detect_power.cu is built on it; the GEMM ends in a warp's
+// registers and what follows (detection) is the caller's.
+//
+// The layouts are chosen so that the accumulator fragment of one thread is
+// already one detection operand, and so that nothing is unpacked twice:
+//
+//   K order   A wire word (four antennas of one pol and sample) unpacks into
+//             one re word and one im word.  A k32 step is [re of 16 antennas
+//             | im of the same 16]; sub-term t's steps follow sub-term
+//             t - 1's.  An a_compute that is no multiple of 16 zero-fills the
+//             tail of its last step in X and in W, so every multiple of 8 up
+//             to kMaxAnt runs the same code.
+//   A         In that K order the A fragment of a thread (rows g and g + 8,
+//             K bytes 4q .. 4q + 3 and 16 + 4q .. of a step) is the re and
+//             the im nibbles of ONE wire word per row.  So the wire bytes
+//             stay packed in shared memory, as cp.async brought them, and a
+//             thread makes its fragment with two 32-bit loads and a few
+//             logic operations; no unpacked copy of X exists anywhere.
+//   Rows      An m-tile (16 rows) is pol x of eight samples in rows 0-7 and
+//             pol y of the same samples in rows 8-15: c0..c3 of a fragment
+//             are xr, xi, yr, yi of one (sample, beam).  An output row of
+//             navg samples is ceil(navg / 8) m-tiles, which one warp takes
+//             one after the other; sample slots past navg are zero rows
+//             (they add 0 to every sum), so any navg runs.
+//   Columns   A block's weight tile holds kTileBeams beams as columns Re_b,
+//             Im_b, Re_b+1, Im_b+1, ... (columns b and B + b of the [K, 2B]
+//             term), K-major per column: c0, c1 of a fragment are Re and Im
+//             of one beam.  In shared memory the tile is the matrix
+//             descriptor's canonical K-major layout without swizzle: core
+//             matrices of 8 columns x 16 K bytes, 128 contiguous bytes each,
+//             the core matrices of one 8-column group one after the other
+//             along K (leading byte offset 128), the groups 8 * K bytes
+//             apart (stride byte offset).
+//   Sub-terms share one accumulator: int8x2 multiplies the int32 sums of the
+//             hi term by 256 before the lo term's steps add on top; the
+//             folded modes feed 16 X against the hi sub-terms and X against
+//             the lo ones, the JAX kernel's [16X | X] operand: 16 re is the
+//             wire byte's high nibble where it stands (& 0xF0), 16 im the
+//             low nibble shifted up, two operations a register where the
+//             sign extension of X takes five.  So int8 and int8x2, which
+//             need no X beside it, multiply 16 X throughout and end with 16
+//             M (product_scale; the caller divides it out, exactly, with its
+//             own power-of-two factor).  M stays below 2^27 (wire_gemm.cuh),
+//             16 M below 2^31.
+//   Staging   A span's wire bytes come into shared memory with cp.async
+//             while the warpgroup multiplies the span before (two buffers);
+//             rows are padded to an odd number of 16-byte units so that the
+//             eight rows a fragment load touches fall on different banks.
+//             The weight tile is staged once per block.
+//
+// A warp multiplies one m-tile by the tile's 16 n-tiles (64 beams): 64 int32
+// accumulators a thread.  The four warps of a warpgroup take four output
+// rows and issue each step together.  A warpgroup is the unit of work: it
+// walks its own spans with its own wire buffers and its own barrier, and
+// shares only the weight tile with the block's other warpgroups, so that
+// one's detection runs under another's products.
+
+#pragma once
+
+#include <cstdint>
+
+#include <cuda_runtime.h>
+
+#include "wire_gemm.cuh"
+
+namespace dsabf {
+
+constexpr int kGroupThreads = 128;              // a warpgroup
+constexpr int kMaxGroups = 4;                   // warpgroups of a block
+constexpr int kTileBeams = 64;                  // beams of a weight tile
+constexpr int kTileCols = 2 * kTileBeams;       // its columns (Re, Im)
+constexpr int kWarpNTiles = kTileCols / 8;      // n-tiles (8 columns) a warp
+constexpr int kRoundRows = 4;                   // output rows a warpgroup
+                                                // takes at a time, one a warp
+constexpr int kStepBytes = 32;                  // K bytes of one mma
+constexpr int kCoreBytes = 128;                 // 8 columns x 16 K bytes
+constexpr int kMaxSpanRows = 16;                // output rows of a span
+// Dynamic shared memory of a block: an SM's, less the caller's static SK
+// scratch (1 KB a warpgroup).
+constexpr int kMmaDynSmem = kMaxDynSmem - kMaxGroups * 1024;
+
+// i / d for small operands (i * d < 2^32) without the integer divide.
+struct FastDiv {
+  uint32_t d, magic;
+};
+inline FastDiv make_fastdiv(int d) {
+  FastDiv f;
+  f.d = uint32_t(d);
+  f.magic = d > 1 ? uint32_t((1ULL << 32) / uint32_t(d)) + 1u : 0u;
+  return f;
+}
+__device__ __forceinline__ int fast_div(int i, const FastDiv& f) {
+  return f.d == 1u ? i : int(__umulhi(uint32_t(i), f.magic));
+}
+
+// What tile_product's sums are a multiple of: the folded modes give M, the
+// others 16 M (see Sub-terms above).
+__host__ __device__ constexpr int product_scale(bool fold) {
+  return fold ? 1 : 16;
+}
+
+// The shapes one launch works with (by value to the kernel).
+struct MmaGeom {
+  int a_compute;
+  int n_steps;      // k32 steps of one sub-term: ceil(a_compute / 16)
+  int n_sub;        // sub-terms along K
+  int fold;         // != 0: even sub-terms multiply 16 X (int12, int13)
+  int factor;       // fold == 0: sums so far times this before sub-term 1
+  int k_total;      // K bytes of a weight column: n_sub * 32 * n_steps
+  int raw_stride;   // bytes of a staged (sample, pol) wire row
+  int navg;         // samples of an output row
+  int mpr;          // m-tiles of an output row: ceil(navg / 8)
+  int n_groups;     // warpgroups of a block, each walking its own spans
+  int rows_out;     // output rows of a span
+  int span_samples; // rows_out * navg: pol y's rows follow pol x's
+  int copy_bytes;   // bytes of one cp.async of the wire: 16 where the
+                    // wire's strides and a_compute allow it, else 4
+  FastDiv copies;   // cp.async of a (sample, pol): a_compute / copy_bytes
+  FastDiv words;    // wire words of a (sample, pol): a_compute / 4
+  FastDiv slots;    // wire-word slots of a sub-term's K: 4 * n_steps
+};
+
+// Bytes of one buffer of a span's wire rows.
+__host__ __device__ inline size_t span_wire_bytes(const MmaGeom& g) {
+  return size_t(2) * g.span_samples * g.raw_stride;
+}
+
+// Bytes of a block's weight tile.
+__host__ __device__ inline size_t weight_tile_bytes(const MmaGeom& g) {
+  return size_t(kTileCols) * g.k_total;
+}
+
+// Fill g for these sizes and give the dynamic shared memory of a block;
+// false when one output row does not fit beside the weight tile.
+// wire_align: what the wire's address, strides and n_ant are all multiples
+// of (at least 4).  max_groups: the most warpgroups the kernel's registers
+// allow.  A block is as many warpgroups as can each hold a span of
+// kRoundRows output rows (two buffers) beside the one weight tile they share.
+inline bool make_mma_geom(MmaGeom& g, size_t& smem, int a_compute, int n_sub,
+                          int fold, int factor, int navg, int n_out,
+                          int wire_align, int max_groups) {
+  g.a_compute = a_compute;
+  g.n_steps = (a_compute + 15) / 16;
+  g.n_sub = n_sub;
+  g.fold = fold;
+  g.factor = factor;
+  g.k_total = n_sub * kStepBytes * g.n_steps;
+  // The least odd number of 16-byte units that holds a_compute bytes.
+  g.raw_stride = 16 * (g.n_steps | 1);
+  g.navg = navg;
+  g.mpr = (navg + 7) / 8;
+  g.copy_bytes = wire_align % 16 == 0 && a_compute % 16 == 0 ? 16 : 4;
+  g.copies = make_fastdiv(a_compute / g.copy_bytes);
+  g.words = make_fastdiv(a_compute / 4);
+  g.slots = make_fastdiv(4 * g.n_steps);
+  const size_t wbytes = weight_tile_bytes(g);
+  // An output row's wire bytes, in both buffers.
+  const size_t row_bytes = size_t(2) * navg * 2 * g.raw_stride;
+  if (wbytes + row_bytes > size_t(kMmaDynSmem)) return false;
+  const int want = n_out < kRoundRows ? n_out : kRoundRows;
+  const int n_rounds = (n_out + kRoundRows - 1) / kRoundRows;
+  int groups = max_groups < n_rounds ? max_groups : n_rounds;
+  long long rows = 0;
+  for (; groups >= 1; --groups) {
+    rows = (kMmaDynSmem - wbytes) / (groups * row_bytes);
+    if (rows >= want) break;
+  }
+  if (groups < 1) {  // a single warpgroup with what fits
+    groups = 1;
+    rows = (kMmaDynSmem - wbytes) / row_bytes;
+  }
+  if (rows > kMaxSpanRows) rows = kMaxSpanRows;
+  if (rows > n_out) rows = n_out;
+  if (rows > kRoundRows) rows -= rows % kRoundRows;
+  g.n_groups = groups;
+  g.rows_out = int(rows);
+  g.span_samples = g.rows_out * navg;
+  smem = wbytes + size_t(groups) * rows * row_bytes;
+  return true;
+}
+
+// A barrier of one warpgroup (barrier 0 is __syncthreads').
+__device__ __forceinline__ void group_sync(int group) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(group + 1), "r"(kGroupThreads)
+               : "memory");
+}
+
+__device__ __forceinline__ uint32_t smem_address(const void* p) {
+  return uint32_t(__cvta_generic_to_shared(p));
+}
+
+// Byte offset of column c, K byte k of the weight tile (see Columns above).
+__device__ __forceinline__ int w_offset(int c, int k, const MmaGeom& g) {
+  return (c >> 3) * (g.k_total * 8) + (k >> 4) * kCoreBytes + (c & 7) * 16
+         + (k & 15);
+}
+
+// The weight tile of beams b0 .. b0 + kTileBeams - 1 of channel f into ws:
+// column 2 * beam + (0 Re, 1 Im), along K sub-term by sub-term in k32 steps
+// of [16 re rows | 16 im rows]; zeros past a_compute and past n_beams.
+// Consecutive threads take consecutive beams, so each byte load of a warp is
+// one 32-byte segment.
+__device__ __forceinline__ void stage_weight_tile(uint8_t* ws,
+                                                  const IntWeights& w,
+                                                  const MmaGeom& g, int f,
+                                                  int b0, int n_beams) {
+  const long long b2 = 2LL * n_beams;
+  const int slots = 4 * g.n_steps;
+  const int aw = g.a_compute / 4;
+  const int total = g.n_sub * 2 * slots * kTileCols;
+  for (int i = threadIdx.x; i < total; i += blockDim.x) {
+    const int bl = i % kTileBeams;
+    const int ri = (i / kTileBeams) & 1;   // Re or Im column
+    const int rest = i / kTileCols;        // (sub-term * 2 + part) * slots + q
+    const int tp = fast_div(rest, g.slots);
+    const int q = rest - tp * slots;       // four antennas 4q .. 4q + 3
+    const int part = tp & 1;               // re or im rows of K
+    const int t = tp >> 1;
+    const int b = b0 + bl;
+    uint32_t v = 0;
+    if (q < aw && b < n_beams) {
+      const int8_t* src = sub_term(w, t) + (long long)f * w.chan_stride
+                          + (long long)(part * g.a_compute + 4 * q) * b2
+                          + ri * n_beams + b;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        v |= uint32_t(uint8_t(src[k * b2])) << (8 * k);
+      }
+    }
+    const int k = (t * g.n_steps + (q >> 2)) * kStepBytes + part * 16
+                  + (q & 3) * 4;
+    *reinterpret_cast<uint32_t*>(ws + w_offset(2 * bl + ri, k, g)) = v;
+  }
+}
+
+// Start the copy of n_rows_out output rows' wire bytes (navg samples each,
+// both pols, antennas 0 .. a_compute - 1) from `base` into raw
+// [pol][sample][raw_stride], copy_bytes per cp.async, and commit it as one
+// group: it runs while the warpgroup multiplies the span before (the
+// calling warpgroup's threads share the work).  The stride
+// arguments read both the time-major tfpa form and the channel-major ftpa
+// form (wire_gemm.cuh).
+__device__ __forceinline__ void fetch_span_wire(uint8_t* raw,
+                                                const uint8_t* base,
+                                                int n_rows_out,
+                                                const MmaGeom& g,
+                                                long long time_stride,
+                                                int n_ant) {
+  const int per = int(g.copies.d);
+  const int total = n_rows_out * g.navg * 2 * per;
+  for (int i = threadIdx.x % kGroupThreads; i < total; i += kGroupThreads) {
+    const int rp = fast_div(i, g.copies);  // sample * 2 + pol
+    const int q = i - rp * per;
+    const uint8_t* src = base + (long long)(rp >> 1) * time_stride
+                         + (rp & 1) * n_ant + q * g.copy_bytes;
+    const uint32_t dst = smem_address(
+        raw + ((rp & 1) * g.span_samples + (rp >> 1)) * g.raw_stride
+        + q * g.copy_bytes);
+    if (g.copy_bytes == 16) {
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+                   :: "r"(dst), "l"(src));
+    } else {
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+                   :: "r"(dst), "l"(src));
+    }
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// Wait for this thread's copies; a barrier then makes every thread's
+// visible.
+__device__ __forceinline__ void wait_span_wire() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// One k32 step of this thread's A fragment from the wire words vx (row g:
+// pol x of its sample) and vy (row g + 8: pol y): a0, a1 the re bytes (K
+// bytes 4q ..), a2, a3 the im bytes (16 + 4q ..); times 16 where x16.
+__device__ __forceinline__ void make_fragment(uint32_t (&a)[4], uint32_t vx,
+                                              uint32_t vy, bool x16) {
+  if (x16) {
+    a[0] = vx & 0xF0F0F0F0u;
+    a[1] = vy & 0xF0F0F0F0u;
+    a[2] = (vx << 4) & 0xF0F0F0F0u;
+    a[3] = (vy << 4) & 0xF0F0F0F0u;
+  } else {
+    a[0] = sign_extend_nibbles((vx >> 4) & 0x0F0F0F0Fu);
+    a[1] = sign_extend_nibbles((vy >> 4) & 0x0F0F0F0Fu);
+    a[2] = sign_extend_nibbles(vx & 0x0F0F0F0Fu);
+    a[3] = sign_extend_nibbles(vy & 0x0F0F0F0Fu);
+  }
+}
+
+// d (+)= a * b for one warpgroup: a is this warp's 16 x 32 fragment (rows
+// 16 w .. 16 w + 15 of the 64, w the warp's rank in the warpgroup), b the
+// shared-memory tile the descriptor names (128 columns x 32 K bytes),
+// d[n-tile][c0..c3] this thread's part of the warp's 16 x 128 sums.
+// scale_d == 0 starts the sum (d = a * b).  Asynchronous: wgmma_fence
+// before, wgmma_commit and wgmma_wait after.
+__device__ __forceinline__ void wgmma_s8(int (&d)[kWarpNTiles][4],
+                                         const uint32_t (&a)[4],
+                                         uint64_t desc, int scale_d) {
+  static_assert(kWarpNTiles == 16, "m64n128k32");
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p;\n"
+      "}\n"
+      : "+r"(d[0][0]), "+r"(d[0][1]), "+r"(d[0][2]), "+r"(d[0][3]),
+        "+r"(d[1][0]), "+r"(d[1][1]), "+r"(d[1][2]), "+r"(d[1][3]),
+        "+r"(d[2][0]), "+r"(d[2][1]), "+r"(d[2][2]), "+r"(d[2][3]),
+        "+r"(d[3][0]), "+r"(d[3][1]), "+r"(d[3][2]), "+r"(d[3][3]),
+        "+r"(d[4][0]), "+r"(d[4][1]), "+r"(d[4][2]), "+r"(d[4][3]),
+        "+r"(d[5][0]), "+r"(d[5][1]), "+r"(d[5][2]), "+r"(d[5][3]),
+        "+r"(d[6][0]), "+r"(d[6][1]), "+r"(d[6][2]), "+r"(d[6][3]),
+        "+r"(d[7][0]), "+r"(d[7][1]), "+r"(d[7][2]), "+r"(d[7][3]),
+        "+r"(d[8][0]), "+r"(d[8][1]), "+r"(d[8][2]), "+r"(d[8][3]),
+        "+r"(d[9][0]), "+r"(d[9][1]), "+r"(d[9][2]), "+r"(d[9][3]),
+        "+r"(d[10][0]), "+r"(d[10][1]), "+r"(d[10][2]), "+r"(d[10][3]),
+        "+r"(d[11][0]), "+r"(d[11][1]), "+r"(d[11][2]), "+r"(d[11][3]),
+        "+r"(d[12][0]), "+r"(d[12][1]), "+r"(d[12][2]), "+r"(d[12][3]),
+        "+r"(d[13][0]), "+r"(d[13][1]), "+r"(d[13][2]), "+r"(d[13][3]),
+        "+r"(d[14][0]), "+r"(d[14][1]), "+r"(d[14][2]), "+r"(d[14][3]),
+        "+r"(d[15][0]), "+r"(d[15][1]), "+r"(d[15][2]), "+r"(d[15][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+// wgmma reads its register operands, and writes its sums, after the
+// instruction has issued.  An empty asm that "rewrites" a register keeps the
+// compiler from reusing it, or from reading it early, across that point.
+__device__ __forceinline__ void keep_register(uint32_t& r) {
+  asm volatile("" : "+r"(r) :: "memory");
+}
+__device__ __forceinline__ void keep_register(int& r) {
+  asm volatile("" : "+r"(r) :: "memory");
+}
+
+// Orders this warp's register writes (accumulators, A fragments) before the
+// warpgroup's next wgmma reads them.
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// Until at most N of the committed groups are still running.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// The matrix descriptor of the weight tile at K byte 0: start address,
+// leading byte offset (between the two core matrices of a step along K),
+// stride byte offset (between 8-column groups), each in 16-byte units; no
+// swizzle.  K byte k (a multiple of 32) starts at desc + k * 8 / 16.
+__device__ __forceinline__ uint64_t w_descriptor(const uint8_t* ws,
+                                                 const MmaGeom& g) {
+  return uint64_t((smem_address(ws) & 0x3FFFFu) >> 4)
+         | (uint64_t(kCoreBytes >> 4) << 16)
+         | (uint64_t((g.k_total * 8) >> 4) << 32);
+}
+
+// One m-tile times the weight tile, every sub-term.  rx: this lane's pol x
+// wire row (sample lane / 4 of the m-tile) in the staged span, pol y's
+// `plane` bytes further; live: the row holds a sample (else zeros).
+// acc[n-tile][c0..c3]: thread `lane` holds rows lane / 4 (c0, c1: pol x) and
+// lane / 4 + 8 (c2, c3: pol y), columns Re, Im of beam 4 * n-tile + lane % 4,
+// times product_scale(g.fold).
+// The four warps of a warpgroup call this together.
+__device__ __forceinline__ void tile_product(int (&acc)[kWarpNTiles][4],
+                                             const uint8_t* rx, int plane,
+                                             bool live, const uint8_t* ws,
+                                             const MmaGeom& g, int lane) {
+  const int q = lane & 3;
+  const int aw = g.a_compute / 4;
+  const int n_k = g.n_sub * g.n_steps;
+  int t = 0, s = 0;  // sub-term and step of k-step ks
+  const uint64_t desc0 = w_descriptor(ws, g);
+  auto step = [&](int ks, uint32_t (&a)[4]) {
+    // The wire words first: their loads run under the waits below.
+    const int wi = 4 * s + q;
+    const bool ok = live && wi < aw;
+    const uint32_t vx =
+        ok ? *reinterpret_cast<const uint32_t*>(rx + 4 * wi) : 0u;
+    const uint32_t vy =
+        ok ? *reinterpret_cast<const uint32_t*>(rx + plane + 4 * wi) : 0u;
+    // a was last read by the step before the last: at most one may run on.
+    if (ks >= 2) wgmma_wait<1>();
+#pragma unroll
+    for (int r = 0; r < 4; ++r) keep_register(a[r]);
+    if (ks == g.n_steps && !g.fold) {
+      // int8x2: the hi term's sums times 256 (a multiply: a left shift of a
+      // negative int is undefined), the lo term's products on top.
+      wgmma_wait<0>();
+#pragma unroll
+      for (int nt = 0; nt < kWarpNTiles; ++nt) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) keep_register(acc[nt][c]);
+      }
+#pragma unroll
+      for (int nt = 0; nt < kWarpNTiles; ++nt) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[nt][c] *= g.factor;
+      }
+    }
+    make_fragment(a, vx, vy, !g.fold || !(t & 1));
+    wgmma_fence();
+    wgmma_s8(acc, a, desc0 + uint64_t((ks * 2 * kCoreBytes) >> 4), ks > 0);
+    wgmma_commit();
+    if (++s == g.n_steps) {
+      s = 0;
+      ++t;
+    }
+  };
+  // Two fragments in turn, so that one is made while the other is read.
+  uint32_t a0[4] = {}, a1[4] = {};
+  for (int ks = 0; ks < n_k; ks += 2) {
+    step(ks, a0);
+    if (ks + 1 < n_k) step(ks + 1, a1);
+  }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    keep_register(a0[r]);
+    keep_register(a1[r]);
+  }
+#pragma unroll
+  for (int nt = 0; nt < kWarpNTiles; ++nt) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) keep_register(acc[nt][c]);
+  }
+}
+
+}  // namespace dsabf

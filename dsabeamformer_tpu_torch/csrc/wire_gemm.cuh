@@ -1,8 +1,10 @@
-// The unpack and GEMM that both beamforming kernels start from
-// (detect_power.cu, beam_voltages.cu): the JAX package's _build_x and
-// _accumulate (dsabeamformer_tpu/ops/gemm.py:97-145) for the int8 weight
-// modes (int8, int8x2, int12, int13), as __dp4a on the CUDA cores.  The
-// float modes' GEMM is float_gemm.cuh.
+// The unpack and GEMM of the voltage kernels (beam_voltages.cu): the JAX
+// package's _build_x and _accumulate (dsabeamformer_tpu/ops/gemm.py:97-145)
+// for the int8 weight modes (int8, int8x2, int12, int13), as __dp4a on the
+// CUDA cores; and what every int8 kernel shares: the weight operand
+// (IntWeights), the nibble unpack, the incoherent mask.  The detect kernel's
+// GEMM runs on the tensor cores (mma_gemm.cuh); the float modes' GEMM is
+// float_gemm.cuh.
 //
 // A mode is a set of 1, 2 or 4 int8 sub-terms [2 * a_compute, 2B] per
 // channel (IntWeights) and a combine factor:
@@ -30,7 +32,7 @@
 //     B + b) weight columns, for every term, in registers (K/4 words each);
 //     beam_row multiplies one staged row by them.  All threads of a warp
 //     read the same row, so the X loads are broadcasts.
-//   - The staged path (a_compute 40..128, any multiple of 8): at K = 256
+//   - The staged path (every other multiple of 8 up to 128): at K = 256
 //     one beam's int8x2 columns are 2 terms x 2 columns x 64 words = 256
 //     registers, past the 255 a thread has, so a block stages a tile of
 //     kStagedBeams beams' columns, every term, into shared memory

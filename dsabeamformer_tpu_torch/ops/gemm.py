@@ -8,9 +8,10 @@ Hand-written CUDA kernels replace the JAX package's two Pallas kernels
 - ``csrc/detect_power.cu`` (``_detect_kernel`` launched by ``_fused_detect``,
   with ``_power_epilogue`` or ``_stokes_epilogue``): per channel, unpack the
   wire bytes of the first ``a_compute`` antennas of each pol into
-  ``[re | im]``, multiply by each int8 sub-term in int32, combine them
-  (int8x2 ``M_hi * 256 + M_lo``; int12 ``M_hi * 16 + M_lo``; int13, built
-  from ``csrc/detect_power_int13.cu``, ``(M_h1 + M_h2) * 16 + M_l1 + M_l2``),
+  ``[re | im]``, multiply by each int8 sub-term in int32 on the tensor cores
+  (``wgmma`` s8, ``csrc/mma_gemm.cuh``), combine them
+  (int8x2 ``M_hi * 256 + M_lo``; int12 ``M_hi * 16 + M_lo``; int13
+  ``(M_h1 + M_h2) * 16 + M_l1 + M_l2``),
   convert to float32 once (the float modes, ``csrc/detect_float.cu``:
   multiply by each bfloat16 or float32 term in float32 and add the terms'
   partial sums), then detect:
@@ -32,12 +33,13 @@ Hand-written CUDA kernels replace the JAX package's two Pallas kernels
   ``csrc/beam_voltages_float.cu``): the same unpack and GEMM, times the
   channel's scale, stored as float32 ``[F, T, P, 2B]`` with no detection.
 
-The int8 modes' kernels have two weight paths (``kernel_path``): a thread per
-beam with its weight columns in registers for a_compute 8, 16, 32 (int13,
-with four sub-terms: 8, 16), and a 64-beam tile of weight columns staged in
-shared memory for every multiple of 8 above that up to 128 (DSA-110: 110
-active antennas in 128 slots).  The float modes' kernels stage a 32-beam
-tile as float32 for every a_compute.
+Every kernel takes each a_compute that is a multiple of 8 from 8 to 128
+(DSA-110: 110 active antennas in 128 slots).  The int8 modes' detect kernel
+is one design for all of them (``kernel_path``: ``"wgmma"``): a block stages
+a 64-beam tile of weight columns in shared memory, K-major, keeps the wire
+bytes packed beside it and walks K in steps of 32 bytes; ``_mma_operands``
+states its operand layouts in torch.  The float modes' kernels stage a
+32-beam tile as float32.
 
 ``fused_detect`` and ``beamform_voltages`` are the wrappers: a CUDA tensor
 goes to the kernel (or the call raises), a CPU tensor to the plain PyTorch
@@ -72,24 +74,26 @@ from dsabeamformer_tpu_torch.ops.quantize import (
 KERNEL_MODES = tuple(TERM_DTYPES)
 #: Modes whose terms are float (bfloat16 or float32), scales all 1.
 FLOAT_MODES = ("bf16", "bf16x2", "f32")
-#: a_compute of the register-weight kernels (K = 2 * a_compute; csrc
-#: instantiates K/4 = 4, 8, 16 register words per beam and sub-term).  With
-#: int13's four sub-terms a beam's columns fill the registers at 16.
-REGISTER_A_COMPUTE = (8, 16, 32)
-REGISTER_A_COMPUTE_INT13 = (8, 16)
-#: The staged-weight kernels take every multiple of 8 above 32 up to this
+#: The kernels take every a_compute that is a multiple of 8 up to this
 #: (csrc: kMaxAnt; also the incoherent mask's width in bits).
 MAX_A_COMPUTE = 128
-#: Time samples a block stages per span: register path (csrc: kSpanSamples)
-#: and staged path (kStagedSpan); beams of a staged weight tile
-#: (kStagedBeams).
-_SPAN_SAMPLES = 256
-_STAGED_SPAN = 64
-_STAGED_BEAMS = 64
-#: Shared memory the detect kernel may stage into, less its SK scratch: 48 KB
-#: (register path, static) and 227 KB (staged path, dynamic).
-_MAX_SMEM = 48 * 1024 - 2 * 32 * 4
-_MAX_STAGED_SMEM = 227 * 1024 - 2 * MAX_A_COMPUTE * 4
+#: The tensor-core instruction of the int8 modes' detect kernel.
+DETECT_MMA = "wgmma"
+#: The int8 detect kernel (csrc/mma_gemm.cuh): beams of a block's weight tile
+#: (kTileBeams), output rows a warpgroup takes at a time (kRoundRows), most
+#: output rows of a span (kMaxSpanRows), most warpgroups of a block for the
+#: power and the Stokes product (kMaxGroups, max_groups), K bytes of one mma
+#: step (kStepBytes).
+_TILE_BEAMS = 64
+_ROUND_ROWS = 4
+_MAX_SPAN_ROWS = 16
+_MAX_GROUPS = {False: 4, True: 2}
+_STEP_BYTES = 32
+#: Dynamic shared memory a kernel's block may stage into: an SM's 227 KB
+#: less the static SK scratch, 1 KB (float kernels) or 1 KB a warpgroup (the
+#: int8 detect kernel: kMmaDynSmem).
+_MAX_DYN_SMEM = 227 * 1024 - 2 * MAX_A_COMPUTE * 4
+_MMA_DYN_SMEM = 227 * 1024 - 4 * 1024
 #: The float kernels (csrc/float_gemm.cuh): beams of a weight tile
 #: (kFloatBeams), warps of a block (kFloatGroups), most samples a voltage
 #: block stages (kFloatVoltSpan).
@@ -206,27 +210,19 @@ def _mask_words(mask: int):
 
 
 def kernel_path(cfg: ObsConfig) -> str:
-    """The kernels' weight path for ``cfg.weight_mode`` and
-    ``cfg.a_compute``: ``"float"`` for the float modes (a 32-beam tile
-    staged as float32, any a_compute); for the int8 modes ``"register"`` (8,
-    16, 32, int13: 8, 16: each thread holds its beam's weight columns in
-    registers) or ``"staged"`` (the multiples of 8 above that up to
-    ``MAX_A_COMPUTE``: a block stages a 64-beam tile's columns in shared
-    memory, since at K = 256 one beam's two sub-terms are 256 words, past a
-    thread's 255 registers; int13's four are 128 words at a_compute 32).
-    Raises ``ValueError`` for an a_compute the int8 kernels do not take."""
+    """The detect kernel's design for ``cfg.weight_mode``: ``DETECT_MMA``
+    (``"wgmma"``) for the int8 modes (``csrc/detect_power.cu``: int8
+    ``wgmma`` on the tensor cores, a 64-beam weight tile in shared memory),
+    ``"float"`` for the float modes (``csrc/detect_float.cu``: ``fmaf``, a
+    32-beam float32 tile).  Either takes every a_compute that is a multiple
+    of 8 from 8 to ``MAX_A_COMPUTE``, and so do the voltage kernels; raises
+    ``ValueError`` for any other."""
     ac = cfg.a_compute
-    reg = REGISTER_A_COMPUTE_INT13 if cfg.weight_mode == "int13" \
-        else REGISTER_A_COMPUTE
-    ok = REGISTER_A_COMPUTE[-1] < ac <= MAX_A_COMPUTE and ac % 8 == 0
-    if ac in REGISTER_A_COMPUTE or ok:
-        if cfg.weight_mode in FLOAT_MODES:
-            return "float"
-        return "register" if ac in reg else "staged"
-    raise ValueError(
-        f"the kernels take a_compute in {REGISTER_A_COMPUTE} or a multiple "
-        f"of 8 in ({REGISTER_A_COMPUTE[-1]}, {MAX_A_COMPUTE}]; config "
-        f"{cfg.name!r} has {ac}")
+    if ac < 8 or ac > MAX_A_COMPUTE or ac % 8:
+        raise ValueError(
+            f"the kernels take an a_compute that is a multiple of 8 from 8 "
+            f"to {MAX_A_COMPUTE}; config {cfg.name!r} has {ac}")
+    return "float" if cfg.weight_mode in FLOAT_MODES else DETECT_MMA
 
 
 def _float_smem(cfg: ObsConfig) -> tuple:
@@ -243,28 +239,117 @@ def _float_span_samples(cfg: ObsConfig, least: int, most: int) -> int:
     ``least`` and at most ``most`` (0: ``least`` do not fit): csrc
     float_span_samples."""
     wbytes, per = _float_smem(cfg)
-    if wbytes + per * least > _MAX_STAGED_SMEM:
+    if wbytes + per * least > _MAX_DYN_SMEM:
         return 0
-    return min(most, (_MAX_STAGED_SMEM - wbytes) // per)
+    return min(most, (_MAX_DYN_SMEM - wbytes) // per)
 
 
-def _detect_smem(cfg: ObsConfig) -> tuple:
+def _detect_tiles(cfg: ObsConfig, stokes: bool = False) -> tuple:
+    """(warpgroups of a block, output rows of a span, dynamic shared memory
+    of a block in bytes) of the int8 detect kernel: csrc make_mma_geom.
+
+    A block holds its 64-beam weight tile, every sub-term K-major
+    (``2 * 64 * n_sub * 32 * ceil(a_compute / 16)`` bytes), and for each of
+    its warpgroups two buffers of a span's wire rows, packed as they
+    arrive: ``navg_time * 2`` rows an output row, each a_compute bytes
+    padded to an odd number of 16-byte units.  A block is as many
+    warpgroups (at most 4, Stokes 2, and no more than there are rounds of
+    ``_ROUND_ROWS`` output rows) as can each hold a span of ``_ROUND_ROWS``
+    rows; the span is then what fits, at most ``_MAX_SPAN_ROWS`` and a
+    multiple of ``_ROUND_ROWS`` once past it.  0 rows: one output row does
+    not fit beside the tile."""
+    n_steps = -(-cfg.a_compute // 16)
+    raw_stride = 16 * (n_steps | 1)
+    wbytes = 2 * _TILE_BEAMS * n_subterms(cfg) * _STEP_BYTES * n_steps
+    row_bytes = 2 * cfg.navg_time * 2 * raw_stride
+    n_out = cfg.t_block // cfg.navg_time
+    if wbytes + row_bytes > _MMA_DYN_SMEM:
+        return 1, 0, wbytes + row_bytes
+    want = min(n_out, _ROUND_ROWS)
+    groups = min(_MAX_GROUPS[stokes], -(-n_out // _ROUND_ROWS))
+    while groups > 1 and (_MMA_DYN_SMEM - wbytes) // (groups * row_bytes) \
+            < want:
+        groups -= 1
+    rows = (_MMA_DYN_SMEM - wbytes) // (groups * row_bytes)
+    rows = min(rows, _MAX_SPAN_ROWS, n_out)
+    if rows > _ROUND_ROWS:
+        rows -= rows % _ROUND_ROWS
+    return groups, rows, wbytes + groups * rows * row_bytes
+
+
+def _detect_smem(cfg: ObsConfig, stokes: bool = False) -> tuple:
     """(bytes, limit) of the shared memory one detect-kernel block stages:
-    its span's unpacked rows, and on the staged and float paths the weight
-    tile."""
-    kw, navg = cfg.a_compute // 2, cfg.navg_time
-    path = kernel_path(cfg)
-    if path == "register":
-        rows = max(1, _SPAN_SAMPLES // navg) * navg
-        return rows * 2 * kw * 4, _MAX_SMEM
-    if path == "staged":
-        rows = max(1, _STAGED_SPAN // navg) * navg
-        return (n_subterms(cfg) * 2 * kw * _STAGED_BEAMS + rows * 2 * kw) \
-            * 4, _MAX_STAGED_SMEM
+    its weight tile and its spans' rows."""
+    if kernel_path(cfg) == DETECT_MMA:
+        return _detect_tiles(cfg, stokes)[2], _MMA_DYN_SMEM
     wbytes, per = _float_smem(cfg)
+    navg = cfg.navg_time
     rows = max(1, _float_span_samples(cfg, navg, _FLOAT_GROUPS * navg)
                // navg) * navg
-    return wbytes + rows * per, _MAX_STAGED_SMEM
+    return wbytes + rows * per, _MAX_DYN_SMEM
+
+
+def _mma_operands(re, im, terms, cfg: ObsConfig) -> tuple:
+    """The int8 detect kernel's GEMM operands as ``csrc/mma_gemm.cuh`` lays
+    them out (the weight tile in shared memory, the A fragments in
+    registers), in torch: ``(x, subs)``.
+
+    ``x`` is int8 ``[Fc, T, P, Kp]``, ``Kp = 32 * ceil(a_compute / 16)``:
+    k32 steps of ``[re of 16 antennas | im of the same 16]``, zeros past
+    a_compute.  ``subs`` lists the mode's sub-terms (int8x2: the two terms;
+    int12 ``[hi; lo]`` and int13 ``[h1; l1; h2; l2]`` cut along K), each
+    int8 ``[Fc, Kp, B, 2]``: rows in x's K order, the columns of a beam
+    ``(Re, Im)`` side by side (columns ``b`` and ``B + b`` of the term)."""
+    ac, b = cfg.a_compute, cfg.n_beams
+    n_steps = -(-ac // 16)
+    pad = 16 * n_steps - ac
+
+    def k_order(r, i, dim):
+        """[re | im] halves along ``dim`` -> k32 steps, zero-filled."""
+        shape = list(r.shape)
+        shape[dim] = pad
+        z = r.new_zeros(shape)
+        r, i = (torch.cat([v, z], dim=dim) for v in (r, i))
+        lead = list(r.shape[:dim])
+        tail = list(r.shape[dim + 1:])
+        r = r.reshape(*lead, n_steps, 16, *tail)
+        i = i.reshape(*lead, n_steps, 16, *tail)
+        return torch.cat([r, i], dim=dim + 1).reshape(
+            *lead, n_steps * _STEP_BYTES, *tail)
+
+    x = k_order(re.to(torch.int8), im.to(torch.int8), 3)
+    n_sub = n_subterms(cfg)
+    stacked = terms if cfg.weight_mode not in FOLDED_SUBTERMS \
+        else terms[0].split(2 * ac, dim=1)
+    assert len(stacked) == n_sub
+    subs = []
+    for sub in stacked:
+        w = k_order(sub[:, :ac], sub[:, ac:], 1)            # [Fc, Kp, 2B]
+        subs.append(torch.stack([w[..., :b], w[..., b:]], dim=-1))
+    return x, subs
+
+
+def _mma_product(x, subs, cfg: ObsConfig) -> torch.Tensor:
+    """The integers the int8 detect kernel's accumulators end with, from
+    ``_mma_operands``: int32 ``[Fc, T, P, B, 2]`` (Re, Im).  The sub-terms
+    share one accumulator: int8x2 multiplies the hi term's sums by 256
+    before the lo term adds on top; the folded modes multiply their even
+    sub-terms by 16 x, which fits int8 (the kernel takes it from the wire
+    byte's nibbles in place), and the odd ones by x.  (In the unfolded
+    modes the kernel multiplies 16 x throughout and divides the 16 out of
+    its float32 result, a power of two and so exact: the same integers
+    times 16, below 2^31.)"""
+    fold = cfg.weight_mode in FOLDED_SUBTERMS
+    x16 = ((x.to(torch.int32) << 4) & 0xF0).to(torch.uint8).view(torch.int8)
+    acc = None
+    for t, sub in enumerate(subs):
+        a = (x16 if fold and t % 2 == 0 else x).to(torch.int32)
+        part = torch.einsum("ftpk,fkbc->ftpbc", a, sub.to(torch.int32))
+        if acc is None:
+            acc = part
+        else:
+            acc = (acc if fold else acc * 256) + part
+    return acc
 
 
 def variant_name(quant8: bool, incoherent: bool, sk: bool,
@@ -514,13 +599,14 @@ def kernel_library(cfg: ObsConfig, kernel: str) -> str:
     if cfg.weight_mode in FLOAT_MODES:
         return {"detect_power": "detect_float",
                 "beam_voltages": "beam_voltages_float"}[kernel]
+    if kernel == "detect_power":
+        return kernel               # one library, the sub-terms at run time
     return kernel + ("_int13" if cfg.weight_mode == "int13" else "")
 
 
 #: Every CUDA source with a C entry point ``dsabf_<name>``.
-KERNEL_SOURCES = ("detect_power", "detect_power_int13", "detect_float",
-                  "beam_voltages", "beam_voltages_int13",
-                  "beam_voltages_float")
+KERNEL_SOURCES = ("detect_power", "detect_float", "beam_voltages",
+                  "beam_voltages_int13", "beam_voltages_float")
 
 
 def _kernel_lib(name: str) -> ctypes.CDLL:
@@ -562,7 +648,7 @@ def _check_kernel_operands(x, terms, scales, cfg: ObsConfig,
             raise ValueError(f"{name} must be contiguous")
     if x.data_ptr() % 4:
         raise ValueError("wire must start on a 4-byte boundary")
-    kernel_path(cfg)  # raises for an a_compute neither path takes
+    kernel_path(cfg)  # raises for an a_compute the kernels do not take
     if cfg.n_ant % 4 or cfg.n_pol != 2:
         raise ValueError(f"kernel needs n_ant % 4 == 0 and 2 pols, got "
                          f"n_ant={cfg.n_ant}, n_pol={cfg.n_pol}")
@@ -647,7 +733,7 @@ def _launch_detect(x, terms, scales, cfg: ObsConfig, time_major: bool, *,
             f"quant8_scales must be float32 [{cfg.n_beams}], got "
             f"{_dtype_name(quant8_scales.dtype)} "
             f"{tuple(quant8_scales.shape)}")
-    need, limit = _detect_smem(cfg)
+    need, limit = _detect_smem(cfg, stokes)
     if need > limit:
         raise ValueError(
             f"navg_time={cfg.navg_time} needs {need} bytes of shared memory, "

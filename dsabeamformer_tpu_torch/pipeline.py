@@ -55,21 +55,32 @@ Block = Tuple[int, np.ndarray]
 # --------------------------------------------------------------------- #
 
 class SyntheticSource:
-    """Cycles pre-generated wire blocks (test / benchmark mode), as fast as
-    the driver reads them."""
+    """Cycles pre-generated wire blocks (test / benchmark mode): as fast as
+    the streaming loop reads them, or paced to ``rate_factor`` times real time
+    (block ``i`` is due ``i * cfg.block_duration_s / rate_factor`` after the
+    first read)."""
 
     def __init__(self, cfg: ObsConfig, blocks: List[np.ndarray],
-                 n_blocks: int):
+                 n_blocks: int, rate_factor: Optional[float] = None):
         self.cfg = cfg
         self.blocks = blocks
         self.n_blocks = n_blocks
+        self.rate_factor = rate_factor
         self._i = 0
+        self._t0 = None
         self.dropped = 0
         self.skipped = 0
 
     def read_block(self) -> Optional[Block]:
         if self._i >= self.n_blocks:
             return None
+        if self.rate_factor:
+            if self._t0 is None:
+                self._t0 = time.perf_counter()
+            due = self._i * self.cfg.block_duration_s / self.rate_factor
+            now = time.perf_counter() - self._t0
+            if now < due:
+                time.sleep(due - now)
         blk = self.blocks[self._i % len(self.blocks)]
         seq = self._i
         self._i += 1
@@ -341,6 +352,13 @@ class StreamingBeamformer:
         with torch.cuda.stream(self._compute):
             return fn(*args, **kwargs)
 
+    @property
+    def _wants_product(self) -> bool:
+        """Whether anything reads the detection product on the host: a
+        stream without a sink leaves it on the device (no pinned buffer, no
+        D2H copy; the drain waits for the kernel alone)."""
+        return self.sink is not None
+
     def _enqueue(self, wire_np: np.ndarray, q8=None, sk_want=None,
                  post=None):
         """Start one block; returns what ``_fetch`` needs to finish it."""
@@ -357,6 +375,8 @@ class StreamingBeamformer:
                 out = post(out)
             if self._layout is not None:
                 out = self._layout(out)
+            if not self._wants_product:
+                out = None
             return tuple(None if t is None else t.numpy()
                          for t in (out, inco, sk))
         self._make_slots()
@@ -378,9 +398,10 @@ class StreamingBeamformer:
             slot.kernel_done.record(self._compute)
         host = [None, None, None]
         with torch.cuda.stream(self._d2h):
+            # With nothing to copy, d2h_done is the kernel's completion.
             self._d2h.wait_event(slot.kernel_done)
             for i, (name, t) in enumerate(zip(("out", "inco", "sk"), dev)):
-                if t is not None:
+                if t is not None and (i or self._wants_product):
                     host[i] = slot.host_buffer(name, t.shape, t.dtype)
                     host[i].copy_(t, non_blocking=True)
             slot.d2h_done.record(self._d2h)
@@ -407,7 +428,9 @@ class StreamingBeamformer:
                            for _ in range(self.n_slots)]
         shape = self.sink.layout_shape if self._layout is not None \
             else self.out_block_shape
-        need = [("out", shape, torch.float32)]
+        need = []
+        if self._wants_product:
+            need.append(("out", shape, torch.float32))
         if getattr(self.sink, "nbits", None) == 8:
             need.append(("out", shape, torch.uint8))
         if self.incoherent_sink is not None:

@@ -4,15 +4,17 @@ The same records as ``dsabeamformer_tpu/utils/metrics.py``, with the
 utilization taken against the published dense tensor-core peak, for the
 operand type of ``cfg.weight_mode`` (int8 or bfloat16), of the card the run
 used, found from ``torch.cuda.get_device_name``.  A device the table does
-not know (the CPU included) has no peak, and neither has the f32 mode, whose
-MACs do not run on the tensor cores: the utilization is then reported as
-``None``, never guessed.
+not know (the CPU included) has no peak unless ``DSABF_PEAK_INT8_MACS`` /
+``DSABF_PEAK_BF16_MACS`` (MAC/s) give one, and the f32 mode, whose MACs do
+not run on the tensor cores, never has: the utilization is then reported
+as ``None``, never guessed.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import time
 from typing import Optional
 
@@ -39,10 +41,18 @@ def peak_macs_per_s(device_kind: str,
                     weight_mode: str = "int8x2") -> Optional[float]:
     """Dense tensor-core peak in MAC/s (operations / 2) of the card named
     ``device_kind`` for the operand type of ``weight_mode``; None for a
-    device the table does not know and for the f32 mode."""
+    device the table does not know and for the f32 mode.
+
+    As in the JAX package, ``DSABF_PEAK_INT8_MACS`` / ``DSABF_PEAK_BF16_MACS``
+    (MAC/s) override the table for their operand type: for a card it does
+    not know, or one held below its data-sheet rate."""
     operand = _MODE_OPERAND[weight_mode]
     if operand is None:
         return None
+    env = os.environ.get(
+        ("DSABF_PEAK_INT8_MACS", "DSABF_PEAK_BF16_MACS")[operand])
+    if env:
+        return float(env)
     kind = device_kind.lower()
     for key, tops in _PEAK_TOPS:
         if key in kind:

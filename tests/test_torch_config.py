@@ -137,3 +137,27 @@ def test_utilization_accounting():
                       macs=macs).finish().record(cfg)
     assert rec["device"] == "cpu" and rec["tc_utilization_issued"] is None
     assert rec["realtime_factor"] > 0
+
+
+def test_peak_macs_env_override_as_jax(monkeypatch):
+    """``DSABF_PEAK_INT8_MACS`` / ``DSABF_PEAK_BF16_MACS`` override the table
+    for their operand type, as in the JAX package's ``peak_macs_per_s``."""
+    from dsabeamformer_tpu.utils import metrics as jmetrics
+
+    kind = "NVIDIA H100 80GB HBM3"
+    monkeypatch.setenv("DSABF_PEAK_INT8_MACS", "1.5e14")
+    assert jmetrics.peak_macs_per_s(True) == 1.5e14
+    for mode in ("int8", "int8x2", "int12", "int13"):
+        assert peak_macs_per_s(kind, mode) == 1.5e14
+        assert peak_macs_per_s("cpu", mode) == 1.5e14   # an unknown device
+    assert peak_macs_per_s(kind, "bf16") == 494.5e12     # not its operand
+    monkeypatch.setenv("DSABF_PEAK_BF16_MACS", "7.5e13")
+    assert jmetrics.peak_macs_per_s(False) == 7.5e13
+    assert peak_macs_per_s(kind, "bf16x2") == 7.5e13
+    assert peak_macs_per_s("cpu", "f32") is None         # no tensor-core path
+    cfg = pcfg.DSA10
+    macs = cfg.macs_per_block * cfg.n_weight_terms
+    u = tensor_core_utilization(macs, 1.0, cfg, "cpu")
+    assert u["issued"] == pytest.approx(macs / 1.5e14)
+    monkeypatch.delenv("DSABF_PEAK_INT8_MACS")
+    assert peak_macs_per_s(kind, "int8") == 989.5e12

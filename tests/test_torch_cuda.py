@@ -1,9 +1,9 @@
 """Card-only tests of the port: the CUDA detect kernel (power and full
 Stokes, with its side outputs) and the beam-voltage kernel against their
-plain PyTorch versions and the float64 golden model, at small shapes, on
-both weight paths (register: a_compute 8, 16, 32; staged: a_compute 64, 96,
-128, the DSA-110 width), and the streaming loop's CUDA path against its CPU
-path.
+plain PyTorch versions and the float64 golden model, at small shapes, at
+a_compute 8, 16, 24, 32, 64, 96 and 128 (the DSA-110 width) and on the random
+geometries of ``utils.testing.random_geometry``, and the streaming loop's
+CUDA path against its CPU path.
 
 Marked ``cuda``; each test skips (inside a fixture) when no card is present.
 Imports no JAX, so on a machine with only PyTorch they run as
@@ -44,8 +44,11 @@ GEOMS = {
     "dsa10c_small": DSA10_COMPACT.replace(n_chan=8, t_block=512),
     "odd_beams": TINY.replace(n_beams=300, navg_time=8),
     "narrow_k": TINY.replace(n_ant=8, n_ant_active=6),
-    # The staged-weight path: a_compute 128 (DSA-110: 110 active, 512 beams,
-    # 8 beam tiles), 96 and 64, with partial beam tiles and navg_time 8.
+    # a_compute 24: the last k32 step of the tensor-core kernel half empty.
+    "ac24": DSA10.replace(n_chan=4, t_block=256, n_ant_active=21,
+                          n_ant_compute=24, n_beams=72, navg_time=4),
+    # a_compute 128 (DSA-110: 110 active, 512 beams, 8 beam tiles), 96 and
+    # 64, with partial beam tiles and navg_time 8.
     "dsa110_small": DSA110.replace(n_chan=4, t_block=256),
     "ac96": DSA110.replace(n_chan=2, t_block=256, n_ant=96, n_ant_active=90,
                            n_beams=130, navg_time=8),
@@ -53,7 +56,7 @@ GEOMS = {
                            n_ant_compute=64, n_beams=100),
 }
 
-#: A config whose a_compute (160) neither weight path takes.
+#: A config whose a_compute (160) the kernels do not take.
 TOO_WIDE = DSA110.replace(n_chan=4, t_block=64, n_ant=160, n_ant_active=150)
 
 
@@ -136,7 +139,7 @@ def test_kernel_rejects_what_it_does_not_take(dev):
                           qw.scales, cfg, tm)
     with pytest.raises(ValueError, match="weights are on"):
         gemm.fused_detect(x2, qw.terms, qw.scales.cpu(), cfg, tm)
-    # Neither weight path takes a_compute 160: refused before any launch.
+    # No kernel takes a_compute 160: refused before any launch.
     big = TOO_WIDE
     assert big.a_compute == 160
     qwb = _weights(big, dev)
@@ -282,7 +285,7 @@ def test_sk_with_fewer_threads_than_outputs(dev):
 
 @pytest.mark.parametrize("layout", ["tfpa", "ftpa"])
 def test_staged_point_source_vs_golden(dev, layout):
-    """The DSA-110 width (staged path): a point source at beam 300 of 512
+    """The DSA-110 width (a_compute 128): a point source at beam 300 of 512
     peaks there, within 1e-3 of the float64 golden model, power and
     Stokes."""
     from dsabeamformer_tpu_torch.ops.reference import beamform_stokes_ref
@@ -334,7 +337,8 @@ def test_kernel_rejects_bad_side_operands(dev):
     with pytest.raises(ValueError, match="past a_compute"):
         gemm.fused_detect(x, qw.terms, qw.scales, cfg, tm,
                           inco_mask=1 << cfg.a_compute)
-    # The staged path's shared memory holds a span of at most 227 KB.
+    # One output row's wire bytes must fit in shared memory beside the
+    # weight tile.
     long = DSA110.replace(n_chan=1, t_block=4096, navg_time=4096)
     qwl = _weights(long, dev)
     xl, tml = gemm._prepare_wire(
@@ -548,7 +552,7 @@ def test_voltage_kernel_rejects_what_it_does_not_take(dev):
         gemm.beamform_voltages(x, _to(qw, "cpu"), cfg)
     with pytest.raises(ValueError, match="scales must be float32"):
         gemm.beamform_voltages(x, type(qw)(qw.terms, qw.scales.double()), cfg)
-    # Neither weight path takes a_compute 160: refused before any launch.
+    # No kernel takes a_compute 160: refused before any launch.
     big = TOO_WIDE
     xb = torch.from_numpy(make_noise_block(big, seed=1)).to(dev)
     before = (gemm.beamform_voltages.launches, _launches())
@@ -618,6 +622,8 @@ NEW_MODES = ("int12", "int13", "bf16", "bf16x2", "f32")
 MODE_GEOMS = {
     8: TINY.replace(n_ant=8, n_ant_active=6, n_ant_compute=8),
     16: TINY.replace(n_ant_compute=16, n_beams=40),
+    24: DSA10.replace(n_chan=3, t_block=128, n_ant_active=21,
+                      n_ant_compute=24, n_beams=72, navg_time=4),
     32: DSA10.replace(n_chan=4, t_block=256, n_ant_compute=32),
     64: DSA110.replace(n_chan=2, t_block=128, n_ant_active=60,
                        n_ant_compute=64, n_beams=100),
@@ -742,3 +748,74 @@ def test_mode_stream_cuda_equals_cpu(dev, mode):
         outs[str(where)] = [b for _, b in sink.outputs]
     for a, b in zip(outs["cpu"], outs[str(dev)]):
         assert relative_power_error(b, a) <= _mode_rtol(mode)
+
+
+# --------------------------------------------------------------------- #
+# Random geometries, and the stream without a sink
+# --------------------------------------------------------------------- #
+
+@pytest.mark.parametrize("i", range(10))
+def test_random_geometry_kernel_matches_plain(dev, i):
+    """The cases of tests/test_torch_fuzz_geometry.py on the card: small,
+    ragged shapes (8 beams, navg 2, one span, a_compute 24) through the
+    kernels against the plain version and the float64 golden model, power
+    (and Stokes on a third of them), both wire forms."""
+    from dsabeamformer_tpu_torch.ops.reference import beamform_stokes_ref
+    from dsabeamformer_tpu_torch.utils.testing import FUZZ_RTOL, random_geometry
+
+    cfg, _ = random_geometry(i)
+    cal = CalTable.random(cfg, seed=i)
+    wire = make_noise_block(cfg, rms=2.0, seed=i)
+    qw = prepare_weights(cfg, make_weights(cfg, cal=cal, device=dev))
+    before = gemm.fused_detect.launches_by_mode[(cfg.weight_mode, "base")]
+    p = gemm.beamform_power(torch.from_numpy(wire).to(dev), qw, cfg)
+    assert gemm.fused_detect.launches_by_mode[(cfg.weight_mode, "base")] \
+        == before + 1
+    assert tuple(p.shape) == cfg.out_block_shape
+    want = gemm.beamform_power(wire, _to(qw, "cpu"), cfg).numpy()
+    got = p.cpu().numpy()
+    assert np.abs(got - want).max() <= _mode_rtol(cfg.weight_mode) \
+        * np.abs(want).max()
+    golden = weights_numpy_golden(cfg, cal=cal)
+    ref = beamform_block_ref(golden, wire, cfg.input_layout, cfg.navg_time,
+                             cfg.navg_freq)
+    assert relative_power_error(got, ref) <= FUZZ_RTOL[cfg.weight_mode]
+    p_dev = gemm.beamform_power(
+        torch.from_numpy(gemm.device_wire_view(wire, cfg)).to(dev), qw, cfg)
+    assert torch.equal(p, p_dev)
+    if i % 3 == 0:
+        st = gemm.beamform_stokes(torch.from_numpy(wire).to(dev), qw, cfg)
+        if cfg.navg_freq == 1:
+            assert torch.equal(st[:, :, 0], p)
+        st_ref = beamform_stokes_ref(golden, wire, cfg.input_layout,
+                                     cfg.navg_time, cfg.navg_freq)
+        scale = np.abs(st_ref[:, :, 0]).max()
+        assert np.abs(st.cpu().numpy() - st_ref).max() / scale \
+            <= FUZZ_RTOL[cfg.weight_mode]
+
+
+def test_stream_without_a_sink_copies_no_product(dev):
+    """No sink: no pinned product buffer is made and no product comes back,
+    the incoherent and SK outputs still do, and every block still runs its
+    kernel."""
+    from dsabeamformer_tpu_torch.ops.rfi import RFIMonitor
+
+    cfg = DSA10.replace(n_chan=8, t_block=256)
+    blocks = [make_noise_block(cfg, rms=2.0, seed=s) for s in range(2)]
+    qw = _weights(cfg, dev)
+    inco = CollectSink()
+    bf = StreamingBeamformer(cfg, qw, SyntheticSource(cfg, blocks, 5),
+                             depth=2, incoherent_sink=inco)
+    bf.rfi_monitor = RFIMonitor(cfg, interval=2, sample=1)
+    bf.warmup()
+    before = _launches()
+    stats = bf.run()
+    assert stats.n_blocks == 5 and stats.dropped == 0
+    assert _launches() == before + 5
+    assert [s for s, _ in inco.outputs] == list(range(5))
+    for slot in bf._slots:
+        assert {k[0] for k in slot.host} == {"inco", "sk"}
+    with_sink = CollectSink()
+    StreamingBeamformer(cfg, qw, SyntheticSource(cfg, blocks, 5), with_sink,
+                        depth=2, incoherent_sink=CollectSink()).run()
+    assert len(with_sink.outputs) == 5

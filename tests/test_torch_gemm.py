@@ -180,3 +180,44 @@ def test_no_fallback_for_other_devices():
     with pytest.raises(ValueError, match="weights are on"):
         pgemm.beamform_power(make_random_bytes_block(pc), mq, pc)
     assert not any(pgemm.fused_detect.launches.values())
+
+
+INT_MODES = ("int8", "int8x2", "int12", "int13")
+
+
+@pytest.mark.parametrize("ac", [8, 24, 32, 112, 128])
+@pytest.mark.parametrize("mode", INT_MODES)
+def test_tensor_core_operands_give_the_plain_integers(mode, ac):
+    """The int8 detect kernel's operand layouts, stated in torch
+    (``_mma_operands``: K in steps of [re of 16 antennas | im of the same
+    16] with the tail zero-filled, a beam's Re and Im columns side by side)
+    and its one-accumulator algebra (``_mma_product``: int8x2's sums times
+    256 before the lo term, the folded modes' 16 x against the hi
+    sub-terms) give the integers of ``detect_power_plain``'s GEMM."""
+    cfg = pcfg.DSA110.replace(weight_mode=mode, n_ant=128, n_ant_active=ac - 3,
+                              n_ant_compute=ac, n_chan=2, t_block=32,
+                              n_beams=16)
+    qw = pq.prepare_weights(cfg, make_weights(
+        cfg, cal=CalTable.random(cfg, seed=2), device="cpu"))
+    x, tm = pgemm._prepare_wire(make_random_bytes_block(cfg, seed=ac), cfg)
+    re, im = pgemm._unpack_chunk(x, cfg, tm, 0, cfg.n_chan)
+    want = pgemm._gemm_chunk(re, im, qw.terms, 0, cfg.n_chan, mode)
+    xk, subs = pgemm._mma_operands(re, im, qw.terms, cfg)
+    n_steps = -(-ac // 16)
+    assert xk.dtype == torch.int8 and len(subs) == pgemm.n_subterms(cfg)
+    assert tuple(xk.shape) == (2, 32, 2, 32 * n_steps)
+    for sub in subs:
+        assert sub.dtype == torch.int8
+        assert tuple(sub.shape) == (2, 32 * n_steps, 16, 2)
+    # The zero tail of the last step, in both operands.
+    tail = ac - 16 * (n_steps - 1)
+    last = xk[..., 32 * (n_steps - 1):].reshape(2, 32, 2, 2, 16)
+    assert not last[..., tail:].any() and last[..., :tail].any()
+    assert not subs[0][:, 32 * (n_steps - 1):].reshape(
+        2, 2, 16, 16, 2)[:, :, tail:].any()
+    got = pgemm._mma_product(xk, subs, cfg)                # [F, T, P, B, 2]
+    assert got.dtype == torch.int32 and int(got.abs().max()) < 2 ** 27
+    flat = torch.cat([got[..., 0], got[..., 1]], dim=-1)   # [F, T, P, 2B]
+    flat = flat.permute(0, 2, 1, 3).reshape(2, 2 * 32, 2 * 16)
+    assert torch.equal(flat.to(torch.float32), want)
+    assert float(want.abs().max()) > 0

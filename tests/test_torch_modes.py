@@ -347,23 +347,35 @@ def test_stream_matches_jax_pipeline_with_excision(mode):
 # -------------------- the kernels' path and shared memory ---------------- #
 
 @pytest.mark.parametrize("mode,ac,path", [
-    ("int12", 8, "register"), ("int12", 32, "register"),
-    ("int12", 40, "staged"), ("int12", 128, "staged"),
-    ("int13", 16, "register"), ("int13", 32, "staged"),
-    ("int13", 128, "staged"), ("int8x2", 32, "register"),
+    ("int12", 8, "wgmma"), ("int12", 32, "wgmma"),
+    ("int12", 40, "wgmma"), ("int12", 128, "wgmma"),
+    ("int13", 16, "wgmma"), ("int13", 32, "wgmma"),
+    ("int13", 128, "wgmma"), ("int8x2", 32, "wgmma"),
     ("bf16", 8, "float"), ("bf16x2", 128, "float"), ("f32", 32, "float"),
 ])
 def test_kernel_path_per_mode(mode, ac, path):
+    """One design for every a_compute of the int8 modes, one for the float
+    modes; a block's shared memory fits an SM's at each."""
     cfg = pcfg.DSA110.replace(weight_mode=mode, n_ant_active=8,
                               n_ant_compute=ac)
     assert pgemm.kernel_path(cfg) == path
-    need, limit = pgemm._detect_smem(cfg)
-    assert 0 < need <= limit
+    assert (path == pgemm.DETECT_MMA) == (mode not in pgemm.FLOAT_MODES)
+    for stokes in (False, True):
+        need, limit = pgemm._detect_smem(cfg, stokes)
+        assert 0 < need <= limit
+    assert pgemm.kernel_library(cfg, "detect_power") == (
+        "detect_float" if path == "float" else "detect_power")
 
 
 @pytest.mark.parametrize("mode", sorted(pq.TERM_DTYPES))
 def test_kernel_path_rejects_other_widths(mode):
-    for ac in (24, 136):
+    """Every multiple of 8 from 8 to 128 is taken (24 and 112 too, which the
+    JAX package runs); above 128 the kernels stop."""
+    for ac in (24, 112):
+        cfg = pcfg.DSA110.replace(weight_mode=mode, n_ant=160,
+                                  n_ant_active=8, n_ant_compute=ac)
+        assert pgemm.kernel_path(cfg) in ("wgmma", "float")
+    for ac in (136, 160):
         cfg = pcfg.DSA110.replace(weight_mode=mode, n_ant=160,
                                   n_ant_active=8, n_ant_compute=ac)
         with pytest.raises(ValueError, match="a_compute"):
@@ -371,15 +383,31 @@ def test_kernel_path_rejects_other_widths(mode):
 
 
 def test_detect_smem_follows_the_kernels_layouts():
-    """Bytes one block stages, per path (csrc: staged_weight_words and the
-    span; float_weight_words, float_sample_bytes, float_span_samples)."""
+    """Bytes one block stages (csrc: make_mma_geom; float_weight_words,
+    float_sample_bytes, float_span_samples)."""
     wide = pcfg.DSA110.replace(n_ant_compute=128)
-    # Staged, a_compute 128: sub-terms x 2 columns x 64 words x 64 beams x
-    # 4 B, and a 64-sample span of 2 pols x 64 words.
+    limit = 227 * 1024 - 4096
+    # int8 modes, a_compute 128: a 64-beam tile is 128 columns x sub-terms x
+    # 256 K bytes; an output row's wire bytes are 16 samples x 2 pols x 144
+    # (128 padded to nine 16-byte units), in two buffers.  Four warpgroups
+    # with a span of four rows each fit beside two sub-terms, two beside
+    # int13's four.
+    row = 2 * 16 * 2 * 144
+    assert pgemm._detect_tiles(wide.replace(weight_mode="int12")) \
+        == (4, 4, 2 * 32768 + 4 * 4 * row)
     assert pgemm._detect_smem(wide.replace(weight_mode="int12")) \
-        == (2 * 32768 + 32768, 227 * 1024 - 1024)
-    assert pgemm._detect_smem(wide.replace(weight_mode="int13"))[0] \
-        == 4 * 32768 + 32768
+        == (2 * 32768 + 4 * 4 * row, limit)
+    assert pgemm._detect_tiles(wide.replace(weight_mode="int13")) \
+        == (2, 4, 4 * 32768 + 2 * 4 * row)
+    # Stokes: two warpgroups (the running sums take the registers), so a
+    # span of eight rows each.
+    assert pgemm._detect_tiles(wide.replace(weight_mode="int12"), True) \
+        == (2, 8, 2 * 32768 + 2 * 8 * row)
+    # dsa10 (a_compute 32: 48-byte rows): four warpgroups, 16-row spans.
+    assert pgemm._detect_tiles(pcfg.DSA10) \
+        == (4, 16, 128 * 128 + 4 * 16 * 2 * 16 * 2 * 48)
+    # One round of output rows: one warpgroup.
+    assert pgemm._detect_tiles(pcfg.TINY.replace(t_block=64))[:2] == (1, 4)
     # Float, dsa10: 2 x 64 rows x 32 beams x 4 B per term; 8 output rows of
     # 16 samples, each 2 pols x (64 floats + 16 words).
     d10 = pcfg.DSA10.replace(weight_mode="bf16x2")
@@ -393,9 +421,12 @@ def test_detect_smem_follows_the_kernels_layouts():
     assert pgemm.kernel_library(wide.replace(weight_mode="int13"),
                                 "beam_voltages") == "beam_voltages_int13"
     # A navg_time whose rows do not fit beside the weight tile is refused.
-    need, limit = pgemm._detect_smem(
-        wide.replace(weight_mode="bf16x2", t_block=4096, navg_time=64))
-    assert need > limit
+    for mode in ("bf16x2", "int8x2"):
+        need, limit = pgemm._detect_smem(
+            wide.replace(weight_mode=mode, t_block=4096, navg_time=512))
+        assert need > limit
+    assert pgemm._detect_tiles(
+        wide.replace(t_block=4096, navg_time=512))[1] == 0
 
 
 def test_operand_checks_per_mode():

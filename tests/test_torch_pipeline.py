@@ -2,6 +2,8 @@
 the JAX package's, block for block, with a mid-stream weight update; plus
 the port's sources, sinks and stats."""
 
+import time
+
 import numpy as np
 import pytest
 
@@ -109,3 +111,53 @@ def test_stream_rejects_bad_blocks_and_depth():
     assert bf.n_slots == 3
     bf.warmup()
     assert bf.current_stats().n_blocks == 0
+
+
+def test_rate_paced_source_as_jax():
+    """``SyntheticSource(rate_factor=)`` paces block i to ``i *
+    block_duration_s / rate_factor`` after the first read, in both packages:
+    the counts, and a lower bound on the elapsed time only."""
+    blocks = [make_noise_block(pcfg.TINY, seed=0)]
+    qj, qp = _weights_pair(1)
+    for mod, cfg, qw in ((jpipe, jcfg.TINY, qj), (ppipe, pcfg.TINY, qp)):
+        # 0.5x realtime over 4 blocks: the last is due 6 block durations in.
+        src = mod.SyntheticSource(cfg, blocks, n_blocks=4, rate_factor=0.5)
+        assert src.rate_factor == 0.5
+        t0 = time.perf_counter()
+        stats = mod.run_stream(cfg, qw, src)
+        elapsed = time.perf_counter() - t0
+        assert stats.n_blocks == 4 and stats.dropped == 0
+        assert elapsed >= 3 * cfg.block_duration_s / 0.5
+    unpaced = ppipe.SyntheticSource(pcfg.TINY, blocks, n_blocks=2)
+    assert unpaced.rate_factor is None
+    assert [unpaced.read_block()[0] for _ in range(2)] == [0, 1]
+    assert unpaced.read_block() is None
+
+
+def test_stream_without_a_sink_as_jax():
+    """No sink: the product stays on the device side (nothing is fetched),
+    the incoherent product still reaches its sink, and the stats are those
+    of the JAX package's loop and of the same stream with a sink."""
+    blocks = [make_noise_block(pcfg.TINY, rms=2.0, seed=s) for s in range(2)]
+    qj, qp = _weights_pair(1)
+    stats, inco = {}, {}
+    for name, mod, cfg, qw, sink in (
+            ("jax", jpipe, jcfg.TINY, qj, None),
+            ("port", ppipe, pcfg.TINY, qp, None),
+            ("port+sink", ppipe, pcfg.TINY, qp, ppipe.CollectSink())):
+        inco[name] = mod.CollectSink()
+        bf = mod.StreamingBeamformer(
+            cfg, qw, mod.SyntheticSource(cfg, blocks, n_blocks=3), sink,
+            depth=2, incoherent_sink=inco[name])
+        stats[name] = bf.run()
+        if name == "port":
+            assert not bf._wants_product
+            pending = bf._enqueue(blocks[0])
+            assert bf._fetch(pending)[0] is None      # no product fetched
+            assert bf._fetch(pending)[1] is not None  # the incoherent one is
+    for name in ("port", "port+sink"):
+        for key in ("n_blocks", "bytes_in", "macs", "dropped", "skipped"):
+            assert getattr(stats[name], key) == getattr(stats["jax"], key)
+        assert [s for s, _ in inco[name].outputs] == [0, 1, 2]
+        for (_, a), (_, b) in zip(inco[name].outputs, inco["jax"].outputs):
+            np.testing.assert_array_equal(a, np.asarray(b))
