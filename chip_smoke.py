@@ -7,11 +7,11 @@ Phases (each passes or raises; any failure exits non-zero with no result):
 
 1. device   -- a CUDA card is required; prints its name and
                ``nvidia-smi --query-gpu=name,power.limit``.
-2. build    -- compiles the four CUDA sources (detect_power, every weight
-               mode's detect kernel; beam_voltages, its int13 build and the
-               float modes' beam_voltages_float) with nvcc for sm_90a from
-               the checkout, one nvcc each, started together, and prints
-               ``ptxas -v``.
+2. build    -- compiles the two CUDA sources (detect_power, every weight
+               mode's detect kernel; beam_voltages, every mode's voltage
+               kernel; both on the tensor cores through mma_gemm.cuh) with
+               nvcc for sm_90a from the checkout, one nvcc each, started
+               together, and prints ``ptxas -v``.
 3. kernel vs plain -- at the full DSA10 preset (and the dsa10c compact
                wire), on one random-bytes block: the CUDA kernel against its
                plain PyTorch version on the same inputs, relative power error
@@ -83,14 +83,15 @@ Phases (each passes or raises; any failure exits non-zero with no result):
                validation path: the kernel equal to its plain version to the
                bit, its voltages detected and averaged within 1e-5 of
                beamform_power, their Stokes parameters within 1e-5 of the I
-               peak of beamform_stokes; timed beside its bound.
+               peak of beamform_stokes; timed beside its bound and the store
+               ceiling (CUDA-event time of ``zero_()`` on the same 4.3 GB
+               output tensor: what the byte bound is worth in practice).
 17. (no phase: ``bound_ms`` bounds every weight mode, f32 by the lesser of
                its two routes, and phases 23-28 measure the modes other
                than int8x2.)
 
 DSA-110 (a_compute 128: 110 active antennas in 128 slots, 512 beams): eight
-k32 steps a sub-term in the tensor-core detect kernel, the staged-weight path
-of the voltage kernels:
+k32 steps a sub-term in the tensor-core detect and voltage kernels:
 
 18. dsa110 kernel vs plain -- one random-bytes block at the full DSA110
                preset: base, sk+q8+inco, stokes, stokes+sk+q8+inco against
@@ -110,7 +111,8 @@ of the voltage kernels:
                handler), checked as phase 9; and the deployed Stokes stream
                (6 blocks, 64 beams of 8-bit 4-IF .fil), checked as phase 14.
 22. dsa110 voltages -- a 128-channel DSA-110 sub-band (t_block 4096) through
-               beamform_voltages, checked and timed as phase 16.
+               beamform_voltages, checked and timed as phase 16 (the other
+               six modes' in phase 27).
 
 The weight modes int8, int12, int13, bf16, bf16x2 and f32
 (``cfg.weight_mode``; int8x2 is the mode of every phase above), at full dsa10
@@ -158,7 +160,9 @@ wgmma s8 for the int8 modes, wgmma bf16 into float32 sums for the float ones
                f32 (on its 32-beam tile) at full DSA-110 width: base,
                sk+q8+inco, stokes, stokes+sk+q8+inco against plain and
                timed; bf16's base must be under
-               ``FLOAT_BASE_LIMIT_MS``; then the f32 split control.
+               ``FLOAT_BASE_LIMIT_MS``; then the f32 split control; and
+               each mode's voltages on the 128-channel DSA-110 sub-band,
+               checked and timed as phase 16.
 28. dsa110 mode streams -- DSA110.subband(0, 256) power-only in int12 (6
                blocks), int13 (4), int8, bf16, bf16x2 and f32 (3: start-up
                included, not a steady rate).
@@ -174,7 +178,8 @@ Widths and shapes off the presets (the tensor-core kernel walks K in steps of
                and the ten random geometries of
                ``utils.testing.random_geometry`` (8-32 antennas, 8-32 beams,
                navg_time 2-16, one to three windows, both layouts, five
-               modes) against the plain version and the float64 golden.
+               modes) against the plain version and the float64 golden,
+               and through the voltage kernel against its plain version.
 
 Each streamed phase, and the voltage paths, set the launch counts to 0 just
 before their run and read them just after.  The last two lines are a JSON
@@ -183,7 +188,8 @@ plain version, times, the bound, and for the detect rows the instruction
 their products run on under ``mma``, ``wgmma`` for every mode; the DSA-110
 rows carry ``[dsa110]``, the
 rows of phases 23-28 their mode, as ``detect_power[int12]``, with their
-variants under ``variants``) and ``{"ok": true, "device": {...}}``.  Imports
+variants under ``variants``; each voltage row its store ceiling under
+``store_ceiling_ms``) and ``{"ok": true, "device": {...}}``.  Imports
 nothing of JAX.
 """
 
@@ -1159,18 +1165,29 @@ def phase_voltages(smi, cfg=DSA10.replace(n_chan=VOLTAGE_CHANNELS)) -> dict:
         raise RuntimeError("fused vs unfused check failed")
     del power_u, stokes_u, p_fused, s_fused, bv
     run = lambda i: gemm.beamform_voltages(x, qw, cfg)
-    run(0)
+    bv = run(0)
     ms = time_ms(run, N_TIMED)
+    bv.zero_()
+    ceiling_ms = time_ms(lambda i: bv.zero_(), N_TIMED)
+    del bv
     bnd, by = voltage_bound_ms(cfg)
+    tiles = gemm._voltage_tiles(cfg)
     log(f"[voltages] {tag(cfg)} sub-band kernel {ms:.3f} ms per call "
-        f"({cfg.n_chan} channels x {cfg.t_block} samples), bound "
-        f"{bnd:.3f} ms by {by} ({bnd / ms * 100:.2f}%), plain "
-        f"{plain_ms:.1f} ms, launches on the validation path {launches}, "
-        f"on {smi}")
+        f"({cfg.n_chan} channels x {cfg.t_block} samples; tile "
+        f"{tiles.beams} beams, {tiles.groups} warpgroups of {tiles.rows} "
+        f"m-tiles), bound {bnd:.3f} ms by {by} ({bnd / ms * 100:.2f}%), "
+        f"plain {plain_ms:.1f} ms, launches on the validation path "
+        f"{launches}, on {smi}")
+    log(f"[voltages] {tag(cfg)} store ceiling: zero_() of the same "
+        f"{cfg.n_chan * cfg.t_block * cfg.n_pol * 2 * cfg.n_beams * 4 / 1e9:.3f}"
+        f" GB output {ceiling_ms:.3f} ms "
+        f"({bnd / ceiling_ms * 100:.2f}% of the byte bound's rate); kernel / "
+        f"ceiling {ms / ceiling_ms:.3f}")
     if launches != 1:
         raise RuntimeError(f"voltage path launched {launches} kernels")
     return {"launches": launches, "max_abs_err": max_abs, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by}
+            "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
+            "store_ceiling_ms": ceiling_ms}
 
 
 #: dsa10c deployments, per product, that launch the variants the full
@@ -1446,8 +1463,9 @@ def log_mode(cfg, phase) -> None:
 
 def phase_dsa110_modes(blocks_np, sub_blocks_np, smi) -> dict:
     """Phases 27-28: the modes of ``DSA110_MODES`` at full DSA-110 width
-    (kernel against plain, resident times) and as power-only streams of the
-    per-GPU sub-band."""
+    (kernel against plain, resident times), as power-only streams of the
+    per-GPU sub-band, and through the voltage path on a 128-channel
+    sub-band."""
     out = {}
     for mode, (variants, n_stream) in DSA110_MODES.items():
         cfg = DSA110.replace(weight_mode=mode)
@@ -1458,8 +1476,9 @@ def phase_dsa110_modes(blocks_np, sub_blocks_np, smi) -> dict:
             phase_f32_split(cfg, smi)
         sub = DSA110_SUBBAND.replace(weight_mode=mode)
         launches = plain_stream(sub, sub_blocks_np, n_stream, smi)
+        volt = phase_voltages(smi, cfg.replace(n_chan=VOLTAGE_CHANNELS))
         out[mode] = {"cfg": cfg, "checked": checked, "times": times,
-                     "launches": launches}
+                     "launches": launches, "volt": volt}
     return out
 
 
@@ -1533,11 +1552,19 @@ def phase_widths() -> None:
                                  cfg.input_layout, cfg.navg_time,
                                  cfg.navg_freq)
         err = relative_power_error(got, ref)
+        bv = gemm.beamform_voltages(x, qw, cfg)
+        bv_p = gemm.voltages_plain(x, qw.terms, qw.scales, cfg, tm)
+        peak_err.append(float((bv - bv_p).abs().max())
+                        / float(bv_p.abs().max()))
+        if cfg.weight_mode not in gemm.FLOAT_MODES and peak_err[2]:
+            raise RuntimeError(f"random geometry {i}: voltages differ from "
+                               f"the plain version")
         log(f"[widths] {cfg.name} {cfg.weight_mode} {cfg.input_layout} "
             f"A={cfg.n_ant}/{cfg.n_ant_active} a_compute {cfg.a_compute} "
             f"B={cfg.n_beams} F={cfg.n_chan} T={cfg.t_block} navg "
             f"{cfg.navg_time}x{cfg.navg_freq}: kernel vs plain / peak "
-            f"{peak_err[0]:.2e} (Stokes {peak_err[1]:.2e}, tol "
+            f"{peak_err[0]:.2e} (Stokes {peak_err[1]:.2e}, voltages "
+            f"{peak_err[2]:.2e}, tol "
             f"{KERNEL_VS_PLAIN_RTOL:.0e}), vs float64 golden {err:.3e} (bar "
             f"{FUZZ_RTOL[cfg.weight_mode]:.0e})")
         if max(peak_err) > KERNEL_VS_PLAIN_RTOL \
@@ -1588,7 +1615,7 @@ def mode_rows(res, suffix="") -> list:
                 "replaces": "dsabeamformer_tpu/ops/gemm.py:932",
                 **{k: r["volt"][k] for k in (
                     "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
-                    "bound_by")},
+                    "bound_by", "store_ceiling_ms")},
                 "library_ms": None,
             })
     return rows
@@ -1623,7 +1650,7 @@ def kernel_rows(cfg, variants, launches, checked, times, volt,
         "source": "dsabeamformer_tpu_torch/csrc/beam_voltages.cu",
         "replaces": "dsabeamformer_tpu/ops/gemm.py:932",
         **{k: volt[k] for k in ("launches", "max_abs_err", "ms", "plain_ms",
-                                "bound_ms", "bound_by")},
+                                "bound_ms", "bound_by", "store_ceiling_ms")},
         "library_ms": None,
     })
     return rows

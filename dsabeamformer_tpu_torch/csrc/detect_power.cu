@@ -311,7 +311,8 @@ detect_mma_kernel(const uint8_t* __restrict__ wire,
   if (first < n_spans) {
     fetch_span_wire(
         raw0, wire_f + (long long)first * g.rows_out * g.navg * time_stride,
-        min(g.rows_out, n_out - first * g.rows_out), g, time_stride, n_ant);
+        min(g.rows_out, n_out - first * g.rows_out) * g.navg, g, time_stride,
+        n_ant);
   }
   stage_weight_tile<4 * NT>(ws, w, g, f, blockIdx.x * 4 * NT, n_beams);
   __syncthreads();  // ws is complete; from here the warpgroups go their ways
@@ -343,7 +344,8 @@ detect_mma_kernel(const uint8_t* __restrict__ wire,
       fetch_span_wire(
           raw0 + (buf ^ 1) * raw_bytes,
           wire_f + (long long)next * g.rows_out * g.navg * time_stride,
-          min(g.rows_out, n_out - next * g.rows_out), g, time_stride, n_ant);
+          min(g.rows_out, n_out - next * g.rows_out) * g.navg, g,
+          time_stride, n_ant);
     }
     if (side) {
       if (sk_out) {
@@ -506,12 +508,13 @@ int dsabf_detect_power(const void* wire, const void* w0, const void* w1,
           ? make_int_weights(a.iw, w0, w1, n_terms, fold, a_compute,
                              n_beams) &&
                 make_mma_geom(a.g, a.smem, a_compute, 0, n_terms, fold,
-                              a.iw.factor, navg, n_out, align, groups)
+                              a.iw.factor, navg, n_out, align, groups, 2,
+                              0)
           : !fold &&
                 make_float_weights(a.fw, n_sub, w0, w1, n_terms, elem_size,
                                    a_compute, n_beams) &&
                 make_mma_geom(a.g, a.smem, a_compute, 1, n_sub, 0, 1, navg,
-                              n_out, align, groups);
+                              n_out, align, groups, 2, 0);
   if (!ok) return int(cudaErrorInvalidValue);
   const int n_spans = (n_out + a.g.rows_out - 1) / a.g.rows_out;
   const int chunks = (n_beams + a.g.tile_beams - 1) / a.g.tile_beams;

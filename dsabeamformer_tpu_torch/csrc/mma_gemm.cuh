@@ -6,8 +6,9 @@
 //   bf16 (bf16, bf16x2, and f32 as three bf16 parts)
 //     wgmma.mma_async.sync.aligned.m64nNk16.f32.bf16.bf16, N = 128 or 64
 // (one warpgroup: A from registers, B from shared memory through a matrix
-// descriptor).  detect_power.cu is built on it; the GEMM ends in a warp's
-// registers and what follows (detection) is the caller's.
+// descriptor).  detect_power.cu and beam_voltages.cu are built on it; the
+// GEMM ends in a warp's registers and what follows (detection, or the
+// voltages' restaged stores) is the caller's.
 //
 // The layouts are chosen so that the accumulator fragment of one thread is
 // already one detection operand, and so that nothing is unpacked twice:
@@ -36,7 +37,8 @@
 //             are xr, xi, yr, yi of one (sample, beam).  An output row of
 //             navg samples is ceil(navg / 8) m-tiles, which one warp takes
 //             one after the other; sample slots past navg are zero rows
-//             (they add 0 to every sum), so any navg runs.
+//             (they add 0 to every sum), so any navg runs.  The voltage
+//             kernel's output row is one m-tile (navg 8) of its own.
 //   Columns   A block's weight tile holds tile_beams (64, or 32 for a float
 //             tile too large for two warpgroups' rows beside it) beams as
 //             columns Re_b, Im_b, Re_b+1, Im_b+1, ... (columns b and B + b of
@@ -162,22 +164,25 @@ __host__ __device__ inline size_t weight_tile_bytes(const MmaGeom& g) {
 // row_bytes; false when not one row fits.  A block is as many warpgroups
 // (at most max_groups, and no more than there are rounds) as can each hold
 // a span of kRoundRows rows, else one warpgroup with what fits; a span is at
-// most kMaxSpanRows rows, a multiple of kRoundRows once past it.
+// most kMaxSpanRows rows, a multiple of kRoundRows once past it.  Each
+// warpgroup also keeps group_bytes of its own beside its rows.
 inline bool fit_spans(int& groups, int& rows, size_t wbytes,
-                      size_t row_bytes, int n_out, int max_groups) {
-  if (wbytes + row_bytes > size_t(kMmaDynSmem)) return false;
+                      size_t row_bytes, size_t group_bytes, int n_out,
+                      int max_groups) {
+  if (wbytes + group_bytes + row_bytes > size_t(kMmaDynSmem)) return false;
   const long long left = kMmaDynSmem - (long long)wbytes;
+  const long long gb = (long long)group_bytes;
   const int want = n_out < kRoundRows ? n_out : kRoundRows;
   const int n_rounds = (n_out + kRoundRows - 1) / kRoundRows;
   long long r = 0;
   for (groups = max_groups < n_rounds ? max_groups : n_rounds; groups >= 1;
        --groups) {
-    r = left / (groups * (long long)row_bytes);
+    r = (left - groups * gb) / (groups * (long long)row_bytes);
     if (r >= want) break;
   }
   if (groups < 1) {  // a single warpgroup with what fits
     groups = 1;
-    r = left / (long long)row_bytes;
+    r = (left - gb) / (long long)row_bytes;
   }
   if (r > kMaxSpanRows) r = kMaxSpanRows;
   if (r > n_out) r = n_out;
@@ -186,19 +191,38 @@ inline bool fit_spans(int& groups, int& rows, size_t wbytes,
   return true;
 }
 
+// Floats a warp's restaged output row takes in shared memory: the tile's Re
+// (or Im) columns and kStagePad more, so that the eight rows one store of a
+// fragment touches start 4 banks apart.
+constexpr int kStagePad = 4;
+__host__ __device__ constexpr int stage_stride(int tile_beams) {
+  return tile_beams + kStagePad;
+}
+
+// Bytes a warpgroup restages its output through, stage_rows rows a warp.
+__host__ __device__ inline size_t stage_bytes(int stage_rows,
+                                              int tile_beams) {
+  return size_t(kGroupThreads / 32) * stage_rows * stage_stride(tile_beams)
+         * sizeof(float);
+}
+
 // Fill g for these sizes and give the dynamic shared memory of a block;
 // false when one output row does not fit beside the weight tile.
 // bf16: the operand type (n_sub bf16 sub-terms) or int8 (n_sub int8
 // sub-terms, fold and factor as IntWeights has them).  wire_align: what the
 // wire's address, strides and n_ant are all multiples of (at least 4).
-// max_groups: the most warpgroups the kernel's registers allow.  The weight
-// tile is kTileBeams wide; a bf16 tile that leaves room for fewer than two
-// warpgroups (f32's three parts at a_compute 112 and 128: one warpgroup,
-// whose detection then leaves the tensor cores idle) is kNarrowTileBeams
-// wide.
+// max_groups: the most warpgroups the kernel's registers allow.
+// stage_rows: rows of float32 output each warp restages in shared memory
+// (stage_bytes, after the warpgroup's wire buffers; 0: none).  The weight
+// tile is kTileBeams wide; a bf16 tile that leaves room for fewer than
+// min_groups warpgroups (or the rounds, if fewer) is kNarrowTileBeams wide:
+// the detect kernel asks for two (f32's three parts at a_compute 112 and
+// 128 leave one, whose detection then leaves the tensor cores idle), the
+// voltage kernel for three.
 inline bool make_mma_geom(MmaGeom& g, size_t& smem, int a_compute, int bf16,
                           int n_sub, int fold, int factor, int navg,
-                          int n_out, int wire_align, int max_groups) {
+                          int n_out, int wire_align, int max_groups,
+                          int min_groups, int stage_rows) {
   g.a_compute = a_compute;
   g.bf16 = bf16;
   g.n_steps = bf16 ? a_compute / 8 : (a_compute + 15) / 16;
@@ -217,15 +241,17 @@ inline bool make_mma_geom(MmaGeom& g, size_t& smem, int a_compute, int bf16,
   // An output row's wire bytes, in both buffers.
   const size_t row_bytes = size_t(2) * navg * 2 * g.raw_stride;
   const int n_rounds = (n_out + kRoundRows - 1) / kRoundRows;
-  int enough = 2 < max_groups ? 2 : max_groups;
+  int enough = min_groups < max_groups ? min_groups : max_groups;
   if (enough > n_rounds) enough = n_rounds;
   int groups = 0, rows = 0;
   g.tile_beams = kTileBeams;
   const bool wide = fit_spans(groups, rows, weight_tile_bytes(g), row_bytes,
-                              n_out, max_groups);
+                              stage_bytes(stage_rows, g.tile_beams), n_out,
+                              max_groups);
   if (bf16 && (!wide || groups < enough)) {
     g.tile_beams = kNarrowTileBeams;
-    if (!fit_spans(groups, rows, weight_tile_bytes(g), row_bytes, n_out,
+    if (!fit_spans(groups, rows, weight_tile_bytes(g), row_bytes,
+                   stage_bytes(stage_rows, g.tile_beams), n_out,
                    max_groups)) {
       return false;
     }
@@ -235,7 +261,9 @@ inline bool make_mma_geom(MmaGeom& g, size_t& smem, int a_compute, int bf16,
   g.n_groups = groups;
   g.rows_out = rows;
   g.span_samples = rows * navg;
-  smem = weight_tile_bytes(g) + size_t(groups) * rows * row_bytes;
+  smem = weight_tile_bytes(g)
+         + size_t(groups) * (rows * row_bytes
+                             + stage_bytes(stage_rows, g.tile_beams));
   return true;
 }
 
@@ -406,8 +434,8 @@ __device__ __forceinline__ void stage_weight_tile(uint8_t* ws,
   }
 }
 
-// Start the copy of n_rows_out output rows' wire bytes (navg samples each,
-// both pols, antennas 0 .. a_compute - 1) from `base` into raw
+// Start the copy of n_samples samples' wire bytes (both pols, antennas 0 ..
+// a_compute - 1) from `base` into raw
 // [pol][sample][raw_stride], copy_bytes per cp.async, and commit it as one
 // group: it runs while the warpgroup multiplies the span before (the
 // calling warpgroup's threads share the work).  The stride
@@ -415,12 +443,12 @@ __device__ __forceinline__ void stage_weight_tile(uint8_t* ws,
 // form (wire_gemm.cuh).
 __device__ __forceinline__ void fetch_span_wire(uint8_t* raw,
                                                 const uint8_t* base,
-                                                int n_rows_out,
+                                                int n_samples,
                                                 const MmaGeom& g,
                                                 long long time_stride,
                                                 int n_ant) {
   const int per = int(g.copies.d);
-  const int total = n_rows_out * g.navg * 2 * per;
+  const int total = n_samples * 2 * per;
   for (int i = threadIdx.x % kGroupThreads; i < total; i += kGroupThreads) {
     const int rp = fast_div(i, g.copies);  // sample * 2 + pol
     const int q = i - rp * per;

@@ -29,26 +29,28 @@ Hand-written CUDA kernels replace the JAX package's two Pallas kernels
     S2 = sum p^2 per channel (``ops.incoherent.sk_block_stats`` semantics).
 
 - ``csrc/beam_voltages.cu`` (``_voltage_kernel``, launched by
-  ``beamform_voltages``; ``csrc/beam_voltages_int13.cu``,
-  ``csrc/beam_voltages_float.cu``): the same unpack and GEMM, times the
-  channel's scale, stored as float32 ``[F, T, P, 2B]`` with no detection.
+  ``beamform_voltages``): the same unpack and GEMM on the same tensor cores,
+  times the channel's scale, stored as float32 ``[F, T, P, 2B]`` with no
+  detection.
 
-Every kernel takes each a_compute that is a multiple of 8 from 8 to 128
-(DSA-110: 110 active antennas in 128 slots).  The detect kernel is one
-design for all of them and every weight mode (``kernel_path``:
-``"wgmma"``): a block stages a 64-beam tile of weight columns in shared
-memory (32 beams for f32's at a_compute 112 and 128: ``_detect_tiles``),
-K-major, keeps the wire bytes packed beside it and walks K in steps of 32
-bytes; ``_mma_operands`` (int8) and ``_bf16_operands`` (bf16, f32) state
-its operand layouts in torch.  The float modes' voltage kernel stages a
-32-beam tile as float32.
+Both kernels take each a_compute that is a multiple of 8 from 8 to 128
+(DSA-110: 110 active antennas in 128 slots), in every weight mode, and are
+built on ``csrc/mma_gemm.cuh`` (``kernel_path``: ``"wgmma"``): a block
+stages a 64-beam tile of weight columns in shared memory (32 beams where a
+bf16 tile would leave room for fewer than two warpgroups:
+``_detect_tiles``, ``_voltage_tiles``), K-major, keeps the wire bytes packed
+beside it and walks K in steps of 32 bytes; ``_mma_operands`` (int8) and
+``_bf16_operands`` (bf16, f32) state its operand layouts in torch.  The
+voltage kernel takes 8 samples of both pols as one m-tile, restages each
+warp's m-tile through shared memory and writes whole rows of Re and of Im
+(``_voltage_store_map`` states where each accumulator goes).
 
 ``fused_detect`` and ``beamform_voltages`` are the wrappers: a CUDA tensor
 goes to the kernel (or the call raises), a CPU tensor to the plain PyTorch
 version of the same function (``detect_power_plain``, ``voltages_plain``).
 ``fused_detect.launches`` counts kernel launches per variant
 (``variant_name``) and ``fused_detect.launches_by_mode`` per ``(weight_mode,
-variant)``; ``beamform_voltages.launches`` counts the voltage kernels'
+variant)``; ``beamform_voltages.launches`` counts the voltage kernel's
 launches and ``beamform_voltages.launches_by_mode`` those per weight mode.
 
 Public API: ``beamform_power``, ``beamform_stokes``, ``beamform_voltages``,
@@ -94,15 +96,19 @@ _ROUND_ROWS = 4
 _MAX_SPAN_ROWS = 16
 _MAX_GROUPS = {False: 4, True: 2}
 _STEP_BYTES = 32
-#: Dynamic shared memory a kernel's block may stage into: an SM's 227 KB
-#: less the static SK scratch, 1 KB (the float voltage kernel) or 1 KB a
-#: warpgroup (the detect kernel: kMmaDynSmem).
-_MAX_DYN_SMEM = 227 * 1024 - 2 * MAX_A_COMPUTE * 4
+#: Dynamic shared memory a block of either kernel may stage into: an SM's
+#: 227 KB less 1 KB a warpgroup (the detect kernel's static SK scratch:
+#: kMmaDynSmem).
 _MMA_DYN_SMEM = 227 * 1024 - 4 * 1024
-#: The float modes' voltage kernel (csrc/float_gemm.cuh): beams of a weight
-#: tile (kFloatBeams), most samples a block stages (kFloatVoltSpan).
-_FLOAT_BEAMS = 32
-_FLOAT_VOLT_SPAN = 64
+#: The voltage kernel (csrc/beam_voltages.cu): samples of an m-tile
+#: (kMtileSamples), rows a warp restages (kStageRows: 8 samples x 2 pols),
+#: floats after each restaged row (csrc/mma_gemm.cuh kStagePad).
+_MTILE_SAMPLES = 8
+_STAGE_ROWS = 16
+_STAGE_PAD = 4
+#: The voltage kernel's bf16 tile is 32 beams where one of 64 leaves room
+#: for fewer warpgroups than this (kMinGroups; the detect kernel's: 2).
+_VOLTAGE_MIN_GROUPS = 3
 #: Signed Q/U/V planes of an 8-bit Stokes product ride the unsigned payload
 #: at this fixed midpoint offset; I keeps offset 0 (the SIGPROC files'
 #: convention, recorded in their scales.json; csrc: kQuvOffset).
@@ -235,25 +241,6 @@ def kernel_path(cfg: ObsConfig) -> str:
     return DETECT_MMA
 
 
-def _float_smem(cfg: ObsConfig) -> tuple:
-    """(bytes of a float voltage-kernel block's weight tile, bytes it stages
-    per sample: both pols' float rows and int8 words): csrc
-    float_weight_words, float_sample_bytes."""
-    kw = cfg.a_compute // 2
-    return (cfg.n_weight_terms * 2 * 4 * kw * _FLOAT_BEAMS * 4,
-            2 * 4 * kw * 4 + 2 * kw * 4)
-
-
-def _float_span_samples(cfg: ObsConfig, least: int, most: int) -> int:
-    """Samples a float voltage-kernel block stages beside its weight tile,
-    at least ``least`` and at most ``most`` (0: ``least`` do not fit): csrc
-    float_span_samples."""
-    wbytes, per = _float_smem(cfg)
-    if wbytes + per * least > _MAX_DYN_SMEM:
-        return 0
-    return min(most, (_MAX_DYN_SMEM - wbytes) // per)
-
-
 class DetectTiles(NamedTuple):
     """How the detect kernel cuts its work (``_detect_tiles``)."""
 
@@ -263,22 +250,64 @@ class DetectTiles(NamedTuple):
     smem: int     # dynamic shared memory of a block, bytes
 
 
-def _fit_spans(wbytes: int, row_bytes: int, n_out: int,
+def _fit_spans(wbytes: int, row_bytes: int, group_bytes: int, n_out: int,
                max_groups: int) -> tuple:
     """(warpgroups, rows of a span) beside a weight tile of ``wbytes``, an
-    output row's wire bytes being ``row_bytes``; None when not one row
-    fits: csrc fit_spans."""
-    if wbytes + row_bytes > _MMA_DYN_SMEM:
+    output row's wire bytes being ``row_bytes`` and each warpgroup keeping
+    ``group_bytes`` of its own; None when not one row fits: csrc
+    fit_spans."""
+    if wbytes + group_bytes + row_bytes > _MMA_DYN_SMEM:
         return None
     left = _MMA_DYN_SMEM - wbytes
     want = min(n_out, _ROUND_ROWS)
     groups = min(max_groups, -(-n_out // _ROUND_ROWS))
-    while groups > 1 and left // (groups * row_bytes) < want:
+    while groups > 1 \
+            and (left - groups * group_bytes) // (groups * row_bytes) < want:
         groups -= 1
-    rows = min(left // (groups * row_bytes), _MAX_SPAN_ROWS, n_out)
+    rows = min((left - groups * group_bytes) // (groups * row_bytes),
+               _MAX_SPAN_ROWS, n_out)
     if rows > _ROUND_ROWS:
         rows -= rows % _ROUND_ROWS
     return groups, rows
+
+
+def _stage_bytes(stage_rows: int, beams: int) -> int:
+    """Bytes a warpgroup restages its output through: ``stage_rows`` rows a
+    warp, each the tile's width (the Re, then the Im columns) and
+    ``_STAGE_PAD`` floats more (csrc stage_bytes)."""
+    return 4 * stage_rows * (beams + _STAGE_PAD) * 4
+
+
+def _mma_tiles(cfg: ObsConfig, navg: int, n_out: int, max_groups: int,
+               min_groups: int, stage_rows: int) -> DetectTiles:
+    """The weight tile and spans of a kernel on csrc/mma_gemm.cuh, output
+    rows of ``navg`` samples (``n_out`` of them a channel), the 32-beam tile
+    where a bf16 one of 64 leaves room for fewer than ``min_groups``
+    warpgroups: csrc make_mma_geom (see ``_detect_tiles``)."""
+    ac = cfg.a_compute
+    bf16 = cfg.weight_mode in FLOAT_MODES
+    n_steps = ac // 8 if bf16 else -(-ac // 16)
+    raw_stride = 16 * (-(-ac // 16) | 1)
+    k_total = n_subterms(cfg) * _STEP_BYTES * n_steps
+    row_bytes = 2 * navg * 2 * raw_stride
+    enough = min(min_groups, max_groups, -(-n_out // _ROUND_ROWS))
+
+    def fit(beams):
+        return _fit_spans(2 * beams * k_total, row_bytes,
+                          _stage_bytes(stage_rows, beams), n_out, max_groups)
+
+    beams = _TILE_BEAMS
+    got = fit(beams)
+    if bf16 and (got is None or got[0] < enough):
+        beams = _NARROW_TILE_BEAMS
+        got = fit(beams)
+    wbytes = 2 * beams * k_total
+    stage = _stage_bytes(stage_rows, beams)
+    if got is None:
+        return DetectTiles(beams, 1, 0, wbytes + stage + row_bytes)
+    groups, rows = got
+    return DetectTiles(beams, groups, rows,
+                       wbytes + groups * (rows * row_bytes + stage))
 
 
 def _detect_tiles(cfg: ObsConfig, stokes: bool = False) -> DetectTiles:
@@ -298,25 +327,105 @@ def _detect_tiles(cfg: ObsConfig, stokes: bool = False) -> DetectTiles:
     than two warpgroups (or the rounds, if fewer) is 32 beams instead: f32's
     three parts at a_compute 112 and 128.  0 rows: one output row does not
     fit beside the tile."""
-    ac = cfg.a_compute
-    bf16 = cfg.weight_mode in FLOAT_MODES
-    n_steps = ac // 8 if bf16 else -(-ac // 16)
-    raw_stride = 16 * (-(-ac // 16) | 1)
-    k_total = n_subterms(cfg) * _STEP_BYTES * n_steps
-    row_bytes = 2 * cfg.navg_time * 2 * raw_stride
-    n_out = cfg.t_block // cfg.navg_time
-    max_groups = _MAX_GROUPS[stokes]
-    enough = min(2, max_groups, -(-n_out // _ROUND_ROWS))
-    beams = _TILE_BEAMS
-    fit = _fit_spans(2 * beams * k_total, row_bytes, n_out, max_groups)
-    if bf16 and (fit is None or fit[0] < enough):
-        beams = _NARROW_TILE_BEAMS
-        fit = _fit_spans(2 * beams * k_total, row_bytes, n_out, max_groups)
-    wbytes = 2 * beams * k_total
-    if fit is None:
-        return DetectTiles(beams, 1, 0, wbytes + row_bytes)
-    groups, rows = fit
-    return DetectTiles(beams, groups, rows, wbytes + groups * rows * row_bytes)
+    return _mma_tiles(cfg, cfg.navg_time, cfg.t_block // cfg.navg_time,
+                      _MAX_GROUPS[stokes], 2, 0)
+
+
+class VoltageTiles(NamedTuple):
+    """How the voltage kernel cuts its work (``_voltage_tiles``)."""
+
+    beams: int    # of a block's weight tile
+    groups: int   # warpgroups of a block
+    rows: int     # m-tiles (8 samples each) of a warpgroup's span
+    samples: int  # samples of a span: rows * 8
+    smem: int     # dynamic shared memory of a block, bytes
+
+
+def _voltage_tiles(cfg: ObsConfig) -> VoltageTiles:
+    """The voltage kernel's weight tile and spans: csrc make_mma_geom as
+    ``dsabf_beam_voltages`` calls it.
+
+    The detect kernel's tile and wire buffers (``_detect_tiles``) with an
+    output row of one m-tile (8 samples, ``ceil(t_block / 8)`` of them a
+    channel), at most 4 warpgroups, and each warp's 16 rows of restaged
+    voltages beside its warpgroup's wire buffers (a row is the tile's Re,
+    then its Im columns, and 4 floats more: 4,352 bytes a warp on a 64-beam
+    tile, 2,304 on a 32-beam one).  A bf16 tile that leaves room for fewer than
+    three warpgroups is 32 beams (the detect kernel's rule says two): bf16x2
+    from a_compute 120, f32 from 88."""
+    n_mt = -(-cfg.t_block // _MTILE_SAMPLES)
+    t = _mma_tiles(cfg, _MTILE_SAMPLES, n_mt, _MAX_GROUPS[False],
+                   _VOLTAGE_MIN_GROUPS, _STAGE_ROWS)
+    return VoltageTiles(t.beams, t.groups, t.rows, t.rows * _MTILE_SAMPLES,
+                        t.smem)
+
+
+def _staged_grid_z(n_shares: int, n_chan: int, chunks: int) -> int:
+    """gridDim.z of a kernel that walks spans: csrc staged_grid_x."""
+    return min(-(-2048 // (n_chan * chunks)), n_shares)
+
+
+def _voltage_store_map(cfg: ObsConfig) -> tuple:
+    """What the voltage kernel holds in each accumulator it stores, and
+    where it stores it, in torch: ``(src, dst)``, int64 tensors of one entry
+    per stored register of a channel's blocks.
+
+    The grid (``_voltage_tiles``; the beam tiles, then ``_staged_grid_z``
+    shares of the spans) gives warp ``w`` of warpgroup ``g`` of block
+    ``(bt, f, z)`` the m-tiles ``span * rows + 4 * round + w`` of the spans
+    ``z * groups + g``, every ``gridDim.z * groups``-th after it.
+
+    ``src = (t, p, beam, ri)``: register ``c`` of n-tile ``nt`` of lane
+    ``l`` holds the wgmma fragment's row ``l // 4`` (pol x) or ``l // 4 +
+    8`` (pol y, ``c >= 2``) of its m-tile, i.e. sample ``8 * mtile + l //
+    4``, and column ``2 * (4 * nt + l % 4) + c % 2`` of the tile: Re
+    (``ri`` 0) or Im of beam ``bt * beams + 4 * nt + l % 4``.
+
+    ``dst = (t, p, col)``: the kernel restages it to row ``8 * (c // 2) + l
+    // 4``, column ``4 * nt + l % 4`` of the warp's Re (``c`` even) or Im
+    rows, and a lane writes 4 columns ``4 * k .. 4 * k + 3`` of a row from
+    there to ``out[f, t0 + row % 8, row // 8, half * B + bt * beams + 4 * k
+    + j]``; only samples below ``t_block`` and beams below ``n_beams``."""
+    tiles = _voltage_tiles(cfg)
+    t_all, b_all = cfg.t_block, cfg.n_beams
+    n_spans = -(-t_all // tiles.samples)
+    chunks = -(-b_all // tiles.beams)
+    grid_z = _staged_grid_z(-(-n_spans // tiles.groups), cfg.n_chan, chunks)
+    rounds = -(-tiles.rows // _ROUND_ROWS)
+    mtiles = []
+    for z in range(grid_z):
+        for g in range(tiles.groups):
+            for span in range(z * tiles.groups + g, n_spans,
+                              grid_z * tiles.groups):
+                for r in range(rounds):
+                    for w in range(_ROUND_ROWS):
+                        local = r * _ROUND_ROWS + w
+                        mt = span * tiles.rows + local
+                        if local < tiles.rows \
+                                and _MTILE_SAMPLES * mt < t_all:
+                            mtiles.append(mt)
+    mt = torch.tensor(mtiles).view(1, -1, 1, 1, 1)
+    bt = torch.arange(chunks).view(-1, 1, 1, 1, 1) * tiles.beams
+    lane = torch.arange(32).view(1, 1, -1, 1, 1)
+    nt = torch.arange(tiles.beams // 4).view(1, 1, 1, -1, 1)
+    c = torch.arange(4).view(1, 1, 1, 1, -1)
+    t0 = _MTILE_SAMPLES * mt
+    src = (t0 + lane // 4, c // 2, bt + 4 * nt + lane % 4, c % 2)
+    row, stage_col, half = (c // 2) * 8 + lane // 4, 4 * nt + lane % 4, c % 2
+    k, j = stage_col // 4, stage_col % 4
+    every = torch.broadcast_tensors(*src, t0 + row % 8, row // 8, half,
+                                    bt + 4 * k + j)
+    keep = (every[4] < t_all) & (every[7] < b_all)
+    t, p, half, beam = (v[keep] for v in every[4:])
+    return tuple(v[keep] for v in every[:4]), (t, p, half * b_all + beam)
+
+
+def _voltage_value(acc: torch.Tensor, ps: int, s: torch.Tensor):
+    """The voltage kernel's epilogue: accumulators (int32 sums times the
+    product scale ``ps``, or float32 sums) to float32, times ``1 / ps``
+    (exact: a power of two) and then the channel's scale ``s``, each
+    multiply rounded once."""
+    return (acc.to(torch.float32) * (1.0 / ps)) * s
 
 
 def _detect_smem(cfg: ObsConfig, stokes: bool = False) -> tuple:
@@ -707,16 +816,14 @@ def voltages_plain(x, terms, scales, cfg: ObsConfig, time_major: bool,
 def kernel_library(cfg: ObsConfig, kernel: str) -> str:
     """The CUDA source (``csrc/<name>.cu``) that holds ``kernel``
     (``"detect_power"`` or ``"beam_voltages"``) for ``cfg.weight_mode``."""
-    if kernel == "detect_power":
-        return kernel   # one library: the operand type and terms at run time
-    if cfg.weight_mode in FLOAT_MODES:
-        return "beam_voltages_float"
-    return kernel + ("_int13" if cfg.weight_mode == "int13" else "")
+    if kernel not in KERNEL_SOURCES:
+        raise ValueError(f"no kernel {kernel!r}; the kernels are "
+                         f"{KERNEL_SOURCES}")
+    return kernel   # one library each: the operand type chosen at run time
 
 
 #: Every CUDA source with a C entry point ``dsabf_<name>``.
-KERNEL_SOURCES = ("detect_power", "beam_voltages", "beam_voltages_int13",
-                  "beam_voltages_float")
+KERNEL_SOURCES = ("detect_power", "beam_voltages")
 
 
 def _kernel_lib(name: str) -> ctypes.CDLL:
@@ -724,15 +831,14 @@ def _kernel_lib(name: str) -> ctypes.CDLL:
     fn = getattr(lib, f"dsabf_{name}")
     if fn.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        # The voltage libraries take, after the sizes, (n_sub, fold) for the
-        # int8 modes or (n_terms, elem_size) for the float ones; the detect
-        # library (n_terms, fold, elem_size) for every mode.
+        # Both take (n_terms, fold, elem_size) after the sizes
+        # (_operand_args); the detect library then navg and stokes.
         if name == "detect_power":
             fn.argtypes = [p, p, p, p, p, p, p, p,
                            ctypes.POINTER(ctypes.c_uint), i, i, i, i, i, i,
                            i, i, i, i, ll, ll, p]
         else:
-            fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, ll, ll, p]
+            fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, ll, ll, p]
         fn.restype = i
         lib.dsabf_error_string.argtypes = [i]
         lib.dsabf_error_string.restype = ctypes.c_char_p
@@ -774,23 +880,14 @@ def _check_same_device(x, tensors) -> None:
                 f"to one device")
 
 
-def _mode_args(cfg: ObsConfig, terms) -> list:
-    """The two integers that tell a voltage library how to read the terms:
-    ``(n_sub, fold)`` for the int8 modes, ``(n_terms, element size)`` for
-    the float ones."""
-    if cfg.weight_mode in FLOAT_MODES:
-        return [len(terms), terms[0].element_size()]
-    return [n_subterms(cfg), int(cfg.weight_mode in FOLDED_SUBTERMS)]
-
-
-def _detect_mode_args(cfg: ObsConfig, terms) -> list:
-    """The three integers that tell the detect library how to read the
-    terms: ``(n_terms, fold, element size)``: int8 sub-terms and fold for
-    the int8 modes (element size 1), the bfloat16 or float32 tensors for
-    the float ones (fold 0)."""
+def _operand_args(cfg: ObsConfig, terms) -> list:
+    """The three integers that tell either library how to read the terms:
+    ``(n_terms, fold, element size)``: int8 sub-terms and fold for the int8
+    modes (element size 1), the bfloat16 or float32 tensors for the float
+    ones (fold 0)."""
     if cfg.weight_mode in FLOAT_MODES:
         return [len(terms), 0, terms[0].element_size()]
-    return [*_mode_args(cfg, terms), 1]
+    return [n_subterms(cfg), int(cfg.weight_mode in FOLDED_SUBTERMS), 1]
 
 
 def _launch(lib, name: str, args: list, device) -> None:
@@ -883,7 +980,7 @@ def _launch_detect(x, terms, scales, cfg: ObsConfig, time_major: bool, *,
         None if sk_out is None else sk_out.data_ptr(),
         None if inco_mask is None else _mask_words(inco_mask), cfg.n_chan,
         cfg.t_block, cfg.n_beams, cfg.n_ant, cfg.a_compute,
-        *_detect_mode_args(cfg, terms), cfg.navg_time, int(stokes),
+        *_operand_args(cfg, terms), cfg.navg_time, int(stokes),
         time_stride, chan_stride], x.device)
     return out, inco, sk_out
 
@@ -1007,8 +1104,9 @@ def beamform_voltages(wire, qw: QuantWeights, cfg: ObsConfig):
     design (a DSA-10 block's voltages are 68.7 GB; use a sub-band): this is
     the validation path that the fused detection products are held against.
 
-    A CPU tensor runs ``voltages_plain``; a CUDA tensor launches the mode's
-    voltage kernel (``kernel_library``) on the current stream, which reads
+    A CPU tensor runs ``voltages_plain``; a CUDA tensor launches the
+    voltage kernel (``csrc/beam_voltages.cu``) on the current stream, which
+    reads
     tfpa and ftpa through strides, and counts it in
     ``beamform_voltages.launches`` and
     ``beamform_voltages.launches_by_mode[cfg.weight_mode]``.
@@ -1035,13 +1133,12 @@ beamform_voltages.launches_by_mode = collections.Counter()
 def _launch_voltages(x, terms, scales, cfg: ObsConfig,
                      time_major: bool) -> torch.Tensor:
     """Check the operands, allocate the output on ``x``'s device and launch
-    the mode's voltage kernel (``kernel_library``)."""
+    the voltage kernel (every mode: ``csrc/beam_voltages.cu``)."""
     _check_kernel_operands(x, terms, scales, cfg, time_major)
-    if cfg.weight_mode in FLOAT_MODES and _float_span_samples(
-            cfg, 2, _FLOAT_VOLT_SPAN) < 2:
+    if not _voltage_tiles(cfg).rows:
         raise ValueError(
             f"a_compute={cfg.a_compute} in mode {cfg.weight_mode!r} leaves "
-            f"no shared memory for a span of samples")
+            f"no shared memory for an m-tile beside the weight tile")
     out = torch.empty((cfg.n_chan, cfg.t_block, cfg.n_pol, 2 * cfg.n_beams),
                       dtype=torch.float32, device=x.device)
     time_stride, chan_stride = _wire_strides(cfg, time_major)
@@ -1049,7 +1146,7 @@ def _launch_voltages(x, terms, scales, cfg: ObsConfig,
     _launch(_kernel_lib(name), name, [
         x.data_ptr(), terms[0].data_ptr(), terms[-1].data_ptr(),
         scales.data_ptr(), out.data_ptr(), cfg.n_chan, cfg.t_block,
-        cfg.n_beams, cfg.n_ant, cfg.a_compute, *_mode_args(cfg, terms),
+        cfg.n_beams, cfg.n_ant, cfg.a_compute, *_operand_args(cfg, terms),
         time_stride, chan_stride], x.device)
     return out
 

@@ -759,6 +759,44 @@ def test_mode_voltages_match_plain(dev, mode, ac, layout):
         assert torch.equal(got, want)
 
 
+#: Edges of the voltage kernel's grid: a t_block that is no multiple of 8
+#: (its last m-tile half live, the samples past it not stored) with 72 beams
+#: (a partial 64-beam tile), and the DSA-110 width (a_compute 128, 512 beams:
+#: eight 64-beam tiles, or sixteen 32-beam ones for bf16x2 and f32).
+VOLTAGE_EDGES = {
+    "t_tail": DSA10.replace(n_chan=3, t_block=100, navg_time=4, n_beams=72),
+    "dsa110_width": DSA110.replace(n_chan=2, t_block=64, n_ant_compute=128),
+}
+
+
+@pytest.mark.parametrize("layout", ["tfpa", "ftpa"])
+@pytest.mark.parametrize("edge", sorted(VOLTAGE_EDGES))
+@pytest.mark.parametrize("mode", gemm.KERNEL_MODES)
+def test_voltage_kernel_grid_edges(dev, mode, edge, layout):
+    """Every weight mode's voltage kernel at the grid's edges against its
+    plain version: equal for the int8 modes, within ``_mode_rtol`` of the
+    largest voltage for the float ones; one launch counted."""
+    cfg = VOLTAGE_EDGES[edge].replace(input_layout=layout, weight_mode=mode)
+    if edge == "dsa110_width":
+        assert cfg.a_compute == 128 and cfg.n_beams == 512
+    else:
+        assert cfg.t_block % 8
+    wire = make_random_bytes_block(cfg, seed=23)
+    qw = _weights(cfg, dev)
+    before = gemm.beamform_voltages.launches_by_mode[mode]
+    got = gemm.beamform_voltages(torch.from_numpy(wire).to(dev), qw, cfg)
+    torch.cuda.synchronize()
+    assert gemm.beamform_voltages.launches_by_mode[mode] == before + 1
+    assert tuple(got.shape) == (cfg.n_chan, cfg.t_block, 2, 2 * cfg.n_beams)
+    x, tm = gemm._prepare_wire(torch.from_numpy(wire).to(dev), cfg)
+    want = gemm.voltages_plain(x, qw.terms, qw.scales, cfg, tm)
+    if mode in gemm.FLOAT_MODES:
+        assert float((got - want).abs().max()) \
+            <= _mode_rtol(mode) * float(want.abs().max())
+    else:
+        assert torch.equal(got, want)
+
+
 #: The JAX package's golden bars (its tests/test_gemm.py) per mode.
 GOLDEN_BARS = {"int13": 5e-4, "int12": 8e-4, "bf16x2": 2e-4, "f32": 1e-5,
                "bf16": 1e-2}
@@ -807,7 +845,8 @@ def test_random_geometry_kernel_matches_plain(dev, i):
     """The cases of tests/test_torch_fuzz_geometry.py on the card: small,
     ragged shapes (8 beams, navg 2, one span, a_compute 24) through the
     kernels against the plain version and the float64 golden model, power
-    (and Stokes on a third of them), both wire forms."""
+    (and Stokes on a third of them), both wire forms; and through the
+    voltage kernel against its plain version."""
     from dsabeamformer_tpu_torch.ops.reference import beamform_stokes_ref
     from dsabeamformer_tpu_torch.utils.testing import FUZZ_RTOL, random_geometry
 
@@ -831,6 +870,15 @@ def test_random_geometry_kernel_matches_plain(dev, i):
     p_dev = gemm.beamform_power(
         torch.from_numpy(gemm.device_wire_view(wire, cfg)).to(dev), qw, cfg)
     assert torch.equal(p, p_dev)
+    # The voltage kernel on the same ragged shapes.
+    x, tm = gemm._prepare_wire(torch.from_numpy(wire).to(dev), cfg)
+    bv = gemm.beamform_voltages(x, qw, cfg)
+    bv_p = gemm.voltages_plain(x, qw.terms, qw.scales, cfg, tm)
+    if cfg.weight_mode in gemm.FLOAT_MODES:
+        assert float((bv - bv_p).abs().max()) \
+            <= _mode_rtol(cfg.weight_mode) * float(bv_p.abs().max())
+    else:
+        assert torch.equal(bv, bv_p)
     if i % 3 == 0:
         st = gemm.beamform_stokes(torch.from_numpy(wire).to(dev), qw, cfg)
         if cfg.navg_freq == 1:

@@ -100,22 +100,31 @@ def test_build_module_imports_without_nvcc(tmp_path):
 
 def test_kernel_sources_hold_one_design_each():
     """Every CUDA source the wrappers build is one design: no preprocessor
-    switch but the int13 voltage build's own ``DSABF_INT13`` (which
-    ``beam_voltages_int13.cu`` defines), nothing read from the environment,
-    and each source of ``gemm.KERNEL_SOURCES`` present, with no other
-    ``.cu`` beside them."""
+    switch at all, nothing read from the environment, exactly the two
+    sources of ``gemm.KERNEL_SOURCES`` (``detect_power.cu`` and
+    ``beam_voltages.cu``) with no other ``.cu`` beside them, no GEMM left on
+    the CUDA cores (``__dp4a`` products, ``fmaf``, ``float_gemm.cuh``), and
+    both kernels issuing ``wgmma`` through ``mma_gemm.cuh``."""
     from dsabeamformer_tpu_torch.ops import gemm
 
     csrc = PORT / "csrc"
     for path in sorted(csrc.glob("*.cu*")):
         for n, line in enumerate(path.read_text().splitlines(), 1):
             where = f"{path.name}:{n}: {line.strip()}"
-            if re.match(r"\s*#\s*(if|ifdef|ifndef|elif)\b", line):
-                assert "DSABF_INT13" in line, where
+            assert not re.match(r"\s*#\s*(if|ifdef|ifndef|elif)\b", line), \
+                where
             assert "getenv" not in line and "environ" not in line, where
+            assert "fmaf(" not in line.replace("__fmaf_rn(", ""), where
+            # __dp4a is left only in the incoherent sum's masked power.
+            if "__dp4a" in line:
+                assert path.name == "detect_epilogue.cuh", where
     assert sorted(p.stem for p in csrc.glob("*.cu")) \
-        == sorted(gemm.KERNEL_SOURCES)
-    assert "detect_float" not in gemm.KERNEL_SOURCES
+        == sorted(gemm.KERNEL_SOURCES) == ["beam_voltages", "detect_power"]
+    assert not (csrc / "float_gemm.cuh").exists()
+    for name in gemm.KERNEL_SOURCES:
+        text = (csrc / f"{name}.cu").read_text()
+        assert '#include "mma_gemm.cuh"' in text and "tile_product(" in text
+    assert "wgmma.mma_async" in (csrc / "mma_gemm.cuh").read_text()
 
 
 def test_cuda_request_without_card_raises(monkeypatch):

@@ -433,9 +433,10 @@ def test_detect_smem_follows_the_kernels_layouts():
         == (64, 2)
     assert pgemm.n_subterms(wide.replace(weight_mode="int13")) == 4
     assert pgemm.kernel_library(d10, "detect_power") == "detect_power"
-    assert pgemm.kernel_library(d10, "beam_voltages") == "beam_voltages_float"
+    # One voltage library for every mode, as for detection.
+    assert pgemm.kernel_library(d10, "beam_voltages") == "beam_voltages"
     assert pgemm.kernel_library(wide.replace(weight_mode="int13"),
-                                "beam_voltages") == "beam_voltages_int13"
+                                "beam_voltages") == "beam_voltages"
     # A navg_time whose rows do not fit beside the weight tile is refused.
     for mode in ("bf16x2", "int8x2"):
         need, limit = pgemm._detect_smem(
@@ -461,16 +462,17 @@ def test_operand_checks_per_mode():
     with pytest.raises(ValueError, match="takes 2 int8 weight term"):
         pgemm.beamform_power(make_random_bytes_block(pc), qw,
                              pc.replace(weight_mode="int8x2"))
-    assert pgemm._mode_args(pc, qw.terms) == [2, 2]
-    assert pgemm._detect_mode_args(pc, qw.terms) == [2, 0, 2]
+    # Both libraries read the terms from (n_terms, fold, element size).
+    assert pgemm._operand_args(pc, qw.terms) == [2, 0, 2]
     f32 = pcfg.TINY.replace(weight_mode="f32")
     qf = pq.prepare_weights(f32, make_weights(f32, device="cpu"))
-    assert pgemm._detect_mode_args(f32, qf.terms) == [1, 0, 4]
+    assert pgemm._operand_args(f32, qf.terms) == [1, 0, 4]
     i13 = pcfg.TINY.replace(weight_mode="int13")
     q13 = pq.prepare_weights(i13, make_weights(i13, device="cpu"))
-    assert pgemm._mode_args(i13, q13.terms) == [4, 1]
-    assert pgemm._detect_mode_args(i13, q13.terms) == [4, 1, 1]
-    assert pgemm._mode_args(pcfg.TINY, (q13.terms[0],) * 2) == [2, 0]
+    assert pgemm._operand_args(i13, q13.terms) == [4, 1, 1]
+    assert pgemm._operand_args(pcfg.TINY, (q13.terms[0],) * 2) == [2, 0, 1]
+    assert pgemm._operand_args(pcfg.TINY.replace(weight_mode="int12"),
+                               q13.terms) == [2, 1, 1]
 
 
 # -------------------------- tables carried across ------------------------ #
