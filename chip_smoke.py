@@ -181,6 +181,37 @@ Widths and shapes off the presets (the tensor-core kernel walks K in steps of
                modes) against the plain version and the float64 golden,
                and through the voltage kernel against its plain version.
 
+The ring ingest and the live search (PR 10 of the port):
+
+30. ring    -- reads ``shutil.disk_usage("/dev/shm")`` and takes the widest of
+               dsa10, dsa10c, ``DSA110.subband(0, 256)`` (else a dsa10c
+               channel subband) whose depth + 2 slots fit, and logs which and
+               why.  A capture process (``multiprocessing`` spawn) creates the
+               ring with the port's ``RingBuffer``, commits the stream header
+               and writes the two blocks in turn, waiting for room; the
+               power-only stream (12 blocks) and the deployed stream (8:
+               8-bit .fil of every beam, incoherent .dada, the RFI monitor
+               excising the carrier) read it through ``RingSource`` on the
+               pinned route (slots registered with ``cudaHostRegister``, H2D
+               straight from the slot) and must equal the same blocks through
+               ``SyntheticSource`` (word sums of every product block and
+               blocks 0-1 bit for bit; every file byte for byte), with 0
+               dropped and 0 skipped; each route's ms/block, the time spent
+               waiting for the producer, and the producer's copy rate are
+               logged; a third run paced at 1x real time reports its drops.
+31. search  -- a second capture process (started after phase 6, so that it
+               makes its block while the card is busy) writes the
+               ``make_dispersed_pulse_block`` block (DM 50 towards beam 100,
+               carrier included) ten times into a dsa10c ring; the deployed
+               stream reads it with a ``SearchMonitor`` attached (method conv,
+               trials to DM 100, chunk 4096, a 32-beam set holding beam 100,
+               coincidence on): the pulse must be found in beam 100, within
+               one trial of DM 50 and within the widest boxcar of its arrival;
+               then the offline search (method direct) of four beams' .fil
+               files must find it too; then each dedispersion kernel against
+               its plain version on the monitor's first window (bit-equal),
+               timed over 10 launches, with its bound.
+
 Each streamed phase, and the voltage paths, set the launch counts to 0 just
 before their run and read them just after.  The last two lines are a JSON
 record of the kernels (launches on the main paths, max error against the
@@ -196,7 +227,12 @@ nothing of JAX.
 from __future__ import annotations
 
 import collections
+import ctypes
+import hashlib
 import json
+import multiprocessing
+import os
+import shutil
 from concurrent.futures import ThreadPoolExecutor
 import subprocess
 import sys
@@ -208,11 +244,14 @@ import numpy as np
 import torch
 
 from dsabeamformer_tpu_torch.config import DSA10, DSA10_COMPACT, DSA110
+from dsabeamformer_tpu_torch.ingest import dada
 from dsabeamformer_tpu_torch.ingest.generator import (
+    make_dispersed_pulse_block,
     make_noise_block,
     make_point_source_block,
     make_random_bytes_block,
 )
+from dsabeamformer_tpu_torch.ingest.ring import RingBuffer
 from dsabeamformer_tpu_torch.ingest.dada import read_product_file
 from dsabeamformer_tpu_torch.ingest.sigproc import (
     FilterbankSink,
@@ -225,6 +264,27 @@ from dsabeamformer_tpu_torch.models.weights import (
     zap_weights,
 )
 from dsabeamformer_tpu_torch.ops import _build, gemm
+from dsabeamformer_tpu_torch.ops.dedisperse import (
+    DEFAULT_WIDTHS,
+    KERNEL_SOURCE as DEDISPERSE_SOURCE,
+    SearchMonitor,
+    _bank,
+    _cluster,
+    _conv_auto_n_sub,
+    _conv_plan,
+    _padded_columns,
+    _snr_topk,
+    _table,
+    _threshold_points,
+    dedisperse_direct,
+    dedisperse_direct_plain,
+    dm_trial_grid,
+    search_spectrograms,
+    subband_stage1,
+    subband_stage1_plain,
+    subband_stage2,
+    subband_stage2_plain,
+)
 from dsabeamformer_tpu_torch.ops.quantize import prepare_weights
 from dsabeamformer_tpu_torch.ops.reference import (
     beamform_block_ref,
@@ -233,6 +293,7 @@ from dsabeamformer_tpu_torch.ops.reference import (
 from dsabeamformer_tpu_torch.ops.rfi import RFIMonitor
 from dsabeamformer_tpu_torch.pipeline import (
     FileSink,
+    RingSource,
     StreamingBeamformer,
     SyntheticSource,
 )
@@ -309,7 +370,7 @@ def phase_device() -> tuple:
     return name, smi
 
 
-KERNEL_SOURCES = gemm.KERNEL_SOURCES
+KERNEL_SOURCES = gemm.KERNEL_SOURCES + (DEDISPERSE_SOURCE,)
 
 
 def phase_build() -> None:
@@ -1573,6 +1634,677 @@ def phase_widths() -> None:
             raise RuntimeError(f"random geometry {i} failed")
 
 
+# --------------------------------------------------------------------- #
+# [ring] and [search]: the shared-memory ring in, candidates out
+# --------------------------------------------------------------------- #
+
+RING_DEPTH = 2               # the streams' depth; a ring holds depth+2 slots
+N_RING = 12                  # blocks in each ring power-only stream
+N_RING_DEPLOYED = 8          # blocks in each ring deployed stream
+SHM = "/dev/shm"
+DD_KERNELS = (dedisperse_direct, subband_stage1, subband_stage2)
+#: The live search drill: a dispersed pulse at DM 50 towards beam 100, in
+#: every block, searched to DM 100 over a 32-beam set (every 8th beam from
+#: 4, so the beam pattern's main lobe covers a few of them: coincidence
+#: keeps it) with the reference CLI's --search-* defaults.
+SEARCH_DM = 50.0
+SEARCH_DM_MAX = 100.0
+SEARCH_BEAM = TARGET_BEAM
+SEARCH_SET = list(range(4, 256, 8))
+SEARCH_AMPLITUDE = 0.3
+SEARCH_T0 = 1024             # wire samples: output sample 64 of each block
+SEARCH_CHUNK = 4096
+N_SEARCH = 10
+#: The offline search (method "direct") of the written .fil files: the
+#: pulse's beam and its three nearest set members.
+OFFLINE_BEAMS = [SEARCH_BEAM - 8, SEARCH_BEAM, SEARCH_BEAM + 8,
+                 SEARCH_BEAM + 16]
+#: An add issues at the FMA rate: 67 TFLOP/s counts an FMA as two.
+H100_F32_ADDS_PER_S = 67e12 / 2
+
+
+def ring_need(cfg) -> int:
+    """/dev/shm bytes of a ring of depth + 2 slots of ``cfg`` blocks."""
+    return (RING_DEPTH + 2) * cfg.wire_block_bytes + 2 * 4096
+
+
+def choose_ring_cfg(free: int, cands) -> tuple:
+    """The first of ``cands`` whose ring fits in ``free`` bytes, else the
+    widest power-of-two channel subband of dsa10c that does; with the
+    reason."""
+    for c in cands:
+        if ring_need(c) <= free:
+            return c, (f"{tag(c)} ({c.wire_block_bytes / 1e9:.3f} GB a "
+                       f"block) is the widest whose {RING_DEPTH + 2} slots "
+                       f"fit ({ring_need(c) / 1e9:.3f} GB)")
+    n = DSA10_COMPACT.n_chan
+    while n > 1 and ring_need(DSA10_COMPACT.subband(0, n)) > free:
+        n //= 2
+    c = DSA10_COMPACT.subband(0, n)
+    return c, (f"none of {[tag(x) for x in cands]} fits; dsa10c's "
+               f"{n}-channel subband ({c.wire_block_bytes / 1e6:.1f} MB a "
+               f"block) does ({ring_need(c) / 1e9:.3f} GB)")
+
+
+def shm_free() -> tuple:
+    du = shutil.disk_usage(SHM)
+    return du.total, du.free
+
+
+def ring_producer(name, cfg, kind, runs, ready, go, done, results):
+    """The capture process (spawned): makes its blocks, creates the ring,
+    writes the stream header, then for each ``(n_blocks, rate_factor,
+    copy)`` of ``runs`` writes the blocks in turn: free-running runs wait
+    for a free slot (nothing dropped), a paced run (rate_factor 1.0 = real
+    time) writes each block when due and drops it if the ring is full.
+
+    ``copy`` runs copy each block into its slot (4 threads) and report the
+    rate.  The others commit the slot as it stands: with 4 slots and 2
+    blocks in turn (or 1) every slot already holds the block due in it
+    since the first fill, as a capture card's DMA would have put it there at
+    no cost to the host, so the consumer runs at its own pace.  The last
+    run ends with end of data."""
+    torch.set_num_threads(4)
+    if kind == "random":
+        blocks = [with_carrier(cfg, make_random_bytes_block(cfg, seed=s))
+                  for s in (0, 1)]
+    else:
+        blocks = [with_carrier(cfg, make_dispersed_pulse_block(
+            cfg, SEARCH_DM, angle_rad=float(cfg.beam_angles_rad()[SEARCH_BEAM]),
+            t0_sample=SEARCH_T0, amplitude=SEARCH_AMPLITUDE, seed=7))]
+    srcs = [torch.from_numpy(b.reshape(-1)) for b in blocks]
+    n = cfg.wire_block_bytes
+    if (RING_DEPTH + 2) % len(blocks):
+        raise ValueError("every slot must hold one block in turn")
+    ring = RingBuffer(name, create=True, nbufs=RING_DEPTH + 2, bufsz=n)
+    try:
+        ring.write_header(dada.encode_header(cfg))
+        k = 0
+        for r, (n_blocks, rate_factor, copy) in enumerate(runs):
+            copy_s = wait_s = first_fill_s = 0.0
+            if rate_factor:
+                go.wait(timeout=600)
+                t0 = time.perf_counter()
+            for i in range(n_blocks):
+                src = srcs[k % len(srcs)]
+                k += 1
+                if rate_factor:
+                    due = t0 + i * cfg.block_duration_s / rate_factor
+                    time.sleep(max(0.0, due - time.perf_counter()))
+                    addr = ring.open_write()
+                    if addr is None:
+                        # Full: write_block counts the drop (or writes the
+                        # block, if a slot was freed in between).
+                        ring.write_block(blocks[(k - 1) % len(blocks)])
+                        continue
+                else:
+                    if (addr := ring.open_write()) is None:
+                        # The ring is full: the consumer may start (its
+                        # first blocks were written ahead, and the slots'
+                        # pages touched, before it measures anything).
+                        ready.set()
+                    t = time.perf_counter()
+                    while addr is None:
+                        time.sleep(0.0002)
+                        addr = ring.open_write()
+                    wait_s += time.perf_counter() - t
+                first_fill = k <= RING_DEPTH + 2
+                if copy or first_fill:
+                    t = time.perf_counter()
+                    view = np.ctypeslib.as_array(
+                        (ctypes.c_uint8 * n).from_address(addr))
+                    torch.from_numpy(view).copy_(src)
+                    if first_fill:  # the first touch of the slots' pages
+                        first_fill_s += time.perf_counter() - t
+                    else:
+                        copy_s += time.perf_counter() - t
+                ring.commit_write()
+            ready.set()
+            results.put({"run": r, "blocks": n_blocks, "copy_s": copy_s,
+                         "wait_s": wait_s, "dropped": ring.dropped,
+                         "first_fill_s": first_fill_s})
+        ring.set_eod()
+        done.wait(timeout=1800)
+    finally:
+        ring.destroy()
+
+
+class Producer:
+    """A spawned ``ring_producer`` and its events; ``finish`` stops it and
+    returns its per-run reports."""
+
+    def __init__(self, cfg, kind, runs):
+        ctx = multiprocessing.get_context("spawn")
+        self.name = f"chipsmoke-{kind}-{os.getpid()}"
+        self.ready, self.go, self.done = ctx.Event(), ctx.Event(), ctx.Event()
+        self.results = ctx.Queue()
+        self.proc = ctx.Process(target=ring_producer, args=(
+            self.name, cfg, kind, runs, self.ready, self.go, self.done,
+            self.results), daemon=True)
+        self.proc.start()
+        self.n_runs = len(runs)
+
+    def attach(self, timeout=900) -> RingBuffer:
+        """The consumer's handle, once the producer has made its blocks and
+        committed the header (raises if it died first)."""
+        deadline = time.monotonic() + timeout
+        while not self.ready.wait(1.0):
+            if not self.proc.is_alive() or time.monotonic() > deadline:
+                raise RuntimeError(
+                    f"ring producer {self.name} not ready (exit code "
+                    f"{self.proc.exitcode})")
+        return RingBuffer(self.name)
+
+    def stop(self) -> None:
+        """After a failure: end the producer and unlink its ring."""
+        self.proc.terminate()
+        self.proc.join(timeout=60)
+        try:
+            RingBuffer(self.name).destroy()
+        except OSError:
+            pass
+
+    def finish(self) -> list:
+        self.done.set()
+        reports = [self.results.get(timeout=600) for _ in range(self.n_runs)]
+        self.proc.join(timeout=120)
+        if self.proc.is_alive():
+            self.proc.terminate()
+            raise RuntimeError(f"ring producer {self.name} did not exit")
+        if self.proc.exitcode:
+            raise RuntimeError(f"ring producer exit code {self.proc.exitcode}")
+        return reports
+
+
+class TimedSource:
+    """A source wrapper that counts the host time spent in ``read_block``
+    (waiting for the producer, and first-sight slot registration)."""
+
+    def __init__(self, src):
+        self.src = src
+        self.pinned = getattr(src, "pinned", False)
+        self.n_host_buffers = getattr(src, "n_host_buffers", None)
+        self.read_s = 0.0
+
+    def read_block(self):
+        t = time.perf_counter()
+        got = self.src.read_block()
+        self.read_s += time.perf_counter() - t
+        return got
+
+    def release(self):
+        self.src.release()
+
+    @property
+    def dropped(self):
+        return self.src.dropped
+
+    @property
+    def skipped(self):
+        return self.src.skipped
+
+
+class FingerprintSink:
+    """Per block the wrapping sum of the product's bytes taken as 64-bit
+    words (a one-bit difference changes it), and full copies of the first
+    ``keep`` blocks."""
+
+    def __init__(self, keep=2):
+        self.sums, self.first, self.keep = [], {}, keep
+
+    def write(self, seq, powers):
+        t = torch.from_numpy(powers)
+        self.sums.append(int(t.view(torch.int64).sum()))
+        if len(self.first) < self.keep:
+            self.first[len(self.first)] = t.clone()
+
+
+def steady_ms(drained, n) -> float:
+    """Mean drain-to-drain interval from block 1 to n-3 (each holds one
+    whole iteration of the loop; block 0 carries start-up, the last two
+    drain after the loop)."""
+    return (drained[n - 3] - drained[1]) / (n - 4) * 1e3
+
+
+def ring_stream(cfg, qw, src, sink, **kw):
+    """A depth-2 stream from ``src`` and the list the host clock of each
+    block's drain is appended to."""
+    drained = []
+    bf = StreamingBeamformer(cfg, qw, src, sink, depth=RING_DEPTH,
+                             on_block=lambda bs: drained.append(
+                                 time.perf_counter()), **kw)
+    return bf, drained
+
+
+def phase_ring(blocks_np, smi) -> None:
+    """The ring ingest at the widest configuration /dev/shm holds: a
+    capture process writes the blocks; the power-only stream and the
+    deployed stream read them through RingSource on the pinned route and
+    must equal the same blocks through SyntheticSource; then a run paced at
+    1x real time reports its drops."""
+    total, free = shm_free()
+    cfg, why = choose_ring_cfg(free, [DSA10, DSA10_COMPACT,
+                                      DSA110.subband(0, 256)])
+    log(f"[ring] {SHM}: {total / 1e9:.3f} GB, {free / 1e9:.3f} GB free; "
+        f"{why}: ring phase at {tag(cfg)}")
+    prod = Producer(cfg, "random", [
+        (N_RING, None, True), (N_RING, None, False),
+        (N_RING_DEPLOYED, None, False), (N_RING, 1.0, False)])
+    if cfg != DSA10:
+        blocks_np = [with_carrier(cfg, make_random_bytes_block(cfg, seed=s))
+                     for s in (0, 1)]
+    qw = prepare_weights(cfg, make_weights(cfg, device=DEV))
+    ring = prod.attach()
+    src = RingSource(cfg, ring, timeout_s=60.0)
+    ok = False
+    try:
+        res = {}
+        # Power-only: synthetic (staged route), then the ring (pinned route)
+        # with the producer copying each block in, then with it committing
+        # the slots in place (the consumer's own pace).
+        routes = ("staged", "pinned, copying producer", "pinned")
+        for route in routes:
+            s = TimedSource(SyntheticSource(cfg, blocks_np, N_RING)
+                            if route == "staged" else src)
+            sink = FingerprintSink()
+            bf, drained = ring_stream(cfg, qw, s, sink)
+            bf.warmup()
+            clear_launches()
+            stats = bf.run(max_blocks=N_RING)
+            launches = dict(gemm.fused_detect.launches)
+            res[route] = (sink, stats, steady_ms(drained, N_RING))
+            log(f"[ring] {tag(cfg)} power-only {route}: {stats.n_blocks} "
+                f"blocks, {stats.wall_s * 1e3 / stats.n_blocks:.2f} "
+                f"ms/block, steady {res[route][2]:.2f} ms/block = "
+                f"{cfg.block_duration_s * 1e3 / res[route][2]:.4f}x "
+                f"realtime, in read_block {s.read_s * 1e3 / N_RING:.2f} "
+                f"ms/block (waiting for the producer, registering a slot "
+                f"at first sight), dropped {stats.dropped} skipped "
+                f"{stats.skipped}, launches {launches} on {smi}")
+            if launches != {"base": N_RING}:
+                raise RuntimeError(f"the {route} stream launched {launches}")
+        a = res["staged"][0]
+        for route in routes[1:]:
+            b, st = res[route][0], res[route][1]
+            if a.sums != b.sums or any(
+                    not torch.equal(a.first[i], b.first[i]) for i in a.first):
+                raise RuntimeError(f"ring power-only products ({route}) "
+                                   f"differ from the SyntheticSource "
+                                   f"stream's")
+            if st.dropped or st.skipped or st.n_blocks != N_RING:
+                raise RuntimeError(f"ring stream ({route}) dropped "
+                                   f"{st.dropped}, skipped {st.skipped}, "
+                                   f"{st.n_blocks} blocks")
+        log(f"[ring] power-only products equal (wrapping sums of the 64-bit "
+            f"words of all {N_RING} blocks, blocks 0-1 bit for bit); "
+            f"registered slots {len(src._registered)}; steady ms/block "
+            + ", ".join(f"{r} {res[r][2]:.2f}" for r in routes))
+        # Deployed: 8-bit .fil x all beams, incoherent .dada, RFI monitor.
+        with tempfile.TemporaryDirectory() as tmp:
+            tmp = Path(tmp)
+            digests, steady = {}, {}
+            for route in ("staged", "pinned"):
+                s = TimedSource(SyntheticSource(cfg, blocks_np,
+                                                N_RING_DEPLOYED)
+                                if route == "staged" else src)
+                r = deployed_ring_stream(cfg, s, tmp / route, smi, route)
+                digests[route], steady[route] = r
+            if digests["staged"] != digests["pinned"]:
+                bad = [k for k in digests["staged"]
+                       if digests["staged"][k] != digests["pinned"].get(k)]
+                raise RuntimeError(f"ring deployed files differ from the "
+                                   f"SyntheticSource stream's: {bad[:5]}")
+            log(f"[ring] deployed files equal byte for byte "
+                f"({len(digests['pinned'])} files); pinned/staged steady "
+                f"ms/block {steady['pinned']:.2f} / {steady['staged']:.2f}")
+        # Paced at 1x real time: the producer commits each block when due.
+        sink = FingerprintSink(keep=0)
+        s = TimedSource(src)
+        bf, drained = ring_stream(cfg, qw, s, sink)
+        bf.warmup()
+        prod.go.set()
+        stats = bf.run()  # to the producer's end of data
+        log(f"[ring] {tag(cfg)} paced at 1x real time "
+            f"({cfg.block_duration_s * 1e3:.2f} ms a block): read "
+            f"{stats.n_blocks} of {N_RING} blocks, dropped {stats.dropped}, "
+            f"skipped {stats.skipped}, {stats.wall_s * 1e3 / max(1, stats.n_blocks):.2f} "
+            f"ms/block")
+        ok = True
+    finally:
+        src.close()
+        ring.close()
+        if not ok:
+            prod.stop()
+    reports = prod.finish()
+    rep = reports[0]
+    nb = rep["blocks"] - (RING_DEPTH + 2)
+    log(f"[ring] producer's write rate (run 0, copying): "
+        f"{nb * cfg.wire_block_bytes / 1e9 / rep['copy_s']:.2f} GB/s = "
+        f"{rep['copy_s'] * 1e3 / nb:.1f} ms a block (4 threads; the first "
+        f"fill of the {RING_DEPTH + 2} slots, the first touch of their "
+        f"pages, took {rep['first_fill_s'] * 1e3:.0f} ms and is not "
+        f"counted); 1x real time needs "
+        f"{cfg.realtime_bytes_per_s / 1e9:.2f} GB/s; it waited "
+        f"{rep['wait_s']:.2f} s for free slots")
+    log(f"[ring] producer paced run: dropped {reports[3]['dropped']} in all")
+
+
+def deployed_ring_stream(cfg, src, fil_dir, smi, route) -> tuple:
+    """The deployed stream (8-bit .fil of every beam, incoherent .dada, RFI
+    monitor excising the carrier) from ``src``; returns the sha256 of every
+    file it wrote and the steady ms/block."""
+    qw = prepare_weights(cfg, make_weights(cfg, device=DEV))
+    fil = FilterbankSink(fil_dir, cfg, nbits=8)
+    inco = FileSink(fil_dir / "inco.dada", cfg, products="incoherent")
+    bf, drained = ring_stream(cfg, qw, src, fil, incoherent_sink=inco,
+                              flag_ants=(flagged_ant(cfg),))
+    events = []
+
+    def excise(ev):
+        events.append(ev)
+        if ev["type"] == "excise" and not ev.get("final"):
+            w = zap_weights(make_weights(cfg, device=DEV), ev["zapped"], cfg)
+            bf.update_weights(prepare_weights(cfg, w))
+
+    bf.rfi_monitor = RFIMonitor(cfg, interval=2, sample=2, on_event=excise)
+    bf.warmup()
+    clear_launches()
+    stats = bf.run(max_blocks=N_RING_DEPLOYED)
+    launches = dict(gemm.fused_detect.launches)
+    fil.close()
+    inco.close()
+    ms = steady_ms(drained, N_RING_DEPLOYED)
+    log(f"[ring] {tag(cfg)} deployed {route}: {stats.n_blocks} blocks, "
+        f"steady {ms:.2f} ms/block = {cfg.block_duration_s * 1e3 / ms:.4f}x "
+        f"realtime, read_block {src.read_s * 1e3 / N_RING_DEPLOYED:.2f} "
+        f"ms/block, dropped {stats.dropped} skipped {stats.skipped}, "
+        f"events {[(e['type'], e.get('new')) for e in events]}, launches "
+        f"{launches} on {smi}")
+    want = expected_launches(N_RING_DEPLOYED, q8=True, incoherent=True,
+                             rfi=True)
+    if launches != want or stats.dropped or stats.skipped \
+            or stats.n_blocks != N_RING_DEPLOYED:
+        raise RuntimeError(f"deployed {route}: launches {launches} (want "
+                           f"{want}), dropped {stats.dropped}, skipped "
+                           f"{stats.skipped}, {stats.n_blocks} blocks")
+    ex = [e for e in events if e["type"] == "excise"]
+    if len(ex) != 1 or ex[0]["new"] != [carrier_chan(cfg)]:
+        raise RuntimeError(f"want one excise of channel {carrier_chan(cfg)}, "
+                           f"got {events}")
+    digests = {p.name: hashlib.sha256(p.read_bytes()).hexdigest()
+               for p in sorted(fil_dir.iterdir())}
+    return digests, ms
+
+
+def expected_pulses(cfg, n_blocks) -> list:
+    """Output-sample start times of the drill's pulses, one a block."""
+    t_out = cfg.out_block_shape[1]
+    return [k * t_out + SEARCH_T0 // cfg.navg_time for k in range(n_blocks)]
+
+
+def check_pulse(cands, cfg, dms, beam, what) -> list:
+    """The candidates at the injected pulse: beam ``beam``, DM within one
+    trial of SEARCH_DM, time within the widest boxcar of an arrival."""
+    step = dms[1] - dms[0]
+    want = expected_pulses(cfg, N_SEARCH)
+    hits = [c for c in cands if c.beam == beam
+            and abs(c.dm - SEARCH_DM) <= step
+            and min(abs(c.t_samp - t) for t in want) <= max(DEFAULT_WIDTHS)]
+    if not hits:
+        raise RuntimeError(f"{what}: the pulse (DM {SEARCH_DM}, beam {beam}, "
+                           f"t {want}) was not found; strongest "
+                           f"{[c.row() for c in sorted(cands, key=lambda c: -c.snr)[:8]]}")
+    return hits
+
+
+def phase_search(prod, cfg, why, smi) -> tuple:
+    """The live single-pulse search at dsa10c width: the deployed stream
+    (8-bit .fil x256, incoherent .dada, RFI monitor excising the carrier)
+    of the dispersed-pulse block from the ring, a SearchMonitor (method
+    conv, DM to 100, chunk 4096, the 32-beam set, coincidence on) fed at
+    drain; then the offline search (method direct) of four beams' .fil
+    files; then each bank kernel against its plain version on the
+    monitor's first window, timed."""
+    log(f"[search] {why}: search phase at {tag(cfg)}")
+    f_mhz = cfg.freqs_hz() / 1e6
+    tsamp = cfg.sample_period_s * cfg.navg_time
+    dms = dm_trial_grid(float(f_mhz.min()), float(f_mhz.max()), tsamp,
+                        dm_max=SEARCH_DM_MAX)
+    qw = prepare_weights(cfg, make_weights(cfg, device=DEV))
+    ring = prod.attach()
+    src = RingSource(cfg, ring, timeout_s=120.0)
+    windows = []
+    ok = False
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            tmp = Path(tmp)
+            fil = FilterbankSink(tmp / "fil", cfg, nbits=8)
+            inco = FileSink(tmp / "inco.dada", cfg, products="incoherent")
+            bf = StreamingBeamformer(cfg, qw, src, fil, depth=RING_DEPTH,
+                                     incoherent_sink=inco,
+                                     flag_ants=(flagged_ant(cfg),))
+            events = []
+
+            def excise(ev):
+                events.append(ev)
+                if ev["type"] == "excise" and not ev.get("final"):
+                    w = zap_weights(make_weights(cfg, device=DEV),
+                                    ev["zapped"], cfg)
+                    bf.update_weights(prepare_weights(cfg, w))
+
+            bf.rfi_monitor = RFIMonitor(cfg, interval=2, sample=2,
+                                        on_event=excise)
+            mon = SearchMonitor(f_mhz, tsamp, dms, beam=SEARCH_SET,
+                                chunk_t=SEARCH_CHUNK, method="conv",
+                                device=DEV)
+            search_window = mon._search_window
+
+            window_s = []
+
+            def keep_first(window, own):
+                if not windows:
+                    windows.append(np.array(window))
+                t = time.perf_counter()
+                found = search_window(window, own)
+                window_s.append(time.perf_counter() - t)
+                return found
+
+            mon._search_window = keep_first
+            bf.search_monitor = mon
+            bf.warmup()
+            clear_launches()
+            for k in DD_KERNELS:
+                k.launches = 0
+            t0 = time.perf_counter()
+            stats = bf.run(max_blocks=N_SEARCH)
+            wall = time.perf_counter() - t0
+            live = {k.__name__: k.launches for k in DD_KERNELS}
+            fil.close()
+            inco.close()
+            log(f"[search] {tag(cfg)} deployed stream from the ring with the "
+                f"live search: {stats.n_blocks} blocks in {wall:.2f} s "
+                f"({wall * 1e3 / stats.n_blocks:.2f} ms/block incl. "
+                f"{mon.searched_windows} search windows), dropped "
+                f"{stats.dropped} skipped {stats.skipped}, RFI events "
+                f"{[(e['type'], e.get('new')) for e in events]}, "
+                f"{len(dms)} DM trials to {dms[-1]:.3f}, max delay "
+                f"{int(mon.delays.max())} samples, conv n_sub "
+                f"{_conv_auto_n_sub(mon.delays)}, detect launches "
+                f"{dict(gemm.fused_detect.launches)}, bank launches {live}, "
+                f"{len(mon.candidates)} candidates, {mon.rfi_rejected} "
+                f"clusters rejected as RFI on {smi}")
+            log(f"[search] window search times {[round(w * 1e3, 1) for w in window_s]} "
+                f"ms (host window, upload, bank, normalization, top-k, "
+                f"clustering, coincidence)")
+            if stats.n_blocks != N_SEARCH or stats.dropped or stats.skipped:
+                raise RuntimeError(f"search stream: {stats.n_blocks} blocks, "
+                                   f"dropped {stats.dropped}")
+            hits = check_pulse(mon.candidates, cfg, dms, SEARCH_BEAM,
+                               "live search")
+            best = max(hits, key=lambda c: c.snr)
+            log(f"[search] live: the pulse found {len(hits)} time(s) in beam "
+                f"{SEARCH_BEAM} at DM {best.dm:.3f} (injected {SEARCH_DM}, "
+                f"step {dms[1] - dms[0]:.4f}), t {best.t_samp} "
+                f"(arrivals {expected_pulses(cfg, N_SEARCH)[:4]} ...), "
+                f"S/N {best.snr:.2f}, width {best.width}; beams with "
+                f"candidates {sorted({c.beam for c in mon.candidates})}")
+            # Offline: dsabf-search's default bank on the written files.
+            spectra = [(b, read_fil_block_all(tmp / "fil" / f"beam{b:04d}.fil",
+                                              cfg, N_SEARCH))
+                       for b in OFFLINE_BEAMS]
+            DD_KERNELS[0].launches = 0
+            by_beam = search_spectrograms(spectra, f_mhz, tsamp, dms,
+                                          method="direct", device=DEV)
+            live["dedisperse_direct"] = DD_KERNELS[0].launches
+            off = check_pulse([c for cs in by_beam.values() for c in cs],
+                              cfg, dms, SEARCH_BEAM, "offline search")
+            log(f"[search] offline (method direct, beams {OFFLINE_BEAMS}): "
+                f"the pulse found {len(off)} time(s) in beam {SEARCH_BEAM}, "
+                f"best S/N {max(c.snr for c in off):.2f}; direct launches "
+                f"{live['dedisperse_direct']}")
+        ok = True
+    finally:
+        src.close()
+        ring.close()
+        if not ok:
+            prod.stop()
+    prod.finish()
+    missing = [k for k, v in live.items() if not v]
+    if missing:
+        raise RuntimeError(f"bank kernels never launched on a main path: "
+                           f"{missing}")
+    return live, phase_bank_kernels(windows[0], mon, smi)
+
+
+def read_fil_block_all(path, cfg, n_blocks) -> np.ndarray:
+    """An 8-bit .fil file's data as ascending-frequency ``[T, F]``."""
+    _, off = read_filterbank_header(path)
+    f_out, t_out, _ = cfg.out_block_shape
+    data = np.fromfile(path, np.uint8, offset=off)
+    return data.reshape(n_blocks * t_out, f_out)[:, ::-1]
+
+
+def bank_bound(adds, nbytes) -> tuple:
+    ops, mem = adds / H100_F32_ADDS_PER_S * 1e3, nbytes / H100_BYTES_PER_S * 1e3
+    return (ops, "operations") if ops >= mem else (mem, "bytes")
+
+
+def phase_bank_kernels(window, mon, smi) -> dict:
+    """Each bank kernel against its plain version on the monitor's first
+    window (the 32 beams), max abs error (bit-equal expected: the same adds
+    in the same order), 10 timed launches, the plain version once, and the
+    bound: the adds over the FP32 rate and the bytes (every input read
+    once, the output written once) over the memory rate."""
+    b, t, f = window.shape
+    delays = mon.delays
+    n_dm = delays.shape[0]
+    fill = np.median(window[:, ::max(1, t // 512)], axis=1).astype(np.float32)
+    out = {}
+    # direct
+    p = _padded_columns(window, fill, t + int(delays.max()), 0, DEV)
+    dt = torch.from_numpy(delays).to(DEV)
+    k = dedisperse_direct(p, dt, t)
+    plain_t0 = time.perf_counter()
+    kp = dedisperse_direct_plain(p, dt, t)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - plain_t0) * 1e3
+    err = float((k - kp).abs().max())
+    ms = time_ms(lambda i: dedisperse_direct(p, dt, t), N_TIMED)
+    adds = b * n_dm * f * t
+    nbytes = p.numel() * 4 + dt.numel() * 4 + k.numel() * 4
+    out["dedisperse_direct"] = (err, ms, plain_ms, *bank_bound(adds, nbytes),
+                                (b, f, t, n_dm), ":156")
+    del p, k, kp
+    # the conv plan's two stages
+    intra_c, inter, rep_of, pad_f = _conv_plan(delays, _conv_auto_n_sub(delays),
+                                               1)
+    g, j, c = intra_c.shape
+    t1 = t + int(inter.max())
+    t_pad = t1 + int(intra_c.max())
+    p = _padded_columns(window, fill, t_pad, pad_f, DEV).view(b, g, c, t_pad)
+    it = torch.from_numpy(intra_c).to(DEV)
+    s = subband_stage1(p, it, t1)
+    plain_t0 = time.perf_counter()
+    sp = subband_stage1_plain(p, it, t1)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - plain_t0) * 1e3
+    err = float((s - sp).abs().max())
+    ms = time_ms(lambda i: subband_stage1(p, it, t1), N_TIMED)
+    adds = b * g * j * c * t1
+    nbytes = p.numel() * 4 + it.numel() * 4 + s.numel() * 4
+    out["subband_stage1"] = (err, ms, plain_ms, *bank_bound(adds, nbytes),
+                             (b, g, c, t_pad, j, t1), ":179")
+    offsets = _table(rep_of[None, :] * t1 + inter.T, DEV)
+    o = subband_stage2(s, offsets, t)
+    plain_t0 = time.perf_counter()
+    op = subband_stage2_plain(s, offsets, t)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - plain_t0) * 1e3
+    err2 = float((o - op).abs().max())
+    ms2 = time_ms(lambda i: subband_stage2(s, offsets, t), N_TIMED)
+    adds = b * n_dm * g * t
+    nbytes = s.numel() * 4 + offsets.numel() * 4 + o.numel() * 4
+    out["subband_stage2"] = (err2, ms2, plain_ms, *bank_bound(adds, nbytes),
+                             (b, g, j, t1, n_dm, t), ":179")
+    del p, s, sp, o, op
+    search_window_breakdown(window, mon, smi)
+    for name, (err, ms, plain_ms, bnd, by, shape, _) in out.items():
+        log(f"[search kernels] {name} {shape}: max abs err vs plain {err!r}, "
+            f"{ms:.3f} ms over {N_TIMED} launches, plain {plain_ms:.1f} ms, "
+            f"bound {bnd:.3f} ms by {by} ({bnd / ms:.1%} of it) on {smi}")
+        if err != 0.0:
+            raise RuntimeError(f"{name} differs from its plain version by "
+                               f"{err!r} (the same adds in the same order "
+                               f"must be bit-equal)")
+    return out
+
+
+def search_window_breakdown(window, mon, smi) -> None:
+    """Where one window's search time goes (the monitor's steps on its first
+    window, host clock, each step synchronized): the conv bank (the window's
+    upload, its padding on the card, both stages), the normalization and
+    top-k, the host's thresholding and clustering per beam."""
+    times = {}
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    bank, valid_len = _bank("conv", window, mon.delays, mon.n_sub, DEV)
+    torch.cuda.synchronize()
+    times["bank"] = time.perf_counter() - t
+    t = time.perf_counter()
+    k = min(mon.topk, bank.shape[2] - mon.max_w + 1)
+    snr, idx = _snr_topk(bank, mon.widths, k)
+    times["snr_topk"] = time.perf_counter() - t
+    t = time.perf_counter()
+    n_points = 0
+    for bi in range(window.shape[0]):
+        pts = _threshold_points(snr[bi], idx[bi], mon.widths, valid_len,
+                                SEARCH_CHUNK, 0, mon.threshold)
+        n_points += len(pts)
+        _cluster(pts, mon.dms, mon.tsamp_s, mon.band_span, mon.dm_link)
+    times["cluster"] = time.perf_counter() - t
+    log(f"[search window] {list(window.shape)} float32 window: "
+        + ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in times.items())
+        + f" ({n_points} points above threshold clustered) on {smi}")
+
+
+def bank_rows(live, checked) -> list:
+    """The kernels line's rows of the three dedispersion kernels."""
+    return [{
+        "name": name,
+        "route": "cuda",
+        "source": "dsabeamformer_tpu_torch/csrc/dedisperse.cu",
+        "replaces": f"dsabeamformer_tpu/ops/dedisperse.py{line}",
+        "launches": live[name],
+        "max_abs_err": err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bnd,
+        "bound_by": by,
+        "library_ms": None,
+        "shape": list(shape),
+    } for name, (err, ms, plain_ms, bnd, by, shape, line) in checked.items()]
+
+
 def mode_rows(res, suffix="") -> list:
     """The kernels line's rows of the newer modes: per mode one row of its
     detect kernel (the base variant's numbers; ``launches`` counts every
@@ -1677,6 +2409,11 @@ def main() -> None:
     phase_transfers(cfg, blocks[0])
     launches = collections.Counter(
         base=phase_stream(cfg, blocks, qw, res["block0"], smi))
+    # The search drill's capture process makes its dsa10c pulse block while
+    # the phases below keep the card busy (half of /dev/shm is its to take).
+    search_cfg, search_why = choose_ring_cfg(shm_free()[1] // 2,
+                                             [DSA10_COMPACT])
+    search_prod = Producer(search_cfg, "pulse", [(N_SEARCH, None, False)])
 
     # The deployed path's variants, kernel against plain, then timed.
     checked = phase_variants(cfg, blocks[0], qw,
@@ -1700,6 +2437,8 @@ def main() -> None:
         with_carrier(cfg, b)
     launches.update(phase_deployed(cfg, blocks, smi))
     launches.update(phase_stokes_deployed(cfg, blocks, smi))
+    # The ring ingest (its streams driven with the counts set to 0).
+    phase_ring(blocks, smi)
     # The other weight modes on the same two blocks (carrier included).
     modes = phase_modes(blocks, smi)
     del blocks
@@ -1708,6 +2447,10 @@ def main() -> None:
     launches.update(phase_other_deployments(cc, cc_blocks, smi))
     launches.update(phase_other_deployments(cc, cc_blocks, smi, "stokes"))
     del cc_blocks
+    # Bytes to candidates: the live search from the ring, the offline
+    # search, and the bank kernels against their plain versions.
+    bank_live, bank_checked = phase_search(search_prod, search_cfg,
+                                           search_why, smi)
     missing = [v for v in ALL_VARIANTS if not launches[v]]
     if missing:
         raise RuntimeError(f"variants never launched on a main path: "
@@ -1727,6 +2470,7 @@ def main() -> None:
                            d110["checked"], d110["times"], d110["volt"],
                            "[dsa110]")
     kernels += mode_rows(modes) + mode_rows(d110["modes"], "[dsa110]")
+    kernels += bank_rows(bank_live, bank_checked)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -8,13 +8,17 @@ run today:
 
     config -> models.weights.make_weights -> ops.quantize.prepare_weights
       -> pipeline.StreamingBeamformer(products="power" | "stokes"):
-         pinned staging -> H2D
+         pipeline.RingSource (the capture process's shared-memory ring,
+         ingest.ring; slots registered with CUDA, H2D straight from them)
+         or pinned staging -> H2D
       -> ops.gemm.beamform_power / beamform_stokes (hand-written CUDA
          kernel, csrc/detect_power.cu: power or I/Q/U/V, uint8 epilogue,
          incoherent sum, spectral-kurtosis accumulators) -> D2H
       -> sinks (ingest.sigproc.FilterbankSink .fil, 1 or 4 IFs;
          pipeline.FileSink .dada) and ops.rfi.RFIMonitor, whose excisions
-         regenerate the weights mid-stream
+         regenerate the weights mid-stream, models.tracking.FringeTracker,
+         and the live single-pulse search ops.dedisperse.SearchMonitor
+         (dedispersion banks on csrc/dedisperse.cu) -> candidates
 
 and the unfused validation path, ops.gemm.beamform_voltages
 (csrc/beam_voltages.cu), that the fused products are held against.

@@ -24,6 +24,19 @@ import numpy as np
 
 SPEED_OF_LIGHT_M_S = 299_792_458.0
 
+#: Cold-plasma dispersion: delay_s = DM_CONST_S * DM[pc cm^-3] * f[MHz]^-2
+#: (shared by the pulse generator and the dedispersion search).
+DM_CONST_S = 4.148808e3
+
+
+def dm_delays_s(f_mhz, dm: float, ref_mhz: float):
+    """Cold-plasma arrival delays [s] of channels ``f_mhz`` relative to
+    ``ref_mhz`` (conventionally the top of the band, which arrives first):
+    the one definition of the curve that the pulse generator and the search
+    share."""
+    f = np.asarray(f_mhz, np.float64)
+    return DM_CONST_S * dm * (f ** -2.0 - float(ref_mhz) ** -2.0)
+
 
 @dataclasses.dataclass(frozen=True)
 class ObsConfig:

@@ -11,7 +11,11 @@ from __future__ import annotations
 
 import numpy as np
 
-from dsabeamformer_tpu_torch.config import SPEED_OF_LIGHT_M_S, ObsConfig
+from dsabeamformer_tpu_torch.config import (
+    SPEED_OF_LIGHT_M_S,
+    ObsConfig,
+    dm_delays_s,
+)
 from dsabeamformer_tpu_torch.models.arrays import ArrayLayout, array_for
 from dsabeamformer_tpu_torch.ops.packing import pack_4r4i
 
@@ -84,6 +88,63 @@ def make_point_source_block(
         g = np.asarray(instrumental_gains)[: cfg.n_ant_active].T  # [F,a]
         v = v * g[:, None, None, :]
 
+    re = np.zeros(shape, np.float64)
+    im = np.zeros(shape, np.float64)
+    a = cfg.n_ant_active
+    re[..., :a] = v.real + rng.normal(0.0, noise_rms, v.shape)
+    im[..., :a] = v.imag + rng.normal(0.0, noise_rms, v.shape)
+    return _emit(cfg, re, im)
+
+
+def make_dispersed_pulse_block(
+    cfg: ObsConfig,
+    dm: float,
+    angle_rad: float = 0.0,
+    t0_sample: int = 0,
+    width_samples: int = 2,
+    layout: ArrayLayout | None = None,
+    amplitude: float = 6.0,
+    noise_rms: float = 0.5,
+    seed: int = 0,
+    period_samples: int | None = None,
+) -> np.ndarray:
+    """A broadband pulse dispersed at ``dm`` on top of receiver noise: the
+    injected-FRB drill.
+
+    Per channel the point-source signal (coherent across antennas through the
+    geometric phase, as in ``make_point_source_block``) is windowed to
+    ``width_samples`` starting at the cold-plasma arrival time ``t0 +
+    DM_CONST_S * dm * (f_c^-2 - f_top^-2)`` (the top of the band arrives
+    first), rounded to wire samples.  Channels whose arrival falls past
+    ``t_block`` carry no pulse.  ``period_samples`` makes it a pulse train
+    (pulses at ``t_arr + k * period`` for every integer ``k``).
+    """
+    if period_samples is not None and period_samples <= width_samples:
+        raise ValueError(f"period_samples {period_samples} must exceed "
+                         f"width_samples {width_samples}")
+    rng = np.random.default_rng(seed)
+    layout = layout if layout is not None else array_for(cfg)
+    f = cfg.freqs_hz()[:, None, None]                       # [F,1,1]
+    x = layout.positions_m[None, None, : cfg.n_ant_active]  # [1,1,a]
+    steer = np.exp(
+        2j * np.pi * f * x * np.sin(angle_rad) / SPEED_OF_LIGHT_M_S
+    )  # [F,1,a]
+    f_mhz = cfg.freqs_hz() / 1e6
+    delays = dm_delays_s(f_mhz, dm, f_mhz.max())
+    t_arr = t0_sample + np.rint(delays / cfg.sample_period_s).astype(int)
+    t = np.arange(cfg.t_block)[None, :]                     # [1,T]
+    if period_samples is not None:
+        # Python's % is non-negative, so the train extends to t < t0
+        window = ((t - t_arr[:, None]) % period_samples) < width_samples
+    else:
+        window = ((t >= t_arr[:, None])
+                  & (t < t_arr[:, None] + width_samples))   # [F,T]
+    sig = amplitude / np.sqrt(2) * (
+        rng.standard_normal((cfg.n_chan, cfg.t_block, cfg.n_pol))
+        + 1j * rng.standard_normal((cfg.n_chan, cfg.t_block, cfg.n_pol))
+    ) * window[:, :, None]                                  # [F,T,P]
+    v = sig[..., None] * steer[:, :, None, :]               # [F,T,P,a]
+    shape = (cfg.n_chan, cfg.t_block, cfg.n_pol, cfg.n_ant)
     re = np.zeros(shape, np.float64)
     im = np.zeros(shape, np.float64)
     a = cfg.n_ant_active

@@ -915,3 +915,149 @@ def test_stream_without_a_sink_copies_no_product(dev):
     StreamingBeamformer(cfg, qw, SyntheticSource(cfg, blocks, 5), with_sink,
                         depth=2, incoherent_sink=CollectSink()).run()
     assert len(with_sink.outputs) == 5
+
+
+# --------------------------------------------------------------------- #
+# The dedispersion bank's kernels (csrc/dedisperse.cu) and the pinned ring
+# --------------------------------------------------------------------- #
+
+#: (B, F, T_out, n_dm, max shift): odd sizes, partial tiles of every kind.
+DD_SHAPES = [(1, 7, 5, 3, 4), (2, 64, 300, 33, 90), (3, 130, 1000, 17, 257),
+             (1, 300, 129, 40, 600)]
+
+
+@pytest.mark.parametrize("shape", DD_SHAPES)
+def test_dedisperse_kernels_equal_plain(dev, shape):
+    """All three kernels against their plain versions on random data and
+    tables: bit for bit (the same float32 adds in the same order)."""
+    from dsabeamformer_tpu_torch.ops import dedisperse as dd
+
+    b, f, t_out, n_dm, max_shift = shape
+    rng = np.random.default_rng(sum(shape))
+    p = torch.from_numpy(rng.normal(size=(b, f, t_out + max_shift)
+                                    ).astype(np.float32))
+    delays = torch.from_numpy(rng.integers(0, max_shift + 1, (n_dm, f),
+                                           dtype=np.int32))
+    before = dd.dedisperse_direct.launches
+    got = dd.dedisperse_direct(p.to(dev), delays.to(dev), t_out)
+    assert dd.dedisperse_direct.launches == before + 1
+    assert torch.equal(got.cpu(), dd.dedisperse_direct_plain(p, delays,
+                                                            t_out))
+    g = max(1, f // 5)
+    c = f // g
+    pg = p[:, :g * c].reshape(b, g, c, -1).contiguous()
+    j = max(1, n_dm // 2)
+    intra = torch.from_numpy(rng.integers(0, max_shift // 2 + 1, (g, j, c),
+                                          dtype=np.int32))
+    t1 = t_out + max_shift // 2
+    s = dd.subband_stage1(pg.to(dev), intra.to(dev), t1)
+    s_plain = dd.subband_stage1_plain(pg, intra, t1)
+    assert torch.equal(s.cpu(), s_plain)
+    offsets = torch.from_numpy(rng.integers(0, j * t1 - t_out + 1,
+                                            (g, n_dm), dtype=np.int32))
+    out = dd.subband_stage2(s, offsets.to(dev), t_out)
+    assert torch.equal(out.cpu(), dd.subband_stage2_plain(s_plain, offsets,
+                                                          t_out))
+
+
+def test_dedisperse_kernels_reject_what_they_do_not_take(dev):
+    from dsabeamformer_tpu_torch.ops import dedisperse as dd
+
+    p = torch.zeros((1, 4, 64), device=dev)
+    d = torch.zeros((2, 4), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="float32"):
+        dd.dedisperse_direct(p.double(), d, 8)
+    with pytest.raises(ValueError, match="int32"):
+        dd.dedisperse_direct(p, d.long(), 8)
+    with pytest.raises(ValueError, match="table on"):
+        dd.dedisperse_direct(p, d.cpu(), 8)
+    with pytest.raises(ValueError, match="channels"):
+        dd.dedisperse_direct(p, d[:, :3].contiguous(), 8)
+    with pytest.raises(ValueError, match="contiguous"):
+        dd.dedisperse_direct(p.transpose(1, 2).contiguous().transpose(1, 2),
+                             d, 8)
+
+
+@pytest.mark.parametrize("method", ["direct", "subband", "conv"])
+def test_search_on_card_equals_cpu(dev, method):
+    """The whole search, banks on the kernels, equals the CPU's: candidates
+    one for one, S/N included; uint8 and float32 windows."""
+    from dsabeamformer_tpu_torch.ops import dedisperse as dd
+
+    rng = np.random.default_rng(4)
+    freqs = np.linspace(1280.0, 1530.0, 64)
+    tsamp = 1.048576e-3
+    dms = dd.dm_trial_grid(1280.0, 1530.0, tsamp, dm_max=300.0)
+    x = rng.normal(size=(2048, 64)).astype(np.float32)
+    shifts = np.rint(dd.dm_delays_s(freqs, 90.0, freqs[-1]) / tsamp
+                     ).astype(int)
+    for f in range(64):
+        x[700 + shifts[f]: 704 + shifts[f], f] += 1.0
+    for data in (x, np.clip(x * 20 + 100, 0, 255).astype(np.uint8)):
+        kw = dict(threshold=7.0, method=method, n_sub=8, chunk_t=1024)
+        cpu = dd.search_spectrogram(data, freqs, tsamp, dms, device="cpu",
+                                    **kw)
+        card = dd.search_spectrogram(data, freqs, tsamp, dms, device=dev,
+                                     **kw)
+        assert cpu and card == cpu
+
+
+@pytest.mark.parametrize("depth", [0, 2])
+def test_pinned_ring_route_equals_staged_route(dev, depth):
+    """A RingSource on the card (registered slots, H2D straight from them)
+    gives the SyntheticSource stream's products bit for bit, registers each
+    slot once, releases every slot, and its views are pinned."""
+    import uuid
+
+    from dsabeamformer_tpu_torch.ingest import dada
+    from dsabeamformer_tpu_torch.ingest.ring import RingBuffer
+    from dsabeamformer_tpu_torch.pipeline import RingSource
+
+    cfg = DSA10.replace(n_chan=8, t_block=256)
+    blocks = [make_noise_block(cfg, rms=2.0, seed=s) for s in range(2)]
+    qw = _weights(cfg, dev)
+    n, nbufs = 7, 3
+    ref = CollectSink()
+    StreamingBeamformer(cfg, qw, SyntheticSource(cfg, blocks, n), ref,
+                        depth=depth).run()
+    name = f"pinned-{uuid.uuid4().hex[:10]}"
+    with RingBuffer(name, create=True, nbufs=nbufs,
+                    bufsz=cfg.wire_block_bytes) as prod:
+        prod.write_header(dada.encode_header(cfg))
+        cons = RingBuffer(name)
+        src = RingSource(cfg, cons, timeout_s=2.0)
+        assert src.pinned and src.n_host_buffers is None
+        written = 0
+
+        class Feeding:
+            """The producer keeps the ring full between reads."""
+            pinned = True
+            dropped = skipped = 0
+
+            def read_block(self):
+                nonlocal written
+                while written < n and \
+                        prod.n_written - prod.n_read < nbufs:
+                    assert prod.write_block(blocks[written % 2])
+                    written += 1
+                if written == n:
+                    prod.set_eod()
+                got = src.read_block()
+                if got is not None:
+                    assert got[1].is_pinned()
+                return got
+
+            def release(self):
+                src.release()
+
+        sink = CollectSink()
+        bf = StreamingBeamformer(cfg, qw, Feeding(), sink, depth=depth)
+        stats = bf.run()
+        assert len(src._registered) == nbufs
+        assert cons.n_read == n and src.dropped == 0 and src.skipped == 0
+        src.close()
+        cons.close()
+    assert stats.n_blocks == n
+    assert [s for s, _ in sink.outputs] == list(range(n))
+    for (_, a), (_, b) in zip(sink.outputs, ref.outputs):
+        assert np.array_equal(a, b)

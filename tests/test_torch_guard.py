@@ -100,12 +100,14 @@ def test_build_module_imports_without_nvcc(tmp_path):
 
 def test_kernel_sources_hold_one_design_each():
     """Every CUDA source the wrappers build is one design: no preprocessor
-    switch at all, nothing read from the environment, exactly the two
+    switch at all, nothing read from the environment, exactly the two GEMM
     sources of ``gemm.KERNEL_SOURCES`` (``detect_power.cu`` and
-    ``beam_voltages.cu``) with no other ``.cu`` beside them, no GEMM left on
-    the CUDA cores (``__dp4a`` products, ``fmaf``, ``float_gemm.cuh``), and
-    both kernels issuing ``wgmma`` through ``mma_gemm.cuh``."""
-    from dsabeamformer_tpu_torch.ops import gemm
+    ``beam_voltages.cu``) and the dedispersion bank's
+    (``dedisperse.KERNEL_SOURCE``) with no other ``.cu`` beside them, no
+    GEMM left on the CUDA cores (``__dp4a`` products, ``fmaf``,
+    ``float_gemm.cuh``), and both GEMM kernels issuing ``wgmma`` through
+    ``mma_gemm.cuh``."""
+    from dsabeamformer_tpu_torch.ops import dedisperse, gemm
 
     csrc = PORT / "csrc"
     for path in sorted(csrc.glob("*.cu*")):
@@ -119,7 +121,8 @@ def test_kernel_sources_hold_one_design_each():
             if "__dp4a" in line:
                 assert path.name == "detect_epilogue.cuh", where
     assert sorted(p.stem for p in csrc.glob("*.cu")) \
-        == sorted(gemm.KERNEL_SOURCES) == ["beam_voltages", "detect_power"]
+        == sorted(gemm.KERNEL_SOURCES + (dedisperse.KERNEL_SOURCE,)) \
+        == ["beam_voltages", "dedisperse", "detect_power"]
     assert not (csrc / "float_gemm.cuh").exists()
     for name in gemm.KERNEL_SOURCES:
         text = (csrc / f"{name}.cu").read_text()
