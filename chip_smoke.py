@@ -179,7 +179,14 @@ Widths and shapes off the presets (the tensor-core kernel walks K in steps of
                ``utils.testing.random_geometry`` (8-32 antennas, 8-32 beams,
                navg_time 2-16, one to three windows, both layouts, five
                modes) against the plain version and the float64 golden,
-               and through the voltage kernel against its plain version.
+               and through the voltage kernel against its plain version;
+               then DSA-10's wire of 10, 12 and 20 slots
+               in auto mode (a_compute 10, 12, 20; the 10 slots' rows
+               start off 4 bytes) and a_compute 160, 224 and 264 (past
+               255 int8 and int8x2 multiply X), every mode, a 16-channel
+               slice of 1024 samples: the detect (power) and the voltage
+               kernels against plain (int8-mode voltages equal), then
+               stokes+sk+q8+inco with the bars of phase 11.
 
 The ring ingest and the live search (PR 10 of the port):
 
@@ -210,7 +217,10 @@ The ring ingest and the live search (PR 10 of the port):
                then the offline search (method direct) of four beams' .fil
                files must find it too; then each dedispersion kernel against
                its plain version on the monitor's first window (bit-equal),
-               timed over 10 launches, with its bound.
+               timed over 10 launches, with its bound, its share of it and
+               the share of (warp, channel)s its register window serves; and
+               stage 1's library yardstick, one float32 grouped one-hot
+               ``conv1d`` (TF32 off), timed over 3 launches.
 
 Each streamed phase, and the voltage paths, set the launch counts to 0 just
 before their run and read them just after.  The last two lines are a JSON
@@ -284,6 +294,7 @@ from dsabeamformer_tpu_torch.ops.dedisperse import (
     subband_stage1_plain,
     subband_stage2,
     subband_stage2_plain,
+    bank_paths,
 )
 from dsabeamformer_tpu_torch.ops.quantize import prepare_weights
 from dsabeamformer_tpu_torch.ops.reference import (
@@ -310,6 +321,7 @@ KERNEL_VS_PLAIN_RTOL = 1e-5  # same integers in both; f32 summation order only
 GOLDEN_RTOL = 1e-3           # the accuracy bar against the float64 golden
 TARGET_BEAM = 100
 N_TIMED = 10                 # back-to-back launches in the resident timing
+N_LIBRARY_TIMED = 3          # launches of a library call timed beside one
 N_STREAM = 12                # blocks in the streamed run
 #: The int8x2 detect kernel at full dsa10 width must be faster than this:
 #: half of the 37.49 ms its dp4a predecessor took on an H100 80GB HBM3 at
@@ -1551,13 +1563,55 @@ WIDTHS = (24, 40, 112)
 WIDTH_MODES = ("int8x2", "int13", "bf16x2", "f32")
 WIDTH_VARIANTS = ("base", "stokes+sk+q8+inco")
 N_GEOMETRIES = 10
+#: DSA-10's wire in auto mode (10, 12 and 20 slots: a_compute 10, 12, 20,
+#: int13's 20 rounded to 16; the 10 slots' pol y rows off 4 bytes) and past
+#: the DSA-110 width (160, 224; 264, where int8 and int8x2 multiply X, not
+#: 16 X): every mode, power and Stokes with every side output and voltages
+#: against plain, on a 16-channel slice of 1024 samples.
+NEW_WIDTHS = (10, 12, 20, 160, 224, 264)
 
 
 def width_cfg(ac, n_chan=VOLTAGE_CHANNELS, **kw):
     """A DSA-110 sub-band contracting exactly ``ac`` antennas, two of its
     slots inactive."""
     return DSA110.replace(name=f"dsa110-ac{ac}", n_chan=n_chan,
-                          n_ant_active=ac - 2, n_ant_compute=ac, **kw)
+                          n_ant=max(DSA110.n_ant, ac), n_ant_active=ac - 2,
+                          n_ant_compute=ac, **kw)
+
+
+def new_width_cfg(ac, mode, layout):
+    """``NEW_WIDTHS``' configs: a DSA-10 wire of ``ac`` slots (10 active)
+    in auto mode, or a DSA-110 slice contracting ``ac``."""
+    if ac > 20:
+        return width_cfg(ac, n_chan=16, t_block=1024, weight_mode=mode,
+                         input_layout=layout)
+    return DSA10.replace(name=f"dsa10-slots{ac}", n_chan=16, t_block=1024,
+                         n_ant=ac, n_ant_active=10, weight_mode=mode,
+                         input_layout=layout)
+
+
+def check_detect_and_voltages(cfg, seed) -> tuple:
+    """The detect (power) and voltage kernels against their plain versions
+    on one random-bytes block: (detect relative error, voltages max error /
+    peak); raises past KERNEL_VS_PLAIN_RTOL, or for any voltage error of an
+    int8 mode (the same integers times the same scale)."""
+    wire = make_random_bytes_block(cfg, seed=seed)
+    qw = prepare_weights(cfg, make_weights(cfg, device=DEV))
+    x, tm = gemm._prepare_wire(to_device(cfg, wire), cfg)
+    out_k = gemm.fused_detect(x, qw.terms, qw.scales, cfg, tm)[0]
+    out_p = gemm.detect_power_plain(x, qw.terms, qw.scales, cfg, tm)[0]
+    rel = relative_power_error_on_card(out_k, out_p)
+    bv = gemm.beamform_voltages(x, qw, cfg)
+    bv_p = gemm.voltages_plain(x, qw.terms, qw.scales, cfg, tm)
+    torch.cuda.synchronize()
+    verr = float((bv - bv_p).abs().max()) / float(bv_p.abs().max())
+    vlim = KERNEL_VS_PLAIN_RTOL if cfg.weight_mode in gemm.FLOAT_MODES else 0.0
+    if rel > KERNEL_VS_PLAIN_RTOL or verr > vlim \
+            or not bool(torch.isfinite(out_k).all()):
+        raise RuntimeError(f"{tag(cfg)} a_compute {cfg.a_compute}: kernel "
+                           f"disagrees with its plain version (detect "
+                           f"{rel:.3e}, voltages {verr:.3e})")
+    return rel, verr, vlim
 
 
 def phase_widths() -> None:
@@ -1577,24 +1631,29 @@ def phase_widths() -> None:
     # (its voltages are 0.5 GB).
     for mode in gemm.KERNEL_MODES:
         cfg = width_cfg(24, n_chan=16, weight_mode=mode)
-        wire = make_random_bytes_block(cfg, seed=24)
-        qw = prepare_weights(cfg, make_weights(cfg, device=DEV))
-        x, tm = gemm._prepare_wire(to_device(cfg, wire), cfg)
-        out_k = gemm.fused_detect(x, qw.terms, qw.scales, cfg, tm)[0]
-        out_p = gemm.detect_power_plain(x, qw.terms, qw.scales, cfg, tm)[0]
-        rel = relative_power_error_on_card(out_k, out_p)
-        bv = gemm.beamform_voltages(x, qw, cfg)
-        bv_p = gemm.voltages_plain(x, qw.terms, qw.scales, cfg, tm)
-        torch.cuda.synchronize()
-        verr = float((bv - bv_p).abs().max()) / float(bv_p.abs().max())
-        vlim = KERNEL_VS_PLAIN_RTOL if mode in gemm.FLOAT_MODES else 0.0
+        rel, verr, vlim = check_detect_and_voltages(cfg, 24)
         log(f"[widths] {tag(cfg)} a_compute 24: detect relative error "
             f"{rel:.3e} (tol {KERNEL_VS_PLAIN_RTOL:.0e}), voltages max error / "
             f"peak {verr:.3e} (limit {vlim:.0e})")
-        if rel > KERNEL_VS_PLAIN_RTOL or verr > vlim \
-                or not bool(torch.isfinite(out_k).all()):
-            raise RuntimeError(f"a_compute 24 in {mode}: kernel disagrees "
-                               f"with its plain version")
+    # DSA-10's slots and past the DSA-110 width, every mode: power and
+    # voltages, then Stokes with every side output.
+    for ac in NEW_WIDTHS:
+        for i, mode in enumerate(gemm.KERNEL_MODES):
+            cfg = new_width_cfg(ac, mode, ("tfpa", "ftpa")[i % 2])
+            want = 16 if mode == "int13" and ac == 20 else ac
+            if cfg.a_compute != want:
+                raise RuntimeError(f"a_compute {cfg.a_compute}, want {want}")
+            tiles = gemm._detect_tiles(cfg)
+            rel, verr, vlim = check_detect_and_voltages(cfg, ac)
+            log(f"[widths] {tag(cfg)} {cfg.input_layout} n_ant {cfg.n_ant} "
+                f"a_compute {cfg.a_compute} (tile {tiles.beams} beams x "
+                f"{tiles.groups} warpgroups): detect relative error "
+                f"{rel:.3e} (tol {KERNEL_VS_PLAIN_RTOL:.0e}), voltages max "
+                f"error / peak {verr:.3e} (limit {vlim:.0e})")
+            wire = make_random_bytes_block(cfg, seed=ac + 1)
+            qw = prepare_weights(cfg, make_weights(
+                cfg, cal=CalTable.random(cfg, seed=ac), device=DEV))
+            phase_variants(cfg, wire, qw, ["stokes+sk+q8+inco"])
     for i in range(N_GEOMETRIES):
         cfg, _ = random_geometry(i)
         cal = CalTable.random(cfg, seed=i)
@@ -2213,7 +2272,8 @@ def phase_bank_kernels(window, mon, smi) -> dict:
     adds = b * n_dm * f * t
     nbytes = p.numel() * 4 + dt.numel() * 4 + k.numel() * 4
     out["dedisperse_direct"] = (err, ms, plain_ms, *bank_bound(adds, nbytes),
-                                (b, f, t, n_dm), ":156")
+                                (b, f, t, n_dm), ":156", None,
+                                float((bank_paths(delays) == 0).mean()))
     del p, k, kp
     # the conv plan's two stages
     intra_c, inter, rep_of, pad_f = _conv_plan(delays, _conv_auto_n_sub(delays),
@@ -2221,7 +2281,7 @@ def phase_bank_kernels(window, mon, smi) -> dict:
     g, j, c = intra_c.shape
     t1 = t + int(inter.max())
     t_pad = t1 + int(intra_c.max())
-    p = _padded_columns(window, fill, t_pad, pad_f, DEV).view(b, g, c, t_pad)
+    p = _padded_columns(window, fill, t_pad, pad_f, DEV).view(b, g, c, -1)
     it = torch.from_numpy(intra_c).to(DEV)
     s = subband_stage1(p, it, t1)
     plain_t0 = time.perf_counter()
@@ -2232,8 +2292,16 @@ def phase_bank_kernels(window, mon, smi) -> dict:
     ms = time_ms(lambda i: subband_stage1(p, it, t1), N_TIMED)
     adds = b * g * j * c * t1
     nbytes = p.numel() * 4 + it.numel() * 4 + s.numel() * 4
+    lib_ms, lib_err = stage1_conv1d(p, intra_c, t1, s)
+    served = np.mean([(bank_paths(intra_c[gg]) == 0).mean()
+                      for gg in range(g)])
     out["subband_stage1"] = (err, ms, plain_ms, *bank_bound(adds, nbytes),
-                             (b, g, c, t_pad, j, t1), ":179")
+                             (b, g, c, t_pad, j, t1), ":179", lib_ms,
+                             float(served))
+    log(f"[search kernels] subband_stage1's library call: one float32 "
+        f"grouped conv1d with a one-hot weight [{g * j}, {c}, "
+        f"{int(intra_c.max()) + 1}] (cuDNN, TF32 off), {lib_ms:.3f} ms, max "
+        f"abs error vs the kernel {lib_err!r} (its own sum order) on {smi}")
     offsets = _table(rep_of[None, :] * t1 + inter.T, DEV)
     o = subband_stage2(s, offsets, t)
     plain_t0 = time.perf_counter()
@@ -2245,18 +2313,53 @@ def phase_bank_kernels(window, mon, smi) -> dict:
     adds = b * n_dm * g * t
     nbytes = s.numel() * 4 + offsets.numel() * 4 + o.numel() * 4
     out["subband_stage2"] = (err2, ms2, plain_ms, *bank_bound(adds, nbytes),
-                             (b, g, j, t1, n_dm, t), ":179")
+                             (b, g, j, t1, n_dm, t), ":179", None, None)
     del p, s, sp, o, op
     search_window_breakdown(window, mon, smi)
-    for name, (err, ms, plain_ms, bnd, by, shape, _) in out.items():
+    for name, (err, ms, plain_ms, bnd, by, shape, _, lib_ms, served) \
+            in out.items():
         log(f"[search kernels] {name} {shape}: max abs err vs plain {err!r}, "
             f"{ms:.3f} ms over {N_TIMED} launches, plain {plain_ms:.1f} ms, "
-            f"bound {bnd:.3f} ms by {by} ({bnd / ms:.1%} of it) on {smi}")
+            f"library {'none' if lib_ms is None else f'{lib_ms:.3f} ms'}, "
+            f"bound {bnd:.3f} ms by {by} ({bnd / ms:.1%} of it)"
+            + ("" if served is None else
+               f", register window on {served:.1%} of (warp, row)s")
+            + f" on {smi}")
         if err != 0.0:
             raise RuntimeError(f"{name} differs from its plain version by "
                                f"{err!r} (the same adds in the same order "
                                f"must be bit-equal)")
     return out
+
+
+def stage1_conv1d(p, intra_c, t1, s_kernel) -> tuple:
+    """The one PyTorch call that computes stage 1 (the reference's
+    ``_conv_bank_jit`` formulation, JAX dedisperse.py:235): a float32
+    grouped ``conv1d`` of the ``[B, G * C, T_pad]`` columns with a one-hot
+    weight ``[G * J, C, max shift + 1]``, cuDNN's TF32 off; timed over a
+    few launches (it is the yardstick, not the port's).  Returns (ms, max
+    abs error against the kernel's stage 1)."""
+    b, g, c, t_pad = p.shape
+    j = intra_c.shape[1]
+    taps = int(intra_c.max()) + 1
+    w = torch.zeros((g * j, c, taps), dtype=torch.float32, device=DEV)
+    gi, ji, ci = np.meshgrid(np.arange(g), np.arange(j), np.arange(c),
+                             indexing="ij")
+    w[torch.from_numpy((gi * j + ji).ravel()).to(DEV),
+      torch.from_numpy(ci.ravel()).to(DEV),
+      torch.from_numpy(intra_c.ravel().astype(np.int64)).to(DEV)] = 1.0
+    x = p.view(b, g * c, t_pad)
+    allow = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        conv = torch.nn.functional.conv1d(x, w, groups=g)[..., :t1]
+        ms = time_ms(lambda i: torch.nn.functional.conv1d(x, w, groups=g),
+                     N_LIBRARY_TIMED)
+    finally:
+        torch.backends.cudnn.allow_tf32 = allow
+    err = float((conv.view(b, g, j, t1) - s_kernel).abs().max())
+    del w, conv
+    return ms, err
 
 
 def search_window_breakdown(window, mon, smi) -> None:
@@ -2300,9 +2403,10 @@ def bank_rows(live, checked) -> list:
         "plain_ms": plain_ms,
         "bound_ms": bnd,
         "bound_by": by,
-        "library_ms": None,
+        "library_ms": lib_ms,
         "shape": list(shape),
-    } for name, (err, ms, plain_ms, bnd, by, shape, line) in checked.items()]
+    } for name, (err, ms, plain_ms, bnd, by, shape, line, lib_ms, _)
+        in checked.items()]
 
 
 def mode_rows(res, suffix="") -> list:

@@ -16,10 +16,10 @@
 //                + M_lo, int12 and int13 with 16), X = [re | im]
 //   out[f, t, p, b]     = f32(M[t, p, b])     * s   (Re)
 //   out[f, t, p, B + b] = f32(M[t, p, B + b]) * s   (Im)
-//   s = the channel's (last) scale.  The unfolded modes' sums are 16 M
-//   (mma_gemm.cuh product_scale), and f32(16 M) = 16 f32(M) exactly, so
-//   f32(16 M) * 2^-4 * s, two rounded multiplies, is the plain PyTorch
-//   version's (and the JAX kernel's) f32(M) * s to the bit.
+//   s = the channel's (last) scale.  The unfolded modes' sums are 16 M up
+//   to a_compute 255 (mma_gemm.cuh product_scale), and f32(16 M) = 16
+//   f32(M) exactly, so f32(16 M) * 2^-4 * s, two rounded multiplies, is the
+//   plain PyTorch version's (and the JAX kernel's) f32(M) * s to the bit.
 //   bf16, bf16x2, f32:
 //   V[t, p, c] = sum over the bf16 sub-terms and k of X * W_sub in float32
 //                (bf16x2's hi and lo, f32's three exact bf16 parts), times
@@ -144,8 +144,9 @@ __device__ __forceinline__ void store_mtile(const Acc (&acc)[NT][4],
 
 // W: the weights' operand type (IntWeights: int8 operands, int32 sums;
 // FloatWeights: bf16 operands, float32 sums); NT: n-tiles of the weight
-// tile (g.tile_beams / 4).
-template <class W, int NT>
+// tile (g.tile_beams / 4); X: the int8 sub-terms multiply X throughout
+// (tile_product).
+template <class W, int NT, bool X>
 __global__ void __launch_bounds__(kGroupThreads * kMaxGroups, 1)
 beam_voltages_kernel(const uint8_t* __restrict__ wire,
                      W w,
@@ -188,7 +189,7 @@ beam_voltages_kernel(const uint8_t* __restrict__ wire,
   stage_weight_tile<4 * NT>(ws, w, g, f, bt, n_beams);
   __syncthreads();  // ws is complete; from here the warpgroups go their ways
   const float s = scales[(long long)f * w.n_scales + (w.n_scales - 1)];
-  const float unit = kFloat ? 1.f : 1.f / float(product_scale(g.fold != 0));
+  const float unit = kFloat ? 1.f : 1.f / float(product_scale(g));
   // Every segment starts on 16 bytes when the row (2B floats) and its Im
   // part (B floats further) do.
   const bool vec = n_beams % 4 == 0;
@@ -217,8 +218,8 @@ beam_voltages_kernel(const uint8_t* __restrict__ wire,
       const int m0 = (round * kRoundRows + warp) * kMtileSamples;
       const int smp = m0 + row_lane;
       Acc acc[NT][4];
-      tile_product(acc, raw + smp * g.raw_stride, plane, smp < here, ws, g,
-                   lane);
+      tile_product<X>(acc, raw + smp * g.raw_stride, plane, smp < here, ws, g,
+                      lane);
       if (m0 < here) {
         store_mtile<NT>(acc, stage, unit, s, out, f, t0 + m0, n_time,
                         n_beams, bt, vec, lane);
@@ -229,12 +230,12 @@ beam_voltages_kernel(const uint8_t* __restrict__ wire,
 
 // The shared memory may be above the 48 KB default: raise the
 // instantiation's limit to what this launch needs, then launch.
-template <class W, int NT>
+template <class W, int NT, bool X = false>
 cudaError_t launch(dim3 grid, size_t smem, cudaStream_t stream,
                    const void* wire, const W& w, const void* scales,
                    void* out, const MmaGeom& g, int n_time, int n_beams,
                    int n_ant, long long time_stride, long long chan_stride) {
-  auto kernel = beam_voltages_kernel<W, NT>;
+  auto kernel = beam_voltages_kernel<W, NT, X>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (e != cudaSuccess) return e;
@@ -250,6 +251,13 @@ cudaError_t launch(dim3 grid, size_t smem, cudaStream_t stream,
   return cudaGetLastError();
 }
 
+// The int8 instantiation for X: the unfolded modes past g.x16's width.
+template <int NT, typename... Args>
+cudaError_t launch_int(const MmaGeom& g, Args&&... args) {
+  return !g.fold && !g.x16 ? launch<IntWeights, NT, true>(args...)
+                           : launch<IntWeights, NT, false>(args...);
+}
+
 }  // namespace
 
 extern "C" {
@@ -258,8 +266,9 @@ extern "C" {
 // Pointers: wire uint8 (see time_stride/chan_stride); w0, w1, n_terms, fold,
 // elem_size and scales as dsabf_detect_power takes them (detect_power.cu);
 // out f32 [n_chan, n_time, 2, 2*n_beams], Re in columns 0 .. n_beams - 1
-// and Im in n_beams .. 2*n_beams - 1.  a_compute: every multiple of 8 up to
-// 128; any n_time from 1; anything else is refused.
+// and Im in n_beams .. 2*n_beams - 1.  a_compute: any from 1 to n_ant whose
+// weight tile and one span fit in shared memory; any n_time from 1;
+// anything else is refused.
 int dsabf_beam_voltages(const void* wire, const void* w0, const void* w1,
                         const void* scales, void* out, int n_chan,
                         int n_time, int n_beams, int n_ant, int a_compute,
@@ -267,16 +276,12 @@ int dsabf_beam_voltages(const void* wire, const void* w0, const void* w1,
                         long long time_stride, long long chan_stride,
                         void* stream) {
   if (n_chan < 1 || n_chan > 65535 || n_beams < 1 || n_time < 1 ||
-      n_ant % 4 || a_compute < 8 || a_compute % 8 || a_compute > n_ant ||
-      a_compute > kMaxAnt || reinterpret_cast<uintptr_t>(out) % 16) {
+      a_compute < 1 || a_compute > n_ant ||
+      reinterpret_cast<uintptr_t>(out) % 16) {
     return int(cudaErrorInvalidValue);
   }
   const int n_mtiles = (n_time + kMtileSamples - 1) / kMtileSamples;
-  // What every address of a wire row is a multiple of: 16 lets cp.async
-  // move 16 bytes at a time.
-  const bool wide = !(reinterpret_cast<uintptr_t>(wire) % 16 || n_ant % 16 ||
-                      time_stride % 16 || chan_stride % 16);
-  const int align = wide ? 16 : 4;
+  const int align = wire_align(wire, n_ant, time_stride, chan_stride);
   IntWeights iw;
   FloatWeights fw;
   MmaGeom g;
@@ -287,13 +292,13 @@ int dsabf_beam_voltages(const void* wire, const void* w0, const void* w1,
           ? make_int_weights(iw, w0, w1, n_terms, fold, a_compute, n_beams) &&
                 make_mma_geom(g, smem, a_compute, 0, n_terms, fold, iw.factor,
                               kMtileSamples, n_mtiles, align, kMaxGroups,
-                              kMinGroups, kStageRows)
+                              kMinGroups, kStageRows, 0)
           : !fold &&
                 make_float_weights(fw, n_sub, w0, w1, n_terms, elem_size,
                                    a_compute, n_beams) &&
                 make_mma_geom(g, smem, a_compute, 1, n_sub, 0, 1,
                               kMtileSamples, n_mtiles, align, kMaxGroups,
-                              kMinGroups, kStageRows);
+                              kMinGroups, kStageRows, 0);
   if (!ok) return int(cudaErrorInvalidValue);
   const int n_spans = (n_mtiles + g.rows_out - 1) / g.rows_out;
   const int chunks = (n_beams + g.tile_beams - 1) / g.tile_beams;
@@ -304,9 +309,13 @@ int dsabf_beam_voltages(const void* wire, const void* w0, const void* w1,
                                 n_chan, chunks));
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (elem_size == 1) {
-    return int(launch<IntWeights, 16>(grid, smem, st, wire, iw, scales, out,
-                                      g, n_time, n_beams, n_ant, time_stride,
-                                      chan_stride));
+    return g.tile_beams == kNarrowTileBeams
+               ? int(launch_int<8>(g, grid, smem, st, wire, iw, scales, out,
+                                   g, n_time, n_beams, n_ant, time_stride,
+                                   chan_stride))
+               : int(launch_int<16>(g, grid, smem, st, wire, iw, scales, out,
+                                    g, n_time, n_beams, n_ant, time_stride,
+                                    chan_stride));
   }
   if (g.tile_beams == kNarrowTileBeams) {
     return int(launch<FloatWeights, 8>(grid, smem, st, wire, fw, scales, out,

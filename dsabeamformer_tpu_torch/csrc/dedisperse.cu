@@ -15,19 +15,55 @@
 // Each output sample is a float32 sum taken in ascending channel (group)
 // order from zero with plain adds (__fadd_rn: nothing fused or reordered),
 // so every kernel equals its plain PyTorch version and the reference's
-// sequential scan bit for bit.
+// sequential scan bit for bit.  Which thread owns which sums is the tiling's
+// choice; the order of the adds within one sum never is.
 //
 // What bounds it on the card: the adds (one per output sample per channel
-// or group; FP32 outside the tensor cores), not the bytes: a block re-reads
-// its beam's channel columns once per trial from L1/L2, and the data a
-// window moves (its padded columns once, the bank once) is a few hundred MB.
-// Design, simple first: a block owns (beam, 16 trials, 128 output samples),
-// one output sample a thread with the 16 trials' sums in registers; it
-// walks the channels, staging its trials' delay rows 256 channels at a time
-// in shared memory (a broadcast read: every thread of a trial reads the same
-// word), and each warp's reads of one channel at one trial's shift are 32
-// consecutive floats of that channel's contiguous time series.  No tensor
-// cores, TMA or pipelining: speed is a later change's.
+// or group; FP32 outside the tensor cores, 128 a clock an SM), not the
+// bytes (the padded columns once and the bank once are a few hundred MB a
+// window).  An add that takes its sample straight from memory needs a load
+// as well, and an SM issues one warp-wide load a clock (shared memory and
+// L1 move 128 bytes a clock) against four warp-wide adds: a gather bank of
+// one load an add (the first design of these kernels) tops out near 1/8 of
+// the add rate with its shift loads, 1/4 without.  The two banks
+// (dedisperse_direct, subband_stage1) share one kernel, bank_kernel, whose
+// design takes most loads out of the adds:
+//   - A block owns (z, kBlockTrials trials, kBlockT output samples): z the
+//     beam (direct) or the beam's channel group (stage 1); each of its
+//     kWarps warps kK of the trials, each lane kR consecutive samples of
+//     the block's kBlockT, so every warp covers every sample of the block.
+//     A thread keeps its kK x kR sums in registers.
+//   - The block walks the rows (channels) in chunks of kChunk.  For each
+//     chunk it stages each row's span [t0 + s_min, t0 + kBlockT + s_min +
+//     kBlockSpan) in shared memory with cp.async (16 bytes a copy where the
+//     rows allow it), s_min the least shift of the block's trials on that
+//     row, into one of two buffers: the next chunk's copy runs under this
+//     chunk's adds.  The shifts of a chunk are copied two chunks ahead and
+//     summarized once per (warp, row): the least shift, where the warp's
+//     windows start in the staged row, and the pattern of steps between its
+//     consecutive trials.
+//   - Shared across trials: on a row, a lane loads the kR + 6 floats its kK
+//     trials' shifts can touch into registers once (a window), and each
+//     trial adds the kR of them at its offset.  The offsets are
+//     warp-uniform (every lane shares the trials and the row), so the
+//     choice among the window's registers is one warp-uniform jump a row to
+//     the code of the warp's pattern: the steps between its 4 trials' shifts,
+//     each -1 .. 2 (64 patterns, each with its offsets as constants: no
+//     divergence, no local memory).  kR is odd, so the 32 lanes' loads (kR
+//     floats apart) meet 32 banks.  On the dsa10c window every (warp,
+//     channel) of both banks takes a window: 21 loads, one jump and 60 adds
+//     a lane and row.
+//   - A row whose steps leave -1 .. 2 takes loads from the staged row per
+//     trial (the offsets in bytes); one whose block span is past kBlockSpan
+//     (a table that is not a DM sweep: random, steep) per-trial loads from
+//     global memory: the same adds in the same order, a load each.  Paths
+//     chosen by the data, in the same kernel.
+//   - The sums leave through shared memory, so that a warp's stores are
+//     whole runs of 32 consecutive samples of a trial.
+// Stage 2 keeps its first design (a block: a beam, 16 trials, 128 samples,
+// one sample a thread, the shifts staged in shared memory): bound by its
+// bytes, not its adds (a few groups a sum), it ran at 61% of that bound on
+// the dsa10c window.
 //
 // Plain C interface (no PyTorch headers), bound with ctypes; the wrapper
 // checks shapes, types and devices, and the callers bound the shifts
@@ -40,15 +76,16 @@
 
 namespace {
 
-constexpr int kTileT = 128;          // output samples a block owns
-constexpr int kTileTrials = 16;      // trials (coarse trials) a block owns
-constexpr int kStageChannels = 256;  // delay-row columns staged at a time
+// ------------------------------- stage 2 ---------------------------------
 
-// The core of all three kernels: a block's kTileTrials sums of
-// `data[row r][t + shift[k][r]]` over rows r in [0, n_rows), the rows
-// `row_stride` floats apart, the shifts read as shift(k, r) from global
-// memory (row-major with `shift_row` ints between trials, `shift_col`
-// between rows) and staged in shared memory.
+constexpr int kTileT = 128;          // output samples a block owns
+constexpr int kTileTrials = 16;      // trials a block owns
+constexpr int kStageChannels = 256;  // shift-table columns staged at a time
+
+// A block's kTileTrials sums of `data[row r][t + shift[k][r]]` over rows r
+// in [0, n_rows), the rows `row_stride` floats apart, the shifts read as
+// shift(k, r) from global memory (row-major with `shift_row` ints between
+// trials, `shift_col` between rows) and staged in shared memory.
 __device__ void sum_rows(const float* __restrict__ data, long long row_stride,
                          int n_rows, const int* __restrict__ shift,
                          long long shift_row, long long shift_col, int n_k,
@@ -80,47 +117,6 @@ __device__ void sum_rows(const float* __restrict__ data, long long row_stride,
 
 // grid (ceil(t_out / kTileT), ceil(n_dm / kTileTrials), B)
 __global__ void __launch_bounds__(kTileT)
-    direct_kernel(const float* __restrict__ p, const int* __restrict__ delays,
-                  float* __restrict__ out, int n_chan, long long t_pad,
-                  int n_dm, int t_out) {
-  const int t = blockIdx.x * kTileT + threadIdx.x;
-  const int d0 = blockIdx.y * kTileTrials;
-  const int n_k = min(kTileTrials, n_dm - d0);
-  const long long b = blockIdx.z;
-  float acc[kTileTrials];
-  sum_rows(p + b * n_chan * t_pad, t_pad, n_chan,
-           delays + static_cast<long long>(d0) * n_chan, n_chan, 1, n_k, t,
-           t < t_out, acc);
-  if (t >= t_out) return;
-  float* o = out + (b * n_dm + d0) * t_out + t;
-#pragma unroll
-  for (int k = 0; k < kTileTrials; ++k)
-    if (k < n_k) o[static_cast<long long>(k) * t_out] = acc[k];
-}
-
-// grid (ceil(t1 / kTileT), ceil(n_coarse / kTileTrials), B * G)
-__global__ void __launch_bounds__(kTileT)
-    stage1_kernel(const float* __restrict__ p, const int* __restrict__ intra,
-                  float* __restrict__ s, int n_grp, int n_cpg,
-                  long long t_pad, int n_coarse, int t1) {
-  const int t = blockIdx.x * kTileT + threadIdx.x;
-  const int j0 = blockIdx.y * kTileTrials;
-  const int n_k = min(kTileTrials, n_coarse - j0);
-  const long long bg = blockIdx.z;  // b * G + g
-  const long long g = bg % n_grp;
-  float acc[kTileTrials];
-  sum_rows(p + bg * n_cpg * t_pad, t_pad, n_cpg,
-           intra + (g * n_coarse + j0) * n_cpg, n_cpg, 1, n_k, t, t < t1,
-           acc);
-  if (t >= t1) return;
-  float* o = s + (bg * n_coarse + j0) * t1 + t;
-#pragma unroll
-  for (int k = 0; k < kTileTrials; ++k)
-    if (k < n_k) o[static_cast<long long>(k) * t1] = acc[k];
-}
-
-// grid (ceil(t_out / kTileT), ceil(n_dm / kTileTrials), B)
-__global__ void __launch_bounds__(kTileT)
     stage2_kernel(const float* __restrict__ s, const int* __restrict__ offsets,
                   float* __restrict__ out, int n_grp, long long plane,
                   int n_dm, int t_out) {
@@ -140,10 +136,460 @@ __global__ void __launch_bounds__(kTileT)
     if (k < n_k) o[static_cast<long long>(k) * t_out] = acc[k];
 }
 
-dim3 grid_of(int n_t, int n_trials, long long n_z) {
-  return dim3((n_t + kTileT - 1) / kTileT,
-              (n_trials + kTileTrials - 1) / kTileTrials,
-              static_cast<unsigned>(n_z));
+// ------------------------- the banks: bank_kernel -------------------------
+
+constexpr int kR = 15;                      // samples a lane owns (odd)
+constexpr int kK = 4;                       // trials a warp owns
+constexpr int kWarps = 8;                   // warps of a block
+constexpr int kThreads = 32 * kWarps;
+constexpr int kBlockT = 32 * kR;            // samples a block owns: 480
+constexpr int kBlockTrials = kWarps * kK;   // trials a block owns: 32
+constexpr int kMinStep = -1;                // the steps between a warp's
+constexpr int kMaxStep = 2;                 // consecutive trials its window
+                                            // takes
+constexpr int kSteps = kMaxStep - kMinStep + 1;
+constexpr int kPatterns = kSteps * kSteps * kSteps;  // 64: steps of 3 pairs
+constexpr int kWin = kR + (kK - 1) * kMaxStep;       // window registers: 21
+constexpr int kBlockSpan = 60;              // widest block span staged
+// Floats of a staged row: the block's samples, its span, up to 3 of lead
+// and room for a window's last registers past what a pattern reads.
+constexpr int kRow = kBlockT + kBlockSpan + 4 + 8;
+constexpr int kChunk = 16;                  // rows a stage holds
+constexpr int kMetaBufs = 3;                // shift summaries in flight
+// Dynamic shared memory: two stages of kChunk rows.
+constexpr int kBankSmem = 2 * kChunk * kRow * int(sizeof(float));
+// How a warp adds a row (WarpRow::path): 0 .. kPatterns - 1 the register
+// window at that pattern of steps; then loads from the staged row per
+// trial; then loads from global memory per trial.
+constexpr int kStagedPath = kPatterns;
+constexpr int kGlobalPath = kPatterns + 1;
+
+static_assert(kR % 2 == 1, "lanes kR floats apart must meet 32 banks");
+static_assert(kWarps * kK * kBlockT <= 2 * kChunk * kRow,
+              "the sums leave through the staged rows' memory");
+static_assert(kRow % 4 == 0, "staged rows start on 16 bytes");
+static_assert(kK == 4, "a pattern is the steps of 3 pairs of trials");
+
+// What a warp's trials need of one row: their shifts' offsets from the
+// least of them (8 bits each, trial j in bits 8j ..; staged path), how the
+// warp adds the row and where in the staged row its lanes' windows (the
+// least shift's samples) start (summarize); 16 bytes, one load a row.
+struct __align__(16) WarpRow {
+  int offsets, path, at;
+};
+// What the block's trials need of one row: their least shift and span.
+struct BlockRow {
+  int s_min, span;
+};
+
+// The block-uniform description of one launch's rows, trials and outputs.
+struct Bank {
+  const float* data;       // row r of z at data + z * data_z + r * t_pad
+  long long data_z, t_pad;
+  int n_rows;
+  const int* table;        // shift of trial d on row r of z:
+  long long table_z;       //   table[(z % z_mod) * table_z + d * n_rows + r]
+  int z_mod;
+  int n_trials;
+  float* out;              // out[z * out_z + d * t_out + t]
+  long long out_z;
+  int t_out;
+  int vec;                 // != 0: rows and data start on 16 bytes
+};
+
+// The shift of trial d (clamped into the table: trials past n_trials take
+// the last one's, so they add no step) on row r of the table.
+__device__ __forceinline__ int shift_of(const int* tab, const Bank& k, int d,
+                                        int r) {
+  return __ldg(tab + (long long)min(d, k.n_trials - 1) * k.n_rows + r);
+}
+
+// The floats of a staged row before the block's first sample: aligning the
+// copy's start down to 16 bytes.
+__device__ __forceinline__ int lead_of(const Bank& k, long long start) {
+  return k.vec ? int(start & 3) : 0;
+}
+
+// The summarizing threads: one a (warp, row of a chunk), thread c * kWarps
+// + w for warp w and row c, so that a row's warps are neighbouring lanes.
+constexpr int kSummarizers = kWarps * kChunk;
+static_assert(kSummarizers % 32 == 0 && kSummarizers <= kThreads,
+              "whole warps summarize");
+static_assert(32 % kWarps == 0, "a row's warps share a warp");
+
+__device__ __forceinline__ void commit_copies() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// Until this thread's copies have landed (a barrier then shows every
+// thread's).
+__device__ __forceinline__ void wait_copies() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Start the copies of the shifts of warp w's trials on row r0 + c into
+// raw[tid] (each summarizing thread its own: no barrier between its copy
+// and its read).
+__device__ __forceinline__ void fetch_shifts(int (*raw)[kK], const int* tab,
+                                             const Bank& k, int d0, int r0,
+                                             int nr) {
+  const int tid = threadIdx.x;
+  const int c = tid / kWarps, w = tid % kWarps;
+  if (tid >= kSummarizers || c >= nr) return;
+#pragma unroll
+  for (int j = 0; j < kK; ++j) {
+    const int d = min(d0 + w * kK + j, k.n_trials - 1);
+    const int* src = tab + (long long)d * k.n_rows + r0 + c;
+    const uint32_t dst = uint32_t(__cvta_generic_to_shared(&raw[tid][j]));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+                 :: "r"(dst), "l"(src));
+  }
+}
+
+// The summaries of rows r0 .. r0 + nr - 1 from the shifts fetch_shifts
+// brought (after this thread's cp.async.wait_group), by the summarizing
+// threads.  Warp w's of row c: a window pattern where each trial's shift
+// is its predecessor's plus kMinStep .. kMaxStep (pattern = the steps less
+// kMinStep in base kSteps, the first pair's lowest), else the staged path
+// where its offsets from its least shift fit 8 bits, else the global path;
+// and where its lanes' windows start in the staged row.  The block's (its
+// warps' least shift and span, reduced across the row's kWarps lanes): the
+// global path for every warp where the span is past kBlockSpan.
+__device__ __forceinline__ void summarize(const int (*raw)[kK], int nr,
+                                          WarpRow (*wr)[kChunk],
+                                          BlockRow* br, const Bank& k,
+                                          int t0) {
+  const int tid = threadIdx.x;
+  if (tid >= kSummarizers) return;  // whole warps
+  const int c = tid / kWarps, w = tid % kWarps;
+  const int* s = raw[tid];          // garbage past nr: never written out
+  int lo = s[0], hi = s[0], pattern = 0, scale = 1;
+  bool steps = true;
+#pragma unroll
+  for (int j = 1; j < kK; ++j) {
+    lo = min(lo, s[j]);
+    hi = max(hi, s[j]);
+    const int step = s[j] - s[j - 1];
+    const bool in = step >= kMinStep && step <= kMaxStep;
+    steps = steps && in;
+    pattern += (in ? step - kMinStep : 0) * scale;
+    scale *= kSteps;
+  }
+  const bool narrow = hi - lo < 256;
+  int offsets = 0;
+  if (narrow) {
+#pragma unroll
+    for (int j = 0; j < kK; ++j) offsets |= (s[j] - lo) << (8 * j);
+  }
+  int b_lo = lo, b_hi = hi, b_wide = !narrow;
+#pragma unroll
+  for (int m = 1; m < kWarps; m <<= 1) {
+    b_lo = min(b_lo, __shfl_xor_sync(0xffffffffu, b_lo, m));
+    b_hi = max(b_hi, __shfl_xor_sync(0xffffffffu, b_hi, m));
+    b_wide |= __shfl_xor_sync(0xffffffffu, b_wide, m);
+  }
+  if (c >= nr) return;
+  const int span = b_wide ? kBlockSpan + 1 : b_hi - b_lo;
+  const bool global = span > kBlockSpan;
+  wr[w][c] = WarpRow{offsets,
+                     global  ? kGlobalPath
+                     : steps ? pattern
+                             : kStagedPath,
+                     lead_of(k, (long long)t0 + b_lo) + lo - b_lo};
+  if (w == 0) br[c] = BlockRow{b_lo, span};
+}
+
+// Start the copies of rows r0 .. r0 + nr - 1 of z's data, each from t0 +
+// s_min - lead for kRow floats (those below t_pad), STEP floats a copy,
+// into rows.  A row whose block span is past kBlockSpan is not staged (its
+// warps take per-trial loads from global memory).
+template <int STEP>
+__device__ __forceinline__ void copy_rows(float* rows, const float* data,
+                                          const Bank& k, int t0, int r0,
+                                          int nr, const BlockRow* br) {
+  constexpr int per = kRow / STEP;   // copies of a row
+  for (int i = threadIdx.x; i < nr * per; i += kThreads) {
+    const int c = i / per, q = i - c * per;
+    const BlockRow b = br[c];
+    if (b.span > kBlockSpan) continue;
+    const long long want = (long long)t0 + b.s_min;
+    const long long at = want - lead_of(k, want) + (long long)q * STEP;
+    if (at + STEP > k.t_pad) continue;
+    const float* src = data + (long long)(r0 + c) * k.t_pad + at;
+    const uint32_t dst = uint32_t(__cvta_generic_to_shared(
+        rows + c * kRow + q * STEP));
+    if constexpr (STEP == 4) {
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+                   :: "r"(dst), "l"(src));
+    } else {
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+                   :: "r"(dst), "l"(src));
+    }
+  }
+}
+
+__device__ __forceinline__ void stage_rows(float* rows, const float* data,
+                                           const Bank& k, int t0, int r0,
+                                           int nr, const BlockRow* br) {
+  if (k.vec) {
+    copy_rows<4>(rows, data, k, t0, r0, nr, br);
+  } else {
+    copy_rows<1>(rows, data, k, t0, r0, nr, br);
+  }
+}
+
+// The offset of trial J from the warp's least shift in pattern P.
+template <int P, int J>
+__host__ __device__ constexpr int pattern_offset() {
+  int c[kK] = {0, 0, 0, 0};
+  int p = P, lo = 0;
+  for (int j = 1; j < kK; ++j, p /= kSteps) {
+    c[j] = c[j - 1] + p % kSteps + kMinStep;
+    lo = c[j] < lo ? c[j] : lo;
+  }
+  return c[J] - lo;
+}
+
+// The lane's window of a row on the window path: kWin floats from its
+// first sample's place in the staged row.
+__device__ __forceinline__ void load_window(float (&win)[kWin],
+                                            const float* row,
+                                            const WarpRow& m, int tl) {
+  const float* src = row + m.at + tl;
+#pragma unroll
+  for (int i = 0; i < kWin; ++i) win[i] = src[i];
+}
+
+// acc[j][r] += win[o_j + r] with pattern P's offsets.
+template <int P>
+__device__ __forceinline__ void add_pattern(float (&acc)[kK][kR],
+                                            const float (&win)[kWin]) {
+  constexpr int off[kK] = {pattern_offset<P, 0>(), pattern_offset<P, 1>(),
+                           pattern_offset<P, 2>(), pattern_offset<P, 3>()};
+#pragma unroll
+  for (int j = 0; j < kK; ++j) {
+#pragma unroll
+    for (int r = 0; r < kR; ++r) {
+      acc[j][r] = __fadd_rn(acc[j][r], win[off[j] + r]);
+    }
+  }
+}
+
+// One row's adds from the lane's window: a warp-uniform jump to the code of
+// the warp's pattern.
+__device__ __forceinline__ void add_window(float (&acc)[kK][kR],
+                                           const float (&win)[kWin],
+                                           int pattern) {
+  switch (pattern) {
+    case 0: add_pattern<0>(acc, win); break;
+    case 1: add_pattern<1>(acc, win); break;
+    case 2: add_pattern<2>(acc, win); break;
+    case 3: add_pattern<3>(acc, win); break;
+    case 4: add_pattern<4>(acc, win); break;
+    case 5: add_pattern<5>(acc, win); break;
+    case 6: add_pattern<6>(acc, win); break;
+    case 7: add_pattern<7>(acc, win); break;
+    case 8: add_pattern<8>(acc, win); break;
+    case 9: add_pattern<9>(acc, win); break;
+    case 10: add_pattern<10>(acc, win); break;
+    case 11: add_pattern<11>(acc, win); break;
+    case 12: add_pattern<12>(acc, win); break;
+    case 13: add_pattern<13>(acc, win); break;
+    case 14: add_pattern<14>(acc, win); break;
+    case 15: add_pattern<15>(acc, win); break;
+    case 16: add_pattern<16>(acc, win); break;
+    case 17: add_pattern<17>(acc, win); break;
+    case 18: add_pattern<18>(acc, win); break;
+    case 19: add_pattern<19>(acc, win); break;
+    case 20: add_pattern<20>(acc, win); break;
+    case 21: add_pattern<21>(acc, win); break;
+    case 22: add_pattern<22>(acc, win); break;
+    case 23: add_pattern<23>(acc, win); break;
+    case 24: add_pattern<24>(acc, win); break;
+    case 25: add_pattern<25>(acc, win); break;
+    case 26: add_pattern<26>(acc, win); break;
+    case 27: add_pattern<27>(acc, win); break;
+    case 28: add_pattern<28>(acc, win); break;
+    case 29: add_pattern<29>(acc, win); break;
+    case 30: add_pattern<30>(acc, win); break;
+    case 31: add_pattern<31>(acc, win); break;
+    case 32: add_pattern<32>(acc, win); break;
+    case 33: add_pattern<33>(acc, win); break;
+    case 34: add_pattern<34>(acc, win); break;
+    case 35: add_pattern<35>(acc, win); break;
+    case 36: add_pattern<36>(acc, win); break;
+    case 37: add_pattern<37>(acc, win); break;
+    case 38: add_pattern<38>(acc, win); break;
+    case 39: add_pattern<39>(acc, win); break;
+    case 40: add_pattern<40>(acc, win); break;
+    case 41: add_pattern<41>(acc, win); break;
+    case 42: add_pattern<42>(acc, win); break;
+    case 43: add_pattern<43>(acc, win); break;
+    case 44: add_pattern<44>(acc, win); break;
+    case 45: add_pattern<45>(acc, win); break;
+    case 46: add_pattern<46>(acc, win); break;
+    case 47: add_pattern<47>(acc, win); break;
+    case 48: add_pattern<48>(acc, win); break;
+    case 49: add_pattern<49>(acc, win); break;
+    case 50: add_pattern<50>(acc, win); break;
+    case 51: add_pattern<51>(acc, win); break;
+    case 52: add_pattern<52>(acc, win); break;
+    case 53: add_pattern<53>(acc, win); break;
+    case 54: add_pattern<54>(acc, win); break;
+    case 55: add_pattern<55>(acc, win); break;
+    case 56: add_pattern<56>(acc, win); break;
+    case 57: add_pattern<57>(acc, win); break;
+    case 58: add_pattern<58>(acc, win); break;
+    case 59: add_pattern<59>(acc, win); break;
+    case 60: add_pattern<60>(acc, win); break;
+    case 61: add_pattern<61>(acc, win); break;
+    case 62: add_pattern<62>(acc, win); break;
+    default: add_pattern<63>(acc, win); break;
+  }
+}
+static_assert(kPatterns == 64, "add_window lists 64 patterns");
+
+// grid (ceil(n_trials / kBlockTrials), ceil(t_out / kBlockT), Z): the
+// trial tiles of one (z, sample tile) neighbours, so that all but the first
+// find its rows in the L2 cache.
+__global__ void __launch_bounds__(kThreads, 2) bank_kernel(Bank k) {
+  extern __shared__ __align__(16) float rows_smem[];
+  __shared__ WarpRow warp_rows[kMetaBufs][kWarps][kChunk];
+  __shared__ BlockRow block_rows[kMetaBufs][kChunk];
+  __shared__ int raw_shifts[kSummarizers][kK];
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int d0 = blockIdx.x * kBlockTrials;
+  const int t0 = blockIdx.y * kBlockT;
+  const long long z = blockIdx.z;
+  const float* data = k.data + z * k.data_z;
+  const int* tab = k.table + (z % k.z_mod) * k.table_z;
+  const int tl = lane * kR;                 // the lane's first sample, local
+  const int dw = d0 + warp * kK;            // the warp's first trial
+
+  float acc[kK][kR];
+#pragma unroll
+  for (int j = 0; j < kK; ++j) {
+#pragma unroll
+    for (int r = 0; r < kR; ++r) acc[j][r] = 0.0f;
+  }
+
+  // Chunk ch's rows in stage ch & 1, its summaries in buffer ch % 3; the
+  // copies of chunk ch + 1's rows and chunk ch + 2's shifts run under
+  // chunk ch's adds.
+  const int n_chunks = (k.n_rows + kChunk - 1) / kChunk;
+  auto rows_in = [&](int ch) { return min(kChunk, k.n_rows - ch * kChunk); };
+  for (int ch = 0; ch < 2 && ch < n_chunks; ++ch) {
+    fetch_shifts(raw_shifts, tab, k, d0, ch * kChunk, rows_in(ch));
+    commit_copies();
+    wait_copies();
+    summarize(raw_shifts, rows_in(ch), warp_rows[ch], block_rows[ch], k, t0);
+    if (ch == 0) {
+      __syncthreads();
+      stage_rows(rows_smem, data, k, t0, 0, rows_in(0), block_rows[0]);
+      // A group of its own: cp.async.wait_group waits only for committed
+      // groups, and a table of one chunk commits nothing after this.
+      commit_copies();
+    }
+  }
+  for (int ch = 0; ch < n_chunks; ++ch) {
+    const int r0 = ch * kChunk;
+    const int nr = rows_in(ch);
+    // Chunk ch's rows and chunk ch + 1's summaries are complete; every
+    // thread is done with chunk ch - 1 (its stage and summaries).  The one
+    // barrier of a chunk.
+    wait_copies();
+    __syncthreads();
+    if (ch + 1 < n_chunks) {
+      stage_rows(rows_smem + ((ch + 1) & 1) * kChunk * kRow, data, k, t0,
+                 r0 + kChunk, rows_in(ch + 1),
+                 block_rows[(ch + 1) % kMetaBufs]);
+    }
+    if (ch + 2 < n_chunks) {
+      fetch_shifts(raw_shifts, tab, k, d0, r0 + 2 * kChunk, rows_in(ch + 2));
+    }
+    commit_copies();
+    const float* rows = rows_smem + (ch & 1) * kChunk * kRow;
+    const WarpRow* wr = warp_rows[ch % kMetaBufs][warp];
+    // A warp whose trials are all past the table skips the adds.
+    const int nw = dw < k.n_trials ? nr : 0;
+    for (int c = 0; c < nw; ++c) {
+      const WarpRow m = wr[c];
+      if (m.path < kStagedPath) {
+        float win[kWin];
+        load_window(win, rows + c * kRow, m, tl);
+        add_window(acc, win, m.path);
+      } else if (m.path == kStagedPath) {
+        const float* src = rows + c * kRow + m.at + tl;
+#pragma unroll
+        for (int j = 0; j < kK; ++j) {
+          const float* at = src + ((m.offsets >> (8 * j)) & 255);
+#pragma unroll
+          for (int r = 0; r < kR; ++r) {
+            acc[j][r] = __fadd_rn(acc[j][r], at[r]);
+          }
+        }
+      } else {
+        // Per-trial loads: samples past t_out (sums never stored) read the
+        // last live one's.
+        const float* col = data + (long long)(r0 + c) * k.t_pad;
+#pragma unroll
+        for (int j = 0; j < kK; ++j) {
+          const float* at = col + shift_of(tab, k, dw + j, r0 + c);
+#pragma unroll
+          for (int r = 0; r < kR; ++r) {
+            acc[j][r] = __fadd_rn(
+                acc[j][r], __ldg(at + min(t0 + tl + r, k.t_out - 1)));
+          }
+        }
+      }
+    }
+    if (ch + 2 < n_chunks) {
+      wait_copies();
+      summarize(raw_shifts, rows_in(ch + 2), warp_rows[(ch + 2) % kMetaBufs],
+                block_rows[(ch + 2) % kMetaBufs], k, t0);
+    }
+  }
+
+  // The sums leave through the staged rows' memory, a warp's kK trials at
+  // a time, so that each store of a warp is 32 consecutive samples of one
+  // trial (a lane's own kR samples are kR floats apart from its
+  // neighbours').
+  __syncthreads();  // every warp is done with the staged rows
+  float* sums = rows_smem + warp * kK * kBlockT;
+#pragma unroll
+  for (int j = 0; j < kK; ++j) {
+#pragma unroll
+    for (int r = 0; r < kR; ++r) sums[j * kBlockT + tl + r] = acc[j][r];
+  }
+  __syncwarp();
+  float* out = k.out + z * k.out_z;
+  const int n_t = min(kBlockT, k.t_out - t0);
+#pragma unroll
+  for (int j = 0; j < kK; ++j) {
+    if (dw + j >= k.n_trials) break;
+    float* o = out + (long long)(dw + j) * k.t_out + t0;
+    for (int i = lane; i < n_t; i += 32) o[i] = sums[j * kBlockT + i];
+  }
+}
+
+cudaError_t launch_bank(const Bank& k, long long n_z, cudaStream_t stream) {
+  cudaError_t e = cudaFuncSetAttribute(
+      bank_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBankSmem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((k.n_trials + kBlockTrials - 1) / kBlockTrials,
+                  (k.t_out + kBlockT - 1) / kBlockT,
+                  static_cast<unsigned>(n_z));
+  bank_kernel<<<grid, kThreads, kBankSmem, stream>>>(k);
+  return cudaGetLastError();
+}
+
+// Rows start on 16 bytes when the data does and every row and z stride is
+// a multiple of 4 floats.
+int vec_of(const float* p, long long t_pad, long long data_z) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && t_pad % 4 == 0 &&
+         data_z % 4 == 0;
 }
 
 }  // namespace
@@ -154,27 +600,54 @@ int dsabf_dedisperse_direct(const float* p, const int* delays, float* out,
                             int b, int n_chan, long long t_pad, int n_dm,
                             int t_out, cudaStream_t stream) {
   if (b <= 0 || n_dm <= 0 || t_out <= 0) return 0;
-  direct_kernel<<<grid_of(t_out, n_dm, b), kTileT, 0, stream>>>(
-      p, delays, out, n_chan, t_pad, n_dm, t_out);
-  return static_cast<int>(cudaGetLastError());
+  if (b > 65535 || n_chan <= 0) return int(cudaErrorInvalidValue);
+  Bank k;
+  k.data = p;
+  k.data_z = static_cast<long long>(n_chan) * t_pad;
+  k.t_pad = t_pad;
+  k.n_rows = n_chan;
+  k.table = delays;
+  k.table_z = 0;
+  k.z_mod = 1;
+  k.n_trials = n_dm;
+  k.out = out;
+  k.out_z = static_cast<long long>(n_dm) * t_out;
+  k.t_out = t_out;
+  k.vec = vec_of(p, t_pad, k.data_z);
+  return static_cast<int>(launch_bank(k, b, stream));
 }
 
 int dsabf_subband_stage1(const float* p, const int* intra, float* s, int b,
                          int n_grp, int n_cpg, long long t_pad, int n_coarse,
                          int t1, cudaStream_t stream) {
   if (b <= 0 || n_grp <= 0 || n_coarse <= 0 || t1 <= 0) return 0;
-  stage1_kernel<<<grid_of(t1, n_coarse, static_cast<long long>(b) * n_grp),
-                  kTileT, 0, stream>>>(p, intra, s, n_grp, n_cpg, t_pad,
-                                       n_coarse, t1);
-  return static_cast<int>(cudaGetLastError());
+  const long long n_z = static_cast<long long>(b) * n_grp;
+  if (n_z > 65535 || n_cpg <= 0) return int(cudaErrorInvalidValue);
+  Bank k;
+  k.data = p;
+  k.data_z = static_cast<long long>(n_cpg) * t_pad;
+  k.t_pad = t_pad;
+  k.n_rows = n_cpg;
+  k.table = intra;
+  k.table_z = static_cast<long long>(n_coarse) * n_cpg;
+  k.z_mod = n_grp;
+  k.n_trials = n_coarse;
+  k.out = s;
+  k.out_z = static_cast<long long>(n_coarse) * t1;
+  k.t_out = t1;
+  k.vec = vec_of(p, t_pad, k.data_z);
+  return static_cast<int>(launch_bank(k, n_z, stream));
 }
 
 int dsabf_subband_stage2(const float* s, const int* offsets, float* out,
                          int b, int n_grp, long long plane, int n_dm,
                          int t_out, cudaStream_t stream) {
   if (b <= 0 || n_dm <= 0 || t_out <= 0) return 0;
-  stage2_kernel<<<grid_of(t_out, n_dm, b), kTileT, 0, stream>>>(
-      s, offsets, out, n_grp, plane, n_dm, t_out);
+  const dim3 grid((t_out + kTileT - 1) / kTileT,
+                  (n_dm + kTileTrials - 1) / kTileTrials,
+                  static_cast<unsigned>(b));
+  stage2_kernel<<<grid, kTileT, 0, stream>>>(s, offsets, out, n_grp, plane,
+                                             n_dm, t_out);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -34,13 +34,6 @@ __device__ __forceinline__ int masked_power(uint32_t re, uint32_t im,
   return __dp4a(int(im), int(im & m), acc);
 }
 
-// Word i of the mask by selects (no dynamically indexed copy of the
-// by-value parameter in local memory).
-__device__ __forceinline__ uint32_t mask_word(const AntMask& m, int i) {
-  static_assert(kMaxAnt / 32 == 4, "mask_word selects among four words");
-  return i == 0 ? m.w[0] : i == 1 ? m.w[1] : i == 2 ? m.w[2] : m.w[3];
-}
-
 // One sample's detection added to the row sums: acc[0] (power, or I) and,
 // for Stokes, Q, U, V.  vr/vi: the beam voltage of pol x (0) and y (1).
 // Explicit rounding: no FMA contraction, so the Stokes I plane is the power

@@ -10,9 +10,10 @@
 // beamform_stokes :795), in all seven weight modes: the power and Stokes
 // products, the quant8 branch (gemm.py:261-278, Stokes offset :266-274),
 // the incoherent branch (:287-322) and the SK branch (:323-368), in any
-// combination, for every a_compute that is a multiple of 8 up to 128
-// (DSA-110: 110 active antennas in 128 slots, 512 beams), on the tensor
-// cores (wgmma s8 for the int8 modes, wgmma bf16 for the float ones).
+// combination, for every a_compute whose weight tile and one output row fit
+// in shared memory (DSA-10 as built: 10; DSA-110: 110 active antennas in
+// 128 slots, 512 beams; 224 in every mode), on the tensor cores (wgmma s8
+// for the int8 modes, wgmma bf16 for the float ones).
 //
 // What it computes, per channel f, output row o and beam b:
 //   X[t, p, :] = [re | im] of the wire bytes of pol p, antennas 0..a_compute-1
@@ -49,8 +50,8 @@
 // Side outputs, from the packed wire bytes the block already holds (no
 // weight mode changes them):
 //   inco[f, o]     = sum_{t in o} sum_p sum_{a in inco_mask} re^2 + im^2
-//                    (f32 of an exact integer below 2^24; the mask is 128
-//                    bits, four words);
+//                    (f32 of an exact integer below 2^24; the mask is
+//                    ceil(a_compute / 32) words, copied to shared memory);
 //   sk[f, 0, a]   += sum_{t, p} p,  sk[f, 1, a] += sum_{t, p} p^2,
 //                    p = re^2 + im^2, every antenna a < a_compute
 //                    (int32 per span, then one 64-bit atomicAdd per span,
@@ -93,7 +94,7 @@
 //   - One block per (channel, tile of 64 beams) and a share of the
 //     channel's spans: the tile's weight columns are staged (turned K-major,
 //     f32's split into three bf16) once and serve every span the block
-//     walks.  f32's tile at a_compute 112 and 128 (three 64 KB parts) would
+//     walks.  f32's tile at a_compute 128 (three 64 KB parts) would
 //     leave room for one warpgroup's rows, whose detection would leave the
 //     tensor cores idle; there the tile is 32 beams (m64n64k16), so that two
 //     or more warpgroups share it (make_mma_geom).
@@ -108,10 +109,12 @@
 //     block, and every beam tile needs them again: the beam tiles of a
 //     channel are neighbours in the grid, so the first brings them into the
 //     L2 cache for the others.
-//   - K is walked in steps of 32 bytes (int8: 16 antennas, the tail
-//     zero-filled; bf16: 8 antennas), so every a_compute that is a multiple
-//     of 8 runs the same kernel; the sub-terms of a mode share one set of
-//     accumulators (mma_gemm.cuh).
+//   - K is walked in steps of 32 bytes (int8: 16 antennas, bf16: 8, the
+//     tail of the last zero-filled in the weights), so every a_compute runs
+//     the same kernel; a wire row that starts off 4 bytes (an n_ant that
+//     is not a multiple of 4, such as DSA-10's 10 slots) is staged from
+//     byte loads; the sub-terms of a mode share one set of accumulators
+//     (mma_gemm.cuh).
 //   - The samples of an output row sit in different lanes of a warp; the
 //     sum over them is a butterfly of shuffles per plane that leaves each
 //     lane with one or two beams' sums, four neighbouring lanes with four
@@ -123,9 +126,13 @@
 //     detect_epilogue.cuh); threads per (antenna, row slice) sum p and p^2,
 //     reduced in shared memory.
 //   - The operand type, the tile width, the output type and the product are
-//     template parameters; the weight mode, a_compute and navg are run-time
-//     values, so the library is twelve kernels (int8: 4; bf16: 4 of each
-//     tile width).
+//     template parameters, and so is X for the int8 operands (int8 and
+//     int8x2 past a_compute 255 multiply X, not 16 X: tile_product); the
+//     weight mode, a_compute and navg are run-time values, so the library
+//     is twenty-four kernels (4 of each operand type and tile width, and 4
+//     of each int8 tile width with X; an int8 tile is 32 beams only where
+//     64 leaves no room for a row: at navg 16, int13 from a_compute 209,
+//     int8x2 and int12 from 385, int8 from 705).
 
 #include <cstdint>
 #include <type_traits>
@@ -143,13 +150,15 @@ using namespace dsabf;
 // raw (n_rows_out output rows): the incoherent sums into inco_row[0 ..
 // n_rows_out) and the SK sums added to sk_chan[2 * a_compute] (either pointer
 // null = not computed; both uniform).  Called by the threads of warpgroup
-// `group` (tid: the thread's rank in it); sk_part [2 * a_compute] is the
-// warpgroup's, must be zero, and raw complete (a group_sync) before the call.
+// `group` (tid: the thread's rank in it); mask: the incoherent mask's words
+// in shared memory (no bit at or past a_compute); sk_part [2 * a_compute]
+// is the warpgroup's, must be zero, and raw complete (a group_sync) before
+// the call.
 __device__ __forceinline__ void side_outputs_wire(
-    const uint8_t* raw, const MmaGeom& g, int n_rows_out, const AntMask& mask,
-    float* inco_row, int* sk_part, unsigned long long* sk_chan, int group,
-    int tid) {
-  const int aw = g.a_compute / 4;
+    const uint8_t* raw, const MmaGeom& g, int n_rows_out,
+    const uint32_t* mask, float* inco_row, int* sk_part,
+    unsigned long long* sk_chan, int group, int tid) {
+  const int aw = int(g.words.d);
   if (inco_row) {
     const int lane = tid & 31;
     const int n_warps = kGroupThreads >> 5;
@@ -165,8 +174,8 @@ __device__ __forceinline__ void side_outputs_wire(
           const int q = i - smp * aw;
           const uint32_t v = *reinterpret_cast<const uint32_t*>(
               rows + smp * g.raw_stride + 4 * q);
-          const uint32_t m = byte_mask((mask_word(mask, q >> 3)
-                                        >> (4 * (q & 7))) & 0xFu);
+          const uint32_t m = byte_mask((mask[q >> 3] >> (4 * (q & 7)))
+                                       & 0xFu);
           acc = masked_power(sign_extend_nibbles((v >> 4) & 0x0F0F0F0Fu),
                              sign_extend_nibbles(v & 0x0F0F0F0Fu), m, acc);
         }
@@ -179,21 +188,21 @@ __device__ __forceinline__ void side_outputs_wire(
     }
   }
   if (sk_chan) {
-    // `per` threads per antenna, each taking every per-th (pol, sample) row;
-    // the threads past per * ac sit out.  Per span an antenna sums at most
-    // 2^13 values of p <= 128 (p^2 <= 2^14): the span's rows (at least 16
-    // bytes each, in two buffers) fit in 227 KB, so S2 < 2^27 and int32 is
-    // exact.
+    // `per` threads per antenna (at least one: a thread may take several
+    // antennas), each taking every per-th (pol, sample) row; the threads
+    // past per * ac sit out.  Per span an antenna sums at most 2^13 values
+    // of p <= 128 (p^2 <= 2^14): the span's rows (at least 16 bytes each,
+    // in two buffers) fit in 227 KB, so S2 < 2^27 and int32 is exact.
     const int ac = g.a_compute;
-    const int per = kGroupThreads / ac;
+    const int per = ac < kGroupThreads ? kGroupThreads / ac : 1;
     const int samples = n_rows_out * g.navg;
-    if (tid < per * ac) {
-      const int a = tid % ac;
+    for (int i = tid; i < per * ac; i += kGroupThreads) {
+      const int a = i % ac;
       int s1 = 0, s2 = 0;
 #pragma unroll
       for (int p = 0; p < 2; ++p) {
         const uint8_t* col = raw + p * g.span_samples * g.raw_stride + a;
-        for (int r = tid / ac; r < samples; r += per) {
+        for (int r = i / ac; r < samples; r += per) {
           const uint32_t v = col[r * g.raw_stride];
           const int re = int(int8_t(v)) >> 4;           // high nibble, signed
           const int im = int(int8_t(uint8_t(v << 4))) >> 4;  // low nibble
@@ -210,6 +219,15 @@ __device__ __forceinline__ void side_outputs_wire(
       atomicAdd(sk_chan + i, (unsigned long long)sk_part[i]);
     }
   }
+}
+
+// Warpgroup `group`'s SK partial sums in the dynamic shared memory, after
+// every warpgroup's two buffers of wire rows.
+__device__ __forceinline__ int* sk_part_of(uint8_t* smem, const MmaGeom& g,
+                                           int group) {
+  return reinterpret_cast<int*>(smem + weight_tile_bytes(g)
+                                + g.n_groups * 2 * span_wire_bytes(g))
+         + group * 2 * g.a_compute;
 }
 
 // One step of sum_row_lanes: the lanes whose row-lane index g has bit B set
@@ -265,8 +283,9 @@ __host__ __device__ constexpr int max_groups(bool stokes) {
 
 // W: the weights' operand type (IntWeights: int8 operands, int32 sums;
 // FloatWeights: bf16 operands, float32 sums); NT: n-tiles of the weight
-// tile (g.tile_beams / 4).
-template <class W, int NT, typename OutT, bool STOKES>
+// tile (g.tile_beams / 4); X: the int8 sub-terms multiply X throughout
+// (tile_product).
+template <class W, int NT, typename OutT, bool STOKES, bool X>
 __global__ void __launch_bounds__(kGroupThreads * max_groups(STOKES), 1)
 detect_mma_kernel(const uint8_t* __restrict__ wire,
                   W w,
@@ -283,7 +302,7 @@ detect_mma_kernel(const uint8_t* __restrict__ wire,
   constexpr int kKept = NT / 8;  // n-tiles a lane stores (sum_row_lanes)
   using Acc = typename std::conditional<kFloat, float, int>::type;
   extern __shared__ __align__(128) uint8_t smem[];
-  __shared__ int sk_parts[max_groups(STOKES)][2 * kMaxAnt];  // [stat][antenna]
+  __shared__ uint32_t mask_s[kMaskWords];  // the incoherent mask
 
   const int f = blockIdx.y;
   const int n_out = n_time / g.navg;
@@ -299,9 +318,13 @@ detect_mma_kernel(const uint8_t* __restrict__ wire,
 
   uint8_t* ws = smem;                   // the weight tile (mma_gemm.cuh)
   const size_t raw_bytes = span_wire_bytes(g);
-  // This warpgroup's two buffers of wire rows.
+  // This warpgroup's two buffers of wire rows (then every warpgroup's SK
+  // partial sums [stat][antenna]: sk_part_of).
   uint8_t* raw0 = smem + weight_tile_bytes(g) + group * 2 * raw_bytes;
-  int* sk_part = sk_parts[group];
+  if (inco_out && threadIdx.x == 0) {
+#pragma unroll
+    for (int i = 0; i < kMaskWords; ++i) mask_s[i] = inco_mask.w[i];
+  }
 
   // This warpgroup's spans: every stride-th from first.
   const int first = blockIdx.z * g.n_groups + group;
@@ -321,7 +344,7 @@ detect_mma_kernel(const uint8_t* __restrict__ wire,
   // its square times theirs: a power of two, so every rounding on the way is
   // the one M's would have had, and dividing it out here is exact.  The
   // bf16 products are the voltages themselves.
-  const int ps = kFloat ? 1 : product_scale(g.fold != 0);
+  const int ps = kFloat ? 1 : product_scale(g);
   const float s2 = __fmul_rn(__fmul_rn(s, s), 1.f / float(ps * ps));
   float qs[kKept];
 #pragma unroll
@@ -348,6 +371,7 @@ detect_mma_kernel(const uint8_t* __restrict__ wire,
           time_stride, n_ant);
     }
     if (side) {
+      int* sk_part = sk_part_of(smem, g, group);
       if (sk_out) {
         for (int i = tid; i < 2 * g.a_compute; i += kGroupThreads) {
           sk_part[i] = 0;
@@ -355,7 +379,7 @@ detect_mma_kernel(const uint8_t* __restrict__ wire,
         group_sync(group);
       }
       side_outputs_wire(
-          raw, g, rows_here, inco_mask,
+          raw, g, rows_here, mask_s,
           inco_out ? inco_out + (long long)f * n_out + o0 : nullptr, sk_part,
           sk_out ? sk_out + (long long)f * 2 * g.a_compute : nullptr, group,
           tid);
@@ -376,7 +400,7 @@ detect_mma_kernel(const uint8_t* __restrict__ wire,
       for (int j = 0; j < g.mpr; ++j) {
         const int smp = 8 * j + row_lane;  // of the output row's navg
         Acc acc[NT][4];
-        tile_product(acc, raw + (o * g.navg + smp) * g.raw_stride, plane,
+        tile_product<X>(acc, raw + (o * g.navg + smp) * g.raw_stride, plane,
                      row_live && smp < g.navg, ws, g, lane);
         if (row_live) detect_tile<STOKES>(acc, run);
       }
@@ -423,9 +447,9 @@ const FloatWeights& weights_of<FloatWeights>(const Args& a) {
 
 // The shared memory may be above the 48 KB default: raise the
 // instantiation's limit to what this launch needs, then launch.
-template <class W, int NT, typename OutT, bool STOKES>
+template <class W, int NT, typename OutT, bool STOKES, bool X>
 cudaError_t launch(const Args& a) {
-  auto kernel = detect_mma_kernel<W, NT, OutT, STOKES>;
+  auto kernel = detect_mma_kernel<W, NT, OutT, STOKES, X>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(a.smem));
   if (e != cudaSuccess) return e;
@@ -446,13 +470,23 @@ cudaError_t launch(const Args& a) {
 }
 
 // The instantiation for the output type and the product.
-template <class W, int NT>
+template <class W, int NT, bool X = false>
 cudaError_t dispatch(const Args& a, bool stokes) {
   const bool q8 = a.q8_scales != nullptr;
   if (stokes) {
-    return q8 ? launch<W, NT, uint8_t, true>(a) : launch<W, NT, float, true>(a);
+    return q8 ? launch<W, NT, uint8_t, true, X>(a)
+              : launch<W, NT, float, true, X>(a);
   }
-  return q8 ? launch<W, NT, uint8_t, false>(a) : launch<W, NT, float, false>(a);
+  return q8 ? launch<W, NT, uint8_t, false, X>(a)
+            : launch<W, NT, float, false, X>(a);
+}
+
+// The int8 instantiation for the tile and for X: the unfolded modes past
+// g.x16's width.
+template <int NT>
+cudaError_t dispatch_int(const Args& a, bool stokes) {
+  return !a.g.fold && !a.g.x16 ? dispatch<IntWeights, NT, true>(a, stokes)
+                               : dispatch<IntWeights, NT, false>(a, stokes);
 }
 
 }  // namespace
@@ -474,12 +508,12 @@ extern "C" {
 // [n_chan, n_time/navg, 4, n_beams] (stokes != 0: I, Q, U, V), or uint8 of
 // that shape when q8_scales (f32 [n_beams]) is not null.
 // Optional (null = not computed): inco_out f32 [n_chan, n_time/navg] over
-// the antennas whose bit is set in inco_mask (host memory, kMaxAnt / 32
-// words, bit a of word a / 32; read before this returns); sk_out uint64
-// [n_chan, 2, a_compute], added to (the caller zeroes it).
-// a_compute: every multiple of 8 up to 128; anything else is refused, and
-// so is a navg whose output row does not fit in shared memory beside the
-// weight tile.
+// the antennas whose bit is set in inco_mask (host memory, ceil(a_compute /
+// 32) words, bit a of word a / 32, none at or past a_compute; read before
+// this returns); sk_out uint64 [n_chan, 2, a_compute], added to (the caller
+// zeroes it).  a_compute: any from 1 to n_ant whose weight tile and one
+// output row of navg samples fit in shared memory; anything else is
+// refused.
 int dsabf_detect_power(const void* wire, const void* w0, const void* w1,
                        const void* scales, const void* q8_scales, void* out,
                        void* inco_out, void* sk_out,
@@ -489,18 +523,15 @@ int dsabf_detect_power(const void* wire, const void* w0, const void* w1,
                        long long time_stride, long long chan_stride,
                        void* stream) {
   if (n_chan < 1 || n_chan > 65535 || n_beams < 1 || navg < 1 ||
-      n_time < navg || n_time % navg || n_ant % 4 || a_compute < 8 ||
-      a_compute % 8 || a_compute > n_ant || a_compute > kMaxAnt ||
-      (inco_out && !inco_mask)) {
+      n_time < navg || n_time % navg || a_compute < 1 || a_compute > n_ant ||
+      a_compute > 32 * kMaskWords || (inco_out && !inco_mask)) {
     return int(cudaErrorInvalidValue);
   }
   const int n_out = n_time / navg;
-  // What every address of a wire row is a multiple of: 16 lets cp.async
-  // move 16 bytes at a time.
-  const bool wide = !(reinterpret_cast<uintptr_t>(wire) % 16 || n_ant % 16 ||
-                      time_stride % 16 || chan_stride % 16);
-  const int align = wide ? 16 : 4;
+  const int align = wire_align(wire, n_ant, time_stride, chan_stride);
   const int groups = max_groups(stokes != 0);
+  // Each warpgroup's SK partial sums.
+  const int scratch = 2 * a_compute * int(sizeof(int));
   Args a;
   int n_sub = 0;
   const bool ok =
@@ -509,12 +540,12 @@ int dsabf_detect_power(const void* wire, const void* w0, const void* w1,
                              n_beams) &&
                 make_mma_geom(a.g, a.smem, a_compute, 0, n_terms, fold,
                               a.iw.factor, navg, n_out, align, groups, 2,
-                              0)
+                              0, scratch)
           : !fold &&
                 make_float_weights(a.fw, n_sub, w0, w1, n_terms, elem_size,
                                    a_compute, n_beams) &&
                 make_mma_geom(a.g, a.smem, a_compute, 1, n_sub, 0, 1, navg,
-                              n_out, align, groups, 2, 0);
+                              n_out, align, groups, 2, 0, scratch);
   if (!ok) return int(cudaErrorInvalidValue);
   const int n_spans = (n_out + a.g.rows_out - 1) / a.g.rows_out;
   const int chunks = (n_beams + a.g.tile_beams - 1) / a.g.tile_beams;
@@ -530,8 +561,9 @@ int dsabf_detect_power(const void* wire, const void* w0, const void* w1,
   a.out = out;
   a.inco_out = inco_out;
   a.sk_out = sk_out;
-  for (int i = 0; i < kMaxAnt / 32; ++i) {
-    a.inco_mask.w[i] = inco_mask ? inco_mask[i] : 0u;
+  for (int i = 0; i < kMaskWords; ++i) {
+    a.inco_mask.w[i] =
+        inco_mask && 32 * i < a_compute ? inco_mask[i] : 0u;
   }
   a.n_time = n_time;
   a.n_beams = n_beams;
@@ -539,7 +571,10 @@ int dsabf_detect_power(const void* wire, const void* w0, const void* w1,
   a.time_stride = time_stride;
   a.chan_stride = chan_stride;
   const bool st = stokes != 0;
-  if (elem_size == 1) return int(dispatch<IntWeights, 16>(a, st));
+  if (elem_size == 1) {
+    return a.g.tile_beams == kNarrowTileBeams ? int(dispatch_int<8>(a, st))
+                                              : int(dispatch_int<16>(a, st));
+  }
   if (a.g.tile_beams == kNarrowTileBeams) {
     return int(dispatch<FloatWeights, 8>(a, st));
   }

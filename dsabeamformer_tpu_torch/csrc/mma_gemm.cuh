@@ -16,13 +16,14 @@
 //   K order   int8: a wire word (four antennas of one pol and sample)
 //             unpacks into one re word and one im word.  A k32 step is [re of
 //             16 antennas | im of the same 16]; sub-term t's steps follow
-//             sub-term t - 1's.  An a_compute that is no multiple of 16
-//             zero-fills the tail of its last step in X and in W, so every
-//             multiple of 8 up to kMaxAnt runs the same code.
-//             bf16: a k16 step is [re of 8 antennas | im of the same 8], so
-//             every multiple of 8 fills its steps exactly.  Both are 32 bytes
-//             of a weight column, so the tile's layout and its descriptor are
-//             the same in bytes for the two types.
+//             sub-term t - 1's.
+//             bf16: a k16 step is [re of 8 antennas | im of the same 8].
+//             An a_compute that is no multiple of the step's antennas
+//             zero-fills the tail of its last step in W (X there holds
+//             whatever nibbles the staged row has, each finite, times an
+//             exact 0), so every a_compute runs the same code.  Both steps
+//             are 32 bytes of a weight column, so the tile's layout and its
+//             descriptor are the same in bytes for the two types.
 //   A         int8: in that K order the A fragment of a thread (rows g and
 //             g + 8, K bytes 4q .. 4q + 3 and 16 + 4q .. of a step) is the re
 //             and the im nibbles of ONE wire word per row.  bf16: the
@@ -58,8 +59,9 @@
 //             sign extension of X takes five.  So int8 and int8x2, which
 //             need no X beside it, multiply 16 X throughout and end with 16
 //             M (product_scale; the caller divides it out, exactly, with its
-//             own power-of-two factor).  M stays below 2^27 (wire_gemm.cuh),
-//             16 M below 2^31.  The bf16 sub-terms (bf16x2's hi and lo, f32's
+//             own power-of-two factor) wherever 16 M stays below 2^31
+//             (g.x16: a_compute up to 255); past that they multiply X.  The
+//             bf16 sub-terms (bf16x2's hi and lo, f32's
 //             three parts) add their products into the same float32 sums,
 //             step by step: one fragment of X serves every sub-term's step.
 //   Staging   A span's wire bytes come into shared memory with cp.async
@@ -96,9 +98,9 @@ constexpr int kRoundRows = 4;                   // output rows a warpgroup
 constexpr int kStepBytes = 32;                  // K bytes of one mma
 constexpr int kCoreBytes = 128;                 // 8 columns x 16 K bytes
 constexpr int kMaxSpanRows = 16;                // output rows of a span
-// Dynamic shared memory of a block: an SM's, less the caller's static SK
-// scratch (1 KB a warpgroup).
-constexpr int kMmaDynSmem = kMaxDynSmem - kMaxGroups * 1024;
+// Dynamic shared memory of a block: an SM's, less the detect kernel's
+// static copy of the incoherent mask.
+constexpr int kMmaDynSmem = kMaxDynSmem - kMaskWords * 4;
 
 // i / d for small operands (i * d < 2^32) without the integer divide.
 struct FastDiv {
@@ -114,21 +116,16 @@ __device__ __forceinline__ int fast_div(int i, const FastDiv& f) {
   return f.d == 1u ? i : int(__umulhi(uint32_t(i), f.magic));
 }
 
-// What tile_product's sums are a multiple of: the folded modes give M, the
-// others 16 M (see Sub-terms above).
-__host__ __device__ constexpr int product_scale(bool fold) {
-  return fold ? 1 : 16;
-}
-
 // The shapes one launch works with (by value to the kernel).
 struct MmaGeom {
   int a_compute;
   int bf16;         // != 0: bf16 operands, k16 steps of 8 antennas; else
                     // int8, k32 steps of 16 antennas
-  int n_steps;      // k-steps of one sub-term: a_compute / 8 (bf16) or
-                    // ceil(a_compute / 16) (int8)
+  int n_steps;      // k-steps of one sub-term: ceil(a_compute / 8) (bf16)
+                    // or ceil(a_compute / 16) (int8)
   int n_sub;        // sub-terms along K
   int fold;         // != 0: even sub-terms multiply 16 X (int12, int13)
+  int x16;          // int8, fold == 0: != 0 every sub-term multiplies 16 X
   int factor;       // int8, fold == 0: sums so far times this before
                     // sub-term 1
   int k_total;      // K bytes of a weight column: n_sub * 32 * n_steps
@@ -141,13 +138,29 @@ struct MmaGeom {
   int rows_out;     // output rows of a span
   int span_samples; // rows_out * navg: pol y's rows follow pol x's
   int copy_bytes;   // bytes of one cp.async of the wire: 16 where the
-                    // wire's strides and a_compute allow it, else 4
-  FastDiv copies;   // cp.async of a (sample, pol): a_compute / copy_bytes
-  FastDiv words;    // wire words of a (sample, pol): a_compute / 4
+                    // wire's address, strides and a_compute allow it, 4
+                    // where they are multiples of 4; else 1: each 4-byte
+                    // word of a staged row put together from byte loads
+  FastDiv copies;   // copies of a (sample, pol): ceil(a_compute / 16) of 16
+                    // bytes, else ceil(a_compute / 4) words
+  FastDiv words;    // wire words of a (sample, pol): ceil(a_compute / 4)
   FastDiv slots;    // K slots of a re or im part the weight staging walks:
-                    // int8 wire words, 4 * n_steps; bf16 antenna pairs,
-                    // a_compute / 2
+                    // int8 wire words, bf16 antenna pairs: 4 * n_steps
 };
+
+// What tile_product's sums are a multiple of: the folded modes, and the
+// others past g.x16's width, give M; the others 16 M (see Sub-terms above).
+__host__ __device__ inline int product_scale(const MmaGeom& g) {
+  return g.x16 ? 16 : 1;
+}
+
+// Whether int8 sub-terms combined by `factor` (fold == 0) may multiply 16 X:
+// 16 * (factor + 1) * 2048 * a_compute, the most |16 M| can be (|16 x| <=
+// 128, |w| <= 128, K = 2 * a_compute), below 2^31.
+__host__ __device__ inline bool x16_exact(int fold, int factor,
+                                          int a_compute) {
+  return !fold && 16LL * (factor + 1) * 2048 * a_compute < (1LL << 31);
+}
 
 // Bytes of one buffer of a span's wire rows.
 __host__ __device__ inline size_t span_wire_bytes(const MmaGeom& g) {
@@ -210,34 +223,41 @@ __host__ __device__ inline size_t stage_bytes(int stage_rows,
 // false when one output row does not fit beside the weight tile.
 // bf16: the operand type (n_sub bf16 sub-terms) or int8 (n_sub int8
 // sub-terms, fold and factor as IntWeights has them).  wire_align: what the
-// wire's address, strides and n_ant are all multiples of (at least 4).
+// wire's address, strides and n_ant are all multiples of (1, 4 or 16).
 // max_groups: the most warpgroups the kernel's registers allow.
 // stage_rows: rows of float32 output each warp restages in shared memory
-// (stage_bytes, after the warpgroup's wire buffers; 0: none).  The weight
-// tile is kTileBeams wide; a bf16 tile that leaves room for fewer than
-// min_groups warpgroups (or the rounds, if fewer) is kNarrowTileBeams wide:
-// the detect kernel asks for two (f32's three parts at a_compute 112 and
-// 128 leave one, whose detection then leaves the tensor cores idle), the
-// voltage kernel for three.
+// (stage_bytes, after the warpgroups' wire buffers; 0: none); scratch:
+// bytes more each warpgroup keeps (after those).  The weight tile is
+// kTileBeams wide; a bf16 tile that leaves room for fewer than min_groups
+// warpgroups (or the rounds, if fewer) is kNarrowTileBeams wide: the detect
+// kernel asks for two (f32's three parts at a_compute 128 leave
+// one, whose detection then leaves the tensor cores idle), the voltage
+// kernel for three.  An int8 tile is narrow only where the wide one leaves
+// no room for one row (int13 from a_compute 193 in the voltage kernel,
+// 209 in the detect kernel at navg 16).
 inline bool make_mma_geom(MmaGeom& g, size_t& smem, int a_compute, int bf16,
                           int n_sub, int fold, int factor, int navg,
                           int n_out, int wire_align, int max_groups,
-                          int min_groups, int stage_rows) {
+                          int min_groups, int stage_rows, int scratch) {
   g.a_compute = a_compute;
   g.bf16 = bf16;
-  g.n_steps = bf16 ? a_compute / 8 : (a_compute + 15) / 16;
+  g.n_steps = bf16 ? (a_compute + 7) / 8 : (a_compute + 15) / 16;
   g.n_sub = n_sub;
   g.fold = fold;
+  g.x16 = !bf16 && x16_exact(fold, factor, a_compute);
   g.factor = factor;
   g.k_total = n_sub * kStepBytes * g.n_steps;
   // The least odd number of 16-byte units that holds a_compute bytes.
   g.raw_stride = 16 * (((a_compute + 15) / 16) | 1);
   g.navg = navg;
   g.mpr = (navg + 7) / 8;
-  g.copy_bytes = wire_align % 16 == 0 && a_compute % 16 == 0 ? 16 : 4;
-  g.copies = make_fastdiv(a_compute / g.copy_bytes);
-  g.words = make_fastdiv(a_compute / 4);
-  g.slots = make_fastdiv(bf16 ? a_compute / 2 : 4 * g.n_steps);
+  g.copy_bytes = wire_align % 16 == 0 && a_compute % 16 == 0 ? 16
+                 : wire_align % 4 == 0                        ? 4
+                                                              : 1;
+  g.copies = make_fastdiv(g.copy_bytes == 16 ? a_compute / 16
+                                             : (a_compute + 3) / 4);
+  g.words = make_fastdiv((a_compute + 3) / 4);
+  g.slots = make_fastdiv(4 * g.n_steps);
   // An output row's wire bytes, in both buffers.
   const size_t row_bytes = size_t(2) * navg * 2 * g.raw_stride;
   const int n_rounds = (n_out + kRoundRows - 1) / kRoundRows;
@@ -245,25 +265,24 @@ inline bool make_mma_geom(MmaGeom& g, size_t& smem, int a_compute, int bf16,
   if (enough > n_rounds) enough = n_rounds;
   int groups = 0, rows = 0;
   g.tile_beams = kTileBeams;
-  const bool wide = fit_spans(groups, rows, weight_tile_bytes(g), row_bytes,
-                              stage_bytes(stage_rows, g.tile_beams), n_out,
-                              max_groups);
-  if (bf16 && (!wide || groups < enough)) {
+  const bool wide = fit_spans(
+      groups, rows, weight_tile_bytes(g), row_bytes,
+      stage_bytes(stage_rows, g.tile_beams) + scratch, n_out, max_groups);
+  if (!wide || (bf16 && groups < enough)) {
     g.tile_beams = kNarrowTileBeams;
     if (!fit_spans(groups, rows, weight_tile_bytes(g), row_bytes,
-                   stage_bytes(stage_rows, g.tile_beams), n_out,
+                   stage_bytes(stage_rows, g.tile_beams) + scratch, n_out,
                    max_groups)) {
       return false;
     }
-  } else if (!wide) {
-    return false;
   }
   g.n_groups = groups;
   g.rows_out = rows;
   g.span_samples = rows * navg;
   smem = weight_tile_bytes(g)
          + size_t(groups) * (rows * row_bytes
-                             + stage_bytes(stage_rows, g.tile_beams));
+                             + stage_bytes(stage_rows, g.tile_beams)
+                             + scratch);
   return true;
 }
 
@@ -295,7 +314,6 @@ __device__ __forceinline__ void stage_weight_tile(uint8_t* ws,
                                                   int b0, int n_beams) {
   const long long b2 = 2LL * n_beams;
   const int slots = 4 * g.n_steps;
-  const int aw = g.a_compute / 4;
   const int total = g.n_sub * 2 * slots * 2 * TB;
   for (int i = threadIdx.x; i < total; i += blockDim.x) {
     const int bl = i % TB;
@@ -307,13 +325,19 @@ __device__ __forceinline__ void stage_weight_tile(uint8_t* ws,
     const int t = tp >> 1;
     const int b = b0 + bl;
     uint32_t v = 0;
-    if (q < aw && b < n_beams) {
+    if (4 * q < g.a_compute && b < n_beams) {
       const int8_t* src = sub_term(w, t) + (long long)f * w.chan_stride
                           + (long long)(part * g.a_compute + 4 * q) * b2
                           + ri * n_beams + b;
+      if (4 * q + 4 <= g.a_compute) {  // a whole word below a_compute
 #pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        v |= uint32_t(uint8_t(src[k * b2])) << (8 * k);
+        for (int k = 0; k < 4; ++k) {
+          v |= uint32_t(uint8_t(src[k * b2])) << (8 * k);
+        }
+      } else {
+        for (int k = 0; 4 * q + k < g.a_compute; ++k) {
+          v |= uint32_t(uint8_t(src[k * b2])) << (8 * k);
+        }
       }
     }
     const int k = (t * g.n_steps + (q >> 2)) * kStepBytes + part * 16
@@ -382,15 +406,16 @@ __device__ __forceinline__ void split_f32(float w, uint32_t (&h)[3]) {
 // channel f into ws: column 2 * beam + (0 Re, 1 Im), along K sub-term by
 // sub-term in k16 steps of [8 re rows | 8 im rows], two bf16 (two antennas)
 // a 32-bit word; zeros past n_beams.  f32's sub-terms are the three parts of
-// split_f32.  Consecutive threads take consecutive beams, so the loads of a
-// warp are one or two 32-byte segments.
+// split_f32; zeros past a_compute (the tail of the last step).  Consecutive
+// threads take consecutive beams, so the loads of a warp are one or two
+// 32-byte segments.
 template <int TB>
 __device__ __forceinline__ void stage_weight_tile(uint8_t* ws,
                                                   const FloatWeights& w,
                                                   const MmaGeom& g, int f,
                                                   int b0, int n_beams) {
   const long long b2 = 2LL * n_beams;
-  const int pairs = g.a_compute / 2;     // antenna pairs of a re or im part
+  const int pairs = 4 * g.n_steps;       // antenna pairs of a re or im part
   const int n_src = w.f32 ? 1 : w.n_terms;
   const int total = n_src * 2 * pairs * 2 * TB;
   for (int i = threadIdx.x; i < total; i += blockDim.x) {
@@ -402,6 +427,9 @@ __device__ __forceinline__ void stage_weight_tile(uint8_t* ws,
     const int part = tp & 1;               // re or im rows of K
     const int t = tp >> 1;
     const int b = b0 + bl;
+    // Antenna a, and a + 1, in range: each loaded only then.
+    const bool in0 = a < g.a_compute && b < n_beams;
+    const bool in1 = a + 1 < g.a_compute && b < n_beams;
     const long long at = (long long)f * w.chan_stride
                          + (long long)(part * g.a_compute + a) * b2
                          + ri * n_beams + b;
@@ -411,23 +439,19 @@ __device__ __forceinline__ void stage_weight_tile(uint8_t* ws,
     const int sub_bytes = g.n_steps * kStepBytes;
     if (w.f32) {
       uint32_t h0[3] = {0u, 0u, 0u}, h1[3] = {0u, 0u, 0u};
-      if (b < n_beams) {
-        const float* src = static_cast<const float*>(w.term[0]) + at;
-        split_f32(src[0], h0);
-        split_f32(src[b2], h1);
-      }
+      const float* src = static_cast<const float*>(w.term[0]) + at;
+      if (in0) split_f32(src[0], h0);
+      if (in1) split_f32(src[b2], h1);
 #pragma unroll
       for (int p = 0; p < 3; ++p) {
         *reinterpret_cast<uint32_t*>(
             ws + w_offset(col, k + p * sub_bytes, g)) = h0[p] | (h1[p] << 16);
       }
     } else {
-      uint32_t v = 0;
-      if (b < n_beams) {
-        const uint16_t* src =
-            static_cast<const uint16_t*>(t ? w.term[1] : w.term[0]) + at;
-        v = uint32_t(src[0]) | (uint32_t(src[b2]) << 16);
-      }
+      const uint16_t* src =
+          static_cast<const uint16_t*>(t ? w.term[1] : w.term[0]) + at;
+      const uint32_t v = (in0 ? uint32_t(src[0]) : 0u)
+                         | (in1 ? uint32_t(src[b2]) << 16 : 0u);
       *reinterpret_cast<uint32_t*>(
           ws + w_offset(col, k + t * sub_bytes, g)) = v;
     }
@@ -440,7 +464,12 @@ __device__ __forceinline__ void stage_weight_tile(uint8_t* ws,
 // group: it runs while the warpgroup multiplies the span before (the
 // calling warpgroup's threads share the work).  The stride
 // arguments read both the time-major tfpa form and the channel-major ftpa
-// form (wire_gemm.cuh).
+// form (wire_gemm.cuh).  A 4-byte copy may take up to 3 bytes past
+// a_compute (antenna slots of the same row: n_ant is then a multiple of 4);
+// copy_bytes 1 (a row that starts off 4 bytes: an n_ant that is not a
+// multiple of 4, such as 10) puts each 4-byte word together from the row's
+// bytes below a_compute, zeros past it, and stores it as it is loaded.  Either way the bytes a row holds past
+// a_compute meet only zero weights and zero mask bits.
 __device__ __forceinline__ void fetch_span_wire(uint8_t* raw,
                                                 const uint8_t* base,
                                                 int n_samples,
@@ -449,20 +478,42 @@ __device__ __forceinline__ void fetch_span_wire(uint8_t* raw,
                                                 int n_ant) {
   const int per = int(g.copies.d);
   const int total = n_samples * 2 * per;
-  for (int i = threadIdx.x % kGroupThreads; i < total; i += kGroupThreads) {
-    const int rp = fast_div(i, g.copies);  // sample * 2 + pol
-    const int q = i - rp * per;
-    const uint8_t* src = base + (long long)(rp >> 1) * time_stride
-                         + (rp & 1) * n_ant + q * g.copy_bytes;
-    const uint32_t dst = smem_address(
-        raw + ((rp & 1) * g.span_samples + (rp >> 1)) * g.raw_stride
-        + q * g.copy_bytes);
-    if (g.copy_bytes == 16) {
-      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
-                   :: "r"(dst), "l"(src));
-    } else {
-      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
-                   :: "r"(dst), "l"(src));
+  // The byte-built rows in a loop of their own, so that the aligned wires'
+  // copy loop below tests nothing for them.
+  if (g.copy_bytes == 1) {
+    for (int i = threadIdx.x % kGroupThreads; i < total;
+         i += kGroupThreads) {
+      const int rp = fast_div(i, g.copies);  // sample * 2 + pol
+      const int q = i - rp * per;
+      const uint8_t* src = base + (long long)(rp >> 1) * time_stride
+                           + (rp & 1) * n_ant + 4 * q;
+      const uint32_t dst = smem_address(
+          raw + ((rp & 1) * g.span_samples + (rp >> 1)) * g.raw_stride
+          + 4 * q);
+      uint32_t v = 0;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        if (4 * q + k < g.a_compute) v |= uint32_t(__ldg(src + k)) << (8 * k);
+      }
+      asm volatile("st.shared.u32 [%0], %1;\n" :: "r"(dst), "r"(v));
+    }
+  } else {
+    for (int i = threadIdx.x % kGroupThreads; i < total;
+         i += kGroupThreads) {
+      const int rp = fast_div(i, g.copies);  // sample * 2 + pol
+      const int q = i - rp * per;
+      const uint8_t* src = base + (long long)(rp >> 1) * time_stride
+                           + (rp & 1) * n_ant + q * g.copy_bytes;
+      const uint32_t dst = smem_address(
+          raw + ((rp & 1) * g.span_samples + (rp >> 1)) * g.raw_stride
+          + q * g.copy_bytes);
+      if (g.copy_bytes == 16) {
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+                     :: "r"(dst), "l"(src));
+      } else {
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+                     :: "r"(dst), "l"(src));
+      }
     }
   }
   asm volatile("cp.async.commit_group;\n" ::);
@@ -518,45 +569,73 @@ __device__ __forceinline__ void make_fragment_bf16(uint32_t (&a)[4],
 
 // d (+)= a * b for one warpgroup: a is this warp's 16 x 32 fragment (rows
 // 16 w .. 16 w + 15 of the 64, w the warp's rank in the warpgroup), b the
-// shared-memory tile the descriptor names (128 columns x 32 K bytes),
-// d[n-tile][c0..c3] this thread's part of the warp's 16 x 128 sums.
-// scale_d == 0 starts the sum (d = a * b).  Asynchronous: wgmma_fence
-// before, wgmma_commit and wgmma_wait after.
-__device__ __forceinline__ void wgmma_s8(int (&d)[16][4],
+// shared-memory tile the descriptor names (8 * NT columns x 32 K bytes),
+// d[n-tile][c0..c3] this thread's part of the warp's 16 x 8 NT sums:
+// m64n128k32 (NT 16) or m64n64k32 (NT 8).  scale_d == 0 starts the sum
+// (d = a * b).  Asynchronous: wgmma_fence before, wgmma_commit and
+// wgmma_wait after.
+template <int NT>
+__device__ __forceinline__ void wgmma_s8(int (&d)[NT][4],
                                          const uint32_t (&a)[4],
                                          uint64_t desc, int scale_d) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p;\n"
-      "}\n"
-      : "+r"(d[0][0]), "+r"(d[0][1]), "+r"(d[0][2]), "+r"(d[0][3]),
-        "+r"(d[1][0]), "+r"(d[1][1]), "+r"(d[1][2]), "+r"(d[1][3]),
-        "+r"(d[2][0]), "+r"(d[2][1]), "+r"(d[2][2]), "+r"(d[2][3]),
-        "+r"(d[3][0]), "+r"(d[3][1]), "+r"(d[3][2]), "+r"(d[3][3]),
-        "+r"(d[4][0]), "+r"(d[4][1]), "+r"(d[4][2]), "+r"(d[4][3]),
-        "+r"(d[5][0]), "+r"(d[5][1]), "+r"(d[5][2]), "+r"(d[5][3]),
-        "+r"(d[6][0]), "+r"(d[6][1]), "+r"(d[6][2]), "+r"(d[6][3]),
-        "+r"(d[7][0]), "+r"(d[7][1]), "+r"(d[7][2]), "+r"(d[7][3]),
-        "+r"(d[8][0]), "+r"(d[8][1]), "+r"(d[8][2]), "+r"(d[8][3]),
-        "+r"(d[9][0]), "+r"(d[9][1]), "+r"(d[9][2]), "+r"(d[9][3]),
-        "+r"(d[10][0]), "+r"(d[10][1]), "+r"(d[10][2]), "+r"(d[10][3]),
-        "+r"(d[11][0]), "+r"(d[11][1]), "+r"(d[11][2]), "+r"(d[11][3]),
-        "+r"(d[12][0]), "+r"(d[12][1]), "+r"(d[12][2]), "+r"(d[12][3]),
-        "+r"(d[13][0]), "+r"(d[13][1]), "+r"(d[13][2]), "+r"(d[13][3]),
-        "+r"(d[14][0]), "+r"(d[14][1]), "+r"(d[14][2]), "+r"(d[14][3]),
-        "+r"(d[15][0]), "+r"(d[15][1]), "+r"(d[15][2]), "+r"(d[15][3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+  static_assert(NT == 16 || NT == 8, "m64n128k32 or m64n64k32");
+  if constexpr (NT == 16) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p;\n"
+        "}\n"
+        : "+r"(d[0][0]), "+r"(d[0][1]), "+r"(d[0][2]), "+r"(d[0][3]),
+          "+r"(d[1][0]), "+r"(d[1][1]), "+r"(d[1][2]), "+r"(d[1][3]),
+          "+r"(d[2][0]), "+r"(d[2][1]), "+r"(d[2][2]), "+r"(d[2][3]),
+          "+r"(d[3][0]), "+r"(d[3][1]), "+r"(d[3][2]), "+r"(d[3][3]),
+          "+r"(d[4][0]), "+r"(d[4][1]), "+r"(d[4][2]), "+r"(d[4][3]),
+          "+r"(d[5][0]), "+r"(d[5][1]), "+r"(d[5][2]), "+r"(d[5][3]),
+          "+r"(d[6][0]), "+r"(d[6][1]), "+r"(d[6][2]), "+r"(d[6][3]),
+          "+r"(d[7][0]), "+r"(d[7][1]), "+r"(d[7][2]), "+r"(d[7][3]),
+          "+r"(d[8][0]), "+r"(d[8][1]), "+r"(d[8][2]), "+r"(d[8][3]),
+          "+r"(d[9][0]), "+r"(d[9][1]), "+r"(d[9][2]), "+r"(d[9][3]),
+          "+r"(d[10][0]), "+r"(d[10][1]), "+r"(d[10][2]), "+r"(d[10][3]),
+          "+r"(d[11][0]), "+r"(d[11][1]), "+r"(d[11][2]), "+r"(d[11][3]),
+          "+r"(d[12][0]), "+r"(d[12][1]), "+r"(d[12][2]), "+r"(d[12][3]),
+          "+r"(d[13][0]), "+r"(d[13][1]), "+r"(d[13][2]), "+r"(d[13][3]),
+          "+r"(d[14][0]), "+r"(d[14][1]), "+r"(d[14][2]), "+r"(d[14][3]),
+          "+r"(d[15][0]), "+r"(d[15][1]), "+r"(d[15][2]), "+r"(d[15][3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+          "r"(scale_d));
+  } else {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p;\n"
+        "}\n"
+        : "+r"(d[0][0]), "+r"(d[0][1]), "+r"(d[0][2]), "+r"(d[0][3]),
+          "+r"(d[1][0]), "+r"(d[1][1]), "+r"(d[1][2]), "+r"(d[1][3]),
+          "+r"(d[2][0]), "+r"(d[2][1]), "+r"(d[2][2]), "+r"(d[2][3]),
+          "+r"(d[3][0]), "+r"(d[3][1]), "+r"(d[3][2]), "+r"(d[3][3]),
+          "+r"(d[4][0]), "+r"(d[4][1]), "+r"(d[4][2]), "+r"(d[4][3]),
+          "+r"(d[5][0]), "+r"(d[5][1]), "+r"(d[5][2]), "+r"(d[5][3]),
+          "+r"(d[6][0]), "+r"(d[6][1]), "+r"(d[6][2]), "+r"(d[6][3]),
+          "+r"(d[7][0]), "+r"(d[7][1]), "+r"(d[7][2]), "+r"(d[7][3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+          "r"(scale_d));
+  }
 }
 
 // The same for bf16 operands (a this warp's 16 x 16 fragment, b 8 * NT
@@ -702,15 +781,20 @@ __device__ __forceinline__ void run_steps(T (&acc)[NT][4], int n_k,
 // `plane` bytes further; live: the row holds a sample (else zeros).
 // acc[n-tile][c0..c3]: thread `lane` holds rows lane / 4 (c0, c1: pol x) and
 // lane / 4 + 8 (c2, c3: pol y), columns Re, Im of beam 4 * n-tile + lane % 4:
-// the int8 operands' integer sums times product_scale(g.fold) (the int8
-// tile is kTileBeams wide), or the bf16 operands' float32 sums.
-// The four warps of a warpgroup call this together.
-__device__ __forceinline__ void tile_product(int (&acc)[16][4],
+// the int8 operands' integer sums times product_scale(g), or the bf16
+// operands' float32 sums.  NT: n-tiles of the weight tile (g.tile_beams /
+// 4).  The four warps of a warpgroup call this together.  X: the unfolded
+// modes past g.x16's width (fold == 0, x16 == 0), every sub-term of which
+// multiplies X; else every sub-term multiplies 16 X but the folded modes'
+// odd ones.  A template parameter, so that the k-step loop of the widths
+// up to 255 tests nothing for it.
+template <bool X, int NT>
+__device__ __forceinline__ void tile_product(int (&acc)[NT][4],
                                              const uint8_t* rx, int plane,
                                              bool live, const uint8_t* ws,
                                              const MmaGeom& g, int lane) {
   const int q = lane & 3;
-  const int aw = g.a_compute / 4;
+  const int aw = (g.a_compute + 3) >> 2;  // wire words below a_compute
   const int n_k = g.n_sub * g.n_steps;
   int t = 0, s = 0;  // sub-term and step of k-step ks
   const uint64_t desc0 = w_descriptor(ws, g);
@@ -732,14 +816,14 @@ __device__ __forceinline__ void tile_product(int (&acc)[16][4],
       wgmma_wait<0>();
       keep_sums(acc);
 #pragma unroll
-      for (int nt = 0; nt < 16; ++nt) {
+      for (int nt = 0; nt < NT; ++nt) {
 #pragma unroll
         for (int c = 0; c < 4; ++c) acc[nt][c] *= g.factor;
       }
     }
-    make_fragment(a, vx, vy, !g.fold || !(t & 1));
+    make_fragment(a, vx, vy, !X && (!g.fold || !(t & 1)));
     wgmma_fence();
-    wgmma_s8(acc, a, desc0 + uint64_t((ks * 2 * kCoreBytes) >> 4), ks > 0);
+    wgmma_s8<NT>(acc, a, desc0 + uint64_t((ks * 2 * kCoreBytes) >> 4), ks > 0);
     wgmma_commit();
     if (++s == g.n_steps) {
       s = 0;
@@ -752,12 +836,14 @@ __device__ __forceinline__ void tile_product(int (&acc)[16][4],
 // The bf16 sub-terms share their A operand (the same X, only the weights
 // differ), so each k16 step makes one fragment and issues every sub-term's
 // product with it, in one commit group: bf16x2 and f32 make their fragments,
-// and wait, once per two and three products.
-template <int NT>
+// and wait, once per two and three products.  X is the int8 overload's
+// (false here).
+template <bool X, int NT>
 __device__ __forceinline__ void tile_product(float (&acc)[NT][4],
                                              const uint8_t* rx, int plane,
                                              bool live, const uint8_t* ws,
                                              const MmaGeom& g, int lane) {
+  static_assert(!X, "bf16 operands have no 16 X");
   const int off = 2 * (lane & 3);  // antennas off, off + 1 of each step
   const uint64_t desc0 = w_descriptor(ws, g);
   const uint64_t sub_desc = uint64_t((g.n_steps * 2 * kCoreBytes) >> 4);

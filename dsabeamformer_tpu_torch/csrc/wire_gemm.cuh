@@ -14,11 +14,13 @@
 // 8a); the tensor-core kernels feed 16 X against the hi sub-terms
 // (mma_gemm.cuh): the same integer.
 //
-// The integers are exact: one sub-term's |M| <= K * 8 * 127 = 260,096 <
-// 2^18 at K = 2 * a_compute = 256, and int8x2's M_hi * 256 + M_lo < 2^27,
-// int13's 17 * 2 * 260,096 < 2^24 stay inside int32.  The caller converts
-// to float32 once (rounding above 2^24, as XLA's m.astype(f32), JAX
-// gemm.py:145, and the plain version's int64 -> float32 do).
+// The integers are exact: one sub-term's |M| <= K * 8 * 128 = 2048 *
+// a_compute (K = 2 * a_compute), int8x2's |M_hi * 256 + M_lo| <= 257 * 2048
+// * a_compute < 2^31 up to a_compute 4080, int13's 34 * 2048 * a_compute
+// further still: past any a_compute whose weight tile fits in shared
+// memory (the kernels' only limit).  The caller converts to float32 once
+// (rounding above 2^24, as XLA's m.astype(f32), JAX gemm.py:145, and the
+// plain version's int64 -> float32 do).
 
 #pragma once
 
@@ -28,12 +30,14 @@
 
 namespace dsabf {
 
-constexpr int kMaxAnt = 128;                // largest a_compute of any kernel
 constexpr int kMaxDynSmem = 227 * 1024;     // per block on an H100
 
-// The incoherent sum's antenna selection: bit a of word a / 32.
+// The incoherent sum's antenna selection: bit a of word a / 32, the first
+// ceil(a_compute / 32) words used.  2048 antennas is past any a_compute
+// whose weight tile fits in shared memory.
+constexpr int kMaskWords = 64;
 struct AntMask {
-  uint32_t w[kMaxAnt / 32];
+  uint32_t w[kMaskWords];
 };
 
 // Four 4-bit two's-complement values, one in the low nibble of each byte,
@@ -81,6 +85,17 @@ inline bool make_int_weights(IntWeights& w, const void* w0, const void* w1,
 __device__ __forceinline__ const int8_t* sub_term(const IntWeights& w, int t) {
   static_assert(kMaxSubTerms == 4, "sub_term selects among four pointers");
   return t == 0 ? w.sub[0] : t == 1 ? w.sub[1] : t == 2 ? w.sub[2] : w.sub[3];
+}
+
+// What every address of a wire row is a multiple of (16, 4 or 1): the
+// wire's address, n_ant (pol y's row) and the strides.  16 lets cp.async
+// move 16 bytes at a time, 4 four; 1 stages the rows from byte loads.
+inline int wire_align(const void* wire, int n_ant, long long time_stride,
+                      long long chan_stride) {
+  const unsigned long long all =
+      reinterpret_cast<uintptr_t>(wire) | (unsigned long long)n_ant
+      | (unsigned long long)time_stride | (unsigned long long)chan_stride;
+  return all % 16 == 0 ? 16 : all % 4 == 0 ? 4 : 1;
 }
 
 // gridDim.z of a launch that walks spans: enough blocks (n_chan * chunks *

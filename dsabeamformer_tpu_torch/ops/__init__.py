@@ -1,6 +1,6 @@
 """Compute ops: bit-level packing, the float64 golden model, weight
 quantization, and the CUDA beamforming kernels (fused power and full-Stokes
-detection, unfused beam voltages)."""
+detection, unfused beam voltages) and the incoherent beam."""
 
 from dsabeamformer_tpu_torch.ops.packing import (
     pack_4r4i,
@@ -22,6 +22,7 @@ from dsabeamformer_tpu_torch.ops.gemm import (
     beamform_voltages,
     voltages_to_complex,
 )
+from dsabeamformer_tpu_torch.ops.incoherent import incoherent_power
 
 __all__ = [
     "pack_4r4i",
@@ -37,6 +38,7 @@ __all__ = [
     "quantize_weights",
     "beamform_power",
     "beamform_stokes",
+    "incoherent_power",
     "beamform_voltages",
     "voltages_to_complex",
 ]

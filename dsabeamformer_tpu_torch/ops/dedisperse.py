@@ -31,13 +31,14 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import math
+import re
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from dsabeamformer_tpu_torch.config import DM_CONST_S, dm_delays_s
-from dsabeamformer_tpu_torch.ops._build import load_library
+from dsabeamformer_tpu_torch.ops._build import CSRC_DIR, load_library
 from dsabeamformer_tpu_torch.utils.device import resolve_device
 
 __all__ = [
@@ -133,6 +134,61 @@ def delay_table(
 
 #: The CUDA source of the three dedispersion kernels (``csrc/<name>.cu``).
 KERNEL_SOURCE = "dedisperse"
+
+
+def _kernel_constants() -> dict:
+    """The ``constexpr int`` literals of ``csrc/dedisperse.cu``, read from
+    the source: the banks' geometry is decided there alone."""
+    src = (CSRC_DIR / f"{KERNEL_SOURCE}.cu").read_text()
+    return {name: int(v) for name, v in
+            re.findall(r"constexpr int (k\w+) = (-?\d+);", src)}
+
+
+#: The banks' kernel (csrc/dedisperse.cu ``bank_kernel``, which
+#: ``dedisperse_direct`` and ``subband_stage1`` launch), as its source
+#: states it: consecutive output samples a lane owns (kR), trials a warp
+#: owns (kK), warps of a block (kWarps), the steps between a warp's
+#: consecutive trials on a row that its register window takes (kMinStep ..
+#: kMaxStep), the widest span of the block's shifts on a row that its
+#: staged rows take (kBlockSpan), rows a stage holds (kChunk).
+_BANK = _kernel_constants()
+BANK_LANE_SAMPLES = _BANK["kR"]
+BANK_WARP_TRIALS = _BANK["kK"]
+BANK_WARPS = _BANK["kWarps"]
+BANK_MIN_STEP = _BANK["kMinStep"]
+BANK_MAX_STEP = _BANK["kMaxStep"]
+BANK_BLOCK_SPAN = _BANK["kBlockSpan"]
+BANK_CHUNK = _BANK["kChunk"]
+#: How a warp adds a row (``bank_paths``): from its register window, from
+#: the staged row a load a trial, from global memory a load a trial.
+WINDOW_PATH, STAGED_PATH, GLOBAL_PATH = 0, 1, 2
+
+
+def bank_paths(table: np.ndarray) -> np.ndarray:
+    """How the bank kernel adds each row of a shift table ``[n_trials,
+    n_rows]`` (a direct bank's delays, or one group's stage-1 shifts):
+    int8 ``[trial tiles, BANK_WARPS, n_rows]``, for warp ``w`` of trial
+    tile ``i`` on row ``r``: ``WINDOW_PATH`` where each of its trials'
+    shifts is its predecessor's plus ``BANK_MIN_STEP`` to
+    ``BANK_MAX_STEP`` (one register window serves its trials) and the
+    block's shifts span at most ``BANK_BLOCK_SPAN``; else ``STAGED_PATH``
+    where its trials' shifts span under 256 and the block's fit; else
+    ``GLOBAL_PATH``.  Trials past the table's last take its shifts, as in
+    the kernel."""
+    tab = np.asarray(table, np.int64)
+    n, r = tab.shape
+    per = BANK_WARPS * BANK_WARP_TRIALS
+    tiles = -(-n // per)
+    idx = np.minimum(np.arange(tiles * per), n - 1)
+    t = tab[idx].reshape(tiles, BANK_WARPS, BANK_WARP_TRIALS, r)
+    step = np.diff(t, axis=2)
+    window = ((step >= BANK_MIN_STEP) & (step <= BANK_MAX_STEP)).all(axis=2)
+    warp_span = t.max(axis=2) - t.min(axis=2)
+    fits = (warp_span < 256).all(axis=1) \
+        & (t.max(axis=(1, 2)) - t.min(axis=(1, 2)) <= BANK_BLOCK_SPAN)
+    paths = np.where(window, WINDOW_PATH,
+                     np.where(warp_span < 256, STAGED_PATH, GLOBAL_PATH))
+    return np.where(fits[:, None, :], paths, GLOBAL_PATH).astype(np.int8)
 
 
 def dedisperse_direct_plain(p: torch.Tensor, delays: torch.Tensor,
@@ -330,11 +386,13 @@ def _valid_len(delays: np.ndarray, t: int) -> np.ndarray:
 
 def _padded_columns(x: np.ndarray, fill: np.ndarray, t_pad: int,
                     pad_f: int, device: torch.device) -> torch.Tensor:
-    """``[B, F + pad_f, T_pad]`` float32 on ``device``: the ``[B, T, F]``
-    window (any real dtype, uploaded as it is and cast there), its tail
-    filled with ``fill`` ``[B, F]``, zero channels appended, each channel's
-    time series contiguous."""
+    """``[B, F + pad_f, T_pad']`` float32 on ``device`` (``T_pad`` rounded
+    up to a multiple of 4): the ``[B, T, F]`` window (any real dtype,
+    uploaded as it is and cast there), its tail filled with ``fill``
+    ``[B, F]``, zero channels appended, each channel's time series
+    contiguous."""
     b, t, f = x.shape
+    t_pad = -(-t_pad // 4) * 4   # rows on 16 bytes: the kernels' wide copies
     xd = torch.from_numpy(np.ascontiguousarray(x)).to(device)
     fd = torch.from_numpy(np.ascontiguousarray(fill, np.float32)).to(device)
     cols = torch.empty((b, f + pad_f, t_pad), dtype=torch.float32,
@@ -367,7 +425,7 @@ def _two_stage_bank(x: np.ndarray, fill: np.ndarray, plan,
     b, t, _ = x.shape
     t1 = t + int(inter.max())
     t_pad = t1 + (int(intra_c.max()) if intra_c.size else 0)
-    p = _padded_columns(x, fill, t_pad, pad_f, dev).view(b, g, c, t_pad)
+    p = _padded_columns(x, fill, t_pad, pad_f, dev).view(b, g, c, -1)
     s = subband_stage1(p, _table(intra_c, dev), t1)
     # flat offset of (group g, trial d) in group g's [J * t1] stage-1 plane
     offsets = rep_of[None, :] * t1 + inter.T                      # [G, n_dm]

@@ -33,13 +33,17 @@ Hand-written CUDA kernels replace the JAX package's two Pallas kernels
   times the channel's scale, stored as float32 ``[F, T, P, 2B]`` with no
   detection.
 
-Both kernels take each a_compute that is a multiple of 8 from 8 to 128
-(DSA-110: 110 active antennas in 128 slots), in every weight mode, and are
+Both kernels take any a_compute whose weight tile fits in shared memory
+beside one output row (DSA-10 as built: 10 slots; DSA-110: 110 active
+antennas in 128 slots; 224 in every mode), in every weight mode, and are
 built on ``csrc/mma_gemm.cuh`` (``kernel_path``: ``"wgmma"``): a block
 stages a 64-beam tile of weight columns in shared memory (32 beams where a
-bf16 tile would leave room for fewer than two warpgroups:
+bf16 tile would leave room for fewer than two warpgroups, or an int8 one
+for no row:
 ``_detect_tiles``, ``_voltage_tiles``), K-major, keeps the wire bytes packed
-beside it and walks K in steps of 32 bytes; ``_mma_operands`` (int8) and
+beside it (a wire row that starts off 4 bytes staged from byte loads) and
+walks K in steps of 32 bytes, the last step's tail zero in the weights;
+``_mma_operands`` (int8) and
 ``_bf16_operands`` (bf16, f32) state its operand layouts in torch.  The
 voltage kernel takes 8 samples of both pols as one m-tile, restages each
 warp's m-tile through shared memory and writes whole rows of Re and of Im
@@ -79,9 +83,9 @@ from dsabeamformer_tpu_torch.ops.quantize import (
 KERNEL_MODES = tuple(TERM_DTYPES)
 #: Modes whose terms are float (bfloat16 or float32), scales all 1.
 FLOAT_MODES = ("bf16", "bf16x2", "f32")
-#: The kernels take every a_compute that is a multiple of 8 up to this
-#: (csrc: kMaxAnt; also the incoherent mask's width in bits).
-MAX_A_COMPUTE = 128
+#: Words of the incoherent mask the detect kernel keeps (csrc kMaskWords):
+#: 2048 antennas, past any a_compute whose weight tile fits.
+MASK_WORDS = 64
 #: The tensor-core instruction of the detect kernel, every weight mode.
 DETECT_MMA = "wgmma"
 #: The detect kernel (csrc/mma_gemm.cuh): beams of a block's weight tile
@@ -97,9 +101,9 @@ _MAX_SPAN_ROWS = 16
 _MAX_GROUPS = {False: 4, True: 2}
 _STEP_BYTES = 32
 #: Dynamic shared memory a block of either kernel may stage into: an SM's
-#: 227 KB less 1 KB a warpgroup (the detect kernel's static SK scratch:
-#: kMmaDynSmem).
-_MMA_DYN_SMEM = 227 * 1024 - 4 * 1024
+#: 227 KB less the detect kernel's static copy of the incoherent mask
+#: (kMmaDynSmem).
+_MMA_DYN_SMEM = 227 * 1024 - 4 * MASK_WORDS
 #: The voltage kernel (csrc/beam_voltages.cu): samples of an m-tile
 #: (kMtileSamples), rows a warp restages (kStageRows: 8 samples x 2 pols),
 #: floats after each restaged row (csrc/mma_gemm.cuh kStagePad).
@@ -217,10 +221,10 @@ def incoherent_mask(cfg: ObsConfig, flag_ants=()) -> int:
     return mask
 
 
-def _mask_words(mask: int):
-    """The mask as the kernel's ``MAX_A_COMPUTE / 32`` uint32 words (bit
-    ``a`` in word ``a // 32``), a ctypes array."""
-    n = MAX_A_COMPUTE // 32
+def _mask_words(mask: int, a_compute: int):
+    """The mask as the ``ceil(a_compute / 32)`` uint32 words the detect
+    kernel reads (bit ``a`` in word ``a // 32``), a ctypes array."""
+    n = -(-a_compute // 32)
     return (ctypes.c_uint * n)(*((mask >> (32 * i)) & 0xFFFFFFFF
                                  for i in range(n)))
 
@@ -230,14 +234,22 @@ def kernel_path(cfg: ObsConfig) -> str:
     weight mode (``csrc/detect_power.cu`` on ``csrc/mma_gemm.cuh``: int8
     ``wgmma`` for the int8 modes, bf16 ``wgmma`` into float32 sums for the
     float ones, a weight tile in shared memory: ``_detect_tiles``).  It
-    takes every a_compute that is a multiple of 8 from 8 to
-    ``MAX_A_COMPUTE``, and so do the voltage kernels; raises ``ValueError``
-    for any other."""
+    takes every a_compute whose weight tile leaves room in a block's shared
+    memory for one output row of the detect kernel (``navg_time`` samples)
+    and one m-tile of the voltage kernel; raises ``ValueError`` naming that
+    limit for any other (at ``navg_time`` 16, the widest multiples of 8:
+    f32 272, int13 384, bf16x2 392, bf16, int8x2 and int12 704, int8
+    1152)."""
     ac = cfg.a_compute
-    if ac < 8 or ac > MAX_A_COMPUTE or ac % 8:
-        raise ValueError(
-            f"the kernels take an a_compute that is a multiple of 8 from 8 "
-            f"to {MAX_A_COMPUTE}; config {cfg.name!r} has {ac}")
+    for kernel, tiles in (("detect", _detect_tiles(cfg)),
+                          ("voltage", _voltage_tiles(cfg))):
+        if not tiles.rows:
+            raise ValueError(
+                f"a_compute {ac} in mode {cfg.weight_mode!r} (config "
+                f"{cfg.name!r}): the {kernel} kernel's weight tile and one "
+                f"output row need {tiles.smem} bytes of shared memory, more "
+                f"than the {_MMA_DYN_SMEM} a block stages (the kernels' only "
+                f"limit on a_compute)")
     return DETECT_MMA
 
 
@@ -279,14 +291,16 @@ def _stage_bytes(stage_rows: int, beams: int) -> int:
 
 
 def _mma_tiles(cfg: ObsConfig, navg: int, n_out: int, max_groups: int,
-               min_groups: int, stage_rows: int) -> DetectTiles:
+               min_groups: int, stage_rows: int,
+               scratch: int = 0) -> DetectTiles:
     """The weight tile and spans of a kernel on csrc/mma_gemm.cuh, output
-    rows of ``navg`` samples (``n_out`` of them a channel), the 32-beam tile
-    where a bf16 one of 64 leaves room for fewer than ``min_groups``
-    warpgroups: csrc make_mma_geom (see ``_detect_tiles``)."""
+    rows of ``navg`` samples (``n_out`` of them a channel), each warpgroup
+    keeping ``scratch`` bytes beside its rows, the 32-beam tile where a
+    bf16 one of 64 leaves room for fewer than ``min_groups`` warpgroups or
+    any one of 64 for no row: csrc make_mma_geom (see ``_detect_tiles``)."""
     ac = cfg.a_compute
     bf16 = cfg.weight_mode in FLOAT_MODES
-    n_steps = ac // 8 if bf16 else -(-ac // 16)
+    n_steps = -(-ac // 8) if bf16 else -(-ac // 16)
     raw_stride = 16 * (-(-ac // 16) | 1)
     k_total = n_subterms(cfg) * _STEP_BYTES * n_steps
     row_bytes = 2 * navg * 2 * raw_stride
@@ -294,15 +308,16 @@ def _mma_tiles(cfg: ObsConfig, navg: int, n_out: int, max_groups: int,
 
     def fit(beams):
         return _fit_spans(2 * beams * k_total, row_bytes,
-                          _stage_bytes(stage_rows, beams), n_out, max_groups)
+                          _stage_bytes(stage_rows, beams) + scratch, n_out,
+                          max_groups)
 
     beams = _TILE_BEAMS
     got = fit(beams)
-    if bf16 and (got is None or got[0] < enough):
+    if got is None or (bf16 and got[0] < enough):
         beams = _NARROW_TILE_BEAMS
         got = fit(beams)
     wbytes = 2 * beams * k_total
-    stage = _stage_bytes(stage_rows, beams)
+    stage = _stage_bytes(stage_rows, beams) + scratch
     if got is None:
         return DetectTiles(beams, 1, 0, wbytes + stage + row_bytes)
     groups, rows = got
@@ -316,19 +331,22 @@ def _detect_tiles(cfg: ObsConfig, stokes: bool = False) -> DetectTiles:
     A block holds a weight tile of 64 beams, every sub-term K-major (``2 *
     beams * n_subterms * 32 * n_steps`` bytes; a step is 32 bytes of a
     column: 16 antennas of int8 ``[re | im]``, ``n_steps = ceil(a_compute /
-    16)``, or 8 of bf16, ``n_steps = a_compute / 8``), and for each of its
-    warpgroups two buffers of a span's wire rows, packed as they arrive:
+    16)``, or 8 of bf16, ``n_steps = ceil(a_compute / 8)``), and for each of
+    its warpgroups two buffers of a span's wire rows, packed as they arrive:
     ``navg_time * 2`` rows an output row, each a_compute bytes padded to an
-    odd number of 16-byte units.  A block is as many warpgroups (at most 4,
+    odd number of 16-byte units, and its SK partial sums (``2 * a_compute``
+    int32).  A block is as many warpgroups (at most 4,
     Stokes 2, and no more than there are rounds of ``_ROUND_ROWS`` output
     rows) as can each hold a span of ``_ROUND_ROWS`` rows; the span is then
     what fits, at most ``_MAX_SPAN_ROWS`` and a multiple of ``_ROUND_ROWS``
     once past it.  A bf16 tile (the float modes) that leaves room for fewer
     than two warpgroups (or the rounds, if fewer) is 32 beams instead: f32's
-    three parts at a_compute 112 and 128.  0 rows: one output row does not
-    fit beside the tile."""
+    three parts from a_compute 113; so is an int8 tile of 64 that
+    leaves room for no row (int13 from a_compute 209 at navg 16, int8x2
+    and int12 from 385, int8 from 705).  0 rows: one output
+    row does not fit beside the tile."""
     return _mma_tiles(cfg, cfg.navg_time, cfg.t_block // cfg.navg_time,
-                      _MAX_GROUPS[stokes], 2, 0)
+                      _MAX_GROUPS[stokes], 2, 0, 8 * cfg.a_compute)
 
 
 class VoltageTiles(NamedTuple):
@@ -430,8 +448,7 @@ def _voltage_value(acc: torch.Tensor, ps: int, s: torch.Tensor):
 
 def _detect_smem(cfg: ObsConfig, stokes: bool = False) -> tuple:
     """(bytes, limit) of the shared memory one detect-kernel block stages:
-    its weight tile and its spans' rows."""
-    kernel_path(cfg)  # raises for an a_compute the kernel does not take
+    its weight tile, its spans' rows and its SK partial sums."""
     return _detect_tiles(cfg, stokes).smem, _MMA_DYN_SMEM
 
 
@@ -475,6 +492,16 @@ def _mma_operands(re, im, terms, cfg: ObsConfig) -> tuple:
     return x, subs
 
 
+def _product_scale(cfg: ObsConfig) -> int:
+    """What the int8 kernels' sums are a multiple of (csrc product_scale):
+    16 where the unfolded modes multiply 16 x (int8, int8x2 up to a_compute
+    255, while ``16 * 257 * 2048 * a_compute < 2**31``), else 1 (the folded
+    modes, wider unfolded ones, the float modes)."""
+    if cfg.weight_mode in FLOAT_MODES or cfg.weight_mode in FOLDED_SUBTERMS:
+        return 1
+    return 16 if 16 * 257 * 2048 * cfg.a_compute < 2 ** 31 else 1
+
+
 def _mma_product(x, subs, cfg: ObsConfig) -> torch.Tensor:
     """The integers the int8 detect kernel's accumulators end with, from
     ``_mma_operands``: int32 ``[Fc, T, P, B, 2]`` (Re, Im).  The sub-terms
@@ -484,7 +511,7 @@ def _mma_product(x, subs, cfg: ObsConfig) -> torch.Tensor:
     byte's nibbles in place), and the odd ones by x.  (In the unfolded
     modes the kernel multiplies 16 x throughout and divides the 16 out of
     its float32 result, a power of two and so exact: the same integers
-    times 16, below 2^31.)"""
+    times 16, below 2^31, ``_product_scale``.)"""
     fold = cfg.weight_mode in FOLDED_SUBTERMS
     x16 = ((x.to(torch.int32) << 4) & 0xF0).to(torch.uint8).view(torch.int8)
     acc = None
@@ -528,22 +555,29 @@ def _bf16_operands(wire, terms, cfg: ObsConfig) -> tuple:
     them out, in torch: ``(x, subs)``.
 
     ``wire`` is the uint8 wire bytes ``[Fc, T, P, a_compute]`` of the
-    channels (``_wire_chunk``).  ``x`` is bfloat16 ``[Fc, T, P, 2 *
-    a_compute]``: k16 steps of ``[re of 8 antennas | im of the same 8]``
-    made from the nibbles by ``_nibble_bf16``.  ``subs`` lists the bf16
-    sub-terms (bf16 its term, bf16x2 hi and lo, f32 the ``_split_f32``
-    parts of its term), each bfloat16 ``[Fc, 2 * a_compute, B, 2]``: rows in
-    x's K order, the columns of a beam ``(Re, Im)`` side by side (columns
+    channels (``_wire_chunk``).  ``x`` is bfloat16 ``[Fc, T, P, Kp]``,
+    ``Kp = 16 * ceil(a_compute / 8)``: k16 steps of ``[re of 8 antennas |
+    im of the same 8]`` made from the nibbles by ``_nibble_bf16``, zeros
+    past a_compute.  ``subs`` lists the bf16 sub-terms (bf16 its term,
+    bf16x2 hi and lo, f32 the ``_split_f32`` parts of its term), each
+    bfloat16 ``[Fc, Kp, B, 2]``: rows in x's K order (zeros past
+    a_compute), the columns of a beam ``(Re, Im)`` side by side (columns
     ``b`` and ``B + b`` of the term)."""
     ac, b = cfg.a_compute, cfg.n_beams
-    n_steps = ac // 8
+    n_steps = -(-ac // 8)
+    pad = 8 * n_steps - ac
 
     def k_order(r, i, dim):
-        """[re | im] halves along ``dim`` -> k16 steps."""
+        """[re | im] halves along ``dim`` -> k16 steps, zero-filled."""
+        shape = list(r.shape)
+        shape[dim] = pad
+        z = r.new_zeros(shape)
+        r, i = (torch.cat([v, z], dim=dim) for v in (r, i))
         lead, tail = list(r.shape[:dim]), list(r.shape[dim + 1:])
         r = r.reshape(*lead, n_steps, 8, *tail)
         i = i.reshape(*lead, n_steps, 8, *tail)
-        return torch.cat([r, i], dim=dim + 1).reshape(*lead, 2 * ac, *tail)
+        return torch.cat([r, i], dim=dim + 1).reshape(
+            *lead, 16 * n_steps, *tail)
 
     x = k_order(_nibble_bf16(wire >> 4), _nibble_bf16(wire), 3)
     parts = _split_f32(terms[0]) if cfg.weight_mode == "f32" else terms
@@ -862,12 +896,9 @@ def _check_kernel_operands(x, terms, scales, cfg: ObsConfig,
     for name, t in operands:
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if x.data_ptr() % 4:
-        raise ValueError("wire must start on a 4-byte boundary")
     kernel_path(cfg)  # raises for an a_compute the kernels do not take
-    if cfg.n_ant % 4 or cfg.n_pol != 2:
-        raise ValueError(f"kernel needs n_ant % 4 == 0 and 2 pols, got "
-                         f"n_ant={cfg.n_ant}, n_pol={cfg.n_pol}")
+    if cfg.n_pol != 2:
+        raise ValueError(f"kernel needs 2 pols, got n_pol={cfg.n_pol}")
     if cfg.n_chan > 65535:
         raise ValueError(f"kernel takes at most 65535 channels, got {cfg.n_chan}")
 
@@ -950,11 +981,6 @@ def _launch_detect(x, terms, scales, cfg: ObsConfig, time_major: bool, *,
             f"quant8_scales must be float32 [{cfg.n_beams}], got "
             f"{_dtype_name(quant8_scales.dtype)} "
             f"{tuple(quant8_scales.shape)}")
-    need, limit = _detect_smem(cfg, stokes)
-    if need > limit:
-        raise ValueError(
-            f"navg_time={cfg.navg_time} needs {need} bytes of shared memory, "
-            f"more than the kernel stages ({limit} bytes)")
     if inco_mask is not None and inco_mask >> cfg.a_compute:
         raise ValueError(
             f"incoherent mask {inco_mask:#x} selects antennas past "
@@ -978,8 +1004,8 @@ def _launch_detect(x, terms, scales, cfg: ObsConfig, time_major: bool, *,
         scales.data_ptr(), quant8_scales.data_ptr() if quant8 else None,
         out.data_ptr(), None if inco is None else inco.data_ptr(),
         None if sk_out is None else sk_out.data_ptr(),
-        None if inco_mask is None else _mask_words(inco_mask), cfg.n_chan,
-        cfg.t_block, cfg.n_beams, cfg.n_ant, cfg.a_compute,
+        None if inco_mask is None else _mask_words(inco_mask, cfg.a_compute),
+        cfg.n_chan, cfg.t_block, cfg.n_beams, cfg.n_ant, cfg.a_compute,
         *_operand_args(cfg, terms), cfg.navg_time, int(stokes),
         time_stride, chan_stride], x.device)
     return out, inco, sk_out
@@ -1135,10 +1161,6 @@ def _launch_voltages(x, terms, scales, cfg: ObsConfig,
     """Check the operands, allocate the output on ``x``'s device and launch
     the voltage kernel (every mode: ``csrc/beam_voltages.cu``)."""
     _check_kernel_operands(x, terms, scales, cfg, time_major)
-    if not _voltage_tiles(cfg).rows:
-        raise ValueError(
-            f"a_compute={cfg.a_compute} in mode {cfg.weight_mode!r} leaves "
-            f"no shared memory for an m-tile beside the weight tile")
     out = torch.empty((cfg.n_chan, cfg.t_block, cfg.n_pol, 2 * cfg.n_beams),
                       dtype=torch.float32, device=x.device)
     time_stride, chan_stride = _wire_strides(cfg, time_major)

@@ -84,6 +84,40 @@ def random_geometry(i: int) -> tuple:
     return cfg, {"time_tile": time_tile, "chan_tile": chan_tile}
 
 
+#: Seed of odd-antenna geometry ``i`` is ``ODD_ANTS_SEED + i``.
+ODD_ANTS_SEED = 2000
+
+
+def random_geometry_odd_ants(i: int) -> ObsConfig:
+    """Random valid geometry ``i`` whose antenna count is no multiple of 8
+    (9 to 31; auto slicing, so a_compute is ``n_ant`` or a multiple of 16 or
+    32 below it, and pol y's wire rows start off a 4-byte boundary where
+    ``n_ant`` is no multiple of 4): 8-48 beams, navg_time 2-16, one to three
+    averaging windows a block, navg_freq 1-2, both wire layouts, the five
+    modes of ``FUZZ_MODES``.  Its own draws, so ``random_geometry``'s cases
+    stay as they are."""
+    rng = np.random.default_rng(ODD_ANTS_SEED + i)
+    navg_time = int(rng.choice([2, 4, 8, 16]))
+    t_block = navg_time * int(rng.choice([2, 4, 8])) \
+        * int(rng.choice([1, 2, 3]))
+    navg_freq = int(rng.choice([1, 2]))
+    n_chan = navg_freq * int(rng.choice([1, 2, 3]))
+    n_ant = int(rng.choice([a for a in range(9, 32) if a % 8]))
+    return ObsConfig(
+        name=f"odd{i}",
+        n_ant=n_ant,
+        n_ant_active=int(rng.integers(2, n_ant + 1)),
+        n_beams=int(rng.choice([8, 20, 48])),
+        n_chan=n_chan,
+        n_chan_total=n_chan * int(rng.choice([1, 4])),
+        t_block=t_block,
+        navg_time=navg_time,
+        navg_freq=navg_freq,
+        weight_mode=FUZZ_MODES[i % len(FUZZ_MODES)],
+        input_layout=str(rng.choice(["tfpa", "ftpa"])),
+    )
+
+
 #: The f32 split control's bar (``one_product_block``, navg_time 1):
 #: relative power error of the f32 detect kernel against its plain version.
 #: Each output is one sample of both pols, each voltage component one

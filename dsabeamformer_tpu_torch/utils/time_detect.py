@@ -1,9 +1,9 @@
-"""Time the detect kernel or the voltage kernel alone on one NVIDIA GPU: the
-quick loop for work on a kernel's design, beside ``chip_smoke.py``'s full
-check.
+"""Time the detect kernel, the voltage kernel or the dedispersion bank's
+kernels alone on one NVIDIA GPU: the quick loop for work on a kernel's
+design, beside ``chip_smoke.py``'s full check.
 
     python3 -m dsabeamformer_tpu_torch.utils.time_detect \\
-        [--kernel detect|voltages] [--presets dsa10 dsa110] \\
+        [--kernel detect|voltages|bank] [--presets dsa10 dsa110] \\
         [--modes int8x2 bf16 bf16x2 f32 ...] [--variants base stokes] \\
         [--launches 4] [--nvcc-flag=-O2 ...]
 
@@ -16,7 +16,13 @@ name and power limit.  ``--kernel voltages``, per (preset, weight mode):
 the same for ``beamform_voltages`` on the preset's 128-channel sub-band
 (the tile from ``gemm._voltage_tiles``; the int8 modes must equal the plain
 version bit for bit), and once per preset the store ceiling: a plain
-``zero_()`` of the same 4.3 GB output tensor.  ``--nvcc-flag``
+``zero_()`` of the same 4.3 GB output tensor.  ``--kernel bank``: the
+three dedispersion kernels (``ops/dedisperse.py``) on the live search's
+window at ``dsa10c`` (``[search kernels]`` in ``chip_smoke.py``: 32 beams,
+4708 samples, 2048 channels, 465 trials to DM 100, the conv plan's 16
+groups and 102 coarse trials) filled with random floats on the card: each
+held against its plain version (bit for bit), then timed, with its share
+of the add bound (33.5e12 float32 adds a second).  ``--nvcc-flag``
 adds a flag to the build of every CUDA source, for a build option of the
 sources as they stand.  A design alternative is timed from an edited copy
 of the sources (``python3 -m ...`` run from that copy's root) in the same
@@ -29,6 +35,7 @@ from __future__ import annotations
 import argparse
 import subprocess
 
+import numpy as np
 import torch
 
 from dsabeamformer_tpu_torch.config import DSA10, DSA10_COMPACT, DSA110
@@ -93,10 +100,68 @@ def time_voltages(cfg, launches: int, device) -> tuple:
     return ms, err, ceiling
 
 
+#: The live search's first window at dsa10c: samples (its chunk, 4096, and
+#: the overlap: the largest delay and the widest boxcar), beams, DM range.
+BANK_WINDOW_T = 4708
+BANK_BEAMS = 32
+BANK_DM_MAX = 100.0
+#: float32 adds a second of an H100 SXM outside the tensor cores.
+F32_ADDS_PER_S = 33.5e12
+
+
+def time_bank(launches: int, device) -> None:
+    """Each dedispersion kernel on the dsa10c window (see the module's
+    text): bit-equal to its plain version or raise, then its CUDA-event
+    time and its share of the add bound, printed."""
+    from dsabeamformer_tpu_torch.ops import dedisperse as dd
+
+    cfg = DSA10_COMPACT
+    f_mhz = cfg.freqs_hz() / 1e6
+    tsamp = cfg.sample_period_s * cfg.navg_time
+    dms = dd.dm_trial_grid(float(f_mhz.min()), float(f_mhz.max()), tsamp,
+                           dm_max=BANK_DM_MAX)
+    delays = dd.delay_table(f_mhz, dms, tsamp)
+    b, t, f = BANK_BEAMS, BANK_WINDOW_T, cfg.n_chan
+    gen = torch.Generator(device=device).manual_seed(0)
+    t_pad = -(-(t + int(delays.max())) // 4) * 4
+    p = torch.randn((b, f, t_pad), generator=gen, device=device)
+    dt = torch.from_numpy(delays).to(device)
+    intra, inter, rep_of, pad_f = dd._conv_plan(
+        delays, dd._conv_auto_n_sub(delays), 1)
+    g, j, c = intra.shape
+    t1 = t + int(inter.max())
+    t_pad1 = -(-(t1 + int(intra.max())) // 4) * 4
+    p1 = torch.randn((b, g, c, t_pad1), generator=gen, device=device)
+    it = torch.from_numpy(intra).to(device)
+    offsets = torch.from_numpy(np.ascontiguousarray(
+        rep_of[None, :] * t1 + inter.T, np.int32)).to(device)
+    s1 = dd.subband_stage1(p1, it, t1)
+    cases = [
+        ("dedisperse_direct", lambda: dd.dedisperse_direct(p, dt, t),
+         lambda: dd.dedisperse_direct_plain(p, dt, t), b * len(dms) * f * t),
+        ("subband_stage1", lambda: dd.subband_stage1(p1, it, t1),
+         lambda: dd.subband_stage1_plain(p1, it, t1), b * g * j * c * t1),
+        ("subband_stage2", lambda: dd.subband_stage2(s1, offsets, t),
+         lambda: dd.subband_stage2_plain(s1, offsets, t),
+         b * len(dms) * g * t),
+    ]
+    for name, run, plain, adds in cases:
+        got = run()
+        err = float((got - plain()).abs().max())
+        if err != 0.0:
+            raise RuntimeError(f"{name} differs from its plain version by "
+                               f"{err!r}")
+        del got
+        ms = _events_ms(run, launches)
+        bound = adds / F32_ADDS_PER_S * 1e3
+        print(f"bank {name}: {ms:.3f} ms, bit-equal to plain, add bound "
+              f"{bound:.3f} ms ({bound / ms:.1%} of it)", flush=True)
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernel", default="detect",
-                    choices=["detect", "voltages"])
+                    choices=["detect", "voltages", "bank"])
     ap.add_argument("--presets", nargs="+", default=["dsa10", "dsa110"],
                     choices=sorted(PRESETS))
     ap.add_argument("--modes", nargs="+", default=["int8x2"],
@@ -113,6 +178,9 @@ def main(argv=None) -> None:
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip())
+    if args.kernel == "bank":
+        time_bank(args.launches, device)
+        return
     if args.kernel == "voltages":
         for preset in args.presets:
             for mode in args.modes:

@@ -56,8 +56,10 @@ GEOMS = {
                            n_ant_compute=64, n_beams=100),
 }
 
-#: A config whose a_compute (160) the kernels do not take.
-TOO_WIDE = DSA110.replace(n_chan=4, t_block=64, n_ant=160, n_ant_active=150)
+#: A config whose a_compute (712) the kernels do not take: int8x2's weight
+#: tile and one output row pass a block's shared memory from 712.
+TOO_WIDE = DSA110.replace(n_chan=4, t_block=64, n_ant=712, n_ant_active=150,
+                          n_ant_compute=712)
 
 
 def _flags(cfg) -> tuple:
@@ -139,9 +141,9 @@ def test_kernel_rejects_what_it_does_not_take(dev):
                           qw.scales, cfg, tm)
     with pytest.raises(ValueError, match="weights are on"):
         gemm.fused_detect(x2, qw.terms, qw.scales.cpu(), cfg, tm)
-    # No kernel takes a_compute 160: refused before any launch.
+    # No kernel takes a_compute 712: refused before any launch.
     big = TOO_WIDE
-    assert big.a_compute == 160
+    assert big.a_compute == 712
     qwb = _weights(big, dev)
     xb = torch.from_numpy(make_noise_block(big, seed=1)).to(dev)
     before = _launches()
@@ -552,7 +554,7 @@ def test_voltage_kernel_rejects_what_it_does_not_take(dev):
         gemm.beamform_voltages(x, _to(qw, "cpu"), cfg)
     with pytest.raises(ValueError, match="scales must be float32"):
         gemm.beamform_voltages(x, type(qw)(qw.terms, qw.scales.double()), cfg)
-    # No kernel takes a_compute 160: refused before any launch.
+    # No kernel takes a_compute 712: refused before any launch.
     big = TOO_WIDE
     xb = torch.from_numpy(make_noise_block(big, seed=1)).to(dev)
     before = (gemm.beamform_voltages.launches, _launches())
@@ -666,9 +668,16 @@ def test_mode_kernels_match_plain(dev, mode, ac, variant, layout):
     kernel's output, the uint8 product byte-equal to the rint/clip of the
     kernel's own float32 and within 1 count of the plain version's,
     incoherent and SK equal."""
-    q8, inco, sk, stokes = ALL_VARIANTS[variant]
     cfg = MODE_GEOMS[ac].replace(input_layout=layout, weight_mode=mode)
     assert cfg.a_compute == ac
+    _check_detect(dev, cfg, variant)
+
+
+def _check_detect(dev, cfg, variant):
+    """``test_mode_kernels_match_plain``'s checks of one config and
+    variant."""
+    mode = cfg.weight_mode
+    q8, inco, sk, stokes = ALL_VARIANTS[variant]
     wire = make_random_bytes_block(cfg, seed=13)
     qw = _weights(cfg, dev)
     x, tm = gemm._prepare_wire(torch.from_numpy(wire).to(dev), cfg)
@@ -706,6 +715,82 @@ def test_mode_kernels_match_plain(dev, mode, ac, variant, layout):
         assert torch.equal(inco_k, inco_p)
     if sk:
         assert sk_k.dtype == torch.int64 and torch.equal(sk_k, sk_p)
+
+
+#: Widths off the multiples of 8 and past 128: DSA-10's 10-, 12- and
+#: 20-slot wires in auto mode (a_compute 10, 12, 20; int13 rounds 20's 10
+#: active antennas to 16; the 10-slot wire's pol y rows start off 4 bytes,
+#: so the kernels stage them from byte loads, while 12 and 20 slots keep
+#: 4-byte copies), a_compute 160 and 224 (int13's weight tile is 32 beams
+#: at 224) and 264, past 255, where int8 and int8x2 multiply X, not 16 X.
+WIDTH_GEOMS = {
+    10: TINY.replace(n_ant=10, n_ant_active=10),
+    12: TINY.replace(n_ant=12, n_ant_active=10, n_beams=40),
+    20: TINY.replace(n_ant=20, n_ant_active=10, n_beams=72, navg_time=8),
+    160: DSA110.replace(n_chan=2, t_block=128, n_ant=160, n_ant_active=150,
+                        n_ant_compute=160, n_beams=100),
+    224: DSA110.replace(n_chan=2, t_block=128, n_ant=224, n_ant_active=200,
+                        n_ant_compute=224, n_beams=72, navg_time=8),
+    264: DSA110.replace(n_chan=2, t_block=128, n_ant=264, n_ant_active=250,
+                        n_ant_compute=264, n_beams=72, navg_time=8),
+}
+
+
+@pytest.mark.parametrize("layout", ["tfpa", "ftpa"])
+@pytest.mark.parametrize("variant", ["base", "stokes+sk+q8+inco"])
+@pytest.mark.parametrize("width", sorted(WIDTH_GEOMS))
+@pytest.mark.parametrize("mode", gemm.KERNEL_MODES)
+def test_width_kernels_match_plain(dev, mode, width, variant, layout):
+    """Every mode's detect kernel (power, and Stokes with every side output)
+    and voltage kernel at the widths of ``WIDTH_GEOMS`` against the plain
+    versions: detection within ``_mode_rtol`` of the peak (the same
+    integers in the int8 modes), incoherent and SK equal, uint8 within a
+    count, int8-mode voltages equal, float-mode voltages within
+    ``_mode_rtol``."""
+    cfg = WIDTH_GEOMS[width].replace(input_layout=layout, weight_mode=mode)
+    assert cfg.a_compute == (16 if mode == "int13" and width == 20
+                             else width)
+    _check_width(dev, cfg, variant)
+
+
+def _check_width(dev, cfg, variant):
+    assert gemm.kernel_path(cfg) == "wgmma"
+    mode = cfg.weight_mode
+    _check_detect(dev, cfg, variant)
+    if variant != "base":
+        return
+    wire = make_random_bytes_block(cfg, seed=29)
+    qw = _weights(cfg, dev)
+    got = gemm.beamform_voltages(torch.from_numpy(wire).to(dev), qw, cfg)
+    x, tm = gemm._prepare_wire(torch.from_numpy(wire).to(dev), cfg)
+    want = gemm.voltages_plain(x, qw.terms, qw.scales, cfg, tm)
+    if mode in gemm.FLOAT_MODES:
+        assert float((got - want).abs().max()) \
+            <= _mode_rtol(mode) * float(want.abs().max())
+    else:
+        assert torch.equal(got, want)
+
+
+#: int8x2 and int8 past a_compute 255 on the 32-beam weight tile (at navg
+#: 16, int8x2's from a_compute 385, int8's detect tile from 705 and its
+#: voltage tile from 737): the narrow tile's kernels whose sub-terms
+#: multiply X.
+NARROW_X = {"int8x2": 400, "int8": 744}
+
+
+@pytest.mark.parametrize("variant", ["base", "stokes+sk+q8+inco"])
+@pytest.mark.parametrize("mode", sorted(NARROW_X))
+def test_narrow_tile_past_255_matches_plain(dev, mode, variant):
+    """As ``test_width_kernels_match_plain``, where int8 and int8x2 take
+    the 32-beam tile and their products multiply X (product scale 1)."""
+    ac = NARROW_X[mode]
+    cfg = DSA110.replace(n_chan=2, t_block=64, n_ant=ac,
+                         n_ant_active=ac - 10, n_ant_compute=ac,
+                         n_beams=72, weight_mode=mode)
+    assert gemm._detect_tiles(cfg).beams == 32
+    assert gemm._voltage_tiles(cfg).beams == 32
+    assert gemm._product_scale(cfg) == 1
+    _check_width(dev, cfg, variant)
 
 
 def test_f32_split_reaches_the_product(dev):
@@ -958,6 +1043,91 @@ def test_dedisperse_kernels_equal_plain(dev, shape):
     out = dd.subband_stage2(s, offsets.to(dev), t_out)
     assert torch.equal(out.cpu(), dd.subband_stage2_plain(s_plain, offsets,
                                                           t_out))
+
+
+def _sweep(n_dm, n_chan, step):
+    """A DM sweep's delay table [n_dm, n_chan]: ``step`` samples a trial at
+    the band's bottom, none at its top (a cold-plasma f^-2 curve)."""
+    f = np.linspace(1.28, 1.53, n_chan)
+    curve = (f ** -2 - f[-1] ** -2) / (f[0] ** -2 - f[-1] ** -2)
+    return np.rint(np.arange(n_dm)[:, None] * step * curve[None, :]
+                   ).astype(np.int32)
+
+
+#: The banks' kernel at its edges: (B, n_dm, F, T_out, kind, aligned).
+#: n_dm no multiple of the 32-trial tile (nor of a warp's 4), T_out no
+#: multiple of the 480-sample tile, F no multiple of the 16-row chunk, and
+#: F of one chunk (16, 12, 7 rows; stage 1's groups of 4, 3 and 7
+#: channels): the copies of the first chunk are all a block waits for; a
+#: DM sweep (the register window), its trials shuffled (not monotone: wide
+#: warp spans, per-trial loads), a steep sweep (block spans past 60 on its
+#: low channels: both paths), the dsa10c monitor's table (465 trials, 2048
+#: channels), rows that start on 16 bytes or not (T_pad % 4, a data pointer
+#: off 16 bytes).
+BANK_EDGES = [
+    (2, 70, 200, 1000, "sweep", True),
+    (1, 70, 200, 1000, "sweep", False),
+    (2, 130, 37, 577, "shuffled", True),
+    (1, 65, 50, 289, "steep", True),
+    (1, 9, 17, 300, "steep", False),
+    (1, 465, 2048, 600, "dsa10c", True),
+    (2, 70, 16, 1000, "sweep", True),
+    (1, 33, 7, 481, "shuffled", False),
+    (1, 65, 12, 289, "steep", True),
+]
+
+
+@pytest.mark.parametrize("case", BANK_EDGES, ids=lambda c: "-".join(
+    str(v) for v in c))
+def test_bank_kernels_at_their_edges(dev, case):
+    """``dedisperse_direct`` and ``subband_stage1`` (one kernel) against
+    their plain versions, bit for bit, where the tiles are partial, the
+    tables are not DM sweeps and the rows are not aligned; the share of
+    rows the register window served, as ``bank_paths`` states it."""
+    from dsabeamformer_tpu_torch.config import DSA10_COMPACT
+    from dsabeamformer_tpu_torch.ops import dedisperse as dd
+
+    b, n_dm, f, t_out, kind, aligned = case
+    rng = np.random.default_rng(n_dm + f)
+    if kind == "dsa10c":
+        f_mhz = DSA10_COMPACT.freqs_hz() / 1e6
+        tsamp = DSA10_COMPACT.sample_period_s * DSA10_COMPACT.navg_time
+        dms = dd.dm_trial_grid(float(f_mhz.min()), float(f_mhz.max()),
+                               tsamp, dm_max=100.0)
+        delays = dd.delay_table(f_mhz, dms, tsamp)
+    else:
+        delays = _sweep(n_dm, f, {"sweep": 1.3, "shuffled": 1.3,
+                                  "steep": 4.0}[kind])
+        if kind == "shuffled":
+            delays = delays[rng.permutation(n_dm)]
+    assert delays.shape == (n_dm, f)
+    window = dd.bank_paths(delays) == dd.WINDOW_PATH
+    if kind in ("sweep", "dsa10c"):
+        assert window.all()
+    elif kind == "shuffled":
+        assert not window.all()
+    else:
+        assert window.any() and not window.all()
+    t_pad = t_out + int(delays.max())
+    t_pad = -(-t_pad // 4) * 4 + (0 if aligned else 1)
+    n = b * f * t_pad
+    flat = torch.from_numpy(rng.normal(size=n + 4).astype(np.float32))
+    off = 0 if aligned else 1
+    p = flat[off:off + n].view(b, f, t_pad)
+    d = torch.from_numpy(delays)
+    got = dd.dedisperse_direct(p.to(dev) if aligned else
+                               flat.to(dev)[off:off + n].view(b, f, t_pad),
+                               d.to(dev), t_out)
+    assert torch.equal(got.cpu(), dd.dedisperse_direct_plain(p, d, t_out))
+    # Stage 1 on the same table cut into groups of channels.
+    g = 4 if f % 4 == 0 else 1
+    c = f // g
+    intra = torch.from_numpy(np.ascontiguousarray(
+        delays[:, :g * c].reshape(n_dm, g, c).transpose(1, 0, 2)))
+    intra = intra - intra.amin(dim=(1, 2), keepdim=True)
+    pg = p[:, :g * c].reshape(b, g, c, t_pad).contiguous()
+    s = dd.subband_stage1(pg.to(dev), intra.to(dev), t_out)
+    assert torch.equal(s.cpu(), dd.subband_stage1_plain(pg, intra, t_out))
 
 
 def test_dedisperse_kernels_reject_what_they_do_not_take(dev):

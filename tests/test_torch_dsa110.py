@@ -157,15 +157,15 @@ def test_incoherent_and_sk_match_jax(product, quant8):
 
 def test_wide_incoherent_mask():
     """110 active antennas: bits 0..109 set, flagged ones cleared, in any
-    of the four 32-bit words the kernels take."""
+    of the four 32-bit words the kernels take at a_compute 128."""
     _, pc = _cfgs()
     full = pgemm.incoherent_mask(pc)
     assert full == (1 << 110) - 1 and full.bit_length() == 110
     m = pgemm.incoherent_mask(pc, (3, 40, 77, 109))
     assert [a for a in range(128) if not (m >> a) & 1] == \
         [3, 40, 77] + list(range(109, 128))
-    words = list(pgemm._mask_words(m))
-    assert len(words) == pgemm.MAX_A_COMPUTE // 32 == 4
+    words = list(pgemm._mask_words(m, pc.a_compute))
+    assert len(words) == -(-pc.a_compute // 32) == 4
     assert words == [0xFFFFFFF7, 0xFFFFFEFF, 0xFFFFDFFF, 0x1FFF]
     assert sum(w << (32 * i) for i, w in enumerate(words)) == m
     # The plain version takes the mask as it comes: the flagged antennas,

@@ -368,66 +368,88 @@ def test_kernel_path_per_mode(mode, ac, path):
     assert pgemm.kernel_library(cfg, "detect_power") == "detect_power"
 
 
+#: The widest n_ant_compute (a multiple of 8) each mode's kernels take at
+#: navg_time 16: shared memory, the weight tile beside one output row, is
+#: the only limit.
+WIDEST = {"int8": 1152, "int8x2": 704, "int12": 704, "int13": 384,
+          "bf16": 704, "bf16x2": 392, "f32": 272}
+
+
 @pytest.mark.parametrize("mode", sorted(pq.TERM_DTYPES))
 def test_kernel_path_rejects_other_widths(mode):
-    """Every multiple of 8 from 8 to 128 is taken (24 and 112 too, which the
-    JAX package runs); above 128 the kernels stop."""
-    for ac in (24, 112):
-        cfg = pcfg.DSA110.replace(weight_mode=mode, n_ant=160,
+    """Every a_compute the JAX package runs is taken: DSA-10's wire in auto
+    mode (10, 12 and 20 slots: no multiple of 8, rows that start off 4
+    bytes), 24 and 112, and past the DSA-110 width 136, 160 and 224; the
+    kernels stop only where the weight tile leaves no room for a row, and
+    the message says so."""
+    for n in (10, 12, 20):
+        cfg = pcfg.TINY.replace(weight_mode=mode, n_ant=n,
+                                n_ant_active=min(n, 10))
+        # int13 rounds 10 active antennas up to 16 (JAX config.a_compute).
+        assert cfg.a_compute == (16 if mode == "int13" and n == 20 else n)
+        assert pgemm.kernel_path(cfg) == "wgmma"
+    for ac in (24, 112, 136, 160, 224, WIDEST[mode]):
+        cfg = pcfg.DSA110.replace(weight_mode=mode, n_ant=max(ac, 160),
                                   n_ant_active=8, n_ant_compute=ac)
         assert pgemm.kernel_path(cfg) == "wgmma"
-    for ac in (136, 160):
-        cfg = pcfg.DSA110.replace(weight_mode=mode, n_ant=160,
-                                  n_ant_active=8, n_ant_compute=ac)
-        with pytest.raises(ValueError, match="a_compute"):
-            pgemm.kernel_path(cfg)
+    ac = WIDEST[mode] + 8
+    cfg = pcfg.DSA110.replace(weight_mode=mode, n_ant=ac, n_ant_active=8,
+                              n_ant_compute=ac)
+    with pytest.raises(ValueError, match="a_compute .* shared memory"):
+        pgemm.kernel_path(cfg)
 
 
 def test_detect_smem_follows_the_kernels_layouts():
     """The weight tile, warpgroups, span rows and bytes one block stages
     (csrc: make_mma_geom, fit_spans)."""
     wide = pcfg.DSA110.replace(n_ant_compute=128)
-    limit = 227 * 1024 - 4096
+    limit = 227 * 1024 - 256          # less the static copy of the mask
     # int8 modes, a_compute 128: a 64-beam tile is 128 columns x sub-terms x
     # 256 K bytes; an output row's wire bytes are 16 samples x 2 pols x 144
-    # (128 padded to nine 16-byte units), in two buffers.  Four warpgroups
-    # with a span of four rows each fit beside two sub-terms, two beside
-    # int13's four.
+    # (128 padded to nine 16-byte units), in two buffers; each warpgroup
+    # keeps its SK partial sums (2 x 128 int32).  Four warpgroups with a
+    # span of four rows each fit beside two sub-terms, two beside int13's
+    # four.
     row = 2 * 16 * 2 * 144
+    sk = 8 * 128
     assert pgemm._detect_tiles(wide.replace(weight_mode="int12")) \
-        == (64, 4, 4, 2 * 32768 + 4 * 4 * row)
+        == (64, 4, 4, 2 * 32768 + 4 * (4 * row + sk))
     assert pgemm._detect_smem(wide.replace(weight_mode="int12")) \
-        == (2 * 32768 + 4 * 4 * row, limit)
+        == (2 * 32768 + 4 * (4 * row + sk), limit)
     assert pgemm._detect_tiles(wide.replace(weight_mode="int13")) \
-        == (64, 2, 4, 4 * 32768 + 2 * 4 * row)
+        == (64, 2, 4, 4 * 32768 + 2 * (4 * row + sk))
     # Stokes: two warpgroups (the running sums take the registers), so a
     # span of eight rows each.
     assert pgemm._detect_tiles(wide.replace(weight_mode="int12"), True) \
-        == (64, 2, 8, 2 * 32768 + 2 * 8 * row)
+        == (64, 2, 8, 2 * 32768 + 2 * (8 * row + sk))
     # dsa10 (a_compute 32: 48-byte rows): four warpgroups, 16-row spans.
     assert pgemm._detect_tiles(pcfg.DSA10) \
-        == (64, 4, 16, 128 * 128 + 4 * 16 * 2 * 16 * 2 * 48)
+        == (64, 4, 16, 128 * 128 + 4 * (16 * 2 * 16 * 2 * 48 + 8 * 32))
     # One round of output rows: one warpgroup.
     assert pgemm._detect_tiles(pcfg.TINY.replace(t_block=64))[1:3] == (1, 4)
     # bf16 at a_compute 128: k16 steps of 8 antennas, 16 a term of 32 bytes
     # a column, so a term is 64 KB of a 64-beam tile, as an int8 sub-term.
     assert pgemm._detect_tiles(wide.replace(weight_mode="bf16")) \
-        == (64, 4, 4, 65536 + 4 * 4 * row)
+        == (64, 4, 4, 65536 + 4 * (4 * row + sk))
     # bf16x2, dsa10: two terms of 4 k16 steps, 32 KB; four warpgroups of
-    # twelve rows fit beside them.
+    # sixteen rows fit beside them.
     d10 = pcfg.DSA10.replace(weight_mode="bf16x2")
     assert pgemm._detect_tiles(d10) \
-        == (64, 4, 12, 32768 + 4 * 12 * 2 * 16 * 2 * 48)
+        == (64, 4, 16, 32768 + 4 * (16 * 2 * 16 * 2 * 48 + 8 * 32))
     # f32 at a_compute 128: three bf16 parts of 64 KB leave a 64-beam tile
     # room for one warpgroup of three rows, so the tile is 32 beams: three
     # warpgroups of four rows (Stokes: the two it may have).
     f32 = wide.replace(weight_mode="f32")
     assert pgemm.n_subterms(f32) == pgemm.F32_PARTS == 3
-    assert pgemm._detect_tiles(f32) == (32, 3, 4, 98304 + 3 * 4 * row)
-    assert pgemm._detect_tiles(f32, True) == (32, 2, 4, 98304 + 2 * 4 * row)
-    # ... and at a_compute 112 (seven 16-byte units a row).
+    assert pgemm._detect_tiles(f32) \
+        == (32, 3, 4, 98304 + 3 * (4 * row + sk))
+    assert pgemm._detect_tiles(f32, True) \
+        == (32, 2, 4, 98304 + 2 * (4 * row + sk))
+    # At a_compute 112 (seven 16-byte units a row) the 64-beam tile leaves
+    # room for two warpgroups of four rows, and is kept.
     f112 = f32.replace(n_ant_compute=112)
-    assert pgemm._detect_tiles(f112) == (32, 4, 4, 86016 + 4 * 4 * 7168)
+    assert pgemm._detect_tiles(f112) \
+        == (64, 2, 4, 172032 + 2 * (4 * 7168 + 8 * 112))
     # bf16x2 at a_compute 128 keeps the 64-beam tile: two warpgroups fit.
     assert pgemm._detect_tiles(wide.replace(weight_mode="bf16x2"))[:2] \
         == (64, 2)

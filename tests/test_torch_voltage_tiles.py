@@ -17,15 +17,20 @@ from dsabeamformer_tpu_torch.ingest.generator import make_random_bytes_block
 from dsabeamformer_tpu_torch.models.calibration import CalTable
 from dsabeamformer_tpu_torch.models.weights import make_weights
 
-A_COMPUTES = range(8, pgemm.MAX_A_COMPUTE + 1, 8)
+#: Every multiple of 8 to the DSA-110 width, the widths of DSA-10's wire in
+#: auto mode (10, 12 and 20 slots) and two past 128.
+A_COMPUTES = tuple(range(8, 129, 8)) + (10, 12, 20, 160, 224)
 BEAMS = (40, 72, 100, 256, 512)
 INT_MODES = ("int8", "int8x2", "int12", "int13")
 
 
 def _cfg(mode, ac, **kw):
     """A DSA-110 slice contracting exactly ``ac`` antennas in ``mode``."""
-    base = dict(weight_mode=mode, n_ant=128, n_ant_active=ac - 2,
-                n_ant_compute=ac, n_chan=2, t_block=4096)
+    base = dict(weight_mode=mode, n_ant=max(128, ac), n_ant_active=ac - 2,
+                n_ant_compute=ac if ac % 8 == 0 else 0, n_chan=2,
+                t_block=4096)
+    if ac % 8:
+        base["n_ant"] = ac          # auto mode: a_compute is n_ant
     base.update(kw)
     return pcfg.DSA110.replace(**base)
 
@@ -38,9 +43,10 @@ def test_voltage_tiles_fit_and_narrow_where_the_c_rule_does(mode, ac):
     restaged rows of the tile's width a warp, per warpgroup) is within the
     limit, a span is a whole number of m-tiles, and the tile is 32 beams
     exactly where a bf16 tile of 64 would leave room for fewer than three
-    warpgroups of four m-tiles (bf16x2 from a_compute 120, f32 from 88)."""
+    warpgroups of four m-tiles (bf16x2 from a_compute 121, f32 from 89,
+    bf16 from 195), or an int8 one of 64 for no m-tile (int13 from 195)."""
     bf16 = mode in pgemm.FLOAT_MODES
-    n_steps = ac // 8 if bf16 else -(-ac // 16)
+    n_steps = -(-ac // 8) if bf16 else -(-ac // 16)
     k_total = pgemm.n_subterms(_cfg(mode, ac)) * 32 * n_steps
     raw_stride = 16 * (-(-ac // 16) | 1)
     m_tile_bytes = 2 * 8 * 2 * raw_stride           # both wire buffers
@@ -49,9 +55,12 @@ def test_voltage_tiles_fit_and_narrow_where_the_c_rule_does(mode, ac):
         return rows * m_tile_bytes + 4 * 16 * (beams + 4) * 4
 
     wide_three = 2 * 64 * k_total + 3 * group_bytes(64, 4)
-    narrow = bf16 and wide_three > pgemm._MMA_DYN_SMEM
-    assert narrow == ((mode == "bf16x2" and ac >= 120)
-                      or (mode == "f32" and ac >= 88))
+    wide_one = 2 * 64 * k_total + group_bytes(64, 1)
+    narrow = wide_one > pgemm._MMA_DYN_SMEM \
+        or (bf16 and wide_three > pgemm._MMA_DYN_SMEM)
+    assert narrow == ((mode == "bf16x2" and ac >= 121)
+                      or (mode == "f32" and ac >= 89)
+                      or (mode in ("bf16", "int13") and ac >= 195))
     for b in BEAMS:
         cfg = _cfg(mode, ac, n_beams=b)
         assert cfg.a_compute == ac
@@ -65,7 +74,7 @@ def test_voltage_tiles_fit_and_narrow_where_the_c_rule_does(mode, ac):
         assert t.smem <= pgemm._MMA_DYN_SMEM
     # The int8 modes keep the 64-beam tile, with two warpgroups or more up
     # to a_compute 112 (int13's four sub-terms at 120 and 128: one).
-    if not bf16 and not (mode == "int13" and ac > 112):
+    if not bf16 and ac <= 128 and not (mode == "int13" and ac > 112):
         assert pgemm._voltage_tiles(_cfg(mode, ac)).groups >= 2
 
 
@@ -124,15 +133,15 @@ def _scatter(cfg, values_of):
 
 
 @pytest.mark.parametrize("layout", ["tfpa", "ftpa"])
-@pytest.mark.parametrize("ac", [8, 24, 32, 40, 112, 128])
+@pytest.mark.parametrize("ac", [8, 10, 20, 24, 32, 40, 112, 128, 224, 264])
 @pytest.mark.parametrize("mode", pgemm.KERNEL_MODES)
 def test_store_map_of_the_products_gives_the_plain_voltages(mode, ac,
                                                             layout):
     """The tensor-core products stated in torch, put through the kernel's
     epilogue and store map: the int8 modes' accumulators (``_mma_product``
-    times the product scale, 16 for int8 and int8x2) to float32, times
-    ``1 / 16`` and the channel's scale, equal ``voltages_plain`` bit for
-    bit; the bf16 operands' sums (``_bf16_product``) rounded to float32
+    times the product scale: 16 for int8 and int8x2 up to a_compute 255,
+    else 1) to float32, times one over the product scale and the channel's
+    scale, equal ``voltages_plain`` bit for bit; the bf16 operands' sums (``_bf16_product``) rounded to float32
     are within 1e-5 of the largest voltage (the kernel's float32 sums run
     in another order than the plain version's GEMM).  t_block 36 (a half
     m-tile at the end), 72 beams (a partial tile)."""
@@ -141,7 +150,8 @@ def test_store_map_of_the_products_gives_the_plain_voltages(mode, ac,
     s = qw.scales[:, -1].view(-1, 1)
     if mode in INT_MODES:
         re, im = pgemm._unpack_chunk(x, cfg, tm, 0, cfg.n_chan)
-        ps = 1 if mode in pq.FOLDED_SUBTERMS else 16
+        ps = pgemm._product_scale(cfg)
+        assert ps == (1 if mode in pq.FOLDED_SUBTERMS or ac > 255 else 16)
         acc = pgemm._mma_product(*pgemm._mma_operands(re, im, qw.terms, cfg),
                                  cfg) * ps
         assert int(acc.abs().max()) < 2 ** 31
