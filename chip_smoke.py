@@ -187,6 +187,15 @@ Widths and shapes off the presets (the tensor-core kernel walks K in steps of
                slice of 1024 samples: the detect (power) and the voltage
                kernels against plain (int8-mode voltages equal), then
                stokes+sk+q8+inco with the bars of phase 11.
+29b. K loop -- past the staged tile (each mode's widest a_compute whose
+               whole weight tile fitted beside an output row at navg 16,
+               plus 8; 2048; 2056 on 2058 slots), every mode on a 4-channel
+               DSA-110 slice: the detect kernel's K loop (and the voltage
+               kernel's, where its tile does not fit either) against plain
+               as above; then int8x2 and bf16x2 at a_compute 2048: a
+               3-block power stream and one voltage call with their launch
+               counts from 0, each kernel timed beside its bound and its
+               plain version (the kernels line's ``[kloop,...]`` rows).
 
 The ring ingest and the live search (PR 10 of the port):
 
@@ -222,6 +231,29 @@ The ring ingest and the live search (PR 10 of the port):
                stage 1's library yardstick, one float32 grouped one-hot
                ``conv1d`` (TF32 off), timed over 3 launches.
 
+The port's CLI, ``dsabf-torch`` (each command a subprocess on the card):
+
+32. cli     -- (run right after phase 2, while this process holds little
+               host memory) ``selftest --device 0`` and ``info``; then the
+               deployed
+               dsa10c configuration from a ring: ``simulate --pulse-dm 50``
+               (12 blocks: the pulse block, then 3 distinct noise blocks in
+               turn; a ring that holds them all) beside ``run --device 0
+               --fil-dir --fil-bits 8 --incoherent-file --rfi-auto
+               --search-dm-max 100`` (32 beams, every 8th from 7,
+               coincidence off), its record and per-block times logged (the
+               operating point), the pulse found in beam 127 within a DM
+               trial of 50, no candidate away from it at S/N 20 or more,
+               and every .fil and the incoherent file byte-equal to an
+               in-process stream over the sequence numbers the run
+               received; then ``launch --subbands 8 --devices
+               0,0,0,0,0,0,0,0`` over eight ``simulate --config dsa110
+               --subband i/8`` rings (each its own noise rms, 2 distinct
+               blocks in turn, 6 blocks, 32-bit .fil of every beam),
+               ``splice`` of beams 0, 100, 300 and 511 against one
+               in-process full-band dsa110 run over the same blocks
+               (bit-equal expected, 1e-5 at worst).
+
 Each streamed phase, and the voltage paths, set the launch counts to 0 just
 before their run and read them just after.  The last two lines are a JSON
 record of the kernels (launches on the main paths, max error against the
@@ -232,6 +264,13 @@ rows of phases 23-28 their mode, as ``detect_power[int12]``, with their
 variants under ``variants``; each voltage row its store ceiling under
 ``store_ceiling_ms``) and ``{"ok": true, "device": {...}}``.  Imports
 nothing of JAX.
+
+Every process the script starts ends before it does, on success or failure:
+the script reaps its descendants at any depth (``launch``'s children run in
+sessions of their own and pass to it if ``launch`` ends first), ends with
+SIGTERM through the same sweep, stops the ``multiprocessing`` resource
+tracker its capture processes started, and fails if any other process was
+still running when its work was done.
 """
 
 from __future__ import annotations
@@ -241,8 +280,11 @@ import ctypes
 import hashlib
 import json
 import multiprocessing
+import multiprocessing.resource_tracker
+import multiprocessing.util
 import os
 import shutil
+import signal
 from concurrent.futures import ThreadPoolExecutor
 import subprocess
 import sys
@@ -1569,6 +1611,17 @@ N_GEOMETRIES = 10
 #: 16 X): every mode, power and Stokes with every side output and voltages
 #: against plain, on a 16-channel slice of 1024 samples.
 NEW_WIDTHS = (10, 12, 20, 160, 224, 264)
+#: Past the staged tile: each mode's widest a_compute whose whole weight
+#: tile fitted beside an output row at navg 16, plus 8; 2048; and 2056
+#: (2058 slots, so that pol y's rows start off 4 bytes): the detect kernel
+#: walks K in slices there (``gemm.KLOOP_MMA``), and so does the voltage
+#: kernel where its tile does not fit either.  A 4-channel DSA-110 slice.
+STAGED_EDGE = {"int8": 1152, "int8x2": 704, "int12": 704, "int13": 384,
+               "bf16": 704, "bf16x2": 392, "f32": 272}
+KLOOP_CHANNELS = 4
+#: The K-loop rows of the kernels line: int8x2 and bf16x2 at a_compute 2048
+#: on that slice, timed.
+KLOOP_TIMED = ("int8x2", "bf16x2")
 
 
 def width_cfg(ac, n_chan=VOLTAGE_CHANNELS, **kw):
@@ -1612,6 +1665,110 @@ def check_detect_and_voltages(cfg, seed) -> tuple:
                            f"disagrees with its plain version (detect "
                            f"{rel:.3e}, voltages {verr:.3e})")
     return rel, verr, vlim
+
+
+def kloop_cfg(ac, mode, layout="tfpa"):
+    """``STAGED_EDGE``'s widths: a ``KLOOP_CHANNELS``-channel DSA-110 slice
+    (``width_cfg``) contracting ``ac`` antennas."""
+    cfg = width_cfg(ac, n_chan=KLOOP_CHANNELS, weight_mode=mode,
+                    input_layout=layout)
+    return cfg.replace(n_ant=ac + 2) if ac == 2056 else cfg
+
+
+N_KLOOP_STREAM = 3           # blocks of each K-loop stream
+
+
+def phase_kloop(smi) -> list:
+    """Phase 29b: the K loop in every mode against plain (detect power and
+    voltages, then stokes+sk+q8+inco); then for ``KLOOP_TIMED`` at
+    a_compute 2048 a power stream of ``N_KLOOP_STREAM`` blocks and one
+    voltage call, their launches counted from 0, and both kernels timed:
+    the kernels-line rows."""
+    volt_kloop = 0
+    for i, mode in enumerate(gemm.KERNEL_MODES):
+        for ac in (STAGED_EDGE[mode] + 8, 2048, 2056):
+            cfg = kloop_cfg(ac, mode, ("tfpa", "ftpa")[i % 2])
+            if gemm.kernel_path(cfg) != gemm.KLOOP_MMA \
+                    or cfg.a_compute != ac:
+                raise RuntimeError(f"{tag(cfg)} a_compute {ac}: path "
+                                   f"{gemm.kernel_path(cfg)}")
+            rel, verr, vlim = check_detect_and_voltages(cfg, ac)
+            vpath = gemm.kernel_path(cfg, "voltage")
+            volt_kloop += vpath == gemm.KLOOP_MMA
+            tiles = gemm._detect_tiles(cfg)
+            log(f"[widths] K loop {tag(cfg)} {cfg.input_layout} n_ant "
+                f"{cfg.n_ant} a_compute {ac} ({tiles.slices} slices of "
+                f"{tiles.beams} beams x 256 K bytes a sub-term; voltages "
+                f"{vpath}): detect relative error {rel:.3e} (tol "
+                f"{KERNEL_VS_PLAIN_RTOL:.0e}), voltages max error / peak "
+                f"{verr:.3e} (limit {vlim:.0e})")
+            wire = make_random_bytes_block(cfg, seed=ac + 1)
+            qw = prepare_weights(cfg, make_weights(
+                cfg, cal=CalTable.random(cfg, seed=ac), device=DEV))
+            phase_variants(cfg, wire, qw, ["stokes+sk+q8+inco"])
+    log(f"[widths] K loop: the voltage kernel took it at {volt_kloop} of "
+        f"{3 * len(gemm.KERNEL_MODES)} widths")
+    rows = []
+    for mode in KLOOP_TIMED:
+        cfg = kloop_cfg(2048, mode)
+        if gemm.kernel_path(cfg, "voltage") != gemm.KLOOP_MMA:
+            raise RuntimeError(f"{tag(cfg)}: voltages not on the K loop")
+        block = make_random_bytes_block(cfg, seed=7)
+        qw = prepare_weights(cfg, make_weights(cfg, device=DEV))
+        bf = StreamingBeamformer(cfg, qw, SyntheticSource(
+            cfg, [block], N_KLOOP_STREAM))
+        bf.warmup()
+        clear_launches()
+        gemm.beamform_voltages.launches = 0
+        stats = bf.run(max_blocks=N_KLOOP_STREAM)
+        wire = to_device(cfg, block)
+        x, tm = gemm._prepare_wire(wire, cfg)
+        gemm.beamform_voltages(x, qw, cfg)
+        launches = {"detect": sum(gemm.fused_detect.launches.values()),
+                    "voltages": gemm.beamform_voltages.launches}
+        if launches != {"detect": N_KLOOP_STREAM, "voltages": 1} \
+                or stats.n_blocks != N_KLOOP_STREAM:
+            raise RuntimeError(f"{tag(cfg)} K-loop stream: {launches}, "
+                               f"{stats.n_blocks} blocks")
+        k_ms = time_ms(lambda i: gemm.fused_detect(x, qw.terms, qw.scales,
+                                                   cfg, tm), N_MODE_TIMED)
+        p_ms = time_ms(lambda i: gemm.detect_power_plain(
+            x, qw.terms, qw.scales, cfg, tm), 1)
+        out_k = gemm.fused_detect(x, qw.terms, qw.scales, cfg, tm)[0]
+        out_p = gemm.detect_power_plain(x, qw.terms, qw.scales, cfg, tm)[0]
+        bnd, by = bound_ms(cfg, "base")
+        v_ms = time_ms(lambda i: gemm.beamform_voltages(x, qw, cfg),
+                       N_MODE_TIMED)
+        vp_ms = time_ms(lambda i: gemm.voltages_plain(
+            x, qw.terms, qw.scales, cfg, tm), 1)
+        bv = gemm.beamform_voltages(x, qw, cfg)
+        bv_p = gemm.voltages_plain(x, qw.terms, qw.scales, cfg, tm)
+        vb, vby = voltage_bound_ms(cfg)
+        torch.cuda.synchronize()
+        log(f"[widths] K loop timed {tag(cfg)} a_compute 2048 "
+            f"({cfg.n_chan} channels x {cfg.t_block} samples x "
+            f"{cfg.n_beams} beams): detect {k_ms:.3f} ms (bound {bnd:.3f} "
+            f"ms by {by}, plain {p_ms:.1f} ms), voltages {v_ms:.3f} ms "
+            f"(bound {vb:.3f} ms by {vby}, plain {vp_ms:.1f} ms) on {smi}")
+        rows.append({
+            "name": f"detect_power[kloop,{mode}]", "route": "cuda",
+            "mma": gemm.KLOOP_MMA,
+            "source": "dsabeamformer_tpu_torch/csrc/detect_power.cu",
+            "replaces": "dsabeamformer_tpu/ops/gemm.py:775",
+            "launches": launches["detect"],
+            "max_abs_err": float((out_k - out_p).abs().max()),
+            "ms": k_ms, "plain_ms": p_ms, "bound_ms": bnd, "bound_by": by,
+            "library_ms": None, "a_compute": 2048})
+        rows.append({
+            "name": f"beam_voltages[kloop,{mode}]", "route": "cuda",
+            "source": "dsabeamformer_tpu_torch/csrc/beam_voltages.cu",
+            "replaces": "dsabeamformer_tpu/ops/gemm.py:932",
+            "launches": launches["voltages"],
+            "max_abs_err": float((bv - bv_p).abs().max()),
+            "ms": v_ms, "plain_ms": vp_ms, "bound_ms": vb, "bound_by": vby,
+            "library_ms": None, "a_compute": 2048})
+        del x, wire, bv, bv_p, bf
+    return rows
 
 
 def phase_widths() -> None:
@@ -2390,6 +2547,494 @@ def search_window_breakdown(window, mon, smi) -> None:
         + f" ({n_points} points above threshold clustered) on {smi}")
 
 
+# --------------------------------------------------------------------- #
+# [cli]: the port's CLI (dsabf-torch) as subprocesses on the card
+# --------------------------------------------------------------------- #
+
+REPO = Path(__file__).resolve().parent
+CLI = [sys.executable, "-m", "dsabeamformer_tpu_torch.cli"]
+#: Blocks of the dsa10c run, and the slots of its ring: simulate never
+#: waits for a slot (a full ring drops the block) and the run's block 0
+#: carries the 8-bit sink's auto-calibration, so a ring of 4 slots loses
+#: most of a short run (8 of 12 blocks on an H100); this one holds it all.
+N_CLI = 12
+#: Distinct noise blocks its producer cycles after the pulse block (so the
+#: byte-equality below sees a block dropped, repeated or out of order).
+CLI_DISTINCT = 3
+#: simulate's pulse (amplitude 6, noise rms 2, block 0) comes from angle 0,
+#: between beams 127 and 128; the search takes every 8th beam from 7, and
+#: keeps what fires in many beams (so strong a pulse lights the sidelobes
+#: of all 32, which coincidence would reject).
+CLI_BEAM = 127
+CLI_SEARCH_BEAMS = list(range(7, 256, 8))
+CLI_PULSE_T0 = 1024          # wire samples: output sample 64 of block 0
+#: Output samples around the pulse its candidates may fall in (its width
+#: and the DM trials' residual sweep); outside them every candidate is
+#: noise, whose S/N must stay below CLI_NOISE_SNR.  A monitor that read
+#: the auto-calibrating first block as float32 powers among the later
+#: blocks' 8-bit counts put noise at S/N ~8000 here.
+CLI_PULSE_SPAN = 64
+CLI_NOISE_SNR = 20.0
+N_LAUNCH = 8                 # dsa110 subbands, children, producers
+#: Blocks of each launch child, and the slots of each producer's ring:
+#: simulate never waits for a slot (a full ring drops the block), and a
+#: producer's first blocks are written before its child has warmed up and
+#: attached, so each ring holds the whole run (8 x 6 x 268 MB of /dev/shm).
+N_LAUNCH_BLOCKS = 6
+#: Distinct noise blocks each launch producer cycles, and producer i's noise
+#: rms (each ring its own bytes: a child that read another's ring, or a
+#: block out of order within one, changes the spliced product).
+LAUNCH_DISTINCT = 2
+
+
+def launch_rms(i) -> float:
+    return 2.0 + 0.125 * i
+
+
+SPLICE_BEAMS = (0, 100, 300, 511)
+CLI_TIMEOUT = 900            # s: any one subprocess
+
+
+def cli_env() -> dict:
+    return {**os.environ, "PYTHONPATH": str(REPO)}
+
+
+def run_cli(args, what, log_path=None) -> str:
+    """One ``dsabf-torch`` command to its end; its stdout, or raise with
+    its stderr's tail."""
+    proc = subprocess.run(CLI + args, cwd=REPO, env=cli_env(),
+                          capture_output=True, text=True,
+                          timeout=CLI_TIMEOUT)
+    if log_path is not None:
+        Path(log_path).write_text(proc.stderr)
+    if proc.returncode:
+        raise RuntimeError(f"[cli] {what}: exit {proc.returncode}\n"
+                           f"{proc.stdout[-2000:]}{proc.stderr[-4000:]}")
+    return proc.stdout
+
+
+def start_cli(args, log_path) -> subprocess.Popen:
+    """A ``dsabf-torch`` command in the background, stderr to log_path."""
+    return subprocess.Popen(CLI + args, cwd=REPO, env=cli_env(),
+                            stdout=subprocess.PIPE,
+                            stderr=open(log_path, "w"), text=True)
+
+
+def finish_cli(proc, what, log_path) -> str:
+    out, _ = proc.communicate(timeout=CLI_TIMEOUT)
+    if proc.returncode:
+        raise RuntimeError(f"[cli] {what}: exit {proc.returncode}\n"
+                           f"{out[-2000:]}{Path(log_path).read_text()[-4000:]}")
+    return out
+
+
+def stop_all(procs) -> None:
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+#: prctl(2): orphaned descendants are re-parented to the calling process.
+PR_SET_CHILD_SUBREAPER = 36
+
+
+def adopt_descendants() -> None:
+    """Make this process the reaper of every process it starts, at any
+    depth: a child that ends before its own children hands them to this
+    process instead of init, where ``stop_descendants`` finds them.  SIGTERM
+    ends the script through the same ``finally`` as a failure does."""
+    libc = ctypes.CDLL(None, use_errno=True)
+    if libc.prctl(PR_SET_CHILD_SUBREAPER, 1, 0, 0, 0):
+        raise OSError(ctypes.get_errno(), "prctl(PR_SET_CHILD_SUBREAPER)")
+    signal.signal(signal.SIGTERM, lambda signum, _: sys.exit(128 + signum))
+    # The last of multiprocessing's exit steps, after its semaphores are
+    # unlinked and its daemonic children joined.
+    multiprocessing.util.Finalize(None, stop_tracker, exitpriority=-1)
+
+
+def stop_tracker() -> None:
+    """Stop the multiprocessing resource tracker (the capture processes'
+    events start it) and wait for it: it ends when its pipe closes, and
+    on Pythons that do not stop it at exit it would outlive this process."""
+    tracker = multiprocessing.resource_tracker._resource_tracker
+    if hasattr(tracker, "_stop"):
+        tracker._stop()
+    elif tracker._fd is not None:
+        os.close(tracker._fd)
+        tracker._fd = None
+        os.waitpid(tracker._pid, 0)
+
+
+def child_processes() -> dict:
+    """This process's children, zombies left out: pid -> command line."""
+    me, kids = os.getpid(), {}
+    for d in Path("/proc").iterdir():
+        if not d.name.isdigit():
+            continue
+        try:
+            stat = (d / "stat").read_text()
+            cmd = (d / "cmdline").read_bytes()
+        except OSError:
+            continue
+        state, ppid = stat.rsplit(")", 1)[1].split()[:2]
+        if int(ppid) == me and state != "Z":
+            kids[int(d.name)] = cmd.replace(b"\0", b" ").decode(
+                errors="replace").strip()
+    return kids
+
+
+def reap() -> None:
+    """Collect every child that has ended."""
+    while True:
+        try:
+            pid, _ = os.waitpid(-1, os.WNOHANG)
+        except ChildProcessError:
+            return
+        if not pid:
+            return
+
+
+def signal_process(pid, sig) -> None:
+    try:
+        os.kill(pid, sig)
+    except ProcessLookupError:
+        pass
+
+
+def stop_descendants(grace_s=30.0) -> dict:
+    """End and reap every process this one still has, the resource tracker
+    (``stop_tracker``'s) apart: each child or adopted orphan gets SIGTERM,
+    and after ``grace_s`` SIGKILL.  Returns them: pid -> command line."""
+    tracker = multiprocessing.resource_tracker._resource_tracker._pid
+    stray = {}
+    deadline = time.monotonic() + grace_s
+    while True:
+        reap()
+        kids = {pid: cmd for pid, cmd in child_processes().items()
+                if pid != tracker}
+        if not kids:
+            return stray
+        for pid, cmd in kids.items():
+            if pid not in stray:
+                stray[pid] = cmd
+                signal_process(pid, signal.SIGTERM)
+        if time.monotonic() > deadline:
+            for pid in kids:
+                signal_process(pid, signal.SIGKILL)
+        time.sleep(0.05)
+
+
+class SeqSource:
+    """The given ``(seq, block)`` pairs, in order (an in-process stream that
+    sees the blocks another run received)."""
+
+    def __init__(self, items):
+        self._items = list(items)
+        self.dropped = self.skipped = 0
+
+    def read_block(self):
+        return self._items.pop(0) if self._items else None
+
+
+def files_equal(a_dir, b_dir) -> tuple:
+    """(files, files that differ, differing bytes) of two directories'
+    same-named files."""
+    names = sorted(p.name for p in Path(a_dir).iterdir())
+    if names != sorted(p.name for p in Path(b_dir).iterdir()):
+        raise RuntimeError(f"[cli] {a_dir} and {b_dir} hold other files")
+    bad = nbytes = 0
+    for n in names:
+        a = np.fromfile(Path(a_dir) / n, np.uint8)
+        b = np.fromfile(Path(b_dir) / n, np.uint8)
+        if a.shape != b.shape:
+            bad, nbytes = bad + 1, nbytes + max(a.size, b.size)
+        elif not np.array_equal(a, b):
+            bad, nbytes = bad + 1, nbytes + int((a != b).sum())
+    return len(names), bad, nbytes
+
+
+def cli_dsa10c(tmp, smi) -> None:
+    """The deployed dsa10c configuration run by ``dsabf-torch run`` from a
+    capture ring fed by ``dsabf-torch simulate`` (a dispersed pulse at DM 50
+    towards beam ``CLI_BEAM`` in block 0), against the same blocks through
+    an in-process StreamingBeamformer with the same sinks and monitors."""
+    from dsabeamformer_tpu_torch.ingest.sigproc import _avg_freqs_mhz
+    from dsabeamformer_tpu_torch.ops.dedisperse import read_candidates
+
+    cfg = DSA10_COMPACT
+    key = f"clidsa10c{os.getpid()}"
+    beams = ",".join(map(str, CLI_SEARCH_BEAMS))
+    fil, inco = tmp / "fil", tmp / "inco.dada"
+    stats_path, cand = tmp / "stats.jsonl", tmp / "live.cand"
+    procs = []
+    try:
+        procs.append(start_cli(
+            ["simulate", "--config", "dsa10c", "--key", key, "--pulse-dm",
+             str(SEARCH_DM), "--pulse-t0", str(CLI_PULSE_T0), "--blocks",
+             str(N_CLI), "--distinct", str(CLI_DISTINCT), "--nbufs",
+             str(N_CLI), "--linger", "120"], tmp / "simulate.log"))
+        procs.append(start_cli(
+            ["run", "--config", "dsa10c", "--key", key, "--device", "0",
+             "--fil-dir", str(fil), "--fil-bits", "8", "--incoherent-file",
+             str(inco), "--rfi-auto", "--search-dm-max",
+             str(SEARCH_DM_MAX), "--search-beam", beams,
+             "--search-no-coincidence", "--search-cand",
+             str(cand), "--blocks", str(N_CLI), "--stats-file",
+             str(stats_path), "--timeout", "600"], tmp / "run.log"))
+        # The reference's blocks, simulate's block_at(i), made here while
+        # the two processes run (this process holds little else: the phase
+        # runs first).
+        pulse = make_dispersed_pulse_block(
+            cfg, SEARCH_DM, angle_rad=0.0, t0_sample=CLI_PULSE_T0,
+            width_samples=16, noise_rms=2.0, seed=1234)
+        pool = [make_noise_block(cfg, rms=2.0, seed=s)
+                for s in range(CLI_DISTINCT)]
+        run_out = finish_cli(procs[1], "run dsa10c", tmp / "run.log")
+        sim_out = finish_cli(procs[0], "simulate dsa10c",
+                             tmp / "simulate.log")
+    finally:
+        stop_all(procs)
+    rec = json.loads(run_out.strip().splitlines()[-1])
+    sim = json.loads(sim_out.strip().splitlines()[-1])
+    seqs = [json.loads(line)["seq"] for line in open(stats_path)]
+    walls = [json.loads(line)["wall_s"] for line in open(stats_path)]
+    log(f"[cli] dsabf-torch run --config dsa10c from ring {key} (8-bit .fil "
+        f"x{cfg.n_beams}, incoherent .dada, --rfi-auto, live search to DM "
+        f"{SEARCH_DM_MAX:g} on beams {beams}): "
+        f"{run_out.strip().splitlines()[-1]}; simulate {json.dumps(sim)}; "
+        f"sequence numbers received {seqs}, each block's wall_s {walls} "
+        f"on {smi}")
+    rate = rec.get("realtime_factor")
+    log(f"[cli] dsa10c operating point: {rec['blocks']} blocks, dropped "
+        f"{rec['dropped']}, skipped {rec['skipped']}, wall {rec['wall_s']} s,"
+        f" realtime factor {rate} ({cfg.block_duration_s * 1e3:.2f} ms of "
+        f"sky a block)")
+    if rec["blocks"] != len(seqs) or not seqs:
+        raise RuntimeError(f"[cli] dsa10c: {rec['blocks']} blocks, stats "
+                           f"file {seqs}")
+    if rec["dropped"] or sim["dropped"]:
+        log(f"[cli] dsa10c: the ring dropped {rec['dropped']} (run) / "
+            f"{sim['dropped']} (simulate) blocks; the reference sees the "
+            f"{len(seqs)} received")
+    run_err = (tmp / "run.log").read_text()
+    log(f"[cli] run's stderr (last lines): "
+        f"{' | '.join(run_err.strip().splitlines()[-6:])}")
+
+    # The pulse, from the candidate file the run wrote at exit.
+    _, cands = read_candidates(cand)
+    f_avg = _avg_freqs_mhz(cfg)
+    tsamp = cfg.sample_period_s * cfg.navg_time
+    dms = dm_trial_grid(float(f_avg.min()), float(f_avg.max()), tsamp,
+                        dm_max=SEARCH_DM_MAX)
+    t_out = CLI_PULSE_T0 // cfg.navg_time
+    hits = [c for c in cands if c.beam == CLI_BEAM
+            and abs(c.dm - SEARCH_DM) <= dms[1] - dms[0]
+            and abs(c.t_samp - t_out) <= max(DEFAULT_WIDTHS)]
+    if not hits:
+        raise RuntimeError(f"[cli] the pulse (DM {SEARCH_DM}, beam "
+                           f"{CLI_BEAM}, t {t_out}) is not among the run's "
+                           f"{len(cands)} candidates: "
+                           f"{[c.row() for c in cands[:8]]}")
+    best = max(hits, key=lambda c: c.snr)
+    top = max(cands, key=lambda c: c.snr)
+    noise = [c.snr for c in cands if abs(c.t_samp - t_out) > CLI_PULSE_SPAN]
+    log(f"[cli] live search: the pulse found in beam {CLI_BEAM} at DM "
+        f"{best.dm:.3f} (injected {SEARCH_DM}), t {best.t_samp} (injected "
+        f"{t_out}), S/N {best.snr:.2f}; {len(cands)} candidates in "
+        f"{len({c.beam for c in cands})} beams, the strongest in beam "
+        f"{top.beam} (S/N {top.snr:.2f}); {len(noise)} more than "
+        f"{CLI_PULSE_SPAN} samples from the pulse, S/N at most "
+        f"{max(noise, default=0.0):.2f} (bar {CLI_NOISE_SNR:g})")
+    if max(noise, default=0.0) >= CLI_NOISE_SNR:
+        raise RuntimeError(f"[cli] dsa10c: noise candidates reach S/N "
+                           f"{max(noise):.2f}: "
+                           f"{[c.row() for c in cands if c.snr in noise][:8]}")
+
+    # The same blocks through an in-process stream with the same sinks and
+    # monitors.
+    ref = tmp / "ref"
+    ref.mkdir()
+    blocks = {s: pulse if s == 0 else pool[s % CLI_DISTINCT] for s in seqs}
+    qw = prepare_weights(cfg, make_weights(cfg, device=DEV))
+    fil_ref = FilterbankSink(ref / "fil", cfg, nbits=8)
+    inco_ref = FileSink(ref / "inco.dada", cfg, products="incoherent",
+                        extra_header={})
+    bf = StreamingBeamformer(cfg, qw, SeqSource((s, blocks[s]) for s in seqs),
+                             fil_ref, depth=RING_DEPTH,
+                             incoherent_sink=inco_ref)
+    events = []
+
+    def excise(ev):
+        events.append(ev)
+        if ev["type"] == "excise" and not ev.get("final"):
+            w = zap_weights(make_weights(cfg, device=DEV), ev["zapped"], cfg)
+            bf.update_weights(prepare_weights(cfg, w))
+
+    bf.rfi_monitor = RFIMonitor(cfg, on_event=excise)
+    mon = SearchMonitor(f_avg, tsamp, dms, beam=CLI_SEARCH_BEAMS,
+                        chunk_t=SEARCH_CHUNK, method="conv",
+                        coincidence=False, device=DEV)
+    bf.search_monitor = mon
+    bf.warmup()
+    clear_launches()
+    stats = bf.run()
+    launches = dict(gemm.fused_detect.launches)
+    fil_ref.close()
+    inco_ref.close()
+    mon.flush()
+    n, bad, nbytes = files_equal(fil, ref / "fil")
+    inco_same = inco.read_bytes() == (ref / "inco.dada").read_bytes()
+    log(f"[cli] in-process reference over sequence numbers {seqs}: "
+        f"{stats.n_blocks} blocks, launches {launches}, RFI events "
+        f"{[(e['type'], e.get('new')) for e in events]}, "
+        f"{len(mon.candidates)} candidates (the run's: {len(cands)}); .fil "
+        f"files: {n}, {bad} differ ({nbytes} bytes); incoherent product "
+        f"{'byte-equal' if inco_same else 'DIFFERS'}")
+    if bad or not inco_same or stats.n_blocks != len(seqs):
+        raise RuntimeError(f"[cli] dsa10c: the CLI's products differ from "
+                           f"the in-process stream's ({bad} of {n} .fil "
+                           f"files, {nbytes} bytes; incoherent equal: "
+                           f"{inco_same})")
+
+
+def cli_launch(tmp, smi) -> None:
+    """The DSA-110 per-GPU deployment on one card: ``N_LAUNCH``
+    ``dsabf-torch simulate --subband i/8`` producers, ``dsabf-torch launch
+    --subbands 8 --devices 0,...,0`` over their rings (32-bit .fil of every
+    beam), ``dsabf-torch splice`` of ``SPLICE_BEAMS``, against one
+    in-process full-band run over the same blocks."""
+    from dsabeamformer_tpu_torch.ingest.sigproc import read_filterbank
+
+    cfg = DSA110
+    width = cfg.n_chan // N_LAUNCH
+    prefix = f"clicap{os.getpid()}x"
+    procs = []
+    # The reference's subband blocks, simulate's block_at(j) of each
+    # producer, made on threads (numpy's generator and ufuncs run without
+    # the GIL) while the children and producers run.
+    pool = ThreadPoolExecutor(max_workers=4)
+    parts = {(i, j): pool.submit(make_noise_block,
+                                 cfg.subband(i * width, width),
+                                 rms=launch_rms(i), seed=j)
+             for i in range(N_LAUNCH) for j in range(LAUNCH_DISTINCT)}
+    try:
+        def wait_ring(k) -> None:
+            deadline = time.perf_counter() + CLI_TIMEOUT
+            while not (Path(SHM) / f"dsaring-{prefix}{k}").exists() \
+                    and procs[1 + k].poll() is None:
+                if time.perf_counter() > deadline:
+                    raise RuntimeError(f"[cli] simulate {k}/8 made no ring")
+                time.sleep(0.2)
+
+        # The children warm up and wait for their rings; at most two
+        # producers make their blocks at a time (eight at once would take
+        # ~45 GB of host memory on the way): each starts once the one before
+        # the last has created its ring.
+        launch = start_cli(
+            ["launch", "--subbands", str(N_LAUNCH), "--devices",
+             ",".join(["0"] * N_LAUNCH), "--", "--config", "dsa110",
+             "--key", prefix + "{i}", "--fil-dir", str(tmp / "fil{i}"),
+             "--fil-bits", "32", "--blocks", str(N_LAUNCH_BLOCKS),
+             "--timeout", "600"], tmp / "launch.log")
+        procs.append(launch)
+        for i in range(N_LAUNCH):
+            procs.append(start_cli(
+                ["simulate", "--config", "dsa110", "--subband",
+                 f"{i}/{N_LAUNCH}", "--key", f"{prefix}{i}", "--blocks",
+                 str(N_LAUNCH_BLOCKS), "--distinct", str(LAUNCH_DISTINCT),
+                 "--rms", str(launch_rms(i)), "--nbufs",
+                 str(N_LAUNCH_BLOCKS), "--linger", "120"],
+                tmp / f"simulate{i}.log"))
+            if i:
+                wait_ring(i - 1)
+        wait_ring(N_LAUNCH - 1)
+        rep_out = finish_cli(launch, "launch dsa110", tmp / "launch.log")
+        for i in range(N_LAUNCH):
+            finish_cli(procs[1 + i], f"simulate dsa110 {i}/8",
+                       tmp / f"simulate{i}.log")
+        axis = 1 if cfg.input_layout == "tfpa" else 0
+        full = [np.concatenate([parts.pop((i, j)).result()
+                                for i in range(N_LAUNCH)], axis=axis)
+                for j in range(LAUNCH_DISTINCT)]
+    finally:
+        stop_all(procs)
+        pool.shutdown(cancel_futures=True)
+    report = json.loads(rep_out.strip().splitlines()[-1])
+    log(f"[cli] dsabf-torch launch --subbands {N_LAUNCH} --devices "
+        f"{','.join(['0'] * N_LAUNCH)} (dsa110, {N_LAUNCH_BLOCKS} blocks a "
+        f"child from its ring, 32-bit .fil x{cfg.n_beams}): "
+        f"{json.dumps(report)} on {smi}")
+    if not report["ok"] or any(r["blocks"] != N_LAUNCH_BLOCKS
+                               or r["dropped"] for r in report["subbands"]):
+        raise RuntimeError(f"[cli] launch: {report}")
+    merged = tmp / "merged"
+    merged.mkdir()
+    for b in SPLICE_BEAMS:
+        files = [str(tmp / f"fil{i}" / f"beam{b:04d}.fil")
+                 for i in range(N_LAUNCH)]
+        out = run_cli(["splice", *files, "--out",
+                       str(merged / f"beam{b:04d}.fil")], f"splice {b}")
+        if b == SPLICE_BEAMS[0]:
+            log(f"[cli] splice beam {b}: {out.strip()}")
+    qw = prepare_weights(cfg, make_weights(cfg, device=DEV))
+    ref = FilterbankSink(tmp / "ref", cfg, beams=list(SPLICE_BEAMS),
+                         nbits=32)
+    bf = StreamingBeamformer(cfg, qw, SyntheticSource(cfg, full,
+                                                      N_LAUNCH_BLOCKS), ref,
+                             depth=RING_DEPTH)
+    bf.warmup()
+    clear_launches()
+    stats = bf.run()
+    launches = dict(gemm.fused_detect.launches)
+    ref.close()
+    worst = 0.0
+    equal = 0
+    for b in SPLICE_BEAMS:
+        hm, dm = read_filterbank(merged / f"beam{b:04d}.fil")
+        hr, dr = read_filterbank(tmp / "ref" / f"beam{b:04d}.fil")
+        if {k: v for k, v in hm.items() if k != "tstart"} \
+                != {k: v for k, v in hr.items() if k != "tstart"} \
+                or dm.shape != dr.shape:
+            raise RuntimeError(f"[cli] beam {b}: spliced header or shape "
+                               f"{dm.shape} differs from the full band's "
+                               f"{dr.shape}")
+        equal += bool(np.array_equal(dm, dr))
+        worst = max(worst, float(np.abs(dm.astype(np.float64) - dr).max()
+                                 / np.abs(dr).max()))
+    log(f"[cli] spliced beams {SPLICE_BEAMS} against one in-process "
+        f"full-band {tag(cfg)} run ({stats.n_blocks} blocks, launches "
+        f"{launches}): {equal} of {len(SPLICE_BEAMS)} bit-equal, max error "
+        f"/ peak {worst:.3e} (bar {KERNEL_VS_PLAIN_RTOL:.0e})")
+    if worst > KERNEL_VS_PLAIN_RTOL or stats.n_blocks != N_LAUNCH_BLOCKS:
+        raise RuntimeError(f"[cli] the spliced launch products differ from "
+                           f"the full band's by {worst:.3e}")
+
+
+def phase_cli(smi) -> None:
+    """Phase 32: ``dsabf-torch selftest`` and ``info`` on ``cuda:0``, the
+    deployed dsa10c from a ring (``cli_dsa10c``) and the DSA-110 launch
+    (``cli_launch``), each command a subprocess."""
+    t0 = time.perf_counter()
+    out = run_cli(["selftest", "--device", "0"], "selftest")
+    rec = json.loads(out)
+    log(f"[cli] dsabf-torch selftest --device 0: {out.strip()}")
+    if not rec["ok"] or rec["backend"] != "cuda":
+        raise RuntimeError(f"[cli] selftest: {rec}")
+    out = run_cli(["info", "--config", "dsa10c"], "info")
+    log(f"[cli] dsabf-torch info --config dsa10c: {out.strip()}")
+    if json.loads(out)["backend"] != "cuda":
+        raise RuntimeError(f"[cli] info: {out}")
+    for step in (cli_dsa10c, cli_launch):
+        with tempfile.TemporaryDirectory() as tmp:
+            step(Path(tmp), smi)
+        log(f"[cli] {step.__name__} done at {time.perf_counter() - t0:.1f} s")
+    # The in-process references' pinned staging, back to the system.
+    torch.cuda.empty_cache()
+    getattr(torch._C, "_host_emptyCache", lambda: None)()
+    log(f"[cli] phase {time.perf_counter() - t0:.1f} s")
+
+
 def bank_rows(live, checked) -> list:
     """The kernels line's rows of the three dedispersion kernels."""
     return [{
@@ -2492,9 +3137,19 @@ def kernel_rows(cfg, variants, launches, checked, times, volt,
     return rows
 
 
-def main() -> None:
+def main() -> tuple:
+    """Every phase; the card's name and the kernels line's rows."""
+    t_start = time.perf_counter()
+
+    def mark(what) -> None:
+        log(f"[time] {what} done at {time.perf_counter() - t_start:.1f} s")
+
     name, smi = phase_device()
     phase_build()
+    # The port's CLI as a deployment runs it, each command a process of its
+    # own: first, while this process holds little host memory.
+    phase_cli(smi)
+    mark("cli")
 
     cfg = DSA10
     t0 = time.perf_counter()
@@ -2518,6 +3173,7 @@ def main() -> None:
     search_cfg, search_why = choose_ring_cfg(shm_free()[1] // 2,
                                              [DSA10_COMPACT])
     search_prod = Producer(search_cfg, "pulse", [(N_SEARCH, None, False)])
+    mark("main path (phases 3-6)")
 
     # The deployed path's variants, kernel against plain, then timed.
     checked = phase_variants(cfg, blocks[0], qw,
@@ -2535,6 +3191,7 @@ def main() -> None:
     times.update(phase_resident_variants(cfg, blocks, qw, checked, smi,
                                          STOKES_VARIANTS))
     del qw, cc_qw
+    mark("variants and Stokes (phases 7-13)")
 
     # The deployed streams (each driven with the counts set to 0).
     for b in blocks:
@@ -2542,9 +3199,12 @@ def main() -> None:
     launches.update(phase_deployed(cfg, blocks, smi))
     launches.update(phase_stokes_deployed(cfg, blocks, smi))
     # The ring ingest (its streams driven with the counts set to 0).
+    mark("deployed streams (phases 9, 14)")
     phase_ring(blocks, smi)
+    mark("ring")
     # The other weight modes on the same two blocks (carrier included).
     modes = phase_modes(blocks, smi)
+    mark("modes (phases 23-26)")
     del blocks
     cc_blocks = [with_carrier(cc, cc_block),
                  with_carrier(cc, make_random_bytes_block(cc, seed=3))]
@@ -2553,8 +3213,10 @@ def main() -> None:
     del cc_blocks
     # Bytes to candidates: the live search from the ring, the offline
     # search, and the bank kernels against their plain versions.
+    mark("other deployments (phases 10, 15)")
     bank_live, bank_checked = phase_search(search_prod, search_cfg,
                                            search_why, smi)
+    mark("search")
     missing = [v for v in ALL_VARIANTS if not launches[v]]
     if missing:
         raise RuntimeError(f"variants never launched on a main path: "
@@ -2562,23 +3224,37 @@ def main() -> None:
 
     # The unfused validation path (driven with its count set to 0).
     volt = phase_voltages(smi)
+    mark("voltages")
 
     # DSA-110.
     d110 = phase_dsa110(smi)
+    mark("dsa110 (phases 18-22, 27-28)")
 
-    # Widths and shapes off the presets.
+    # Widths and shapes off the presets, and the K loop past them.
     phase_widths()
+    mark("widths")
+    kloop = phase_kloop(smi)
+    mark("K loop")
 
     kernels = kernel_rows(cfg, ALL_VARIANTS, launches, checked, times, volt)
     kernels += kernel_rows(DSA110, DSA110_VARIANTS, d110["launches"],
                            d110["checked"], d110["times"], d110["volt"],
                            "[dsa110]")
     kernels += mode_rows(modes) + mode_rows(d110["modes"], "[dsa110]")
-    kernels += bank_rows(bank_live, bank_checked)
-    log(json.dumps({"kernels": kernels}))
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+    kernels += bank_rows(bank_live, bank_checked) + kloop
+    return name, kernels
 
 
 if __name__ == "__main__":
-    main()
+    adopt_descendants()
+    try:
+        name, kernels = main()
+    finally:
+        stray = stop_descendants()
+        log(f"[procs] every process the script started has ended; still "
+            f"running when its work was done, then stopped: {stray or 'none'}")
+    if stray:
+        sys.exit(f"chip_smoke: {len(stray)} processes outlived their step")
+    log(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -1,0 +1,1482 @@
+"""Command-line interface of the PyTorch/CUDA port: ``dsabf-torch``.
+
+The deployment half of the JAX package's ``dsabf`` (its
+``dsabeamformer_tpu/cli.py``), subcommand for subcommand and flag for flag:
+
+  dsabf-torch run       — attach to a voltage ring (or file) and beamform
+                          (the main real-time binary)
+  dsabf-torch simulate  — synthetic capture process: write blocks into a
+                          ring (the packet-capture stand-in for tests/demos)
+  dsabf-torch weights   — generate/quantize/save weights
+  dsabf-torch selftest  — tiny end-to-end correctness check on a device
+  dsabf-torch info      — device + config diagnostics
+  dsabf-torch ring      — inspect a ring's counters (dada_dbmonitor analog)
+  dsabf-torch levels    — per-antenna rms + 4-bit clip report from a capture
+  dsabf-torch rfi       — spectral-kurtosis RFI scan -> --zap/--flag-ants
+  dsabf-torch launch    — supervised one-process-per-subband deployment
+  dsabf-torch fil       — inspect a SIGPROC filterbank product
+  dsabf-torch splice    — merge per-subband .fil products into one band
+
+``run``, ``selftest``, ``weights``, ``levels`` and ``rfi`` take
+``--device``: a card index (``0`` or ``cuda:0``) or ``cpu``; with none they
+run on ``cuda:0`` and refuse to run without a card
+(``utils.device.resolve_device``).  ``launch --devices`` takes the same
+tokens, one per child.  ``run --mesh`` is refused: channel
+scale-out is not ported yet.
+
+Run ``dsabf-torch <cmd> --help`` for flags.  Config presets come from
+``dsabeamformer_tpu_torch.config``; any geometry field can be overridden
+with ``--set key=value``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import time
+
+import numpy as np
+
+
+def _coerce_field(current, val: str):
+    """Parse a --set value with the type of the current field value.
+    bool needs explicit token parsing: bool("false") is True."""
+    if isinstance(current, bool):
+        tok = val.strip().lower()
+        if tok in ("true", "1", "yes", "on"):
+            return True
+        if tok in ("false", "0", "no", "off"):
+            return False
+        raise ValueError(f"invalid bool value {val!r} (use true/false)")
+    return type(current)(val)
+
+
+def _load_cfg(args):
+    from dsabeamformer_tpu_torch.config import presets
+
+    table = presets()
+    if args.config not in table:
+        raise SystemExit(
+            f"unknown config preset {args.config!r}; choose from "
+            + " | ".join(table)
+        )
+    cfg = table[args.config]
+    for kv in args.set or []:
+        key, _, val = kv.partition("=")
+        field = getattr(cfg, key)  # raises AttributeError for bad key
+        cfg = cfg.replace(**{key: _coerce_field(field, val)})
+    if getattr(args, "subband", None):
+        # "I/N": this process owns the I-th of N equal contiguous subbands
+        # (the one-process-per-subband deployment as a single flag).
+        # Applied after --set so overrides describe the FULL band.
+        i_s, _, n_s = args.subband.partition("/")
+        try:
+            i, n = int(i_s), int(n_s)
+        except ValueError:
+            raise SystemExit(f"--subband must be I/N, got {args.subband!r}")
+        if not (n > 0 and 0 <= i < n):
+            raise SystemExit(f"--subband {args.subband}: need 0 <= I < N")
+        if cfg.n_chan % n:
+            raise SystemExit(
+                f"--subband /{n} does not divide n_chan={cfg.n_chan}")
+        width = cfg.n_chan // n
+        # The slice frame, so that full-band channel specs (--zap) can be
+        # translated into this process's local indices.
+        args._full_n_chan = cfg.n_chan
+        args._chan_offset = i * width
+        cfg = cfg.subband(i * width, width)
+    return cfg
+
+
+def _add_common(p):
+    p.add_argument("--config", default="dsa10",
+                   help="config preset: dsa10 | dsa10c | dsa110 | tiny")
+    p.add_argument("--set", action="append", metavar="KEY=VAL",
+                   help="override any ObsConfig field, e.g. --set t_block=512")
+    p.add_argument("--subband", metavar="I/N",
+                   help="own the I-th of N equal subbands (the "
+                        "process-per-subband deployment split)")
+
+
+def _device_token(tok: str) -> str:
+    """A ``--device`` / ``--devices`` token -> a torch device string: a card
+    index (``0``) or ``cuda:N`` -> ``cuda:N``; ``cpu`` -> ``cpu``.  Raises
+    ValueError for anything else."""
+    t = tok.strip().lower()
+    if t == "cpu":
+        return "cpu"
+    idx = t.removeprefix("cuda:")
+    if not idx.isdigit():
+        raise ValueError(f"device {tok!r}: give a card index (0, cuda:0) "
+                         f"or cpu")
+    return f"cuda:{int(idx)}"
+
+
+def _device_arg(p, what) -> None:
+    p.add_argument("--device",
+                   help=f"{what}: a card index (0, cuda:0) or cpu "
+                        f"(default: the first card; never the CPU unasked)")
+
+
+def _resolve_device(args):
+    """``args.device`` (default: the first card) as a torch device, or None
+    after printing why it is refused (a card that is not there:
+    resolve_device's message; callers return 2)."""
+    from dsabeamformer_tpu_torch.utils.device import resolve_device
+
+    try:
+        return resolve_device(_device_token(args.device or "0"))
+    except (ValueError, RuntimeError) as e:
+        print(f"error: --device: {e}", file=sys.stderr)
+        return None
+
+
+def _host64(t) -> np.ndarray:
+    """A scan's per-block float32 sums, on the host as float64 (what the
+    accumulators across blocks are)."""
+    return t.cpu().numpy().astype(np.float64)
+
+
+def _capture_cfg(args, cfg):
+    """Resolve the stream config for a capture-file input: a DADA header's
+    geometry overrides the CLI config.  ``--subband`` describes a live
+    deployment split and cannot be combined with a full-band capture file
+    (the header would silently override the slice).  Returns (cfg,
+    data_offset)."""
+    from dsabeamformer_tpu_torch.ingest import dada
+
+    if not os.path.exists(args.input_file):
+        raise SystemExit(f"input file not found: {args.input_file}")
+    if not dada.is_dada_file(args.input_file):
+        return cfg, 0
+    if getattr(args, "subband", None):
+        raise SystemExit(
+            "--subband cannot be combined with a DADA capture file: the "
+            "file header defines the stream geometry (record per-subband "
+            "captures instead)"
+        )
+    cfg, hdr, offset = dada.read_dada_file(args.input_file, cfg)
+    return cfg, offset
+
+
+def _scan_setup(args, default_ring_blocks=8):
+    """Shared preamble of the scan commands (levels/rfi): validate the
+    capture-or-ring input choice and resolve the stream config.  Returns
+    ``(cfg, offset)`` or None after printing the error (callers return 2).
+    Ring mode gets a bounded default block count so the command ends."""
+    if bool(args.input_file) == bool(getattr(args, "key", None)):
+        print("error: give exactly one of --input-file or --key",
+              file=sys.stderr)
+        return None
+    if getattr(args, "key", None) and args.blocks is None:
+        args.blocks = default_ring_blocks
+    cfg = _load_cfg(args)
+    if args.input_file:
+        return _capture_cfg(args, cfg)
+    return cfg, 0
+
+
+def _iter_capture_blocks(args, cfg, offset, device):
+    """Yield wire blocks, as uint8 tensors on ``device``, from
+    ``args.input_file`` or, when ``args.key`` is set instead, from a live
+    ring (the operator's pre-run scan against the actual stream), at most
+    ``args.blocks`` when set.  On a card the ring is read by the pinned
+    route: each slot is copied to the card and released at once."""
+    import torch
+
+    if getattr(args, "key", None) and not args.input_file:
+        from dsabeamformer_tpu_torch.ingest.ring import RingBuffer
+        from dsabeamformer_tpu_torch.pipeline import RingSource
+
+        timeout = getattr(args, "timeout", 5.0)
+        ring = RingBuffer(args.key, connect_timeout_s=timeout)
+        if ring.readers > 0:
+            # The ring is single-consumer: every block this scan takes
+            # never reaches the other reader (gaps in its products).
+            print(f"[dsabf] WARNING: ring {args.key!r} already has "
+                  f"{ring.readers} attached reader(s) — scanning "
+                  f"CONSUMES blocks from the shared single-consumer "
+                  f"cursor; the other consumer will see gaps.  Scan "
+                  f"before starting the beamformer, not during.",
+                  file=sys.stderr)
+        src = RingSource(cfg, ring, timeout_s=timeout, n_host_buffers=2,
+                         device=device)
+        n = 0
+        try:
+            while args.blocks is None or n < args.blocks:
+                item = src.read_block()
+                if item is None:
+                    if not ring.eod():
+                        # A timeout, not end-of-data: a silent partial scan
+                        # reads as a clean result.
+                        print(f"[dsabf] WARNING: ring read timed out after "
+                              f"{timeout:g}s with {n} of {args.blocks} "
+                              f"blocks scanned (producer stalled?)",
+                              file=sys.stderr)
+                    break
+                # The pinned route's view of the open slot: on the card
+                # (a synchronous copy) before the slot goes back.
+                blk = torch.as_tensor(item[1]).to(device)
+                src.release()
+                yield blk
+                n += 1
+        finally:
+            src.close()
+        return
+    from dsabeamformer_tpu_torch.pipeline import FileSource
+
+    src = FileSource(cfg, args.input_file, offset=offset)
+    n = 0
+    while args.blocks is None or n < args.blocks:
+        item = src.read_block()
+        if item is None:
+            break
+        yield torch.from_numpy(item[1]).to(device)
+        n += 1
+
+
+def _local_zap_chans(cfg, args):
+    """--zap spec (FULL-band raw channel indices, so that one spec serves
+    every `launch` child) -> this process's local channel list.
+    Out-of-subband channels are not ours; out-of-band ones are an error."""
+    from dsabeamformer_tpu_torch.models.weights import parse_zap
+
+    chans = parse_zap(args.zap)
+    full_n = getattr(args, "_full_n_chan", cfg.n_chan)
+    bad = [c for c in chans if not 0 <= c < full_n]
+    if bad:
+        raise SystemExit(f"--zap channels {bad} out of range [0, {full_n})")
+    off = getattr(args, "_chan_offset", 0)
+    return [c - off for c in chans if off <= c < off + cfg.n_chan]
+
+
+def _flag_ant_list(args):
+    """--flag-ants spec -> sorted antenna index tuple (antennas are not
+    subband-split: one spec serves every launch child verbatim)."""
+    from dsabeamformer_tpu_torch.models.weights import parse_zap
+
+    spec = getattr(args, "flag_ants", None)
+    return tuple(parse_zap(spec)) if spec else ()
+
+
+def _parse_beam_target(spec: str, n_beams=None):
+    """A search-target spec -> ``"incoherent"``, ``"all"``, an int, or a
+    list of ints; raises ValueError on a bad spec or (when ``n_beams`` is
+    known) an out-of-range index."""
+    s = spec.strip().lower()
+    if s in ("inco", "incoherent"):
+        return "incoherent"
+    if s == "all":
+        return "all"
+    from dsabeamformer_tpu_torch.models.weights import parse_zap
+
+    sel = parse_zap(spec)
+    if n_beams is not None:
+        bad = [b for b in sel if not 0 <= b < n_beams]
+        if bad:
+            raise ValueError(
+                f"beam(s) {bad} out of range (0..{n_beams - 1})")
+    return sel[0] if len(sel) == 1 else sel
+
+
+def _emit_search_candidate(c):
+    """One live-candidate JSON line on stderr (the FRB trigger feed)."""
+    ev = {"snr": round(c.snr, 2), "dm": round(c.dm, 3),
+          "time_s": round(c.time_s, 6), "width": c.width,
+          "members": c.members}
+    if c.beam >= 0:
+        ev["beam"] = c.beam
+    print("[dsabf] search " + json.dumps(ev), file=sys.stderr)
+
+
+def _emit_search_rfi(ev):
+    print("[dsabf] search rfi-coincidence " + json.dumps(ev),
+          file=sys.stderr)
+
+
+#: Tol-spaced DM grids scale as dm_max/tsamp; past this count the
+#: [n_dm, F] delay table alone is GBs: fail with the knobs named.
+_DM_TRIAL_CAP = 262144
+
+
+def _epoch_meta(meta) -> dict:
+    """Observation-epoch fields from a product header, for .cand files
+    (candidate times are product-relative; the epoch anchors them): .fil
+    tstart [MJD], DADA MJD_START / UTC_START when stamped."""
+    out = {}
+    if meta.get("tstart"):
+        out["tstart_mjd"] = meta["tstart"]
+    if meta.get("MJD_START"):
+        out["tstart_mjd"] = meta["MJD_START"]
+    if meta.get("UTC_START"):
+        out["utc_start"] = meta["UTC_START"]
+    return out
+
+
+def _dm_grid_error(dms, tsamp, dm_max):
+    if len(dms) <= _DM_TRIAL_CAP:
+        return None
+    return (f"DM grid has {len(dms)} trials (tsamp={tsamp:.3g}s, "
+            f"dm_max={dm_max:g}) — lower --dm-max, raise --dm-tol, or "
+            f"set an explicit --dm-step")
+
+
+def _make_weights(cfg, args, device, extra_zap=()):
+    """Generate + quantize the run's weights on ``device`` from the CLI
+    flags.  ``extra_zap`` (LOCAL channel indices) unions with ``--zap``:
+    the streaming RFI monitor's regeneration path (``--rfi-auto``)."""
+    from dsabeamformer_tpu_torch.models.arrays import ArrayLayout
+    from dsabeamformer_tpu_torch.models.calibration import CalTable
+    from dsabeamformer_tpu_torch.models.weights import (
+        flag_antennas, make_weights, zap_weights,
+    )
+    from dsabeamformer_tpu_torch.ops.quantize import (
+        load_quant_weights, prepare_weights,
+    )
+
+    if getattr(args, "weights", None):
+        baked = [f for f in ("zap", "flag_ants") if getattr(args, f, None)]
+        if baked:
+            opts = ", ".join("--" + f.replace("_", "-") for f in baked)
+            raise SystemExit(
+                f"{opts} edits weights at generation time and cannot be "
+                f"applied to pre-quantized --weights; re-run `dsabf-torch "
+                f"weights {opts} ...`")
+        return load_quant_weights(args.weights, device=device)
+    layout = (ArrayLayout.load(args.layout)
+              if getattr(args, "layout", None) else None)
+    cal = CalTable.load(args.cal) if getattr(args, "cal", None) else None
+    w = make_weights(cfg, layout=layout, cal=cal,
+                     pointing_rad=getattr(args, "pointing", 0.0),
+                     device=device)
+    zap = set(extra_zap)
+    if getattr(args, "zap", None):
+        zap |= set(_local_zap_chans(cfg, args))
+    if zap:
+        w = zap_weights(w, sorted(zap), cfg)
+    flags = _flag_ant_list(args)
+    if flags:
+        try:
+            w = flag_antennas(w, flags, cfg)
+        except ValueError as e:
+            raise SystemExit(str(e))
+    return prepare_weights(cfg, w)
+
+
+class _MaskedSink:
+    """The incoherent product with the zapped averaged groups zeroed: it is
+    data-side, so weight zapping cannot touch it (conservative: any zapped
+    raw channel kills its group)."""
+
+    def __init__(self, inner, mask):
+        self.inner, self.mask = inner, mask[:, None]
+
+    def write(self, seq, arr):
+        self.inner.write(seq, np.asarray(arr) * self.mask)
+
+    def close(self):
+        self.inner.close()
+
+
+class _DiscardSink:
+    """Turns on the fused incoherent product for the search monitor when no
+    --incoherent-file is wanted."""
+
+    def write(self, seq, arr):
+        pass
+
+    def close(self):
+        pass
+
+
+def cmd_run(args) -> int:
+    from dsabeamformer_tpu_torch.ingest.ring import RingBuffer
+    from dsabeamformer_tpu_torch.pipeline import (
+        FileSink, FileSource, RingSink, RingSource, StreamingBeamformer,
+    )
+
+    if args.fil_dir and (args.output_file or args.output_key):
+        print("error: --fil-dir is exclusive with --output-file/"
+              "--output-key (one product sink per run)", file=sys.stderr)
+        return 2
+    if args.mesh:
+        print("error: --mesh (a channel-sharded mesh of devices) is not "
+              "ported to the PyTorch port yet: it is the scale-out item of "
+              "ROADMAP.md Queue 1; run one process per device with "
+              "`dsabf-torch launch --subbands N --devices ...` instead",
+              file=sys.stderr)
+        return 2
+    device = _resolve_device(args)
+    if device is None:
+        return 2
+
+    cfg = _load_cfg(args)
+    dada_offset = 0
+    if args.input_file:
+        cfg2, dada_offset = _capture_cfg(args, cfg)
+        if dada_offset:
+            cfg = cfg2
+            print(f"[dsabf] DADA header: {cfg.n_chan} chan x {cfg.n_ant} "
+                  f"ant x {cfg.n_pol} pol, order {cfg.input_layout}, "
+                  f"data at +{dada_offset}", file=sys.stderr)
+    if args.products == "stokes":
+        inflight_gb = (args.depth * 4 * np.prod(cfg.out_block_shape) * 4
+                       / 2**30)
+        if inflight_gb > 6:
+            print(f"[dsabf] WARNING: stokes at t_block={cfg.t_block} with "
+                  f"--depth {args.depth} keeps ~{inflight_gb:.1f} GB of "
+                  f"Stokes output in flight and can exhaust device memory "
+                  f"— use t_block<=4096 captures or a smaller --depth",
+                  file=sys.stderr)
+    # Construct (and thereby validate) every sink before the weight
+    # generation and the warmup: a bad --fil-bits/--fil-beams/--fil-scale
+    # or path fails at once with a clean error.
+    out_mult = 4 if args.products == "stokes" else 1
+    sink = None
+    inco_sink = None
+    # Observation epoch, stamped into every product header (PSRDADA
+    # convention: UTC_START; .fil carries tstart MJD).
+    epoch_hdr = {}
+    if args.utc_start:
+        epoch_hdr["UTC_START"] = args.utc_start
+    if args.tstart_mjd:
+        epoch_hdr["MJD_START"] = repr(args.tstart_mjd)
+    try:
+        if args.fil_dir:
+            from dsabeamformer_tpu_torch.ingest.sigproc import FilterbankSink
+
+            beams = ([int(b) for b in args.fil_beams.split(",")]
+                     if args.fil_beams else None)
+            scale = (args.fil_scale if args.fil_scale == "auto"
+                     else float(args.fil_scale))
+            sink = FilterbankSink(args.fil_dir, cfg, beams=beams,
+                                  products=args.products,
+                                  tstart_mjd=args.tstart_mjd,
+                                  nbits=args.fil_bits, scale=scale)
+        elif args.output_file:
+            sink = FileSink(args.output_file, cfg, products=args.products,
+                            extra_header=epoch_hdr)
+        elif args.output_key:
+            out_bytes = int(np.prod(cfg.out_block_shape)) * 4 * out_mult
+            out_ring = RingBuffer(args.output_key, create=True,
+                                  nbufs=args.nbufs, bufsz=out_bytes)
+            sink = RingSink(out_ring, cfg, products=args.products,
+                            extra_header=epoch_hdr)
+        inco_sink = (FileSink(args.incoherent_file, cfg,
+                              products="incoherent",
+                              extra_header=epoch_hdr)
+                     if args.incoherent_file else None)
+        if inco_sink is not None and getattr(args, "zap", None):
+            from dsabeamformer_tpu_torch.models.weights import zap_mask_avg
+
+            inco_sink = _MaskedSink(
+                inco_sink, zap_mask_avg(_local_zap_chans(cfg, args), cfg))
+    except ValueError as e:
+        if sink is not None:
+            sink.close()
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+
+    # Live single-pulse search (ops/dedisperse.py SearchMonitor).  Built
+    # before the beamformer because an incoherent-sum target needs the
+    # fused incoherent product turned on at construction.
+    search_monitor = None
+    if args.search_dm_max is not None:
+        from dsabeamformer_tpu_torch.ingest.sigproc import _avg_freqs_mhz
+        from dsabeamformer_tpu_torch.ops.dedisperse import (
+            SearchMonitor,
+            dm_trial_grid,
+        )
+
+        tsamp_out = cfg.sample_period_s * cfg.navg_time
+        freqs_avg = _avg_freqs_mhz(cfg)
+        try:
+            # target: 'incoherent', one index, a '3,7,100-110' set, or
+            # 'all' (sets/'all' search beam-batched with live cross-beam
+            # coincidence RFI rejection)
+            target = _parse_beam_target(args.search_beam, cfg.n_beams)
+            sm_inco = target == "incoherent"
+            beam_arg = 0 if sm_inco else target
+            dms = dm_trial_grid(
+                float(freqs_avg.min()), float(freqs_avg.max()), tsamp_out,
+                dm_max=args.search_dm_max)
+            search_monitor = SearchMonitor(
+                freqs_avg, tsamp_out, dms, beam=beam_arg,
+                incoherent=sm_inco, threshold=args.search_threshold,
+                chunk_t=args.search_chunk, zerodm=args.search_zerodm,
+                method=args.search_method,
+                on_candidate=_emit_search_candidate,
+                coincidence=not args.search_no_coincidence,
+                coincidence_frac=args.search_coincidence_frac,
+                on_rfi=_emit_search_rfi, device=device)
+        except ValueError as e:
+            if sink is not None:
+                sink.close()
+            print(f"error: {e}", file=sys.stderr)
+            return 2
+        if sm_inco and inco_sink is None:
+            inco_sink = _DiscardSink()
+        target = ("incoherent sum" if sm_inco
+                  else f"all {cfg.n_beams} beams" if beam_arg == "all"
+                  else f"beams {args.search_beam}"
+                  if isinstance(beam_arg, list) else f"beam {beam_arg}")
+        print(f"[dsabf] search: {len(dms)} DM trials "
+              f"[0, {dms[-1]:.1f}] on {target}, "
+              f"threshold {args.search_threshold:g}, window "
+              f"{args.search_chunk} samples "
+              f"(+{search_monitor.overlap} carried)", file=sys.stderr)
+
+    qw = _make_weights(cfg, args, device)
+
+    # The beamformer's sink goes in now so that its device-side transform
+    # (the 8-bit .fil quantizer and layout) is built during warmup too.
+    warm = StreamingBeamformer(cfg, qw, source=None, sink=sink,
+                               products=args.products,
+                               incoherent_sink=inco_sink,
+                               flag_ants=_flag_ant_list(args))
+    warm.search_monitor = search_monitor
+
+    rfi_monitor = None
+    if args.rfi_auto:
+        if args.weights:
+            print("error: --rfi-auto regenerates weights on excision and "
+                  "cannot edit pre-quantized --weights; drop one of the "
+                  "two flags", file=sys.stderr)
+            if sink is not None:
+                sink.close()
+            return 2
+        from dsabeamformer_tpu_torch.ops.rfi import RFIMonitor
+
+        chan0 = getattr(args, "_chan_offset", 0)
+
+        def _rfi_auto_event(ev):
+            # Logged in the FULL-band frame (what --zap speaks).
+            shown = dict(ev)
+            for k in ("new", "zapped", "flagged"):
+                if k in shown:
+                    shown[k] = [chan0 + c for c in shown[k]]
+            print(f"[dsabf] rfi {json.dumps(shown)}", file=sys.stderr)
+            if ev["type"] != "excise" or ev.get("final"):
+                # Cap refusals are log-only; flush-time excisions have no
+                # blocks left to apply to.
+                return
+            if warm.tracker is not None:
+                # A tracked run regenerates at the current pointing: the
+                # tracker's next poll rebuilds with the grown zap set (its
+                # edit hook folds it in).
+                warm.tracker.invalidate()
+                return
+            # Untracked: regenerate with the full sticky zap set and swap
+            # in through the stream's update path.  The incoherent product
+            # is data-side and keeps its startup mask.
+            warm.update_weights(
+                _make_weights(cfg, args, device, extra_zap=ev["zapped"]))
+
+        try:
+            rfi_monitor = RFIMonitor(
+                cfg,
+                interval=args.rfi_interval,
+                sample=args.rfi_sample,
+                threshold=args.rfi_threshold,
+                max_fraction=args.rfi_max_fraction,
+                on_event=_rfi_auto_event,
+                seed_zapped=(_local_zap_chans(cfg, args)
+                             if getattr(args, "zap", None) else ()),
+            )
+        except ValueError as e:
+            print(f"error: {e}", file=sys.stderr)
+            if sink is not None:
+                sink.close()
+            return 2
+        warm.rfi_monitor = rfi_monitor
+
+    warm.warmup()
+
+    if args.input_file:
+        source = FileSource(cfg, args.input_file, offset=dada_offset)
+    else:
+        ring = RingBuffer(args.key, connect_timeout_s=args.timeout)
+        from dsabeamformer_tpu_torch.pipeline import staging_pool_size
+
+        # On a card the ring's own slots are the staging buffers (the
+        # pinned-ring route); on the CPU a pool sized by the shared rule.
+        source = RingSource(cfg, ring, latest=args.latest,
+                            timeout_s=args.timeout,
+                            n_host_buffers=staging_pool_size(
+                                cfg.wire_block_bytes, args.depth),
+                            device=device)
+
+    stats_f = open(args.stats_file, "a") if args.stats_file else None
+
+    def on_block(bs):
+        if args.verbose:
+            print(bs.line(cfg), file=sys.stderr)
+        if stats_f is not None:
+            rec = dict(block=bs.block_idx, seq=bs.seq, wall_s=bs.wall_s,
+                       bytes=bs.bytes_in, dropped=bs.dropped,
+                       skipped=bs.skipped)
+            stats_f.write(json.dumps(rec) + "\n")
+
+    if args.track:
+        from dsabeamformer_tpu_torch.models.calibration import CalTable
+        from dsabeamformer_tpu_torch.models.tracking import FringeTracker
+
+        cal = CalTable.load(args.cal) if args.cal else None
+        # Excision must survive the tracker's regeneration: --zap /
+        # --flag-ants, plus the channels the RFI monitor has excised since
+        # (its zap set is sticky and grows), go into every fresh table.
+        edit = None
+        zap_local = (_local_zap_chans(cfg, args)
+                     if getattr(args, "zap", None) else [])
+        flags = _flag_ant_list(args)
+        if zap_local or flags or rfi_monitor is not None:
+            from dsabeamformer_tpu_torch.models.weights import (
+                flag_antennas, zap_weights,
+            )
+
+            def edit(w, _z=zap_local, _f=flags):
+                z = set(_z)
+                if rfi_monitor is not None:
+                    z |= rfi_monitor.zapped
+                if z:
+                    w = zap_weights(w, sorted(z), cfg)
+                if _f:
+                    w = flag_antennas(w, _f, cfg)
+                return w
+
+        warm.tracker = FringeTracker(
+            cfg, cal=cal, pointing0_rad=args.pointing,
+            declination_rad=args.declination, edit=edit, device=device,
+        )
+    warm.source = source
+    warm.depth = args.depth
+    warm.on_block = on_block
+    # Every exit path (completion, operator Ctrl-C, an exception out of the
+    # loop) flushes and closes the product sinks and the stats file, or the
+    # tail blocks of a .dada product would be lost.
+    try:
+        stats = warm.run(max_blocks=args.blocks)
+    except KeyboardInterrupt:
+        # Operator stop: report what was processed, clocked from the loop
+        # start.
+        print(warm.current_stats().json_line(cfg))
+        return 130
+    finally:
+        if hasattr(source, "close"):
+            source.close()
+        if sink is not None:
+            out_drops = getattr(sink, "dropped", 0)
+            if out_drops:
+                # The writer never blocks (the real-time contract), but the
+                # loss must be visible: an absent or slow downstream
+                # consumer otherwise silently eats product blocks.
+                print(f"[dsabf] WARNING: output ring dropped "
+                      f"{out_drops} product block(s) — downstream "
+                      f"consumer absent or too slow (it sees seq gaps)",
+                      file=sys.stderr)
+            sink.close()
+            if getattr(sink, "nbits", 32) == 8:
+                print(f"[dsabf] 8-bit per-beam scales written to "
+                      f"{args.fil_dir}/scales.json", file=sys.stderr)
+            if getattr(sink, "n_splices", 0):
+                print(f"[dsabf] WARNING: {sink.n_splices} stream gap(s) "
+                      f"zero-filled in .fil output "
+                      f"({sink.filled_samples} samples)", file=sys.stderr)
+        if inco_sink is not None:
+            inco_sink.close()
+        if stats_f is not None:
+            stats_f.close()
+        if search_monitor is not None:
+            # Interrupt paths skip run()'s own flush; flushing twice is
+            # harmless (the buffer empties on the first).
+            search_monitor.flush()
+            sm = search_monitor
+            print(f"[dsabf] search: {len(sm.candidates)} candidate(s) in "
+                  f"{sm.searched_windows} window(s)"
+                  + (f", {sm.rfi_rejected} coincidence-rejected RFI "
+                     f"cluster(s)" if sm.rfi_rejected else "")
+                  + (f", {sm.gaps} stream gap(s) reset the sweep buffer"
+                     if sm.gaps else ""), file=sys.stderr)
+            if args.search_cand:
+                from dsabeamformer_tpu_torch.ops.dedisperse import (
+                    write_candidates,
+                )
+
+                cands = sorted(sm.candidates, key=lambda c: -c.snr)
+                write_candidates(args.search_cand, cands, {
+                    "config": cfg.name, "beam": args.search_beam,
+                    "tsamp_s": sm.tsamp_s, "n_dm_trials": len(sm.dms),
+                    "dm_max": sm.dms[-1],
+                    "threshold": sm.threshold, "live": True,
+                })
+                print(f"[dsabf] search: wrote {args.search_cand}",
+                      file=sys.stderr)
+    print(stats.json_line(cfg))
+    return 0
+
+
+def cmd_simulate(args) -> int:
+    from dsabeamformer_tpu_torch.ingest import dada
+    from dsabeamformer_tpu_torch.ingest.generator import (
+        make_dispersed_pulse_block, make_noise_block,
+        make_point_source_block,
+    )
+    from dsabeamformer_tpu_torch.ingest.ring import RingBuffer
+
+    cfg = _load_cfg(args)
+    if args.distinct < 1:
+        print("error: --distinct must be >= 1", file=sys.stderr)
+        return 2
+    blocks = []
+    if args.pulse_period is None:  # pulsar mode never reads the pool
+        for s in range(args.distinct):
+            if args.source_angle is not None:
+                blocks.append(make_point_source_block(
+                    cfg, np.deg2rad(args.source_angle), seed=s))
+            else:
+                blocks.append(make_noise_block(cfg, rms=args.rms, seed=s))
+    first_block = None
+    pulsar_angle = None
+    if args.pulse_period is not None:
+        # Injected-pulsar drill: every block is made afresh with t0 shifted
+        # by -i * t_block, so that the train stays phase-coherent across
+        # block boundaries.
+        if args.pulse_period <= args.pulse_width:
+            print(f"error: --pulse-period {args.pulse_period} must "
+                  f"exceed --pulse-width {args.pulse_width}",
+                  file=sys.stderr)
+            return 2
+        pulsar_angle = np.deg2rad(args.source_angle or 0.0)
+    elif args.pulse_dm is not None:
+        # Injected-FRB drill: the FIRST emitted block only (a pulse in the
+        # cycled pool would repeat every --distinct blocks) carries a
+        # dispersed pulse on the same noise floor.
+        angle = np.deg2rad(args.source_angle or 0.0)
+        first_block = make_dispersed_pulse_block(
+            cfg, args.pulse_dm, angle_rad=angle,
+            t0_sample=args.pulse_t0, width_samples=args.pulse_width,
+            noise_rms=args.rms, seed=1234)
+
+    def block_at(i):
+        if pulsar_angle is not None:
+            return make_dispersed_pulse_block(
+                cfg, args.pulse_dm or 0.0, angle_rad=pulsar_angle,
+                t0_sample=args.pulse_t0 - i * cfg.t_block,
+                width_samples=args.pulse_width,
+                period_samples=args.pulse_period,
+                noise_rms=args.rms, seed=1234 + i)
+        if i == 0 and first_block is not None:
+            return first_block
+        return blocks[i % len(blocks)]
+    if args.out_file:
+        # Capture to disk: a DADA file `run --input-file` (or any PSRDADA
+        # consumer) can replay.
+        n = args.blocks if args.blocks is not None else 32
+        dada.write_dada_file(
+            args.out_file, cfg,
+            (block_at(i) for i in range(n)),
+        )
+        print(json.dumps({"written": n, "out_file": args.out_file}))
+        return 0
+    with RingBuffer(args.key, create=True, nbufs=args.nbufs,
+                    bufsz=cfg.wire_block_bytes) as ring:
+        ring.write_header(dada.encode_header(cfg))
+        t0 = time.perf_counter()
+        i = 0
+        while args.blocks is None or i < args.blocks:
+            if args.rate:
+                due = i * cfg.block_duration_s / args.rate
+                now = time.perf_counter() - t0
+                if now < due:
+                    time.sleep(due - now)
+            ring.write_block(block_at(i))
+            i += 1
+        ring.set_eod()
+        # A window for the consumer to drain before the segment vanishes.
+        deadline = time.perf_counter() + args.linger
+        while time.perf_counter() < deadline and not ring.eod():
+            time.sleep(0.05)
+        print(json.dumps({"written": i, "dropped": ring.dropped}))
+    return 0
+
+
+def cmd_weights(args) -> int:
+    from dsabeamformer_tpu_torch.ops.quantize import save_quant_weights
+
+    cfg = _load_cfg(args)
+    device = _resolve_device(args)
+    if device is None:
+        return 2
+    qw = _make_weights(cfg, args, device)
+    save_quant_weights(args.out, qw)
+    print(json.dumps({
+        "out": args.out,
+        "mode": cfg.weight_mode,
+        "terms": qw.n_terms,
+        "shape": [qw.n_terms] + list(qw.terms[0].shape),
+    }))
+    return 0
+
+
+def cmd_selftest(args) -> int:
+    import torch
+
+    from dsabeamformer_tpu_torch.config import TINY
+    from dsabeamformer_tpu_torch.ingest.generator import make_point_source_block
+    from dsabeamformer_tpu_torch.models.weights import (
+        make_weights, weights_numpy_golden,
+    )
+    from dsabeamformer_tpu_torch.ops.gemm import beamform_power
+    from dsabeamformer_tpu_torch.ops.quantize import prepare_weights
+    from dsabeamformer_tpu_torch.ops.reference import beamform_block_ref
+    from dsabeamformer_tpu_torch.utils.testing import (
+        POWER_RTOL, relative_power_error,
+    )
+
+    device = _resolve_device(args)
+    if device is None:
+        return 2
+    cfg = TINY if args.config == "tiny" else _load_cfg(args)
+    angles = cfg.beam_angles_rad()
+    target = cfg.n_beams // 3
+    wire = make_point_source_block(cfg, angles[target], noise_rms=0.3, seed=1)
+    qw = prepare_weights(cfg, make_weights(cfg, device=device))
+    p = beamform_power(torch.from_numpy(wire).to(device), qw, cfg)
+    p = p.cpu().numpy()
+    peak = int(np.argmax(p.sum(axis=(0, 1))))
+    p_ref = beamform_block_ref(
+        weights_numpy_golden(cfg), wire, cfg.input_layout, cfg.navg_time,
+        cfg.navg_freq,
+    )
+    err = relative_power_error(p, p_ref)
+    ok = peak == target and err <= POWER_RTOL
+    print(json.dumps({
+        "backend": device.type,
+        "device": (torch.cuda.get_device_name(device)
+                   if device.type == "cuda" else "cpu"),
+        "beam_expected": target,
+        "beam_peak": peak,
+        "rel_power_error": err,
+        "bar": POWER_RTOL,
+        "ok": ok,
+    }))
+    return 0 if ok else 1
+
+
+def cmd_info(args) -> int:
+    import torch
+
+    from dsabeamformer_tpu_torch import __version__
+    from dsabeamformer_tpu_torch.pipeline import staging_pool_size
+    from dsabeamformer_tpu_torch.utils.metrics import peak_macs_per_s
+
+    cfg = _load_cfg(args)
+    cuda = torch.cuda.is_available()
+    devs = [torch.cuda.get_device_name(i)
+            for i in range(torch.cuda.device_count())] if cuda else []
+    print(json.dumps({
+        "version": __version__,
+        "backend": "cuda" if cuda else "cpu",
+        "devices": devs,
+        "n_devices": len(devs),
+        "peak_int8_macs_per_s":
+            peak_macs_per_s(devs[0], "int8x2") if devs else None,
+        "config": cfg.name,
+        "wire_block_bytes": cfg.wire_block_bytes,
+        "block_duration_s": cfg.block_duration_s,
+        "realtime_gb_per_s": round(cfg.realtime_bytes_per_s / 1e9, 3),
+        "out_block_shape": list(cfg.out_block_shape),
+        "weight_mode": cfg.weight_mode,
+        # Deployment sizing at the default --depth 2: the stream keeps
+        # depth+1 wire blocks in device memory and stages depth+2 in host
+        # RAM (blocks under 512 MiB keep an 8-buffer staging floor); `run`
+        # from a ring on a card stages in the ring's own slots instead, and
+        # `simulate` holds an nbufs-deep ring in /dev/shm.
+        "weight_bytes": cfg.n_chan * cfg.gemm_k * 2 * cfg.n_beams
+                        * cfg.n_weight_terms
+                        * {"f32": 4, "bf16": 2, "bf16x2": 2}.get(
+                            cfg.weight_mode, 1),
+        "hbm_wire_bytes_depth2": 3 * cfg.wire_block_bytes,
+        "host_staging_bytes_depth2":
+            staging_pool_size(cfg.wire_block_bytes, 2)
+            * cfg.wire_block_bytes,
+    }))
+    return 0
+
+
+def cmd_launch(args) -> int:
+    """Spawn the one-process-per-subband deployment: N `dsabf-torch run`
+    children, child i owning subband i/N (and the device named i-th by
+    --devices, whose entries take --device's tokens: a card index or
+    cpu; a card may be named more than once).  Supervises them and
+    aggregates their exit codes into one JSON report.
+
+    Occurrences of ``{i}`` / ``{n}`` in the forwarded run arguments are
+    replaced per child (ring keys, output files, stats files):
+
+        dsabf-torch launch --subbands 8 --devices 0,1,2,3,4,5,6,7 -- \\
+            --config dsa110 --key capture{i} --output-file out{i}.dada
+    """
+    import signal
+    import subprocess
+
+    n = args.subbands
+    if n < 1:
+        print("error: --subbands must be >= 1", file=sys.stderr)
+        return 2
+    devices = None
+    if args.devices:
+        try:
+            devices = [_device_token(d) for d in args.devices.split(",")]
+        except ValueError as e:
+            print(f"error: --devices: {e}", file=sys.stderr)
+            return 2
+        if len(devices) != n:
+            print(f"error: --devices lists {len(devices)} devices for "
+                  f"{n} subbands", file=sys.stderr)
+            return 2
+    rest = args.rest[1:] if args.rest[:1] == ["--"] else args.rest
+    procs = []
+    try:
+        for i in range(n):
+            argv = ["run"]
+            for a in rest:
+                argv.append(a.replace("{i}", str(i)).replace("{n}", str(n)))
+            argv += ["--subband", f"{i}/{n}"]
+            if devices is not None:
+                argv += ["--device", devices[i]]
+            # A new session: the terminal would otherwise deliver its own
+            # SIGINT to every child besides the one forwarded, and the
+            # second KeyboardInterrupt would land in the child's sink flush.
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "dsabeamformer_tpu_torch.cli"] + argv,
+                stdout=subprocess.PIPE, text=True,
+                start_new_session=True))
+        outs = []
+        for i, p in enumerate(procs):
+            out, _ = p.communicate()
+            last = out.strip().splitlines()[-1] if out.strip() else ""
+            try:
+                rec = json.loads(last)
+            except ValueError:
+                rec = {"raw": last}
+            outs.append({"subband": f"{i}/{n}", "rc": p.returncode, **rec})
+    except KeyboardInterrupt:
+        # Operator stop: forward it and collect the children's own
+        # interrupted-exit reports.
+        for p in procs:
+            if p.poll() is None:
+                p.send_signal(signal.SIGINT)
+        for p in procs:
+            try:
+                p.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                # A wedged child: kill it and record the signal's rc.
+                p.kill()
+                p.wait()
+        print(json.dumps({"interrupted": True,
+                          "rcs": [p.returncode for p in procs]}))
+        return 130
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.terminate()
+    # A signal-killed child has a negative returncode: any nonzero rc is a
+    # failed subband.
+    bad = [o["rc"] for o in outs if o["rc"] != 0]
+    print(json.dumps({"subbands": outs, "ok": not bad}))
+    # Shell convention for the exit code: 128+signal for signal deaths.
+    return max((rc if rc > 0 else 128 - rc) for rc in bad) if bad else 0
+
+
+def cmd_fil(args) -> int:
+    """Inspect a SIGPROC filterbank product: header + payload stats +
+    bandpass summary (sanity-check a product before the search stage)."""
+    from dsabeamformer_tpu_torch.ingest.sigproc import read_filterbank
+
+    try:
+        hdr, data = read_filterbank(args.path)
+    except (OSError, ValueError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 1
+    x = data.astype(np.float64)
+    # Level stats from IF 0 (Stokes I) only: Q/U/V have near-zero means
+    # (f32) or ride the 128 midpoint offset (8-bit).  The per-IF means are
+    # reported separately for Stokes files.
+    bp = x[:, 0, :].mean(axis=0)
+    out = dict(
+        hdr,
+        n_samples=int(data.shape[0]),
+        duration_s=data.shape[0] * hdr["tsamp"],
+        mean=float(x[:, 0, :].mean()),
+        std=float(x[:, 0, :].std()),
+        bandpass_min=float(bp.min()),
+        bandpass_max=float(bp.max()),
+        bandpass_ripple=float(bp.max() / bp.min()) if bp.min() > 0 else None,
+        finite=bool(np.isfinite(x).all()),
+    )
+    if data.shape[1] > 1:
+        out["if_means"] = [round(float(x[:, s, :].mean()), 3)
+                           for s in range(data.shape[1])]
+    print(json.dumps(out))
+    return 0
+
+
+def cmd_splice(args) -> int:
+    """Merge per-subband .fil products into one full-band file (the step
+    after `launch`'s per-subband split: each child writes its own band
+    slice; the search stage wants one file)."""
+    from dsabeamformer_tpu_torch.ingest.sigproc import splice_filterbanks
+
+    try:
+        hdr = splice_filterbanks(args.inputs, args.out)
+    except (OSError, ValueError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 1
+    bad_scales = hdr.get("_subband_scales")
+    if bad_scales is not None:
+        if all(s is None for s in bad_scales):
+            print("[dsabf] WARNING: 8-bit inputs have no scales.json "
+                  "sidecars — per-subband quantization scales are "
+                  "UNKNOWN and may differ (stepped bandpass); record "
+                  "splice-bound products with an explicit --fil-scale",
+                  file=sys.stderr)
+        else:
+            print(f"[dsabf] WARNING: 8-bit inputs carry different "
+                  f"per-subband quantization scales {bad_scales} — the "
+                  f"merged counts have a stepped bandpass; record "
+                  f"splice-bound products with an explicit --fil-scale",
+                  file=sys.stderr)
+    print(json.dumps({
+        "out": args.out,
+        "inputs": len(args.inputs),
+        "nchans": hdr["nchans"],
+        "fch1": hdr["fch1"],
+        "n_samples": hdr["_n_samples"],
+        "dropped_trailing_samples": hdr["_dropped_samples"],
+    }))
+    return 0
+
+
+def cmd_rfi(args) -> int:
+    """Spectral-kurtosis RFI scan of a capture: per-channel SK accumulated
+    over all blocks, robust cross-channel flagging, and a ready-to-paste
+    ``--zap`` spec (full-band raw indices, what ``run --zap`` takes).  SK
+    ~= 1 for Gaussian noise; CW carriers pull it far below 1, impulsive
+    RFI far above.  The per-block sums run on ``--device``."""
+    from dsabeamformer_tpu_torch.ops.incoherent import (
+        format_zap_spec,
+        sk_block_stats,
+        sk_estimate,
+        sk_flags,
+        sk_samples_per_block,
+    )
+
+    scan = _scan_setup(args)
+    if scan is None:
+        return 2
+    cfg, offset = scan
+    device = _resolve_device(args)
+    if device is None:
+        return 2
+    s1 = np.zeros(cfg.n_chan, np.float64)
+    s2 = np.zeros(cfg.n_chan, np.float64)
+    a1 = np.zeros(cfg.n_ant_active, np.float64)
+    a2 = np.zeros(cfg.n_ant_active, np.float64)
+    n = 0
+    for blk in _iter_capture_blocks(args, cfg, offset, device):
+        # axis="both": channel and antenna accumulators from one unpack.
+        st = sk_block_stats(blk, cfg,
+                            axis="both" if args.per_ant else "chan")
+        s1 += _host64(st["s1"])
+        s2 += _host64(st["s2"])
+        if args.per_ant:
+            a1 += _host64(st["ant_s1"])
+            a2 += _host64(st["ant_s2"])
+        n += 1
+    if n == 0:
+        print(f"no blocks in "
+              f"{args.input_file or 'ring ' + repr(args.key)}",
+              file=sys.stderr)
+        return 1
+    m = n * sk_samples_per_block(cfg)
+    sk = sk_estimate(s1, s2, m)
+    flagged, med, sigma = sk_flags(sk, m, threshold=args.threshold)
+    chan0 = getattr(args, "_chan_offset", 0)
+
+    def fin(v, nd):
+        # Dead channels give NaN SK; bare NaN is invalid JSON.
+        return round(float(v), nd) if np.isfinite(v) else None
+
+    out = {
+        "blocks": n,
+        "n_chan": cfg.n_chan,
+        "m_per_chan": m,
+        "sk_median": fin(med, 5),
+        "sk_sigma": fin(sigma, 6),
+        "threshold": args.threshold,
+        "flagged": [chan0 + c for c in flagged],
+        "zap": format_zap_spec(chan0 + c for c in flagged),
+    }
+    if args.sk_values:
+        out["sk"] = [fin(v, 5) for v in sk]
+    if args.per_ant:
+        # Antenna-axis SK: broadband or self-generated RFI localizes to the
+        # offending antenna (the --flag-ants analog of --zap).
+        m_a = n * sk_samples_per_block(cfg, axis="ant")
+        sk_a = sk_estimate(a1, a2, m_a)
+        flag_a, med_a, sig_a = sk_flags(sk_a, m_a,
+                                        threshold=args.threshold)
+        out.update(
+            ant_sk_median=fin(med_a, 5),
+            ant_sk_sigma=fin(sig_a, 6),
+            flagged_ants=flag_a,
+            flag_ants=format_zap_spec(flag_a),
+        )
+        if args.sk_values:
+            out["ant_sk"] = [fin(v, 5) for v in sk_a]
+    print(json.dumps(out))
+    return 0
+
+
+def cmd_levels(args) -> int:
+    """Per-antenna drive-level report from a capture: rms and 4-bit clip
+    fraction (operators level-set before science/cal scans).  The
+    per-block sums run on ``--device``."""
+    from dsabeamformer_tpu_torch.ops.incoherent import wire_level_stats
+
+    scan = _scan_setup(args)
+    if scan is None:
+        return 2
+    cfg, offset = scan
+    device = _resolve_device(args)
+    if device is None:
+        return 2
+    rms_acc = None
+    clip_acc = None
+    n = 0
+    for blk in _iter_capture_blocks(args, cfg, offset, device):
+        stats = wire_level_stats(blk, cfg)
+        rms = _host64(stats["rms"])
+        clip = _host64(stats["clip_fraction"])
+        rms_acc = rms**2 if rms_acc is None else rms_acc + rms**2
+        clip_acc = clip if clip_acc is None else clip_acc + clip
+        n += 1
+    if n == 0:
+        print(f"no blocks in "
+              f"{args.input_file or 'ring ' + repr(args.key)}",
+              file=sys.stderr)
+        return 1
+    rms_mean = np.sqrt(rms_acc / n)
+    clip_mean = clip_acc / n
+    print(json.dumps({
+        "blocks": n,
+        "n_ant_active": cfg.n_ant_active,
+        "rms": [round(float(v), 3) for v in rms_mean],
+        "clip_fraction": [round(float(v), 5) for v in clip_mean],
+        "worst_clip": round(float(clip_mean.max()), 5),
+    }))
+    return 0
+
+
+def cmd_ring(args) -> int:
+    """Inspect a live voltage/power ring (the ``dada_dbmonitor`` analog):
+    one JSON line of counters, or repeated with ``--watch``."""
+    from dsabeamformer_tpu_torch.ingest.ring import RingBuffer
+
+    ring = RingBuffer(args.key, connect_timeout_s=args.timeout)
+    try:
+        while True:
+            print(json.dumps({
+                "key": args.key,
+                "nbufs": ring.nbufs,
+                "bufsz": ring.bufsz,
+                "written": ring.n_written,
+                "read": ring.n_read,
+                "backlog": ring.n_written - ring.n_read,
+                "dropped": ring.dropped,
+                "skipped": ring.skipped,
+                "readers": ring.readers,
+                "eod": ring.eod(),
+            }), flush=True)
+            if not args.watch:
+                break
+            time.sleep(args.watch)
+    except KeyboardInterrupt:
+        pass
+    finally:
+        ring.close()
+    return 0
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(prog="dsabf-torch", description=__doc__,
+                                 formatter_class=argparse.
+                                 RawDescriptionHelpFormatter)
+    sub = ap.add_subparsers(dest="cmd", required=True)
+
+    p = sub.add_parser("run", help="beamform a voltage stream")
+    _add_common(p)
+    p.add_argument("--key", default="dsa", help="input ring name (DADA-key analog)")
+    p.add_argument("--input-file", help="read blocks from a raw file instead")
+    p.add_argument("--output-key", help="write powers to an output ring")
+    p.add_argument("--output-file", help="append powers to a raw float32 file")
+    p.add_argument("--fil-dir",
+                   help="write per-beam SIGPROC filterbank files here "
+                        "(beamNNNN.fil — the FRB search tools' native "
+                        "format)")
+    p.add_argument("--fil-beams",
+                   help="comma-separated beam indices for --fil-dir "
+                        "(default: all beams)")
+    p.add_argument("--utc-start",
+                   help="observation start (PSRDADA UTC_START string) "
+                        "stamped into DADA product headers")
+    p.add_argument("--tstart-mjd", type=float, default=0.0,
+                   help="observation start MJD stamped into --fil-dir "
+                        "headers (tstart) and DADA product headers "
+                        "(MJD_START)")
+    p.add_argument("--fil-bits", type=int, default=32, choices=[8, 32],
+                   help="filterbank sample width; 8 quarters product IO")
+    p.add_argument("--fil-scale", default="auto",
+                   help="8-bit counts per unit power (default: "
+                        "auto-calibrate from the first block's median)")
+    p.add_argument("--cal", help="calibration .npz (CalTable)")
+    p.add_argument("--layout",
+                   help="antenna position table (.npz or text: EW [NS] "
+                        "meters, one row per dish)")
+    p.add_argument("--weights",
+                   help="pre-quantized weights .npz (dsabf-torch weights, "
+                        "or dsabf weights)")
+    p.add_argument("--zap", metavar="CHANS",
+                   help="RFI channel excision: comma-separated FULL-band "
+                        "raw channel indices/ranges (e.g. 12,100-110) "
+                        "whose weights are zeroed — coherent products "
+                        "read exactly 0 there; with --incoherent-file "
+                        "the matching averaged groups are masked")
+    p.add_argument("--flag-ants", metavar="ANTS",
+                   help="bad-antenna excision: comma-separated antenna "
+                        "indices/ranges (e.g. 3,17-19) zeroed in the "
+                        "weights and excluded from the incoherent sum")
+    p.add_argument("--rfi-auto", action="store_true",
+                   help="streaming spectral-kurtosis monitor: excise "
+                        "channels whose SK leaves the robust null "
+                        "mid-run (sticky; weights regenerate through "
+                        "the stream's update path)")
+    p.add_argument("--rfi-interval", type=int, default=8,
+                   help="observed blocks pooled per excision decision")
+    p.add_argument("--rfi-sample", type=int, default=1,
+                   help="observe every Nth block (unsampled blocks run the "
+                        "kernel variant without the SK sums, so sampling "
+                        "cuts the monitor's kernel cost to 1/N at the "
+                        "price of 1/N the data per excision decision); "
+                        "default 1")
+    p.add_argument("--rfi-threshold", type=float, default=5.0,
+                   help="robust z-score for flagging (dsabf-torch rfi's "
+                        "--threshold)")
+    p.add_argument("--rfi-max-fraction", type=float, default=0.25,
+                   help="refuse to auto-zap beyond this fraction of "
+                        "the band (a broken null is not RFI)")
+    p.add_argument("--search-dm-max", type=float,
+                   help="enable the live single-pulse search up to "
+                        "this DM [pc/cm^3] (trial grid auto-spaced "
+                        "from the band + cadence; ops/dedisperse.py)")
+    p.add_argument("--search-beam", default="0",
+                   help="what to search: a beam index, a '3,7,100-110' "
+                        "set, 'all', or 'incoherent' for the "
+                        "all-antenna sum (sets/'all' search "
+                        "beam-batched with live cross-beam "
+                        "coincidence RFI rejection)")
+    p.add_argument("--search-no-coincidence", action="store_true",
+                   help="multi-beam live search: keep candidates that "
+                        "fire in many beams at once (default: "
+                        "rejected as RFI)")
+    p.add_argument("--search-coincidence-frac", type=float, default=0.25,
+                   help="fraction of searched beams a linked cluster "
+                        "must hit to be tagged RFI (floor: 3 beams)")
+    p.add_argument("--search-threshold", type=float, default=7.0,
+                   help="matched-filter S/N floor for live candidates")
+    p.add_argument("--search-chunk", type=int, default=4096,
+                   help="owned output samples per search window "
+                        "(windows additionally carry max_delay + "
+                        "max_width samples forward)")
+    p.add_argument("--search-cand",
+                   help="write the run's candidates here at exit "
+                        "(heimdall-style columns)")
+    p.add_argument("--search-zerodm", action="store_true",
+                   help="zero-DM filter the searched spectrogram "
+                        "(removes broadband undispersed RFI)")
+    p.add_argument("--search-method", default="conv",
+                   choices=["conv", "direct", "subband"],
+                   help="dedispersion bank: conv (default — the two-stage "
+                        "plan of the live path; <=1 extra sample of "
+                        "smearing), direct (brute force, exact), or "
+                        "subband (the gather two-stage)")
+    p.add_argument("--pointing", type=float, default=0.0,
+                   help="pointing angle (rad)")
+    p.add_argument("--stats-file", help="append per-block JSONL stats here")
+    p.add_argument("--products", default="power",
+                   choices=["power", "stokes"],
+                   help="detection product: Stokes-I powers or full "
+                        "Stokes I/Q/U/V")
+    p.add_argument("--incoherent-file",
+                   help="also write the incoherent-sum total power per "
+                        "block ([F/navg_f, T/navg_t] float32) to this file")
+    p.add_argument("--track", action="store_true",
+                   help="regenerate weights as the pointing drifts (fringe tracking)")
+    p.add_argument("--declination", type=float, default=0.0,
+                   help="source declination (rad), sets the drift rate")
+    _device_arg(p, "run on this device")
+    p.add_argument("--mesh", type=int,
+                   help="a channel-sharded mesh of N devices: not ported "
+                        "(refused)")
+    p.add_argument("--depth", type=int, default=2, help="blocks in flight")
+    p.add_argument("--blocks", type=int, help="stop after N blocks")
+    p.add_argument("--latest", action="store_true",
+                   help="skip-ahead overrun policy")
+    p.add_argument("--timeout", type=float, default=5.0)
+    p.add_argument("--nbufs", type=int, default=8)
+    p.add_argument("-v", "--verbose", action="store_true")
+    p.set_defaults(fn=cmd_run)
+
+    p = sub.add_parser("simulate", help="synthetic capture producer")
+    _add_common(p)
+    p.add_argument("--key", default="dsa")
+    p.add_argument("--blocks", type=int, default=32)
+    p.add_argument("--rate", type=float,
+                   help="pace to this real-time factor (default: unthrottled)")
+    p.add_argument("--rms", type=float, default=2.0)
+    p.add_argument("--source-angle", type=float,
+                   help="inject a point source at this angle (deg)")
+    p.add_argument("--pulse-dm", type=float,
+                   help="inject a dispersed broadband pulse at this DM "
+                        "into block 0 (at --source-angle if given; the "
+                        "injected-FRB end-to-end drill)")
+    p.add_argument("--pulse-t0", type=int, default=0,
+                   help="pulse start sample at the top of the band")
+    p.add_argument("--pulse-width", type=int, default=16,
+                   help="pulse width in raw samples")
+    p.add_argument("--pulse-period", type=int,
+                   help="make the pulse a PULSAR: a phase-coherent "
+                        "periodic train at this period [raw samples] "
+                        "across every block (blocks are generated "
+                        "per-block)")
+    p.add_argument("--distinct", type=int, default=4,
+                   help="number of distinct pre-generated blocks")
+    p.add_argument("--nbufs", type=int, default=4,
+                   help="ring depth; /dev/shm use = nbufs x wire block "
+                        "(2.1 GB/block at the dsa10 preset's t_block=8192)")
+    p.add_argument("--linger", type=float, default=10.0,
+                   help="seconds to wait for the consumer to drain after EOD")
+    p.add_argument("--out-file",
+                   help="write a DADA capture file instead of a ring")
+    p.set_defaults(fn=cmd_simulate)
+
+    p = sub.add_parser("weights", help="generate + quantize + save weights")
+    _add_common(p)
+    p.add_argument("--out", required=True, help="output .npz path")
+    p.add_argument("--cal", help="calibration .npz (CalTable)")
+    p.add_argument("--layout",
+                   help="antenna position table (.npz or text: EW [NS] "
+                        "meters, one row per dish)")
+    p.add_argument("--pointing", type=float, default=0.0)
+    p.add_argument("--zap", metavar="CHANS",
+                   help="RFI channel excision (see `dsabf-torch run --zap`)")
+    p.add_argument("--flag-ants", metavar="ANTS",
+                   help="bad-antenna excision (see `dsabf-torch run "
+                        "--flag-ants`)")
+    _device_arg(p, "make the table on this device")
+    p.set_defaults(fn=cmd_weights)
+
+    p = sub.add_parser("selftest", help="end-to-end correctness check")
+    _add_common(p)
+    _device_arg(p, "run on this device")
+    p.set_defaults(fn=cmd_selftest, config="tiny")
+
+    p = sub.add_parser("info", help="device + config diagnostics")
+    _add_common(p)
+    p.set_defaults(fn=cmd_info)
+
+    def _scan_input(p, default_ring_blocks=8):
+        # A capture file or a live ring; ring mode defaults to a bounded
+        # block count so the command ends.
+        p.add_argument("--input-file", help="capture file (raw or DADA)")
+        p.add_argument("--key", help="scan a LIVE ring instead")
+        p.add_argument("--timeout", type=float, default=5.0,
+                       help="ring attach/read timeout (s)")
+        p.add_argument("--blocks", type=int,
+                       help=f"use at most N blocks (ring mode "
+                            f"defaults to {default_ring_blocks})")
+        _device_arg(p, "sum each block on this device")
+
+    p = sub.add_parser("levels",
+                       help="per-antenna rms + clip report from a "
+                            "capture or live ring")
+    _add_common(p)
+    _scan_input(p)
+    p.set_defaults(fn=cmd_levels)
+
+    p = sub.add_parser(
+        "rfi",
+        help="spectral-kurtosis RFI scan (capture or live ring) -> "
+             "--zap spec")
+    _add_common(p)
+    _scan_input(p)
+    p.add_argument("--threshold", type=float, default=5.0,
+                   help="robust z-score beyond which a channel is "
+                        "flagged (null = cross-channel median/MAD)")
+    p.add_argument("--sk-values", action="store_true",
+                   help="include the full per-channel SK vector")
+    p.add_argument("--per-ant", action="store_true",
+                   help="also resolve SK per ANTENNA and emit a "
+                        "--flag-ants spec")
+    p.set_defaults(fn=cmd_rfi)
+
+    p = sub.add_parser(
+        "launch",
+        help="spawn N per-subband `dsabf-torch run` processes (deployment "
+             "supervisor; {i}/{n} template in forwarded args)")
+    p.add_argument("--subbands", type=int, required=True,
+                   help="number of equal subbands / child processes")
+    p.add_argument("--devices",
+                   help="comma-separated device per subband, each a card "
+                        "index or cpu (a card may repeat)")
+    p.add_argument("rest", nargs=argparse.REMAINDER,
+                   help="arguments forwarded to each `dsabf-torch run` "
+                        "child (prefix with --)")
+    p.set_defaults(fn=cmd_launch)
+
+    p = sub.add_parser("fil",
+                       help="inspect a SIGPROC filterbank product (JSON)")
+    p.add_argument("path", help="beamNNNN.fil file from --fil-dir")
+    p.set_defaults(fn=cmd_fil)
+
+    p = sub.add_parser(
+        "splice",
+        help="merge per-subband .fil products into one full-band file")
+    p.add_argument("inputs", nargs="+",
+                   help="per-subband beamNNNN.fil files (any order)")
+    p.add_argument("--out", required=True, help="merged output .fil")
+    p.set_defaults(fn=cmd_splice)
+
+    p = sub.add_parser("ring", help="inspect a ring's counters (JSON)")
+    p.add_argument("--key", default="dsa")
+    p.add_argument("--timeout", type=float, default=5.0)
+    p.add_argument("--watch", type=float,
+                   help="re-print every N seconds until Ctrl-C")
+    p.set_defaults(fn=cmd_ring)
+
+    args = ap.parse_args(argv)
+    try:
+        return args.fn(args)
+    except BrokenPipeError:
+        # `dsabf-torch ... | head` closing the pipe is normal use, not an
+        # error: no traceback, and none at shutdown on the closed stdout.
+        devnull = os.open(os.devnull, os.O_WRONLY)
+        os.dup2(devnull, sys.stdout.fileno())
+        return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -5,7 +5,9 @@
 // Replaces: the Pallas TPU kernel dsabeamformer_tpu/ops/gemm.py::
 //   _voltage_kernel (gemm.py:427), launched by beamform_voltages
 //   (pl.pallas_call, gemm.py:932), with its _build_x (:97) and _accumulate
-//   (:121), in all seven weight modes.  The JAX wrapper's TPU-only parts stay
+//   (:121), in all seven weight modes and at every a_compute: where the
+//   weight tile leaves no room for one span, voltages_sliced_kernel walks
+//   K in slices (mma_gemm.cuh, The K loop).  The JAX wrapper's TPU-only parts stay
 //   out: the materialized tfpa corner turn (this kernel reads tfpa through
 //   its strides) and shrink_tiles.
 //
@@ -228,6 +230,61 @@ beam_voltages_kernel(const uint8_t* __restrict__ wire,
   }
 }
 
+// The voltage kernel where the weight tile does not fit beside an m-tile
+// (mma_gemm.cuh, The K loop): one warpgroup a block, its four warps one
+// m-tile each of a span of g.rows_out (<= 4) m-tiles, the whole K of each
+// summed in the accumulators (sliced_mtile) before store_mtile restages and
+// stores it, as beam_voltages_kernel does.  w_sliced: the weights in slice
+// order (see The K loop); w gives the scales.
+template <class W, int NT, bool X>
+__global__ void __launch_bounds__(kGroupThreads, 1)
+voltages_sliced_kernel(const uint8_t* __restrict__ wire,
+                       W w, const uint8_t* __restrict__ w_sliced,
+                       const float* __restrict__ scales,
+                       float* __restrict__ out,
+                       MmaGeom g, int n_slices, int n_time, int n_beams,
+                       int n_ant, long long time_stride,
+                       long long chan_stride) {
+  constexpr bool kFloat = std::is_same<W, FloatWeights>::value;
+  using Acc = typename std::conditional<kFloat, float, int>::type;
+  extern __shared__ __align__(128) uint8_t smem[];
+
+  const int f = blockIdx.y;
+  const int n_mt = (n_time + kMtileSamples - 1) / kMtileSamples;
+  const int n_spans = (n_mt + g.rows_out - 1) / g.rows_out;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int bt = blockIdx.x * 4 * NT;
+  const uint8_t* wsl = w_sliced + ((long long)f * gridDim.x + blockIdx.x)
+                                      * g.n_sub * n_slices * kSliceBytes;
+  float* stage = reinterpret_cast<float*>(
+                     smem + 2 * (kSliceBytes + slice_wire_bytes(g)))
+                 + warp * kStageRows * stage_stride(4 * NT);
+  const uint8_t* wire_f = wire + (long long)f * chan_stride;
+  const float s = scales[(long long)f * w.n_scales + (w.n_scales - 1)];
+  const float unit = kFloat ? 1.f : 1.f / float(product_scale(g));
+  const bool vec = n_beams % 4 == 0;
+
+  for (int span = blockIdx.z; span < n_spans; span += gridDim.z) {
+    const int m0 = span * g.rows_out;   // the span's first m-tile
+    const int here = min(g.rows_out, n_mt - m0);
+    Acc acc[NT][4];
+    sliced_mtile<X>(
+        acc, smem, wsl, g, n_slices, wire_f, time_stride, n_ant,
+        [&](int r) -> long long {
+          const long long t =
+              (long long)(m0 + (r >> 3)) * kMtileSamples + (r & 7);
+          return (r >> 3) < here && t < n_time ? t : -1;
+        },
+        [](int, int, const uint8_t*) {});
+    if (warp < here) {
+      store_mtile<NT>(acc, stage, unit, s, out, f,
+                      (m0 + warp) * kMtileSamples, n_time, n_beams, bt, vec,
+                      lane);
+    }
+  }
+}
+
 // The shared memory may be above the 48 KB default: raise the
 // instantiation's limit to what this launch needs, then launch.
 template <class W, int NT, bool X = false>
@@ -251,6 +308,27 @@ cudaError_t launch(dim3 grid, size_t smem, cudaStream_t stream,
   return cudaGetLastError();
 }
 
+// The K loop's launch: one warpgroup a block, a 64-beam tile.
+template <class W, bool X = false>
+cudaError_t launch_sliced(dim3 grid, size_t smem, cudaStream_t stream,
+                          const void* wire, const W& w, const void* w_sliced,
+                          const void* scales, void* out, const MmaGeom& g,
+                          int n_slices,
+                          int n_time, int n_beams, int n_ant,
+                          long long time_stride, long long chan_stride) {
+  auto kernel = voltages_sliced_kernel<W, 16, X>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (e != cudaSuccess) return e;
+  kernel<<<grid, dim3(kGroupThreads), smem, stream>>>(
+      static_cast<const uint8_t*>(wire), w,
+      static_cast<const uint8_t*>(w_sliced),
+      static_cast<const float*>(scales),
+      static_cast<float*>(out), g, n_slices, n_time, n_beams, n_ant,
+      time_stride, chan_stride);
+  return cudaGetLastError();
+}
+
 // The int8 instantiation for X: the unfolded modes past g.x16's width.
 template <int NT, typename... Args>
 cudaError_t launch_int(const MmaGeom& g, Args&&... args) {
@@ -264,13 +342,16 @@ extern "C" {
 
 // Launch on `stream`; returns the cudaError_t of the launch (0 = queued).
 // Pointers: wire uint8 (see time_stride/chan_stride); w0, w1, n_terms, fold,
-// elem_size and scales as dsabf_detect_power takes them (detect_power.cu);
+// elem_size, scales and w_sliced (the K loop's weights in slice order;
+// null for the staged tile) as dsabf_detect_power takes them
+// (detect_power.cu);
 // out f32 [n_chan, n_time, 2, 2*n_beams], Re in columns 0 .. n_beams - 1
-// and Im in n_beams .. 2*n_beams - 1.  a_compute: any from 1 to n_ant whose
-// weight tile and one span fit in shared memory; any n_time from 1;
-// anything else is refused.
+// and Im in n_beams .. 2*n_beams - 1.  a_compute: any from 1 to n_ant (a
+// weight tile that leaves no room for one span takes the K loop:
+// make_sliced_geom); any n_time from 1; anything else is refused.
 int dsabf_beam_voltages(const void* wire, const void* w0, const void* w1,
-                        const void* scales, void* out, int n_chan,
+                        const void* scales, const void* w_sliced, void* out,
+                        int n_chan,
                         int n_time, int n_beams, int n_ant, int a_compute,
                         int n_terms, int fold, int elem_size,
                         long long time_stride, long long chan_stride,
@@ -287,19 +368,23 @@ int dsabf_beam_voltages(const void* wire, const void* w0, const void* w1,
   MmaGeom g;
   size_t smem = 0;
   int n_sub = 0;
+  int n_slices = 0;
   const bool ok =
       elem_size == 1
-          ? make_int_weights(iw, w0, w1, n_terms, fold, a_compute, n_beams) &&
-                make_mma_geom(g, smem, a_compute, 0, n_terms, fold, iw.factor,
-                              kMtileSamples, n_mtiles, align, kMaxGroups,
-                              kMinGroups, kStageRows, 0)
-          : !fold &&
-                make_float_weights(fw, n_sub, w0, w1, n_terms, elem_size,
-                                   a_compute, n_beams) &&
-                make_mma_geom(g, smem, a_compute, 1, n_sub, 0, 1,
-                              kMtileSamples, n_mtiles, align, kMaxGroups,
-                              kMinGroups, kStageRows, 0);
+          ? make_int_weights(iw, w0, w1, n_terms, fold, a_compute, n_beams)
+          : !fold && make_float_weights(fw, n_sub, w0, w1, n_terms,
+                                        elem_size, a_compute, n_beams);
   if (!ok) return int(cudaErrorInvalidValue);
+  const int bf16 = elem_size != 1;
+  if (!bf16) n_sub = n_terms;
+  const int factor = bf16 ? 1 : iw.factor;
+  if (!make_mma_geom(g, smem, a_compute, bf16, n_sub, fold, factor,
+                     kMtileSamples, n_mtiles, align, kMaxGroups, kMinGroups,
+                     kStageRows, 0)) {
+    make_sliced_geom(g, smem, n_slices, a_compute, bf16, n_sub, fold, factor,
+                     kMtileSamples, n_mtiles, align, kStageRows);
+    if (!w_sliced) return int(cudaErrorInvalidValue);
+  }
   const int n_spans = (n_mtiles + g.rows_out - 1) / g.rows_out;
   const int chunks = (n_beams + g.tile_beams - 1) / g.tile_beams;
   // Beam tiles fastest: the blocks that read the same wire bytes run
@@ -308,6 +393,24 @@ int dsabf_beam_voltages(const void* wire, const void* w0, const void* w1,
                   staged_grid_x((n_spans + g.n_groups - 1) / g.n_groups,
                                 n_chan, chunks));
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (n_slices) {
+    if (bf16) {
+      return int(launch_sliced<FloatWeights>(grid, smem, st, wire, fw,
+                                             w_sliced, scales, out, g,
+                                             n_slices,
+                                             n_time, n_beams, n_ant,
+                                             time_stride, chan_stride));
+    }
+    return !g.fold && !g.x16
+               ? int(launch_sliced<IntWeights, true>(
+                     grid, smem, st, wire, iw, w_sliced, scales, out, g,
+                     n_slices,
+                     n_time, n_beams, n_ant, time_stride, chan_stride))
+               : int(launch_sliced<IntWeights>(
+                     grid, smem, st, wire, iw, w_sliced, scales, out, g,
+                     n_slices,
+                     n_time, n_beams, n_ant, time_stride, chan_stride));
+  }
   if (elem_size == 1) {
     return g.tile_beams == kNarrowTileBeams
                ? int(launch_int<8>(g, grid, smem, st, wire, iw, scales, out,

@@ -10,10 +10,11 @@
 // beamform_stokes :795), in all seven weight modes: the power and Stokes
 // products, the quant8 branch (gemm.py:261-278, Stokes offset :266-274),
 // the incoherent branch (:287-322) and the SK branch (:323-368), in any
-// combination, for every a_compute whose weight tile and one output row fit
-// in shared memory (DSA-10 as built: 10; DSA-110: 110 active antennas in
-// 128 slots, 512 beams; 224 in every mode), on the tensor cores (wgmma s8
-// for the int8 modes, wgmma bf16 for the float ones).
+// combination, for every a_compute (DSA-10 as built: 10; DSA-110: 110
+// active antennas in 128 slots, 512 beams; 224, 2048, 2056 in every mode),
+// on the tensor cores (wgmma s8 for the int8 modes, wgmma bf16 for the
+// float ones): the whole weight tile staged where it fits in shared memory
+// beside one output row, else the K loop (detect_sliced_kernel).
 //
 // What it computes, per channel f, output row o and beam b:
 //   X[t, p, :] = [re | im] of the wire bytes of pol p, antennas 0..a_compute-1
@@ -129,10 +130,13 @@
 //     template parameters, and so is X for the int8 operands (int8 and
 //     int8x2 past a_compute 255 multiply X, not 16 X: tile_product); the
 //     weight mode, a_compute and navg are run-time values, so the library
-//     is twenty-four kernels (4 of each operand type and tile width, and 4
-//     of each int8 tile width with X; an int8 tile is 32 beams only where
-//     64 leaves no room for a row: at navg 16, int13 from a_compute 209,
-//     int8x2 and int12 from 385, int8 from 705).
+//     is twenty-four kernels of the staged tile (4 of each operand type and
+//     tile width, and 4 of each int8 tile width with X; an int8 tile is 32
+//     beams only where 64 leaves no room for a row: at navg 16, int13 from
+//     a_compute 209, int8x2 and int12 from 385, int8 from 705) and twelve of
+//     the K loop (64-beam tile: 4 bf16, 8 int8 with and without X), which
+//     a launch takes where not even the 32-beam tile leaves room for a row
+//     (mma_gemm.cuh, The K loop).
 
 #include <cstdint>
 #include <type_traits>
@@ -418,6 +422,155 @@ detect_mma_kernel(const uint8_t* __restrict__ wire,
   }
 }
 
+// The side outputs of one staged slice of the K loop (detect_sliced_kernel):
+// the masked incoherent power of this warp's staged rows (its output row's
+// samples of the m-tile, both pols) added to inco, and, with sk_chan, the
+// S1 and S2 sums of every antenna of the slice over the staged rows, added
+// to sk_chan[2 * a_compute] (rows without a sample are zeros: they add 0).
+// mask: ceil(a_compute / 32) words in device memory.
+__device__ __forceinline__ int slice_side_outputs(
+    const uint8_t* raw, const MmaGeom& g, int a0, const uint32_t* mask,
+    int inco, unsigned long long* sk_chan) {
+  const int aw = int(g.words.d);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  if (mask) {
+    const int items = 2 * 8 * aw;  // (pol, sample, word) of this warp's rows
+    for (int i = lane; i < items; i += 32) {
+      const int r = i / aw;
+      const int q = i - r * aw;
+      const int a = a0 + 4 * q;
+      if (a >= g.a_compute) continue;
+      const uint32_t v = *reinterpret_cast<const uint32_t*>(
+          raw + ((r >> 3) * kSliceRows + warp * 8 + (r & 7)) * g.raw_stride
+          + 4 * q);
+      const uint32_t m = byte_mask((__ldg(mask + (a >> 5)) >> (a & 31))
+                                   & 0xFu);
+      inco = masked_power(sign_extend_nibbles((v >> 4) & 0x0F0F0F0Fu),
+                          sign_extend_nibbles(v & 0x0F0F0F0Fu), m, inco);
+    }
+  }
+  if (sk_chan) {
+    for (int a = threadIdx.x; a < 4 * aw; a += blockDim.x) {
+      if (a0 + a >= g.a_compute) break;
+      int s1 = 0, s2 = 0;
+      for (int r = 0; r < 2 * kSliceRows; ++r) {
+        const uint32_t v = raw[r * g.raw_stride + a];
+        const int re = int(int8_t(v)) >> 4;                // high nibble
+        const int im = int(int8_t(uint8_t(v << 4))) >> 4;  // low nibble
+        const int pw = re * re + im * im;
+        s1 += pw;
+        s2 += pw * pw;
+      }
+      atomicAdd(sk_chan + a0 + a, (unsigned long long)s1);
+      atomicAdd(sk_chan + g.a_compute + a0 + a, (unsigned long long)s2);
+    }
+  }
+  return inco;
+}
+
+// The detect kernel where the weight tile does not fit beside an output row
+// (mma_gemm.cuh, The K loop): one warpgroup a block, its four warps one
+// output row each of a span of g.rows_out (<= 4) rows, each row's m-tiles
+// one after the other, the whole K of each summed in the accumulators
+// (sliced_mtile) before detect_tile adds it to the row's sums.  The
+// epilogue and the side outputs are detect_mma_kernel's; the incoherent
+// mask is read from device memory (inco_mask, ceil(a_compute / 32) words),
+// the SK sums go to sk_out slice by slice.  w_sliced: the weights in slice
+// order (see The K loop); w gives the scales.
+template <class W, int NT, typename OutT, bool STOKES, bool X>
+__global__ void __launch_bounds__(kGroupThreads, 1)
+detect_sliced_kernel(const uint8_t* __restrict__ wire,
+                     W w, const uint8_t* __restrict__ w_sliced,
+                     const float* __restrict__ scales,
+                     const float* __restrict__ q8_scales,
+                     OutT* __restrict__ out,
+                     float* __restrict__ inco_out,
+                     unsigned long long* __restrict__ sk_out,
+                     const uint32_t* __restrict__ inco_mask, MmaGeom g,
+                     int n_slices, int n_time, int n_beams, int n_ant,
+                     long long time_stride, long long chan_stride) {
+  constexpr int NP = STOKES ? 4 : 1;
+  constexpr bool kFloat = std::is_same<W, FloatWeights>::value;
+  constexpr int kKept = NT / 8;  // n-tiles a lane stores (sum_row_lanes)
+  using Acc = typename std::conditional<kFloat, float, int>::type;
+  extern __shared__ __align__(128) uint8_t smem[];
+
+  const int f = blockIdx.y;
+  const int n_out = n_time / g.navg;
+  const int n_spans = (n_out + g.rows_out - 1) / g.rows_out;
+  const bool side = blockIdx.x == 0;  // block-uniform
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int row_lane = lane >> 2;
+  const int bt = blockIdx.x * 4 * NT;
+  const int b0 = bt + 4 * kKept * row_lane + (lane & 3);
+  const uint8_t* wsl = w_sliced + ((long long)f * gridDim.x + blockIdx.x)
+                                      * g.n_sub * n_slices * kSliceBytes;
+  const uint8_t* wire_f = wire + (long long)f * chan_stride;
+  const uint32_t* mask = side && inco_out ? inco_mask : nullptr;
+  unsigned long long* sk_chan =
+      side && sk_out ? sk_out + (long long)f * 2 * g.a_compute : nullptr;
+
+  const float s = scales[(long long)f * w.n_scales + (w.n_scales - 1)];
+  const int ps = kFloat ? 1 : product_scale(g);
+  const float s2 = __fmul_rn(__fmul_rn(s, s), 1.f / float(ps * ps));
+  float qs[kKept];
+#pragma unroll
+  for (int j = 0; j < kKept; ++j) {
+    qs[j] = std::is_same<OutT, uint8_t>::value && b0 + 4 * j < n_beams
+                ? q8_scales[b0 + 4 * j] : 0.f;
+  }
+
+  for (int span = blockIdx.z; span < n_spans; span += gridDim.z) {
+    const int o0 = span * g.rows_out;
+    const int rows_here = min(g.rows_out, n_out - o0);
+    const bool row_live = warp < rows_here;
+    float run[NT][NP];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+      for (int k = 0; k < NP; ++k) run[nt][k] = 0.f;
+    }
+    int inco = 0;
+    for (int j = 0; j < g.mpr; ++j) {
+      Acc acc[NT][4];
+      sliced_mtile<X>(
+          acc, smem, wsl, g, n_slices, wire_f, time_stride, n_ant,
+          [&](int r) -> long long {
+            const int smp = 8 * j + (r & 7);
+            return (r >> 3) < rows_here && smp < g.navg
+                       ? (long long)(o0 + (r >> 3)) * g.navg + smp : -1;
+          },
+          [&](int t, int a0, const uint8_t* raw) {
+            if (t == 0 && (mask || sk_chan)) {
+              inco = slice_side_outputs(raw, g, a0, mask, inco, sk_chan);
+            }
+          });
+      if (row_live) detect_tile<STOKES>(acc, run);
+    }
+    if (mask) {
+#pragma unroll
+      for (int d = 16; d > 0; d >>= 1) {
+        inco += __shfl_xor_sync(0xffffffffu, inco, d);
+      }
+      if (lane == 0 && row_live) {
+        inco_out[(long long)f * n_out + o0 + warp] = float(inco);
+      }
+    }
+    if (!row_live) continue;
+    sum_row_lanes(run, lane);
+    OutT* dst = out + ((long long)f * n_out + o0 + warp) * NP * n_beams;
+#pragma unroll
+    for (int j = 0; j < kKept; ++j) {
+      const int b = b0 + 4 * j;
+      if (b < n_beams) {
+        store_row<OutT, STOKES>(run[j], s2, qs[j], dst + b, n_beams);
+      }
+    }
+  }
+}
+
 // --------------------------------- launch --------------------------------
 
 struct Args {
@@ -430,6 +583,9 @@ struct Args {
   const void *wire, *scales, *q8_scales;
   void *out, *inco_out, *sk_out;
   AntMask inco_mask;
+  const uint32_t* inco_mask_dev;  // the K loop's copy of the mask
+  const void* w_sliced;           // the K loop's weights in slice order
+  int n_slices;                   // > 0: the K loop (detect_sliced_kernel)
   int n_time, n_beams, n_ant;
   long long time_stride, chan_stride;
 };
@@ -469,6 +625,25 @@ cudaError_t launch(const Args& a) {
   return cudaGetLastError();
 }
 
+// The K loop's launch: one warpgroup a block.
+template <class W, int NT, typename OutT, bool STOKES, bool X>
+cudaError_t launch_sliced(const Args& a) {
+  auto kernel = detect_sliced_kernel<W, NT, OutT, STOKES, X>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(a.smem));
+  if (e != cudaSuccess) return e;
+  kernel<<<a.grid, dim3(kGroupThreads), a.smem, a.stream>>>(
+      static_cast<const uint8_t*>(a.wire),
+      weights_of<W>(a), static_cast<const uint8_t*>(a.w_sliced),
+      static_cast<const float*>(a.scales),
+      static_cast<const float*>(a.q8_scales), static_cast<OutT*>(a.out),
+      static_cast<float*>(a.inco_out),
+      static_cast<unsigned long long*>(a.sk_out), a.inco_mask_dev, a.g,
+      a.n_slices, a.n_time, a.n_beams, a.n_ant, a.time_stride,
+      a.chan_stride);
+  return cudaGetLastError();
+}
+
 // The instantiation for the output type and the product.
 template <class W, int NT, bool X = false>
 cudaError_t dispatch(const Args& a, bool stokes) {
@@ -479,6 +654,19 @@ cudaError_t dispatch(const Args& a, bool stokes) {
   }
   return q8 ? launch<W, NT, uint8_t, false, X>(a)
             : launch<W, NT, float, false, X>(a);
+}
+
+// The K loop's instantiation for the output type and the product (a 64-beam
+// tile).
+template <class W, bool X = false>
+cudaError_t dispatch_sliced(const Args& a, bool stokes) {
+  const bool q8 = a.q8_scales != nullptr;
+  if (stokes) {
+    return q8 ? launch_sliced<W, 16, uint8_t, true, X>(a)
+              : launch_sliced<W, 16, float, true, X>(a);
+  }
+  return q8 ? launch_sliced<W, 16, uint8_t, false, X>(a)
+            : launch_sliced<W, 16, float, false, X>(a);
 }
 
 // The int8 instantiation for the tile and for X: the unfolded modes past
@@ -508,23 +696,29 @@ extern "C" {
 // [n_chan, n_time/navg, 4, n_beams] (stokes != 0: I, Q, U, V), or uint8 of
 // that shape when q8_scales (f32 [n_beams]) is not null.
 // Optional (null = not computed): inco_out f32 [n_chan, n_time/navg] over
-// the antennas whose bit is set in inco_mask (host memory, ceil(a_compute /
-// 32) words, bit a of word a / 32, none at or past a_compute; read before
-// this returns); sk_out uint64 [n_chan, 2, a_compute], added to (the caller
-// zeroes it).  a_compute: any from 1 to n_ant whose weight tile and one
-// output row of navg samples fit in shared memory; anything else is
-// refused.
+// the antennas whose bit is set in the mask: inco_mask in host memory (read
+// before this returns) and, for the K loop's kernel, the same words in
+// device memory, inco_mask_dev (null for the staged tile); ceil(a_compute /
+// 32) words, bit a of word a / 32, none at or past a_compute; sk_out uint64 [n_chan, 2,
+// a_compute], added to (the caller zeroes it).  a_compute: any from 1 to
+// n_ant (the int sums are exact to 4080 in int8x2: wire_gemm.cuh); a
+// weight tile that leaves no room for one output row of navg samples takes
+// the K loop (make_sliced_geom), which reads the weights from w_sliced,
+// the same weights in slice order (mma_gemm.cuh, The K loop; null for the
+// staged tile).
 int dsabf_detect_power(const void* wire, const void* w0, const void* w1,
                        const void* scales, const void* q8_scales, void* out,
                        void* inco_out, void* sk_out,
-                       const unsigned int* inco_mask, int n_chan, int n_time,
-                       int n_beams, int n_ant, int a_compute, int n_terms,
-                       int fold, int elem_size, int navg, int stokes,
-                       long long time_stride, long long chan_stride,
-                       void* stream) {
+                       const unsigned int* inco_mask,
+                       const unsigned int* inco_mask_dev,
+                       const void* w_sliced, int n_chan,
+                       int n_time, int n_beams, int n_ant, int a_compute,
+                       int n_terms, int fold, int elem_size, int navg,
+                       int stokes, long long time_stride,
+                       long long chan_stride, void* stream) {
   if (n_chan < 1 || n_chan > 65535 || n_beams < 1 || navg < 1 ||
       n_time < navg || n_time % navg || a_compute < 1 || a_compute > n_ant ||
-      a_compute > 32 * kMaskWords || (inco_out && !inco_mask)) {
+      (inco_out && !inco_mask)) {
     return int(cudaErrorInvalidValue);
   }
   const int n_out = n_time / navg;
@@ -533,20 +727,29 @@ int dsabf_detect_power(const void* wire, const void* w0, const void* w1,
   // Each warpgroup's SK partial sums.
   const int scratch = 2 * a_compute * int(sizeof(int));
   Args a;
+  a.n_slices = 0;
   int n_sub = 0;
-  const bool ok =
-      elem_size == 1
-          ? make_int_weights(a.iw, w0, w1, n_terms, fold, a_compute,
-                             n_beams) &&
-                make_mma_geom(a.g, a.smem, a_compute, 0, n_terms, fold,
-                              a.iw.factor, navg, n_out, align, groups, 2,
-                              0, scratch)
-          : !fold &&
-                make_float_weights(a.fw, n_sub, w0, w1, n_terms, elem_size,
-                                   a_compute, n_beams) &&
-                make_mma_geom(a.g, a.smem, a_compute, 1, n_sub, 0, 1, navg,
-                              n_out, align, groups, 2, 0, scratch);
+  bool ok = elem_size == 1
+                ? make_int_weights(a.iw, w0, w1, n_terms, fold, a_compute,
+                                   n_beams)
+                : !fold && make_float_weights(a.fw, n_sub, w0, w1, n_terms,
+                                              elem_size, a_compute, n_beams);
   if (!ok) return int(cudaErrorInvalidValue);
+  const int bf16 = elem_size != 1;
+  if (!bf16) n_sub = n_terms;
+  const int factor = bf16 ? 1 : a.iw.factor;
+  // The staged tile where it fits, else the K loop.  The incoherent mask's
+  // static copy covers every staged width: past 32 * kMaskWords antennas
+  // even the narrowest int8 tile (2 * 32 * 32 * 129 bytes) passes a
+  // block's shared memory.
+  if (!make_mma_geom(a.g, a.smem, a_compute, bf16, n_sub, fold, factor,
+                     navg, n_out, align, groups, 2, 0, scratch)) {
+    make_sliced_geom(a.g, a.smem, a.n_slices, a_compute, bf16, n_sub, fold,
+                     factor, navg, n_out, align, 0);
+    if ((inco_out && !inco_mask_dev) || !w_sliced) {
+      return int(cudaErrorInvalidValue);
+    }
+  }
   const int n_spans = (n_out + a.g.rows_out - 1) / a.g.rows_out;
   const int chunks = (n_beams + a.g.tile_beams - 1) / a.g.tile_beams;
   // Beam tiles fastest: the blocks that read the same wire bytes run
@@ -565,12 +768,19 @@ int dsabf_detect_power(const void* wire, const void* w0, const void* w1,
     a.inco_mask.w[i] =
         inco_mask && 32 * i < a_compute ? inco_mask[i] : 0u;
   }
+  a.inco_mask_dev = reinterpret_cast<const uint32_t*>(inco_mask_dev);
+  a.w_sliced = w_sliced;
   a.n_time = n_time;
   a.n_beams = n_beams;
   a.n_ant = n_ant;
   a.time_stride = time_stride;
   a.chan_stride = chan_stride;
   const bool st = stokes != 0;
+  if (a.n_slices) {
+    if (bf16) return int(dispatch_sliced<FloatWeights>(a, st));
+    return !a.g.fold && !a.g.x16 ? int(dispatch_sliced<IntWeights, true>(a, st))
+                                 : int(dispatch_sliced<IntWeights>(a, st));
+  }
   if (elem_size == 1) {
     return a.g.tile_beams == kNarrowTileBeams ? int(dispatch_int<8>(a, st))
                                               : int(dispatch_int<16>(a, st));

@@ -81,6 +81,7 @@
 #pragma once
 
 #include <cstdint>
+#include <type_traits>
 
 #include <cuda_runtime.h>
 
@@ -869,6 +870,281 @@ __device__ __forceinline__ void tile_product(float (&acc)[NT][4],
     wgmma_commit();
   };
   run_steps(acc, g.n_steps, step);
+}
+
+
+// ------------------------------ the K loop ------------------------------
+//
+// Where not even the narrow weight tile fits in shared memory beside one
+// output row (at navg 16: f32 past a_compute 272, int13 past 384, bf16x2
+// past 392, bf16, int8x2 and int12 past 704, int8 past 1152; or any navg
+// whose rows are too long), the kernels walk the contraction in slices
+// instead: a block is one warpgroup; for each m-tile of its four warps it
+// copies, sub-term by sub-term, a slice of kSliceKBytes K bytes of every
+// column of a 64-beam weight tile (128 antennas int8, 64 bf16) and the same
+// antennas of the m-tiles' wire rows (zeros past a_compute and for rows
+// without a sample), and adds the slice's products to the wgmma
+// accumulators, which hold the whole K sum before the epilogue.  The
+// caller lays the weights out once in slice order (gemm._sliced_weights:
+// [channel][beam tile][sub-term][slice] slices of kSliceBytes, each byte
+// where the tile's matrix descriptor reads it, zeros past a_compute and
+// n_beams; f32's sub-terms the three bf16 parts of split_f32), so a slice
+// is one contiguous run of 16-byte cp.async copies from L2; two buffers of
+// weights and wire rows, the next slice's copies running under this one's
+// wgmma.  The sub-terms run one after the other, so int8x2 multiplies its
+// hi term's complete sums by 256 before the lo term's first slice, as the
+// staged-tile path does; an integer sum is the same in any order, so the
+// int modes' sums are the staged path's to the bit.  The geometry
+// (make_sliced_geom) reuses MmaGeom with a slice's sizes: n_steps and
+// k_total are one slice's (one sub-term), span_samples the kSliceRows rows
+// a pol of the staged m-tiles, words / copies / slots a slice's.
+
+constexpr int kSliceKBytes = 256;  // K bytes of a weight column per slice
+constexpr int kSliceRows = 32;     // staged rows a pol: 4 warps x 8 samples
+// Bytes of a 64-beam weight slice (one buffer).
+constexpr int kSliceBytes = 2 * kTileBeams * kSliceKBytes;
+
+// Bytes of one buffer of the staged m-tiles' wire rows.
+__host__ __device__ inline size_t slice_wire_bytes(const MmaGeom& g) {
+  return size_t(2) * kSliceRows * g.raw_stride;
+}
+
+// Fill g for the K loop (see above) and give the dynamic shared memory of a
+// block and the slices of a sub-term's K: two buffers each of a 64-beam
+// weight slice and of the staged m-tiles' wire rows, then stage_rows rows
+// of restaged float32 output a warp (stage_bytes).  n_out: output rows
+// (the voltage kernel: m-tiles) of a channel.
+inline void make_sliced_geom(MmaGeom& g, size_t& smem, int& n_slices,
+                             int a_compute, int bf16, int n_sub, int fold,
+                             int factor, int navg, int n_out, int wire_align,
+                             int stage_rows) {
+  g.a_compute = a_compute;
+  g.bf16 = bf16;
+  g.n_steps = kSliceKBytes / kStepBytes;
+  const int ants = (bf16 ? 8 : 16) * g.n_steps;
+  g.n_sub = n_sub;
+  g.fold = fold;
+  g.x16 = !bf16 && x16_exact(fold, factor, a_compute);
+  g.factor = factor;
+  g.k_total = kSliceKBytes;
+  g.tile_beams = kTileBeams;
+  g.raw_stride = 16 * ((ants / 16) | 1);
+  g.navg = navg;
+  g.mpr = (navg + 7) / 8;
+  g.n_groups = 1;
+  g.rows_out = n_out < kRoundRows ? n_out : kRoundRows;
+  g.span_samples = kSliceRows;
+  g.copy_bytes = wire_align % 16 == 0 ? 16 : wire_align % 4 == 0 ? 4 : 1;
+  g.copies = make_fastdiv(ants / (g.copy_bytes == 16 ? 16 : 4));
+  g.words = make_fastdiv(ants / 4);
+  g.slots = make_fastdiv(4 * g.n_steps);
+  n_slices = (a_compute + ants - 1) / ants;
+  smem = size_t(2) * (kSliceBytes + slice_wire_bytes(g))
+         + stage_bytes(stage_rows, g.tile_beams);
+}
+
+// Start the copy of one laid-out weight slice (kSliceBytes at src) into ws;
+// the calling block's threads share it, and fetch_slice_wire commits it.
+__device__ __forceinline__ void fetch_weight_slice(uint8_t* ws,
+                                                   const uint8_t* src) {
+  for (int i = threadIdx.x; i < kSliceBytes / 16; i += blockDim.x) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+                 :: "r"(smem_address(ws + 16 * i)), "l"(src + 16 * i));
+  }
+}
+
+// Start the copy of the slice's antennas a0 .. a0 + 4 * words - 1 of the
+// staged m-tiles' wire rows into raw [pol][kSliceRows][raw_stride]: row r
+// is sample sample_of(r) of the channel (none where it is < 0: zeros), and
+// commit it (with any copies started before) as one group.  cp.async moves
+// whole 16- (or 4-) byte pieces below a_compute where the wire's alignment
+// allows; the others are put together from byte loads, zeros past
+// a_compute.
+template <typename SampleOf>
+__device__ __forceinline__ void fetch_slice_wire(uint8_t* raw,
+                                                 const uint8_t* wire_f,
+                                                 const MmaGeom& g, int a0,
+                                                 long long time_stride,
+                                                 int n_ant,
+                                                 SampleOf&& sample_of) {
+  const int cb = g.copy_bytes == 16 ? 16 : 4;  // bytes of a piece
+  const int per = int(g.copies.d);             // pieces of a row
+  const int total = 2 * kSliceRows * per;
+  for (int i = threadIdx.x; i < total; i += blockDim.x) {
+    const int rp = fast_div(i, g.copies);      // row * 2 + pol
+    const int c = i - rp * per;
+    const int pol = rp & 1;
+    const long long smp = sample_of(rp >> 1);
+    const int a = a0 + c * cb;
+    uint8_t* dst = raw + (pol * kSliceRows + (rp >> 1)) * g.raw_stride
+                   + c * cb;
+    const uint8_t* src =
+        wire_f + (smp < 0 ? 0 : smp) * time_stride + pol * n_ant + a;
+    if (smp >= 0 && a + cb <= g.a_compute && g.copy_bytes >= cb) {
+      if (cb == 16) {
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+                     :: "r"(smem_address(dst)), "l"(src));
+      } else {
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+                     :: "r"(smem_address(dst)), "l"(src));
+      }
+    } else {
+      for (int j = 0; j < cb; j += 4) {
+        uint32_t v = 0;
+        for (int k = 0; k < 4; ++k) {
+          if (smp >= 0 && a + j + k < g.a_compute) {
+            v |= uint32_t(__ldg(src + j + k)) << (8 * k);
+          }
+        }
+        *reinterpret_cast<uint32_t*>(dst + j) = v;
+      }
+    }
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// The steps of one staged slice of sub-term t added to acc (fresh: acc
+// starts from the slice's first product instead): tile_product's steps
+// (int8 here, bf16 below) with the slice's tile and rows.  rx: this lane's
+// pol x row of the staged m-tile, pol y's `plane` bytes further.  X as for
+// tile_product.
+template <bool X, int NT>
+__device__ __forceinline__ void slice_product(int (&acc)[NT][4],
+                                              const uint8_t* rx, int plane,
+                                              const uint8_t* ws,
+                                              const MmaGeom& g, int t,
+                                              bool fresh, int lane) {
+  const int q = lane & 3;
+  const bool x16 = !X && (!g.fold || !(t & 1));
+  const uint64_t desc0 = w_descriptor(ws, g);
+  auto step = [&](int ks, uint32_t (&a)[4]) {
+    const int wi = 4 * ks + q;
+    const uint32_t vx = *reinterpret_cast<const uint32_t*>(rx + 4 * wi);
+    const uint32_t vy =
+        *reinterpret_cast<const uint32_t*>(rx + plane + 4 * wi);
+    if (ks >= 2) wgmma_wait<1>();
+#pragma unroll
+    for (int r = 0; r < 4; ++r) keep_register(a[r]);
+    make_fragment(a, vx, vy, x16);
+    wgmma_fence();
+    wgmma_s8<NT>(acc, a, desc0 + uint64_t((ks * 2 * kCoreBytes) >> 4),
+                 ks > 0 || !fresh);
+    wgmma_commit();
+  };
+  run_steps(acc, g.n_steps, step);
+}
+
+template <bool X, int NT>
+__device__ __forceinline__ void slice_product(float (&acc)[NT][4],
+                                              const uint8_t* rx, int plane,
+                                              const uint8_t* ws,
+                                              const MmaGeom& g, int t,
+                                              bool fresh, int lane) {
+  static_assert(!X, "bf16 operands have no 16 X");
+  const int off = 2 * (lane & 3);  // antennas off, off + 1 of each step
+  const uint64_t desc0 = w_descriptor(ws, g);
+  auto step = [&](int s, uint32_t (&a)[4]) {
+    const int at = 8 * s + off;
+    const uint32_t hx = *reinterpret_cast<const uint16_t*>(rx + at);
+    const uint32_t hy = *reinterpret_cast<const uint16_t*>(rx + plane + at);
+    if (s >= 2) wgmma_wait<1>();
+#pragma unroll
+    for (int r = 0; r < 4; ++r) keep_register(a[r]);
+    make_fragment_bf16(a, hx, hy);
+    wgmma_fence();
+    wgmma_bf16<NT>(acc, a, desc0 + uint64_t((s * 2 * kCoreBytes) >> 4),
+                   s > 0 || !fresh);
+    wgmma_commit();
+  };
+  run_steps(acc, g.n_steps, step);
+}
+
+// One m-tile of each of the warpgroup's four warps times the whole weight
+// tile, K walked in slices (see The K loop): acc as tile_product leaves it.
+// The int8 operands sum every slice in the wgmma accumulators (exact).  The
+// bf16 ones sum each slice's products in wgmma accumulators of their own
+// and add them to acc rounded to nearest, so that no tensor-core float32
+// sum runs longer than a slice's 8 k16 steps: run over all of bf16x2's 512
+// steps at a_compute 2048, they left every power on an H100 about 1.7e-5
+// below the plain version's, a bias, not noise.
+// The block's 128 threads call this together; smem holds the two buffers
+// (make_sliced_geom); wsl is this block's laid-out slices (its channel and
+// beam tile: g.n_sub * n_slices of kSliceBytes); sample_of(r) the channel's
+// sample of staged row r (warp r / 8, its lane r % 8), < 0 for none.
+// side(t, a0, raw) runs after each slice is staged (every thread; the
+// slice's wire rows in raw).
+template <bool X, int NT, typename Acc, typename SampleOf, typename Side>
+__device__ __forceinline__ void sliced_mtile(
+    Acc (&acc)[NT][4], uint8_t* smem, const uint8_t* wsl, const MmaGeom& g,
+    int n_slices, const uint8_t* wire_f, long long time_stride, int n_ant,
+    SampleOf&& sample_of, Side&& side) {
+  constexpr bool kFloat = std::is_same<Acc, float>::value;
+  const int lane = threadIdx.x & 31;
+  const int ants = 4 * int(g.words.d);
+  const size_t wire_bytes = slice_wire_bytes(g);
+  const int row = ((threadIdx.x >> 5) * 8 + (lane >> 2)) * g.raw_stride;
+  const int plane = kSliceRows * g.raw_stride;
+  uint8_t* raw0 = smem + 2 * kSliceBytes;
+  const int n_k = g.n_sub * n_slices;  // slices of every sub-term in turn
+  // Start the copies of slice k (sub-term k / n_slices) into buffer b.
+  auto fetch = [&](int k, int b) {
+    fetch_weight_slice(smem + b * kSliceBytes,
+                       wsl + (long long)k * kSliceBytes);
+    fetch_slice_wire(raw0 + b * wire_bytes, wire_f, g,
+                     (k % n_slices) * ants, time_stride, n_ant, sample_of);
+  };
+  if constexpr (kFloat) {
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[nt][c] = 0.f;
+    }
+  }
+  // Buffer 0's last readers (the call before) passed the barrier that ends
+  // each slice.
+  fetch(0, 0);
+  for (int k = 0; k < n_k; ++k) {
+    const int t = k / n_slices;
+    const int b = k & 1;
+    if (k + 1 < n_k) {
+      fetch(k + 1, b ^ 1);  // its buffer's last readers: slice k - 1
+      asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    } else {
+      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    }
+    // This thread's copies of slice k, then every thread's, visible to the
+    // tensor cores' reads of the weight slice.
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+    const uint8_t* ws = smem + b * kSliceBytes;
+    const uint8_t* raw = raw0 + b * wire_bytes;
+    if constexpr (!kFloat) {
+      if (k == n_slices && !g.fold) {
+        // int8x2: the hi term's complete sums times 256 (run_steps waited
+        // for them), the lo term's products on top.
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+          for (int c = 0; c < 4; ++c) acc[nt][c] *= g.factor;
+        }
+      }
+    }
+    side(t, (k - t * n_slices) * ants, raw);
+    if constexpr (kFloat) {
+      float part[NT][4];
+      slice_product<X>(part, raw + row, plane, ws, g, t, true, lane);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          acc[nt][c] = __fadd_rn(acc[nt][c], part[nt][c]);
+        }
+      }
+    } else {
+      slice_product<X>(acc, raw + row, plane, ws, g, t, k == 0, lane);
+    }
+    __syncthreads();  // slice k's buffers read: the next copies may land
+  }
 }
 
 }  // namespace dsabf

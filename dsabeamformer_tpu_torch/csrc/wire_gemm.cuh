@@ -17,8 +17,9 @@
 // The integers are exact: one sub-term's |M| <= K * 8 * 128 = 2048 *
 // a_compute (K = 2 * a_compute), int8x2's |M_hi * 256 + M_lo| <= 257 * 2048
 // * a_compute < 2^31 up to a_compute 4080, int13's 34 * 2048 * a_compute
-// further still: past any a_compute whose weight tile fits in shared
-// memory (the kernels' only limit).  The caller converts to float32 once
+// up to 30840: the int modes' only limit on a_compute (the JAX kernel's
+// int32 sums have the same; past the staged tile the kernels walk K in
+// slices, mma_gemm.cuh).  The caller converts to float32 once
 // (rounding above 2^24, as XLA's m.astype(f32), JAX gemm.py:145, and the
 // plain version's int64 -> float32 do).
 
@@ -34,7 +35,8 @@ constexpr int kMaxDynSmem = 227 * 1024;     // per block on an H100
 
 // The incoherent sum's antenna selection: bit a of word a / 32, the first
 // ceil(a_compute / 32) words used.  2048 antennas is past any a_compute
-// whose weight tile fits in shared memory.
+// whose weight tile fits in shared memory; the K loop reads the mask from
+// device memory instead.
 constexpr int kMaskWords = 64;
 struct AntMask {
   uint32_t w[kMaskWords];

@@ -78,8 +78,15 @@ def build(name: str) -> Path:
         raise RuntimeError(
             f"nvcc failed ({proc.returncode}) for {src}:\n"
             f"{proc.stdout}{proc.stderr}")
-    so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, so)  # atomic: a concurrent loader sees all or nothing
+    # The log first, then the library, each written beside its final name
+    # and moved there at once: processes building the same library
+    # together (launch's children on a cold cache) each see all of a file
+    # or none of it.
+    log = so.with_suffix(".log")
+    log_tmp = log.with_name(f"{log.name}.{os.getpid()}.tmp")
+    log_tmp.write_text(proc.stdout + proc.stderr)
+    os.replace(log_tmp, log)
+    os.replace(tmp, so)
     return so
 
 

@@ -33,10 +33,9 @@ Hand-written CUDA kernels replace the JAX package's two Pallas kernels
   times the channel's scale, stored as float32 ``[F, T, P, 2B]`` with no
   detection.
 
-Both kernels take any a_compute whose weight tile fits in shared memory
-beside one output row (DSA-10 as built: 10 slots; DSA-110: 110 active
-antennas in 128 slots; 224 in every mode), in every weight mode, and are
-built on ``csrc/mma_gemm.cuh`` (``kernel_path``: ``"wgmma"``): a block
+Both kernels take any a_compute (DSA-10 as built: 10 slots; DSA-110: 110
+active antennas in 128 slots; 2056 in every mode), in every weight mode, and
+are built on ``csrc/mma_gemm.cuh`` (``kernel_path``: ``"wgmma"``): a block
 stages a 64-beam tile of weight columns in shared memory (32 beams where a
 bf16 tile would leave room for fewer than two warpgroups, or an int8 one
 for no row:
@@ -47,7 +46,11 @@ walks K in steps of 32 bytes, the last step's tail zero in the weights;
 ``_bf16_operands`` (bf16, f32) state its operand layouts in torch.  The
 voltage kernel takes 8 samples of both pols as one m-tile, restages each
 warp's m-tile through shared memory and writes whole rows of Re and of Im
-(``_voltage_store_map`` states where each accumulator goes).
+(``_voltage_store_map`` states where each accumulator goes).  Where not
+even the 32-beam tile fits beside one output row, both take the K loop
+(``kernel_path``: ``"wgmma-kloop"``, ``_sliced_tiles``): one warpgroup a
+block stages 256-byte K slices of a 64-beam tile and of its m-tiles' wire
+rows, sub-term by sub-term, and sums them in the same accumulators.
 
 ``fused_detect`` and ``beamform_voltages`` are the wrappers: a CUDA tensor
 goes to the kernel (or the call raises), a CPU tensor to the plain PyTorch
@@ -83,11 +86,16 @@ from dsabeamformer_tpu_torch.ops.quantize import (
 KERNEL_MODES = tuple(TERM_DTYPES)
 #: Modes whose terms are float (bfloat16 or float32), scales all 1.
 FLOAT_MODES = ("bf16", "bf16x2", "f32")
-#: Words of the incoherent mask the detect kernel keeps (csrc kMaskWords):
-#: 2048 antennas, past any a_compute whose weight tile fits.
+#: Words of the incoherent mask the detect kernel keeps in shared memory
+#: (csrc kMaskWords): 2048 antennas, past any a_compute whose weight tile
+#: fits; the K loop reads the mask from device memory.
 MASK_WORDS = 64
 #: The tensor-core instruction of the detect kernel, every weight mode.
 DETECT_MMA = "wgmma"
+#: The kernels' path where the weight tile leaves no room for one output
+#: row: the same wgmma product, K walked in slices (csrc/mma_gemm.cuh "The
+#: K loop"): ``kernel_path``.
+KLOOP_MMA = "wgmma-kloop"
 #: The detect kernel (csrc/mma_gemm.cuh): beams of a block's weight tile
 #: (kTileBeams; kNarrowTileBeams for a bf16 tile that leaves room for fewer
 #: than two warpgroups), output rows a warpgroup takes at a time
@@ -113,6 +121,13 @@ _STAGE_PAD = 4
 #: The voltage kernel's bf16 tile is 32 beams where one of 64 leaves room
 #: for fewer warpgroups than this (kMinGroups; the detect kernel's: 2).
 _VOLTAGE_MIN_GROUPS = 3
+#: The K loop (csrc kSliceKBytes, kSliceRows): K bytes of a weight column a
+#: slice stages (int8: 128 antennas, bf16: 64), wire rows a pol it stages
+#: (four warps' m-tiles of 8 samples).
+_SLICE_K_BYTES = 256
+_SLICE_ROWS = 32
+#: Bytes of a 64-beam weight slice (csrc kSliceBytes).
+_SLICE_BYTES = 2 * _TILE_BEAMS * _SLICE_K_BYTES
 #: Signed Q/U/V planes of an 8-bit Stokes product ride the unsigned payload
 #: at this fixed midpoint offset; I keeps offset 0 (the SIGPROC files'
 #: convention, recorded in their scales.json; csrc: kQuvOffset).
@@ -229,28 +244,21 @@ def _mask_words(mask: int, a_compute: int):
                                  for i in range(n)))
 
 
-def kernel_path(cfg: ObsConfig) -> str:
-    """The detect kernel's design: ``DETECT_MMA`` (``"wgmma"``) for every
-    weight mode (``csrc/detect_power.cu`` on ``csrc/mma_gemm.cuh``: int8
+def kernel_path(cfg: ObsConfig, kernel: str = "detect") -> str:
+    """The design of the detect kernel (``kernel="voltage"``: the voltage
+    kernel) for ``cfg``, every weight mode on ``csrc/mma_gemm.cuh`` (int8
     ``wgmma`` for the int8 modes, bf16 ``wgmma`` into float32 sums for the
-    float ones, a weight tile in shared memory: ``_detect_tiles``).  It
-    takes every a_compute whose weight tile leaves room in a block's shared
-    memory for one output row of the detect kernel (``navg_time`` samples)
-    and one m-tile of the voltage kernel; raises ``ValueError`` naming that
-    limit for any other (at ``navg_time`` 16, the widest multiples of 8:
-    f32 272, int13 384, bf16x2 392, bf16, int8x2 and int12 704, int8
-    1152)."""
-    ac = cfg.a_compute
-    for kernel, tiles in (("detect", _detect_tiles(cfg)),
-                          ("voltage", _voltage_tiles(cfg))):
-        if not tiles.rows:
-            raise ValueError(
-                f"a_compute {ac} in mode {cfg.weight_mode!r} (config "
-                f"{cfg.name!r}): the {kernel} kernel's weight tile and one "
-                f"output row need {tiles.smem} bytes of shared memory, more "
-                f"than the {_MMA_DYN_SMEM} a block stages (the kernels' only "
-                f"limit on a_compute)")
-    return DETECT_MMA
+    float ones): ``DETECT_MMA`` (``"wgmma"``) where the whole weight tile
+    fits in a block's shared memory beside one output row
+    (``_detect_tiles`` / ``_voltage_tiles``: at ``navg_time`` 16 up to f32
+    272, int13 384, bf16x2 392, bf16, int8x2 and int12 704, int8 1152),
+    else ``KLOOP_MMA`` (``"wgmma-kloop"``): the same product with K walked
+    in slices, which takes any a_compute (the power and the Stokes product
+    take the same path: one row fits for both or for neither)."""
+    if kernel not in ("detect", "voltage"):
+        raise ValueError(f"no kernel {kernel!r}: 'detect' or 'voltage'")
+    tiles = _detect_tiles(cfg) if kernel == "detect" else _voltage_tiles(cfg)
+    return KLOOP_MMA if tiles.slices else DETECT_MMA
 
 
 class DetectTiles(NamedTuple):
@@ -258,8 +266,9 @@ class DetectTiles(NamedTuple):
 
     beams: int    # of a block's weight tile
     groups: int   # warpgroups of a block
-    rows: int     # output rows of a warpgroup's span (0: none fits)
+    rows: int     # output rows of a warpgroup's span
     smem: int     # dynamic shared memory of a block, bytes
+    slices: int = 0  # K slices of a sub-term (0: the whole tile staged)
 
 
 def _fit_spans(wbytes: int, row_bytes: int, group_bytes: int, n_out: int,
@@ -290,6 +299,92 @@ def _stage_bytes(stage_rows: int, beams: int) -> int:
     return 4 * stage_rows * (beams + _STAGE_PAD) * 4
 
 
+def _sliced_tiles(cfg: ObsConfig, n_out: int,
+                  stage_rows: int) -> DetectTiles:
+    """The K loop's tile and spans (csrc make_sliced_geom): a 64-beam slice
+    of ``_SLICE_K_BYTES`` K bytes a column (one sub-term), one warpgroup,
+    spans of one round (at most ``_ROUND_ROWS`` output rows, or the voltage
+    kernel's m-tiles), one buffer of ``_SLICE_ROWS`` wire rows a pol, each
+    the slice's antennas padded to an odd number of 16-byte units, each of
+    the two in two buffers, and the restaged output rows; ``slices`` slices
+    of a sub-term's K."""
+    ants = _slice_antennas(cfg)
+    raw_stride = 16 * ((ants // 16) | 1)
+    smem = 2 * (_SLICE_BYTES + 2 * _SLICE_ROWS * raw_stride) \
+        + _stage_bytes(stage_rows, _TILE_BEAMS)
+    return DetectTiles(_TILE_BEAMS, 1, min(n_out, _ROUND_ROWS), smem,
+                       -(-cfg.a_compute // ants))
+
+
+def _slice_antennas(cfg: ObsConfig) -> int:
+    """Antennas of a K-loop slice: 128 int8, 64 bf16."""
+    return _SLICE_K_BYTES // _STEP_BYTES \
+        * (8 if cfg.weight_mode in FLOAT_MODES else 16)
+
+
+def _slice_layout(terms, cfg: ObsConfig) -> torch.Tensor:
+    """The weight terms in the K loop's slice order (csrc/mma_gemm.cuh, The
+    K loop): uint8 ``[F, beam tiles, sub-terms, slices, _SLICE_BYTES]``,
+    each slice the 64-beam tile's columns ``2 * beam + (0 Re, 1 Im)`` over
+    its antennas, byte for byte where the tile's matrix descriptor reads
+    them (``w_offset``: column group ``c // 8`` of 2048 bytes, then per k
+    step of the slice its re and its im core matrices of 8 columns x 16
+    bytes), zeros past a_compute and n_beams.  The int8 sub-terms as the
+    kernel reads them (``_mma_operands``' order), the bf16 terms, or f32's
+    three bfloat16 parts (``_split_f32``)."""
+    mode = cfg.weight_mode
+    n_chan, a, b = cfg.n_chan, cfg.a_compute, cfg.n_beams
+    if mode == "f32":
+        subs = _split_f32(terms[0])
+    elif mode in FOLDED_SUBTERMS:
+        subs = terms[0].view(n_chan, n_subterms(cfg), 2 * a, 2 * b).unbind(1)
+    else:
+        subs = terms
+    bf16 = mode in FLOAT_MODES
+    ants = _slice_antennas(cfg)
+    lane = ants // 8                  # antennas of one k step's core matrix
+    n_sl, n_bt = -(-a // ants), -(-b // _TILE_BEAMS)
+    out = []
+    for w in subs:
+        w = w.view(torch.int16) if bf16 else w.view(torch.uint8)
+        pad = w.new_zeros((n_chan, 2, n_sl * ants, 2, n_bt * _TILE_BEAMS))
+        pad[:, :, :a, :, :b] = w.view(n_chan, 2, a, 2, b)
+        # [f, part, slice, step, antenna of the step, ri, tile, c // 8,
+        # beam % 4] -> [f, tile, slice, c // 8, step, part, beam % 4, ri,
+        # antenna of the step]
+        pad = pad.view(n_chan, 2, n_sl, 8, lane, 2, n_bt, 16, 4)
+        out.append(pad.permute(0, 6, 2, 7, 3, 1, 8, 5, 4)
+                   .reshape(n_chan, n_bt, n_sl, -1))
+    return torch.stack(out, 2).contiguous().view(torch.uint8)
+
+
+#: The K loop's laid-out weights of the last weight sets it ran with:
+#: ``key -> (terms, layout)``; the terms are kept so that a key's tensors
+#: cannot be freed and their addresses reused while it is cached.
+_SLICED = collections.OrderedDict()
+_SLICED_KEEP = 2
+
+
+def _sliced_weights(terms, cfg: ObsConfig) -> torch.Tensor:
+    """``_slice_layout`` of these terms, made once per weight set (on their
+    device and its current stream, then waited for, so any stream may read
+    it) and cached; an in-place edit of a term (its ``_version``) makes it
+    anew."""
+    key = (cfg.weight_mode, cfg.n_chan, cfg.a_compute, cfg.n_beams,
+           tuple(id(t) for t in terms), tuple(t._version for t in terms))
+    hit = _SLICED.get(key)
+    if hit is not None and all(x is y for x, y in zip(hit[0], terms)):
+        _SLICED.move_to_end(key)
+        return hit[1]
+    layout = _slice_layout(terms, cfg)
+    if layout.is_cuda:
+        torch.cuda.current_stream(layout.device).synchronize()
+    _SLICED[key] = (tuple(terms), layout)
+    while len(_SLICED) > _SLICED_KEEP:
+        _SLICED.popitem(last=False)
+    return layout
+
+
 def _mma_tiles(cfg: ObsConfig, navg: int, n_out: int, max_groups: int,
                min_groups: int, stage_rows: int,
                scratch: int = 0) -> DetectTiles:
@@ -297,7 +392,8 @@ def _mma_tiles(cfg: ObsConfig, navg: int, n_out: int, max_groups: int,
     rows of ``navg`` samples (``n_out`` of them a channel), each warpgroup
     keeping ``scratch`` bytes beside its rows, the 32-beam tile where a
     bf16 one of 64 leaves room for fewer than ``min_groups`` warpgroups or
-    any one of 64 for no row: csrc make_mma_geom (see ``_detect_tiles``)."""
+    any one of 64 for no row: csrc make_mma_geom (see ``_detect_tiles``);
+    the K loop's (``_sliced_tiles``) where not even that fits."""
     ac = cfg.a_compute
     bf16 = cfg.weight_mode in FLOAT_MODES
     n_steps = -(-ac // 8) if bf16 else -(-ac // 16)
@@ -319,7 +415,7 @@ def _mma_tiles(cfg: ObsConfig, navg: int, n_out: int, max_groups: int,
     wbytes = 2 * beams * k_total
     stage = _stage_bytes(stage_rows, beams) + scratch
     if got is None:
-        return DetectTiles(beams, 1, 0, wbytes + stage + row_bytes)
+        return _sliced_tiles(cfg, n_out, stage_rows)
     groups, rows = got
     return DetectTiles(beams, groups, rows,
                        wbytes + groups * (rows * row_bytes + stage))
@@ -343,8 +439,9 @@ def _detect_tiles(cfg: ObsConfig, stokes: bool = False) -> DetectTiles:
     than two warpgroups (or the rounds, if fewer) is 32 beams instead: f32's
     three parts from a_compute 113; so is an int8 tile of 64 that
     leaves room for no row (int13 from a_compute 209 at navg 16, int8x2
-    and int12 from 385, int8 from 705).  0 rows: one output
-    row does not fit beside the tile."""
+    and int12 from 385, int8 from 705).  Where not one output row fits
+    beside the 32-beam tile, the K loop's tile (``_sliced_tiles``,
+    ``slices`` > 0)."""
     return _mma_tiles(cfg, cfg.navg_time, cfg.t_block // cfg.navg_time,
                       _MAX_GROUPS[stokes], 2, 0, 8 * cfg.a_compute)
 
@@ -357,6 +454,7 @@ class VoltageTiles(NamedTuple):
     rows: int     # m-tiles (8 samples each) of a warpgroup's span
     samples: int  # samples of a span: rows * 8
     smem: int     # dynamic shared memory of a block, bytes
+    slices: int = 0  # K slices of a sub-term (0: the whole tile staged)
 
 
 def _voltage_tiles(cfg: ObsConfig) -> VoltageTiles:
@@ -375,7 +473,7 @@ def _voltage_tiles(cfg: ObsConfig) -> VoltageTiles:
     t = _mma_tiles(cfg, _MTILE_SAMPLES, n_mt, _MAX_GROUPS[False],
                    _VOLTAGE_MIN_GROUPS, _STAGE_ROWS)
     return VoltageTiles(t.beams, t.groups, t.rows, t.rows * _MTILE_SAMPLES,
-                        t.smem)
+                        t.smem, t.slices)
 
 
 def _staged_grid_z(n_shares: int, n_chan: int, chunks: int) -> int:
@@ -869,10 +967,11 @@ def _kernel_lib(name: str) -> ctypes.CDLL:
         # (_operand_args); the detect library then navg and stokes.
         if name == "detect_power":
             fn.argtypes = [p, p, p, p, p, p, p, p,
-                           ctypes.POINTER(ctypes.c_uint), i, i, i, i, i, i,
-                           i, i, i, i, ll, ll, p]
+                           ctypes.POINTER(ctypes.c_uint), p, p, i, i, i, i,
+                           i, i, i, i, i, i, ll, ll, p]
         else:
-            fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, ll, ll, p]
+            fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, ll, ll,
+                           p]
         fn.restype = i
         lib.dsabf_error_string.argtypes = [i]
         lib.dsabf_error_string.restype = ctypes.c_char_p
@@ -896,7 +995,6 @@ def _check_kernel_operands(x, terms, scales, cfg: ObsConfig,
     for name, t in operands:
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    kernel_path(cfg)  # raises for an a_compute the kernels do not take
     if cfg.n_pol != 2:
         raise ValueError(f"kernel needs 2 pols, got n_pol={cfg.n_pol}")
     if cfg.n_chan > 65535:
@@ -997,6 +1095,15 @@ def _launch_detect(x, terms, scales, cfg: ObsConfig, time_major: bool, *,
         # Zeroed on the launch's stream, so ordered before the kernel.
         sk_out = torch.zeros((cfg.n_chan, 2, cfg.a_compute),
                              dtype=torch.int64, device=x.device)
+    mask_dev = sliced = None
+    if _detect_tiles(cfg, stokes).slices:
+        # The K loop reads the weights in slice order and the mask from
+        # device memory.
+        sliced = _sliced_weights(terms, cfg)
+        if inco_mask is not None:
+            mask_dev = torch.tensor(
+                np.frombuffer(_mask_words(inco_mask, cfg.a_compute),
+                              np.int32), device=x.device)
     time_stride, chan_stride = _wire_strides(cfg, time_major)
     name = kernel_library(cfg, "detect_power")
     _launch(_kernel_lib(name), name, [
@@ -1005,7 +1112,9 @@ def _launch_detect(x, terms, scales, cfg: ObsConfig, time_major: bool, *,
         out.data_ptr(), None if inco is None else inco.data_ptr(),
         None if sk_out is None else sk_out.data_ptr(),
         None if inco_mask is None else _mask_words(inco_mask, cfg.a_compute),
-        cfg.n_chan, cfg.t_block, cfg.n_beams, cfg.n_ant, cfg.a_compute,
+        None if mask_dev is None else mask_dev.data_ptr(),
+        None if sliced is None else sliced.data_ptr(), cfg.n_chan,
+        cfg.t_block, cfg.n_beams, cfg.n_ant, cfg.a_compute,
         *_operand_args(cfg, terms), cfg.navg_time, int(stokes),
         time_stride, chan_stride], x.device)
     return out, inco, sk_out
@@ -1164,10 +1273,13 @@ def _launch_voltages(x, terms, scales, cfg: ObsConfig,
     out = torch.empty((cfg.n_chan, cfg.t_block, cfg.n_pol, 2 * cfg.n_beams),
                       dtype=torch.float32, device=x.device)
     time_stride, chan_stride = _wire_strides(cfg, time_major)
+    sliced = _sliced_weights(terms, cfg) if _voltage_tiles(cfg).slices \
+        else None
     name = kernel_library(cfg, "beam_voltages")
     _launch(_kernel_lib(name), name, [
         x.data_ptr(), terms[0].data_ptr(), terms[-1].data_ptr(),
-        scales.data_ptr(), out.data_ptr(), cfg.n_chan, cfg.t_block,
+        scales.data_ptr(), None if sliced is None else sliced.data_ptr(),
+        out.data_ptr(), cfg.n_chan, cfg.t_block,
         cfg.n_beams, cfg.n_ant, cfg.a_compute, *_operand_args(cfg, terms),
         time_stride, chan_stride], x.device)
     return out

@@ -731,6 +731,9 @@ class StreamingBeamformer:
         elif self.sink is not None:
             self.sink.write(seq, out)
         if self.search_monitor is not None:
+            if mon is not None and mon.dtype != np.uint8 \
+                    and getattr(self.sink, "nbits", None) == 8:
+                mon = self._counts_of_selected(mon)
             self.search_monitor.observe_selected(seq, mon, inco)
         if sk_host is not None:
             # The monitor holds this array since dispatch; it reads it only
@@ -751,6 +754,21 @@ class StreamingBeamformer:
             self.rfi_monitor.poll(self._block_idx)
         if self.on_block is not None:
             self.on_block(bs)
+
+    def _counts_of_selected(self, sel: np.ndarray) -> np.ndarray:
+        """The search monitor's float32 beams of a block drained before the
+        8-bit sink's scales existed (its first, whose auto-calibration the
+        sink's write has just made), as the uint8 counts the file holds and
+        every later block brings: a window of powers and counts together
+        would leave the monitor's median/MAD the counts' and lift the
+        powers' block thousands of sigma above it."""
+        sm = self.search_monitor
+        scales = self.sink.fused_quant8_scales("cpu").numpy()
+        if sm._labels is not None:
+            s = scales[sm._labels][:, None, None]   # [B_sel, T, F]
+        else:
+            s = scales[sm.beam]                      # [T, F]
+        return np.clip(np.rint(sel * s), 0, 255).astype(np.uint8)
 
     def run(self, max_blocks: Optional[int] = None) -> StreamStats:
         cfg = self.cfg

@@ -5,14 +5,22 @@ design, beside ``chip_smoke.py``'s full check.
     python3 -m dsabeamformer_tpu_torch.utils.time_detect \\
         [--kernel detect|voltages|bank] [--presets dsa10 dsa110] \\
         [--modes int8x2 bf16 bf16x2 f32 ...] [--variants base stokes] \\
-        [--launches 4] [--nvcc-flag=-O2 ...]
+        [--launches 4] [--nvcc-flag=-O2 ...] \\
+        [--a-compute 10 264 edge 2048] [--channels 64]
 
 ``--kernel detect`` (the default), per (preset, weight mode, variant): the
 weight tile, warpgroups and span the kernel takes (``gemm._detect_tiles``),
 one launch held against the plain PyTorch version on the same block
 (relative to the peak), then the mean CUDA-event time of ``--launches``
 back-to-back launches on a resident random-bytes block, with the card's
-name and power limit.  ``--kernel voltages``, per (preset, weight mode):
+name and power limit, and the launch's bound (the larger of its MACs over
+the card's dense peak for the mode's operand type, f32 the lesser of
+float32 on the CUDA cores and three bf16 passes, and its bytes over the
+memory rate).  ``--a-compute`` times the preset contracting each given
+number of antennas instead (``edge``: the first multiple of 8 past the
+widest whose whole weight tile the detect kernel stages, where it takes the
+K loop), on ``--channels`` channels.  ``--kernel voltages``, per (preset,
+weight mode):
 the same for ``beamform_voltages`` on the preset's 128-channel sub-band
 (the tile from ``gemm._voltage_tiles``; the int8 modes must equal the plain
 version bit for bit), and once per preset the store ceiling: a plain
@@ -43,11 +51,53 @@ from dsabeamformer_tpu_torch.ingest.generator import make_random_bytes_block
 from dsabeamformer_tpu_torch.models.weights import make_weights
 from dsabeamformer_tpu_torch.ops import _build, gemm
 from dsabeamformer_tpu_torch.ops.quantize import prepare_weights
+from dsabeamformer_tpu_torch.utils.metrics import peak_macs_per_s
 
 PRESETS = {"dsa10": DSA10, "dsa10c": DSA10_COMPACT, "dsa110": DSA110}
 #: Channels of the voltage kernel's sub-band (chip_smoke.py's
 #: VOLTAGE_CHANNELS): its output is 4.3 GB at either preset.
 VOLTAGE_CHANNELS = 128
+#: Float32 outside the tensor cores (NVIDIA's H100 SXM data sheet, 67
+#: TFLOP/s, an FMA two), and the HBM3 rate: chip_smoke.py's bounds.
+F32_MACS_PER_S = 67e12 / 2
+BYTES_PER_S = 3.35e12
+
+
+def bound_ms(cfg, stokes: bool, device_kind: str) -> tuple:
+    """(ms, "operations" or "bytes"): the least time of one detect launch
+    of ``cfg`` on the card named ``device_kind``, as chip_smoke.py's
+    ``bound_ms`` counts it for the base and the Stokes variant."""
+    macs = cfg.macs_per_block * cfg.n_weight_terms
+    if cfg.weight_mode == "f32":
+        ops = min(macs / F32_MACS_PER_S,
+                  gemm.F32_PARTS * macs / peak_macs_per_s(device_kind,
+                                                          "bf16"))
+    else:
+        ops = macs / peak_macs_per_s(device_kind, cfg.weight_mode)
+    item = {"bf16": 2, "bf16x2": 2, "f32": 4}.get(cfg.weight_mode, 1)
+    f_out, t_out, b = cfg.out_block_shape
+    nbytes = (cfg.t_block * cfg.n_chan * cfg.n_pol * cfg.a_compute
+              + cfg.n_weight_terms * cfg.n_chan * (cfg.gemm_k * 2 * b * item
+                                                   + 4)
+              + f_out * t_out * (4 if stokes else 1) * b * 4)
+    ops_ms, bytes_ms = ops * 1e3, nbytes / BYTES_PER_S * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms \
+        else (bytes_ms, "bytes")
+
+
+def width_cfg(cfg, a_compute):
+    """``cfg`` contracting ``a_compute`` antennas (``"edge"``: the first
+    multiple of 8 past the widest whose whole weight tile the detect kernel
+    stages), at least two slots inactive."""
+    if a_compute == "edge":
+        ac = 8
+        while gemm.kernel_path(width_cfg(cfg, ac)) == gemm.DETECT_MMA:
+            ac += 8
+        return width_cfg(cfg, ac)
+    ac = int(a_compute)
+    return cfg.replace(n_ant=max(cfg.n_ant, ac),
+                       n_ant_active=min(cfg.n_ant_active, ac - 2),
+                       n_ant_compute=ac)
 
 
 def _events_ms(fn, launches: int) -> float:
@@ -170,11 +220,16 @@ def main(argv=None) -> None:
                     choices=["base", "stokes"])
     ap.add_argument("--launches", type=int, default=4)
     ap.add_argument("--nvcc-flag", action="append", default=[])
+    ap.add_argument("--a-compute", nargs="+", default=[None],
+                    help="antennas to contract (a number, or edge)")
+    ap.add_argument("--channels", type=int,
+                    help="channels (default: the preset's)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("time_detect: needs an NVIDIA GPU")
     _build.NVCC_FLAGS = _build.NVCC_FLAGS + tuple(args.nvcc_flag)
     device = torch.device("cuda", 0)
+    kind = torch.cuda.get_device_name(device)
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip())
@@ -199,15 +254,26 @@ def main(argv=None) -> None:
         return
     for preset in args.presets:
         for mode in args.modes:
-            cfg = PRESETS[preset].replace(weight_mode=mode)
-            for variant in args.variants:
-                tiles = gemm._detect_tiles(cfg, variant == "stokes")
-                ms, err = time_detect(cfg, variant, args.launches, device)
-                print(f"{preset} {mode} a_compute {cfg.a_compute} {variant}: "
-                      f"{ms:.3f} ms/block, max error / peak vs plain "
-                      f"{err:.2e}; tile {tiles.beams} beams, {tiles.groups} "
-                      f"warpgroups of {tiles.rows} rows, {tiles.smem} B of "
-                      f"shared memory; flags {args.nvcc_flag}", flush=True)
+            for ac in args.a_compute:
+                cfg = PRESETS[preset].replace(weight_mode=mode)
+                if args.channels:
+                    cfg = cfg.replace(n_chan=args.channels)
+                if ac is not None:
+                    cfg = width_cfg(cfg, ac)
+                for variant in args.variants:
+                    stokes = variant == "stokes"
+                    tiles = gemm._detect_tiles(cfg, stokes)
+                    ms, err = time_detect(cfg, variant, args.launches, device)
+                    bnd, by = bound_ms(cfg, stokes, kind)
+                    print(f"{preset} {mode} a_compute {cfg.a_compute} "
+                          f"{variant} ({cfg.n_chan} channels, "
+                          f"{gemm.kernel_path(cfg)}): {ms:.3f} ms/block, "
+                          f"bound {bnd:.3f} ms by {by}, max error / peak vs "
+                          f"plain {err:.2e}; tile {tiles.beams} beams, "
+                          f"{tiles.groups} warpgroups of {tiles.rows} rows, "
+                          f"{tiles.slices} K slices, {tiles.smem} B of "
+                          f"shared memory; flags {args.nvcc_flag}",
+                          flush=True)
 
 
 if __name__ == "__main__":

@@ -56,8 +56,9 @@ GEOMS = {
                            n_ant_compute=64, n_beams=100),
 }
 
-#: A config whose a_compute (712) the kernels do not take: int8x2's weight
-#: tile and one output row pass a block's shared memory from 712.
+#: A config whose a_compute (712) the kernels once refused: int8x2's weight
+#: tile and one output row pass a block's shared memory from 712, so the
+#: detect kernel walks K in slices there.
 TOO_WIDE = DSA110.replace(n_chan=4, t_block=64, n_ant=712, n_ant_active=150,
                           n_ant_compute=712)
 
@@ -141,15 +142,19 @@ def test_kernel_rejects_what_it_does_not_take(dev):
                           qw.scales, cfg, tm)
     with pytest.raises(ValueError, match="weights are on"):
         gemm.fused_detect(x2, qw.terms, qw.scales.cpu(), cfg, tm)
-    # No kernel takes a_compute 712: refused before any launch.
+    # a_compute 712, once refused, takes the K loop: one launch, the plain
+    # version's integers.
     big = TOO_WIDE
-    assert big.a_compute == 712
+    assert big.a_compute == 712 and gemm.kernel_path(big) == gemm.KLOOP_MMA
     qwb = _weights(big, dev)
     xb = torch.from_numpy(make_noise_block(big, seed=1)).to(dev)
     before = _launches()
-    with pytest.raises(ValueError, match="a_compute"):
-        gemm.beamform_power(xb, qwb, big)
-    assert _launches() == before
+    got = gemm.beamform_power(xb, qwb, big)
+    assert _launches() == before + 1
+    xw, tmw = gemm._prepare_wire(xb, big)
+    want = gemm.detect_power_plain(xw, qwb.terms, qwb.scales, big, tmw)[0]
+    assert relative_power_error(got.cpu().numpy(), want.cpu().numpy()) \
+        <= 1e-5
 
 
 @pytest.mark.parametrize("depth", [0, 1, 2])
@@ -339,14 +344,17 @@ def test_kernel_rejects_bad_side_operands(dev):
     with pytest.raises(ValueError, match="past a_compute"):
         gemm.fused_detect(x, qw.terms, qw.scales, cfg, tm,
                           inco_mask=1 << cfg.a_compute)
-    # One output row's wire bytes must fit in shared memory beside the
-    # weight tile.
+    # An output row whose wire bytes do not fit in shared memory beside the
+    # weight tile (once refused) takes the K loop, one m-tile at a time.
     long = DSA110.replace(n_chan=1, t_block=4096, navg_time=4096)
+    assert gemm.kernel_path(long) == gemm.KLOOP_MMA
     qwl = _weights(long, dev)
     xl, tml = gemm._prepare_wire(
         torch.from_numpy(make_noise_block(long, seed=1)).to(dev), long)
-    with pytest.raises(ValueError, match="shared memory"):
-        gemm.fused_detect(xl, qwl.terms, qwl.scales, long, tml)
+    got = gemm.fused_detect(xl, qwl.terms, qwl.scales, long, tml)[0]
+    want = gemm.detect_power_plain(xl, qwl.terms, qwl.scales, long, tml)[0]
+    assert relative_power_error(got.cpu().numpy(), want.cpu().numpy()) \
+        <= 1e-5
 
 
 @pytest.mark.parametrize("layout", ["tfpa", "ftpa"])
@@ -554,15 +562,19 @@ def test_voltage_kernel_rejects_what_it_does_not_take(dev):
         gemm.beamform_voltages(x, _to(qw, "cpu"), cfg)
     with pytest.raises(ValueError, match="scales must be float32"):
         gemm.beamform_voltages(x, type(qw)(qw.terms, qw.scales.double()), cfg)
-    # No kernel takes a_compute 712: refused before any launch.
+    # a_compute 712, once refused: the voltages (on the staged 32-beam
+    # tile) equal the plain version's, and Stokes (the K loop) launches.
     big = TOO_WIDE
     xb = torch.from_numpy(make_noise_block(big, seed=1)).to(dev)
+    qwb = _weights(big, dev)
     before = (gemm.beamform_voltages.launches, _launches())
-    with pytest.raises(ValueError, match="a_compute"):
-        gemm.beamform_voltages(xb, _weights(big, dev), big)
-    with pytest.raises(ValueError, match="a_compute"):
-        gemm.beamform_stokes(xb, _weights(big, dev), big)
-    assert (gemm.beamform_voltages.launches, _launches()) == before
+    got = gemm.beamform_voltages(xb, qwb, big)
+    xw, tmw = gemm._prepare_wire(xb, big)
+    assert torch.equal(got, gemm.voltages_plain(xw, qwb.terms, qwb.scales,
+                                                big, tmw))
+    assert bool(torch.isfinite(gemm.beamform_stokes(xb, qwb, big)).all())
+    assert (gemm.beamform_voltages.launches, _launches()) \
+        == (before[0] + 1, before[1] + 1)
 
 
 @pytest.mark.parametrize("layout", ["tfpa", "ftpa"])
@@ -753,8 +765,8 @@ def test_width_kernels_match_plain(dev, mode, width, variant, layout):
     _check_width(dev, cfg, variant)
 
 
-def _check_width(dev, cfg, variant):
-    assert gemm.kernel_path(cfg) == "wgmma"
+def _check_width(dev, cfg, variant, path="wgmma"):
+    assert gemm.kernel_path(cfg) == path
     mode = cfg.weight_mode
     _check_detect(dev, cfg, variant)
     if variant != "base":
@@ -769,6 +781,35 @@ def _check_width(dev, cfg, variant):
             <= _mode_rtol(mode) * float(want.abs().max())
     else:
         assert torch.equal(got, want)
+
+
+#: The widest a_compute (a multiple of 8) each mode took at navg 16 before
+#: the K loop, whose detect kernel takes the next one.
+STAGED_EDGE = {"int8": 1152, "int8x2": 704, "int12": 704, "int13": 384,
+               "bf16": 704, "bf16x2": 392, "f32": 272}
+
+
+def _kloop_cfg(ac, mode, layout):
+    """A 2-channel, 64-sample DSA-110 slice contracting ``ac`` antennas
+    (2056: 2058 slots, so that pol y's rows start off 4 bytes)."""
+    n_ant = ac + 2 if ac == 2056 else ac
+    return DSA110.replace(n_chan=2, t_block=64, n_ant=n_ant,
+                          n_ant_active=ac - 10, n_ant_compute=ac,
+                          n_beams=72, weight_mode=mode, input_layout=layout)
+
+
+@pytest.mark.parametrize("layout", ["tfpa", "ftpa"])
+@pytest.mark.parametrize("variant", ["base", "stokes+sk+q8+inco"])
+@pytest.mark.parametrize("width", ["edge+8", 2048, 2056])
+@pytest.mark.parametrize("mode", gemm.KERNEL_MODES)
+def test_kloop_widths_match_plain(dev, mode, width, variant, layout):
+    """Past the staged tile's edge (the widest of each mode plus 8), at 2048
+    and past it, every mode's detect kernel takes the K loop, and it and the
+    voltage kernel hold ``test_width_kernels_match_plain``'s bars."""
+    ac = STAGED_EDGE[mode] + 8 if width == "edge+8" else width
+    cfg = _kloop_cfg(ac, mode, layout)
+    assert cfg.a_compute == ac
+    _check_width(dev, cfg, variant, gemm.KLOOP_MMA)
 
 
 #: int8x2 and int8 past a_compute 255 on the 32-beam weight tile (at navg
@@ -1231,3 +1272,98 @@ def test_pinned_ring_route_equals_staged_route(dev, depth):
     assert [s for s, _ in sink.outputs] == list(range(n))
     for (_, a), (_, b) in zip(sink.outputs, ref.outputs):
         assert np.array_equal(a, b)
+
+
+def test_cli_run_from_file_equals_the_stream(dev, tmp_path, capsys):
+    """``dsabf-torch run --device 0`` from a capture file: its .dada power
+    product and its incoherent product equal an in-process
+    StreamingBeamformer's over the same blocks on the card, byte for byte,
+    and its record counts the blocks."""
+    import json
+
+    from dsabeamformer_tpu_torch import cli
+    from dsabeamformer_tpu_torch.ingest import dada
+    from dsabeamformer_tpu_torch.pipeline import FileSink
+
+    cfg = DSA10.replace(n_chan=32, t_block=1024)
+    blocks = [make_noise_block(cfg, rms=2.0, seed=s) for s in range(3)]
+    cap = tmp_path / "cap.dada"
+    dada.write_dada_file(cap, cfg, blocks)
+    out, inco = tmp_path / "out.dada", tmp_path / "inco.dada"
+    capsys.readouterr()
+    assert cli.main(["run", "--config", "dsa10", "--input-file", str(cap),
+                     "--output-file", str(out), "--incoherent-file",
+                     str(inco), "--flag-ants", "3", "--device", "0"]) == 0
+    rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert rec["blocks"] == 3 and rec["dropped"] == 0
+    from dsabeamformer_tpu_torch.models.weights import flag_antennas
+
+    qw = prepare_weights(cfg, flag_antennas(make_weights(cfg, device=dev),
+                                            (3,), cfg))
+    ref, ref_inco = tmp_path / "ref.dada", tmp_path / "ref_inco.dada"
+    sink = FileSink(ref, cfg)
+    inco_sink = FileSink(ref_inco, cfg, products="incoherent")
+    StreamingBeamformer(cfg, qw, SyntheticSource(cfg, blocks, 3), sink,
+                        incoherent_sink=inco_sink, flag_ants=(3,)).run()
+    sink.close()
+    inco_sink.close()
+    _, got = dada.read_product_file(out)
+    _, want = dada.read_product_file(ref)
+    np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
+    _, got = dada.read_product_file(inco)
+    _, want = dada.read_product_file(ref_inco)
+    np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
+
+
+def test_cli_weights_and_scans_on_the_card(dev, tmp_path, capsys):
+    """``dsabf-torch weights --device 0`` saves the table made on the card
+    (byte-equal to ``prepare_weights(make_weights(device=card))``), and
+    ``levels`` / ``rfi --per-ant`` read a live ring on the card (the pinned
+    route) with the records of ``--device cpu`` over the same blocks."""
+    import json
+    import os
+
+    from dsabeamformer_tpu_torch import cli
+    from dsabeamformer_tpu_torch.ingest import dada
+    from dsabeamformer_tpu_torch.ingest.ring import RingBuffer
+    from dsabeamformer_tpu_torch.ops.quantize import load_quant_weights
+
+    path = tmp_path / "w.npz"
+    capsys.readouterr()
+    assert cli.main(["weights", "--config", "tiny", "--out", str(path),
+                     "--device", "0"]) == 0
+    got = load_quant_weights(str(path), device="cpu")
+    want = prepare_weights(TINY, make_weights(TINY, device=dev))
+    for a, b in zip(got.terms, want.terms):
+        assert torch.equal(a, b.cpu())
+    assert torch.equal(got.scales, want.scales.cpu())
+
+    blocks = [make_noise_block(TINY, rms=2.0, seed=80 + s) for s in range(3)]
+    for b in blocks:
+        b.reshape(TINY.wire_block_shape)[:, 5] = 0x77
+    for cmd in ("levels", "rfi"):
+        recs = {}
+        for device in ("0", "cpu"):
+            key = f"tcardscan{cmd}{device}{os.getpid()}"
+            with RingBuffer(key, create=True, nbufs=4,
+                            bufsz=TINY.wire_block_bytes) as ring:
+                ring.write_header(dada.encode_header(TINY))
+                for b in blocks:
+                    ring.write_block(b)
+                ring.set_eod()
+                capsys.readouterr()
+                argv = [cmd, "--config", "tiny", "--key", key, "--blocks",
+                        "3", "--timeout", "2", "--device", device]
+                assert cli.main(argv + (["--per-ant"] if cmd == "rfi"
+                                        else [])) == 0
+                recs[device] = json.loads(capsys.readouterr().out)
+        card, host = recs["0"], recs["cpu"]
+        assert card["blocks"] == 3 and set(card) == set(host)
+        for k in host:
+            if isinstance(host[k], list) and host[k] \
+                    and isinstance(host[k][0], float):
+                np.testing.assert_allclose(card[k], host[k], rtol=1e-6)
+            else:
+                assert card[k] == host[k], k
+        if cmd == "rfi":
+            assert 5 in card["flagged"]

@@ -177,3 +177,112 @@ def test_chip_smoke_fails_without_card_or_repo(tmp_path):
                     cwd=cwd, env_extra={**env, **extra}, timeout=300)
         assert proc.returncode != 0
         assert '"ok": true' not in proc.stdout
+
+
+
+def test_chip_smoke_stops_every_process_it_starts(tmp_path):
+    """chip_smoke.py's sweep, on a failing run: a spawned capture process
+    still waiting, and an orphan in a session of its own (as ``launch``'s
+    children are when ``launch`` ends first), are stopped and reported;
+    the resource tracker ends before the script does; nothing started is
+    left running after it exits."""
+    marker = f"chipsmoke-orphan-{os.getpid()}"
+    script = tmp_path / "sweep.py"
+    script.write_text(f"""
+import multiprocessing, subprocess, sys
+import chip_smoke
+
+def wait(ev):
+    ev.wait(120)
+
+if __name__ == "__main__":
+    chip_smoke.adopt_descendants()
+    ctx = multiprocessing.get_context("spawn")
+    ev = ctx.Event()
+    ctx.Process(target=wait, args=(ev,), daemon=True).start()
+    subprocess.run([sys.executable, "-c", "import subprocess, sys; "
+                    "subprocess.Popen([sys.executable, '-c', "
+                    "'import time; time.sleep(120)', '{marker}'], "
+                    "start_new_session=True)"], check=True)
+    try:
+        raise RuntimeError("a phase failed")
+    finally:
+        stray = chip_smoke.stop_descendants(grace_s=10)
+        print(sorted(stray.values()))
+        print(chip_smoke.child_processes())
+        print(multiprocessing.resource_tracker._resource_tracker._pid)
+""")
+    proc = _run([str(script)], timeout=120)
+    lines = proc.stdout.strip().splitlines()
+    assert proc.returncode == 1 and "a phase failed" in proc.stderr
+    assert "leaked" not in proc.stderr and "Exception ignored" not in \
+        proc.stderr
+    stray, after, tracker = [eval(line) for line in lines[-3:]]
+    assert len(stray) == 2 and any(marker in cmd for cmd in stray)
+    assert any("spawn_main" in cmd for cmd in stray)
+    # Only the tracker is left until the script's exit, and not after it.
+    assert list(after) == [tracker]
+    assert b"resource_tracker" not in _cmdline(Path(f"/proc/{tracker}"))
+    assert not [d for d in Path("/proc").iterdir() if d.name.isdigit()
+                and marker.encode() in _cmdline(d)]
+
+
+def _cmdline(proc_dir) -> bytes:
+    try:
+        return (proc_dir / "cmdline").read_bytes()
+    except OSError:
+        return b""
+
+def test_cli_and_its_children_import_no_jax(tmp_path):
+    """``dsabf-torch``'s subcommands, run to their end, and the ``run``
+    children that ``launch`` spawns import no JAX: with packages named
+    jax, jaxlib, ml_dtypes and dsabeamformer_tpu that raise on import
+    placed first on PYTHONPATH (which the children inherit), every command
+    still exits 0."""
+    poison = tmp_path / "poison"
+    for name in ("jax", "jaxlib", "ml_dtypes", "dsabeamformer_tpu"):
+        (poison / name).mkdir(parents=True)
+        (poison / name / "__init__.py").write_text(
+            f"raise ImportError('the port imported {name}')\n")
+    from dsabeamformer_tpu_torch.ingest.generator import make_noise_block
+
+    width = TINY.n_chan // 2
+    for i in range(2):
+        (tmp_path / f"cap{i}.raw").write_bytes(make_noise_block(
+            TINY.subband(i * width, width), rms=2.0, seed=i).tobytes())
+    t = str(tmp_path)
+    commands = [
+        ["info", "--config", "tiny"],
+        ["weights", "--config", "tiny", "--out", f"{t}/w.npz", "--device",
+         "cpu"],
+        ["selftest", "--device", "cpu"],
+        ["simulate", "--config", "tiny", "--blocks", "2", "--out-file",
+         f"{t}/cap.dada"],
+        ["run", "--config", "tiny", "--input-file", f"{t}/cap.dada",
+         "--fil-dir", f"{t}/fil", "--fil-bits", "8", "--rfi-auto",
+         "--incoherent-file", f"{t}/inco.dada", "--search-dm-max", "10",
+         "--device", "cpu"],
+        ["fil", f"{t}/fil/beam0000.fil"],
+        ["splice", f"{t}/fil/beam0000.fil", "--out", f"{t}/merged.fil"],
+        ["levels", "--config", "tiny", "--input-file", f"{t}/cap.dada",
+         "--device", "cpu"],
+        ["rfi", "--config", "tiny", "--input-file", f"{t}/cap.dada",
+         "--device", "cpu"],
+        ["launch", "--subbands", "2", "--devices", "cpu,cpu", "--",
+         "--config", "tiny", "--input-file", t + "/cap{i}.raw",
+         "--output-file", t + "/out{i}.dat"],
+    ]
+    code = (
+        "import sys\n"
+        "from dsabeamformer_tpu_torch.cli import main\n"
+        f"for argv in {commands!r}:\n"
+        "    rc = main(argv)\n"
+        "    assert rc == 0, (argv, rc)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'dsabeamformer_tpu', 'ml_dtypes'))\n"
+        "assert not bad, bad\n"
+    )
+    proc = _run(code, env_extra={"PYTHONPATH": f"{poison}:{REPO}"},
+                timeout=300)
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-4000:]
+    assert '"ok": true' in proc.stdout      # launch's aggregate report

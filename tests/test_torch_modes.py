@@ -368,20 +368,23 @@ def test_kernel_path_per_mode(mode, ac, path):
     assert pgemm.kernel_library(cfg, "detect_power") == "detect_power"
 
 
-#: The widest n_ant_compute (a multiple of 8) each mode's kernels take at
-#: navg_time 16: shared memory, the weight tile beside one output row, is
-#: the only limit.
+#: The widest n_ant_compute (a multiple of 8) whose whole weight tile the
+#: kernels stage at navg_time 16, beside one output row; past it they walk K
+#: in slices.
 WIDEST = {"int8": 1152, "int8x2": 704, "int12": 704, "int13": 384,
           "bf16": 704, "bf16x2": 392, "f32": 272}
 
 
 @pytest.mark.parametrize("mode", sorted(pq.TERM_DTYPES))
 def test_kernel_path_rejects_other_widths(mode):
-    """Every a_compute the JAX package runs is taken: DSA-10's wire in auto
-    mode (10, 12 and 20 slots: no multiple of 8, rows that start off 4
-    bytes), 24 and 112, and past the DSA-110 width 136, 160 and 224; the
-    kernels stop only where the weight tile leaves no room for a row, and
-    the message says so."""
+    """Every a_compute the JAX package runs is taken, and none is refused:
+    DSA-10's wire in auto mode (10, 12 and 20 slots: no multiple of 8, rows
+    that start off 4 bytes), 24 and 112, and past the DSA-110 width 136,
+    160, 224 and the widest whose weight tile fits beside a row take the
+    staged tile (``"wgmma"``); past that edge, at 2048 and past 2048 (the
+    shared-memory copy of the incoherent mask's words) the K loop
+    (``"wgmma-kloop"``), whose slices fit in a block's shared memory
+    whatever the width."""
     for n in (10, 12, 20):
         cfg = pcfg.TINY.replace(weight_mode=mode, n_ant=n,
                                 n_ant_active=min(n, 10))
@@ -392,11 +395,15 @@ def test_kernel_path_rejects_other_widths(mode):
         cfg = pcfg.DSA110.replace(weight_mode=mode, n_ant=max(ac, 160),
                                   n_ant_active=8, n_ant_compute=ac)
         assert pgemm.kernel_path(cfg) == "wgmma"
-    ac = WIDEST[mode] + 8
-    cfg = pcfg.DSA110.replace(weight_mode=mode, n_ant=ac, n_ant_active=8,
-                              n_ant_compute=ac)
-    with pytest.raises(ValueError, match="a_compute .* shared memory"):
-        pgemm.kernel_path(cfg)
+    limit = 227 * 1024 - 256
+    for ac in (WIDEST[mode] + 8, 2048, 2056):
+        cfg = pcfg.DSA110.replace(weight_mode=mode, n_ant=ac, n_ant_active=8,
+                                  n_ant_compute=ac)
+        assert pgemm.kernel_path(cfg) == pgemm.KLOOP_MMA == "wgmma-kloop"
+        for stokes in (False, True):
+            tiles = pgemm._detect_tiles(cfg, stokes)
+            assert tiles.slices >= 2 and tiles.smem <= limit
+        assert pgemm._voltage_tiles(cfg).smem <= limit
 
 
 def test_detect_smem_follows_the_kernels_layouts():
@@ -413,43 +420,43 @@ def test_detect_smem_follows_the_kernels_layouts():
     row = 2 * 16 * 2 * 144
     sk = 8 * 128
     assert pgemm._detect_tiles(wide.replace(weight_mode="int12")) \
-        == (64, 4, 4, 2 * 32768 + 4 * (4 * row + sk))
+        == (64, 4, 4, 2 * 32768 + 4 * (4 * row + sk), 0)
     assert pgemm._detect_smem(wide.replace(weight_mode="int12")) \
         == (2 * 32768 + 4 * (4 * row + sk), limit)
     assert pgemm._detect_tiles(wide.replace(weight_mode="int13")) \
-        == (64, 2, 4, 4 * 32768 + 2 * (4 * row + sk))
+        == (64, 2, 4, 4 * 32768 + 2 * (4 * row + sk), 0)
     # Stokes: two warpgroups (the running sums take the registers), so a
     # span of eight rows each.
     assert pgemm._detect_tiles(wide.replace(weight_mode="int12"), True) \
-        == (64, 2, 8, 2 * 32768 + 2 * (8 * row + sk))
+        == (64, 2, 8, 2 * 32768 + 2 * (8 * row + sk), 0)
     # dsa10 (a_compute 32: 48-byte rows): four warpgroups, 16-row spans.
     assert pgemm._detect_tiles(pcfg.DSA10) \
-        == (64, 4, 16, 128 * 128 + 4 * (16 * 2 * 16 * 2 * 48 + 8 * 32))
+        == (64, 4, 16, 128 * 128 + 4 * (16 * 2 * 16 * 2 * 48 + 8 * 32), 0)
     # One round of output rows: one warpgroup.
     assert pgemm._detect_tiles(pcfg.TINY.replace(t_block=64))[1:3] == (1, 4)
     # bf16 at a_compute 128: k16 steps of 8 antennas, 16 a term of 32 bytes
     # a column, so a term is 64 KB of a 64-beam tile, as an int8 sub-term.
     assert pgemm._detect_tiles(wide.replace(weight_mode="bf16")) \
-        == (64, 4, 4, 65536 + 4 * (4 * row + sk))
+        == (64, 4, 4, 65536 + 4 * (4 * row + sk), 0)
     # bf16x2, dsa10: two terms of 4 k16 steps, 32 KB; four warpgroups of
     # sixteen rows fit beside them.
     d10 = pcfg.DSA10.replace(weight_mode="bf16x2")
     assert pgemm._detect_tiles(d10) \
-        == (64, 4, 16, 32768 + 4 * (16 * 2 * 16 * 2 * 48 + 8 * 32))
+        == (64, 4, 16, 32768 + 4 * (16 * 2 * 16 * 2 * 48 + 8 * 32), 0)
     # f32 at a_compute 128: three bf16 parts of 64 KB leave a 64-beam tile
     # room for one warpgroup of three rows, so the tile is 32 beams: three
     # warpgroups of four rows (Stokes: the two it may have).
     f32 = wide.replace(weight_mode="f32")
     assert pgemm.n_subterms(f32) == pgemm.F32_PARTS == 3
     assert pgemm._detect_tiles(f32) \
-        == (32, 3, 4, 98304 + 3 * (4 * row + sk))
+        == (32, 3, 4, 98304 + 3 * (4 * row + sk), 0)
     assert pgemm._detect_tiles(f32, True) \
-        == (32, 2, 4, 98304 + 2 * (4 * row + sk))
+        == (32, 2, 4, 98304 + 2 * (4 * row + sk), 0)
     # At a_compute 112 (seven 16-byte units a row) the 64-beam tile leaves
     # room for two warpgroups of four rows, and is kept.
     f112 = f32.replace(n_ant_compute=112)
     assert pgemm._detect_tiles(f112) \
-        == (64, 2, 4, 172032 + 2 * (4 * 7168 + 8 * 112))
+        == (64, 2, 4, 172032 + 2 * (4 * 7168 + 8 * 112), 0)
     # bf16x2 at a_compute 128 keeps the 64-beam tile: two warpgroups fit.
     assert pgemm._detect_tiles(wide.replace(weight_mode="bf16x2"))[:2] \
         == (64, 2)
@@ -459,13 +466,115 @@ def test_detect_smem_follows_the_kernels_layouts():
     assert pgemm.kernel_library(d10, "beam_voltages") == "beam_voltages"
     assert pgemm.kernel_library(wide.replace(weight_mode="int13"),
                                 "beam_voltages") == "beam_voltages"
-    # A navg_time whose rows do not fit beside the weight tile is refused.
+    # A navg_time whose rows do not fit beside the weight tile takes the K
+    # loop, which stages one m-tile (8 samples) a warp whatever navg is.
     for mode in ("bf16x2", "int8x2"):
-        need, limit = pgemm._detect_smem(
-            wide.replace(weight_mode=mode, t_block=4096, navg_time=512))
-        assert need > limit
+        long_rows = wide.replace(weight_mode=mode, t_block=4096,
+                                 navg_time=512)
+        need, limit = pgemm._detect_smem(long_rows)
+        assert need <= limit
+        assert pgemm.kernel_path(long_rows) == pgemm.KLOOP_MMA
     assert pgemm._detect_tiles(
-        wide.replace(t_block=4096, navg_time=512)).rows == 0
+        wide.replace(t_block=4096, navg_time=512)).rows == 4
+
+
+def test_kloop_tiles_follow_the_kernels_layouts():
+    """The K loop's block (csrc make_sliced_geom): one warpgroup, spans of
+    one round (4 output rows, or the voltage kernel's 4 m-tiles), two
+    buffers each of a 64-beam slice of 256 K bytes a column (one sub-term:
+    128 antennas of int8 k32 steps, 64 of bf16 k16 steps) and of 32 wire
+    rows a pol (the slice's antennas padded to an odd number of 16-byte
+    units: 144 bytes int8, 80 bf16), the voltage kernel's restaged rows (16
+    a warp, 68 floats: 17,408 bytes) beside them; ceil(a_compute /
+    antennas) slices."""
+    for mode, ac, stride, ants in (("int8x2", 712, 144, 128),
+                                   ("int13", 2056, 144, 128),
+                                   ("f32", 280, 80, 64),
+                                   ("bf16x2", 2048, 80, 64)):
+        cfg = pcfg.DSA110.replace(weight_mode=mode, n_ant=ac, n_ant_active=8,
+                                  n_ant_compute=ac)
+        smem = 2 * (2 * 64 * 256 + 2 * 32 * stride)
+        slices = -(-ac // ants)
+        for stokes in (False, True):
+            assert pgemm._detect_tiles(cfg, stokes) \
+                == (64, 1, 4, smem, slices)
+        if ac >= 2048:
+            assert pgemm._voltage_tiles(cfg) \
+                == (64, 1, 4, 32, smem + 4 * 16 * 68 * 4, slices)
+    # Fewer output rows than a round: a span of what there is.
+    tiny_rows = pcfg.DSA110.replace(n_ant=2048, n_ant_active=8,
+                                    n_ant_compute=2048, t_block=32)
+    assert pgemm._detect_tiles(tiny_rows).rows == 2
+
+
+@pytest.mark.parametrize("mode", sorted(pq.TERM_DTYPES))
+def test_slice_layout_follows_the_kernels_descriptor(mode):
+    """The K loop's weights in slice order (``_slice_layout``): slice
+    ``(channel, beam tile, sub-term, slice)`` holds byte ``k`` of column
+    ``c = 2 * beam + (0 Re, 1 Im)`` at csrc w_offset ``(c // 8) * 2048 +
+    (k // 16) * 128 + (c % 8) * 16 + k % 16``, where k32 step ``s`` of the
+    slice is ``[16 re | 16 im]`` antennas (int8: byte ``32 s + 16 part + j``
+    is antenna ``16 s + j``) or k16 step ``[8 re | 8 im]`` bfloat16
+    (antenna ``8 s + j`` at bytes ``2 (16 s + 8 part + j)``); zeros past
+    a_compute and n_beams; f32 the three parts of ``_split_f32``."""
+    cfg = pcfg.TINY.replace(weight_mode=mode, n_ant=136, n_ant_active=130,
+                            n_ant_compute=136, n_beams=70, n_chan=2)
+    qw = pq.prepare_weights(cfg, make_weights(cfg, device="cpu"))
+    got = pgemm._slice_layout(qw.terms, cfg).numpy()
+    bf16 = mode in pgemm.FLOAT_MODES
+    ants = 64 if bf16 else 128
+    a, b = cfg.a_compute, cfg.n_beams
+    n_sl, n_bt = -(-a // ants), -(-b // 64)
+    if mode == "f32":
+        subs = [t.view(torch.int16).numpy()
+                for t in pgemm._split_f32(qw.terms[0])]
+    elif bf16:
+        subs = [t.view(torch.int16).numpy() for t in qw.terms]
+    elif mode in pq.FOLDED_SUBTERMS:
+        n = pgemm.n_subterms(cfg)
+        subs = list(qw.terms[0].numpy().reshape(2, n, 2 * a, 2 * b)
+                    .transpose(1, 0, 2, 3))
+    else:
+        subs = [t.numpy() for t in qw.terms]
+    assert got.shape == (2, n_bt, len(subs), n_sl, 2 * 64 * 256)
+    want = np.zeros_like(got)
+    for t, w in enumerate(subs):
+        w = w.view(np.uint8).reshape(2, 2 * a, 2 * b, -1)  # bytes of a weight
+        for f in range(2):
+            for beam in range(b):
+                bt, bl = divmod(beam, 64)
+                for ri in range(2):
+                    c = 2 * bl + ri
+                    for part in range(2):
+                        for ant in range(a):
+                            sl, al = divmod(ant, ants)
+                            if bf16:
+                                k0 = 2 * ((al // 8) * 16 + part * 8 + al % 8)
+                            else:
+                                k0 = (al // 16) * 32 + part * 16 + al % 16
+                            for j, byte in enumerate(
+                                    w[f, part * a + ant, ri * b + beam]):
+                                k = k0 + j
+                                at = (c // 8) * 2048 + (k // 16) * 128 \
+                                    + (c % 8) * 16 + k % 16
+                                want[f, bt, t, sl, at] = byte
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("mode", sorted(pq.TERM_DTYPES))
+def test_no_staged_tile_past_the_masks_static_copy(mode):
+    """Past 32 * MASK_WORDS antennas (the detect kernel's static copy of
+    the incoherent mask) not even the 32-beam tile fits in a block beside
+    the shortest output row, so the K loop, which reads the mask from a
+    device copy, takes every such width (csrc dsabf_detect_power relies on
+    it)."""
+    for ac in (32 * pgemm.MASK_WORDS + 8, 32 * pgemm.MASK_WORDS + 16, 4096):
+        cfg = pcfg.DSA110.replace(weight_mode=mode, n_ant=ac, n_ant_active=8,
+                                  n_ant_compute=ac, navg_time=1)
+        assert 2 * 32 * pgemm.n_subterms(cfg) * 32 * -(-ac // 16) \
+            > pgemm._MMA_DYN_SMEM
+        assert pgemm._mma_tiles(cfg, 1, 1, 4, 2, 0).slices > 0
+        assert pgemm._detect_tiles(cfg).slices > 0
 
 
 def test_operand_checks_per_mode():

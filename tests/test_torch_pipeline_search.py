@@ -93,12 +93,19 @@ def test_stream_with_monitor_matches_jax(tmp_path, sink, monitor):
                             dm_max=3 * DM)
     kw = dict(threshold=6.0, chunk_t=64, **MONITORS[monitor])
     inco = monitor == "incoherent"
-    found = {}
+    found, port_scales = {}, None
     for name, pipe, sig, dd, cfg, qw, extra in (
-            ("jax", jpipe, jsig, jdd, JCFG, qj, {}),
-            ("port", ppipe, psig, pdd, CFG, qp, {"device": "cpu"})):
+            ("port", ppipe, psig, pdd, CFG, qp, {"device": "cpu"}),
+            ("jax", jpipe, jsig, jdd, JCFG, qj, {})):
         fil = sig.FilterbankSink(tmp_path / name, cfg, nbits=8) \
             if sink == "fil8" else None
+        if fil is not None and name == "jax":
+            # The port's monitor reads the counts the files hold, the
+            # auto-calibrating first block's too; the JAX package's reads
+            # that block as float32 powers among the later blocks' counts
+            # unless its sink's scales are known before it.  Seeded with
+            # the port's auto scales, both read the same counts.
+            fil._scales.update(port_scales)
         inco_sink = pipe.CollectSink() if inco else None
         bf = pipe.StreamingBeamformer(
             cfg, qw, pipe.SyntheticSource(cfg, blocks, N_BLOCKS), fil,
@@ -111,6 +118,8 @@ def test_stream_with_monitor_matches_jax(tmp_path, sink, monitor):
             fil.close()
         assert stats.n_blocks == N_BLOCKS
         found[name] = mon
+        if fil is not None:
+            port_scales = fil.scales
     port, ref = found["port"].candidates, found["jax"].candidates
     assert found["port"].searched_windows == found["jax"].searched_windows
     assert found["port"].rfi_rejected == found["jax"].rfi_rejected

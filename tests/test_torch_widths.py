@@ -44,6 +44,9 @@ from dsabeamformer_tpu_torch.utils.testing import (
 #: BLAS's here; held to this share of the block's peak (as
 #: tests/test_torch_modes.py).
 FLOAT_ATOL = 2e-6
+#: int8 and int13 Stokes: the cross terms differ by float32 rounding, held
+#: to this share of the I peak (as tests/test_torch_modes.py).
+STOKES_ATOL = 1e-6
 MODES = ("int8x2", "bf16x2")
 
 
@@ -141,6 +144,47 @@ def test_beamform_voltages_matches_jax(width, mode, layout):
 
 
 # ----------------- the card kernels' operands at these widths -------------- #
+
+#: One a_compute past each mode's staged-tile edge at navg 16 (the widest
+#: multiple of 8 whose weight tile fit beside an output row, plus 8), where
+#: the card's detect kernel takes the K loop.
+PAST_EDGE = {"f32": 280, "int13": 392, "bf16x2": 400, "int8x2": 712,
+             "int8": 1160}
+
+
+@pytest.mark.parametrize("mode", sorted(PAST_EDGE))
+def test_past_the_staged_edge_matches_jax(mode):
+    """Power, Stokes and voltages of a 2-channel, 32-sample DSA-110 slice
+    contracting ``PAST_EDGE[mode]`` antennas against the JAX package: the
+    int modes' power and voltages (and int8x2's Stokes) to the bit, int8's
+    and int13's Stokes within STOKES_ATOL of the I peak (their cross terms
+    differ by float32 rounding, as tests/test_torch_modes.py holds them),
+    the float modes within FLOAT_ATOL of the peak; the detect kernel's path
+    there is the K loop."""
+    ac = PAST_EDGE[mode]
+    kw = dict(n_chan=2, t_block=32, n_beams=32, n_ant=ac,
+              n_ant_active=ac - 10, n_ant_compute=ac, weight_mode=mode)
+    jc = jcfg.DSA110.replace(time_tile=32, chan_tile=2, **kw)
+    pc = pcfg.DSA110.replace(**kw)
+    assert pc.a_compute == jc.a_compute == ac
+    assert pgemm.kernel_path(pc) == pgemm.KLOOP_MMA
+    wire = make_random_bytes_block(pc, seed=ac)
+    qj, qp = _carried_weights(jc, seed=ac)
+    x = torch.from_numpy(wire)
+    want = np.asarray(jgemm.beamform_power(jnp.asarray(wire), qj, jc))
+    _close(pgemm.beamform_power(x, qp, pc).numpy(), want, mode)
+    want = np.asarray(jgemm.beamform_stokes(jnp.asarray(wire), qj, jc))
+    got = pgemm.beamform_stokes(x, qp, pc).numpy()
+    if mode in ("int8", "int13"):
+        assert got.shape == want.shape
+        assert np.abs(got - want).max() \
+            <= STOKES_ATOL * np.abs(want[:, :, 0]).max()
+    else:
+        _close(got, want, mode, peak=np.abs(want[:, :, 0]).max())
+    _close(pgemm.beamform_voltages(x, qp, pc).numpy(),
+           np.asarray(jgemm.beamform_voltages(jnp.asarray(wire), qj, jc)),
+           mode)
+
 
 @pytest.mark.parametrize("width", WIDTHS)
 @pytest.mark.parametrize("mode", ("int8", "int8x2", "int12", "int13"))
