@@ -229,7 +229,18 @@ The ring ingest and the live search (PR 10 of the port):
                timed over 10 launches, with its bound, its share of it and
                the share of (warp, channel)s its register window serves; and
                stage 1's library yardstick, one float32 grouped one-hot
-               ``conv1d`` (TF32 off), timed over 3 launches.
+               ``conv1d`` (TF32 off), timed over 3 launches.  Between the
+               offline search and the kernels, ``dsabf-torch`` on the same
+               products (subprocesses, ``--device 0``): ``search`` of the
+               four offline beams' .fil files (coincidence off), its .cand
+               rows one for one with the in-process offline search over the
+               grid the CLI derives from the .fil headers; ``search`` of the
+               32-beam set's files with coincidence on (the arrivals it
+               keeps logged beside the live monitor's); ``search inco.dada
+               --stream --beam incoherent``; ``fold --dm 50`` of the pulse
+               beam at one block's period (its peak within one bin of the
+               arrival phase); ``waterfall --cand`` of the first search's
+               brightest row (the PGM's size as printed).
 
 The port's CLI, ``dsabf-torch`` (each command a subprocess on the card):
 
@@ -252,7 +263,18 @@ The port's CLI, ``dsabf-torch`` (each command a subprocess on the card):
                blocks in turn, 6 blocks, 32-bit .fil of every beam),
                ``splice`` of beams 0, 100, 300 and 511 against one
                in-process full-band dsa110 run over the same blocks
-               (bit-equal expected, 1e-5 at worst).
+               (bit-equal expected, 1e-5 at worst); between the two, the
+               joined live search: two capture rings hold the channel
+               halves of 4 dsa10c blocks (the pulse block and the noise
+               blocks above), ``launch --subbands 2 --devices 0,0
+               --output-key`` beamforms them into two product rings and
+               ``search --key <prod>0,<prod>1`` (32 beams, coincidence off)
+               reads them as they are written: 0 dropped, its .cand rows
+               one for one with an in-process full-band power stream's
+               SearchMonitor of the CLI's parameters, the pulse in beam 127
+               within a DM trial of 50; last, ``trace --config dsa10
+               --blocks 3``: the detect kernel 3 times in its rows, the
+               kernels' busy share of the traced window logged.
 
 Each streamed phase, and the voltage paths, set the launch counts to 0 just
 before their run and read them just after.  The last two lines are a JSON
@@ -331,6 +353,7 @@ from dsabeamformer_tpu_torch.ops.dedisperse import (
     dedisperse_direct,
     dedisperse_direct_plain,
     dm_trial_grid,
+    read_candidates,
     search_spectrograms,
     subband_stage1,
     subband_stage1_plain,
@@ -351,6 +374,11 @@ from dsabeamformer_tpu_torch.pipeline import (
     SyntheticSource,
 )
 from dsabeamformer_tpu_torch.utils.metrics import tensor_core_utilization
+from dsabeamformer_tpu_torch.utils.profiling import trace_events
+from dsabeamformer_tpu_torch.utils.quicklook import (
+    load_dynamic_spectra,
+    load_dynamic_spectrum,
+)
 from dsabeamformer_tpu_torch.utils.testing import (
     F32_SPLIT_RTOL,
     FUZZ_RTOL,
@@ -1875,6 +1903,11 @@ N_SEARCH = 10
 #: pulse's beam and its three nearest set members.
 OFFLINE_BEAMS = [SEARCH_BEAM - 8, SEARCH_BEAM, SEARCH_BEAM + 8,
                  SEARCH_BEAM + 16]
+#: Candidates of the CLI against the in-process search: S/N within this
+#: (the same bank on the same inputs: bit-equal expected).
+SNR_RTOL = 1e-5
+#: Phase bins of the drill's fold (one block's period is 512 samples).
+FOLD_BINS = 64
 #: An add issues at the FMA rate: 67 TFLOP/s counts an FMA as two.
 H100_F32_ADDS_PER_S = 67e12 / 2
 
@@ -2364,20 +2397,31 @@ def phase_search(prod, cfg, why, smi) -> tuple:
                 f"(arrivals {expected_pulses(cfg, N_SEARCH)[:4]} ...), "
                 f"S/N {best.snr:.2f}, width {best.width}; beams with "
                 f"candidates {sorted({c.beam for c in mon.candidates})}")
-            # Offline: dsabf-search's default bank on the written files.
-            spectra = [(b, read_fil_block_all(tmp / "fil" / f"beam{b:04d}.fil",
-                                              cfg, N_SEARCH))
-                       for b in OFFLINE_BEAMS]
+            # Offline: dsabf-torch search's default bank on the written
+            # files, over the grid the CLI derives from their headers.
+            paths = [fil_path(tmp, b) for b in OFFLINE_BEAMS]
+            f_fil, tsamp_fil, dms_fil = fil_grid(paths[0])
+            log(f"[search] the .fil headers' grid: {len(dms_fil)} trials to "
+                f"{dms_fil[-1]:.3f}, band {f_fil[0]:.6f}-{f_fil[-1]:.6f} MHz, "
+                f"tsamp {tsamp_fil!r} s; the monitor's: {len(dms)} trials, "
+                f"{f_mhz.min():.6f}-{f_mhz.max():.6f} MHz, tsamp {tsamp!r} s")
+            spectra = [pair for path in paths
+                       for pair in load_dynamic_spectra(path)[1]]
             DD_KERNELS[0].launches = 0
-            by_beam = search_spectrograms(spectra, f_mhz, tsamp, dms,
+            by_beam = search_spectrograms(spectra, f_fil, tsamp_fil, dms_fil,
                                           method="direct", device=DEV)
             live["dedisperse_direct"] = DD_KERNELS[0].launches
-            off = check_pulse([c for cs in by_beam.values() for c in cs],
-                              cfg, dms, SEARCH_BEAM, "offline search")
+            offline = sorted((c for cs in by_beam.values() for c in cs),
+                             key=lambda c: -c.snr)
+            off = check_pulse(offline, cfg, dms_fil, SEARCH_BEAM,
+                              "offline search")
             log(f"[search] offline (method direct, beams {OFFLINE_BEAMS}): "
                 f"the pulse found {len(off)} time(s) in beam {SEARCH_BEAM}, "
                 f"best S/N {max(c.snr for c in off):.2f}; direct launches "
                 f"{live['dedisperse_direct']}")
+            search_cli(tmp, cfg, offline, dms_fil,
+                       arrivals_found(mon.candidates, cfg, dms, SEARCH_BEAM),
+                       smi)
         ok = True
     finally:
         src.close()
@@ -2392,12 +2436,134 @@ def phase_search(prod, cfg, why, smi) -> tuple:
     return live, phase_bank_kernels(windows[0], mon, smi)
 
 
-def read_fil_block_all(path, cfg, n_blocks) -> np.ndarray:
-    """An 8-bit .fil file's data as ascending-frequency ``[T, F]``."""
-    _, off = read_filterbank_header(path)
-    f_out, t_out, _ = cfg.out_block_shape
-    data = np.fromfile(path, np.uint8, offset=off)
-    return data.reshape(n_blocks * t_out, f_out)[:, ::-1]
+def fil_path(tmp, beam) -> Path:
+    return tmp / "fil" / f"beam{beam:04d}.fil"
+
+
+def fil_grid(path) -> tuple:
+    """The channel frequencies, cadence and DM trials that ``dsabf-torch
+    search --dm-max SEARCH_DM_MAX`` derives from a .fil file's header."""
+    meta, x = load_dynamic_spectrum(path)
+    freqs = np.linspace(meta["f_lo_mhz"], meta["f_hi_mhz"], x.shape[1])
+    dms = dm_trial_grid(meta["f_lo_mhz"], meta["f_hi_mhz"], meta["tsamp_s"],
+                        dm_max=SEARCH_DM_MAX)
+    return freqs, meta["tsamp_s"], dms
+
+
+def same_candidates(got, want, what) -> float:
+    """A .cand file's rows against in-process candidates, one for one:
+    every column equal, S/N (printed to 0.01) within ``SNR_RTOL`` + 0.01.
+    Returns the largest S/N difference."""
+    if len(got) != len(want):
+        raise RuntimeError(f"{what}: {len(got)} candidates, the reference "
+                           f"{len(want)}: {[c.row() for c in got[:6]]} vs "
+                           f"{[c.row() for c in want[:6]]}")
+    worst = 0.0
+    for g, w in zip(got, want):
+        gr, wr = g.row().split(), w.row().split()
+        diff = abs(g.snr - w.snr)
+        worst = max(worst, diff)
+        if gr[1:] != wr[1:] or diff > SNR_RTOL * abs(w.snr) + 0.01:
+            raise RuntimeError(f"{what}: {g.row()} differs from the "
+                               f"reference's {w.row()}")
+    return worst
+
+
+def arrivals_found(cands, cfg, dms, beam) -> list:
+    """The drill's arrivals (block indices) with a candidate in ``beam``
+    within one DM trial of SEARCH_DM and the widest boxcar of the arrival."""
+    step = dms[1] - dms[0]
+    want = expected_pulses(cfg, N_SEARCH)
+    return sorted({k for c in cands for k, t in enumerate(want)
+                   if c.beam == beam and abs(c.dm - SEARCH_DM) <= step
+                   and abs(c.t_samp - t) <= max(DEFAULT_WIDTHS)})
+
+
+def search_cli(tmp, cfg, offline, dms, live_kept, smi) -> None:
+    """``dsabf-torch`` on the drill's products, each a subprocess on the
+    card: ``search`` of the offline beams' .fil files against the in-process
+    search (``offline``, the same grid and parameters); ``search`` of the
+    32-beam set with coincidence on; ``search inco.dada --stream``; ``fold``
+    at one block's period and ``waterfall --cand`` of the pulse beam.  All
+    but the waterfall (which reads the first search's .cand) run at once."""
+    t0 = time.perf_counter()
+    beam_fil = str(fil_path(tmp, SEARCH_BEAM))
+    cand, cand32 = tmp / "offline.cand", tmp / "set.cand"
+    jobs = {
+        "offline": ["search", *[str(fil_path(tmp, b)) for b in OFFLINE_BEAMS],
+                    "--dm-max", str(SEARCH_DM_MAX), "--no-coincidence",
+                    "--cand", str(cand), "--device", "0"],
+        "set": ["search", *[str(fil_path(tmp, b)) for b in SEARCH_SET],
+                "--dm-max", str(SEARCH_DM_MAX), "--cand", str(cand32),
+                "--device", "0"],
+        "stream": ["search", str(tmp / "inco.dada"), "--stream", "--beam",
+                   "incoherent", "--dm-max", str(SEARCH_DM_MAX), "--device",
+                   "0"],
+        "fold": ["fold", beam_fil, "--dm", str(SEARCH_DM), "--period",
+                 repr(cfg.block_duration_s), "--bins", str(FOLD_BINS)],
+    }
+    procs, outs, walls = {}, {}, {}
+    try:
+        for name, args in jobs.items():
+            procs[name] = (start_cli(args, tmp / f"{name}.log"),
+                           time.perf_counter())
+        for name, (proc, start) in procs.items():
+            outs[name] = finish_cli(proc, name, tmp / f"{name}.log")
+            walls[name] = time.perf_counter() - start
+            if name == "offline":
+                args = ["waterfall", beam_fil, "--cand", str(cand), "--idx",
+                        "0", "--out", str(tmp / "x.pgm")]
+                start = time.perf_counter()
+                outs["waterfall"] = run_cli(args, "waterfall",
+                                            tmp / "waterfall.log")
+                walls["waterfall"] = time.perf_counter() - start
+    finally:
+        stop_all([p for p, _ in procs.values()])
+    errs = {name: (tmp / f"{name}.log").read_text() for name in outs}
+
+    def summary(name) -> str:
+        return " | ".join(l for l in errs[name].splitlines()
+                          if l.startswith(("# ", "[dsabf] search on")))
+
+    _, got = read_candidates(cand)
+    worst = same_candidates(got, offline, "[search] cli offline")
+    log(f"[search] cli: dsabf-torch search of beams {OFFLINE_BEAMS}' .fil "
+        f"files --device 0 in {walls['offline']:.1f} s: {len(got)} "
+        f".cand rows equal to the in-process search's one for one (S/N "
+        f"within {worst:.3f}, bar {SNR_RTOL:.0e} + 0.01 of the printed "
+        f"value); {summary('offline')} on "
+        f"{smi}")
+    check_pulse(got, cfg, dms, SEARCH_BEAM, "[search] cli offline")
+    _, got32 = read_candidates(cand32)
+    kept = arrivals_found(got32, cfg, dms, SEARCH_BEAM)
+    log(f"[search] cli: search of the {len(SEARCH_SET)}-beam set with "
+        f"coincidence on in {walls['set']:.1f} s: {len(got32)} candidates, "
+        f"arrivals kept in beam {SEARCH_BEAM}: {len(kept)} of {N_SEARCH} "
+        f"{kept} (the live monitor, coincidence per window: "
+        f"{len(live_kept)} {live_kept}); {summary('set')}")
+    log(f"[search] cli: search inco.dada --stream --beam incoherent in "
+        f"{walls['stream']:.1f} s: {summary('stream')}; rows "
+        f"{[l for l in outs['stream'].splitlines() if not l.startswith('#')][:4]}")
+    wrote = [l for l in errs["waterfall"].splitlines()
+             if l.startswith("# wrote")]
+    h, w = map(int, wrote[0].rsplit("(", 1)[1].rstrip(")").split("x"))
+    head = (tmp / "x.pgm").read_bytes()[:32]
+    log(f"[search] cli: waterfall --cand offline.cand --idx 0 in "
+        f"{walls['waterfall']:.1f} s: "
+        f"{[l for l in errs['waterfall'].splitlines() if l.startswith('#')]}"
+        f"; {outs['waterfall'].splitlines()[0]}")
+    if not head.startswith(f"P5\n{w} {h}\n255\n".encode()):
+        raise RuntimeError(f"[search] waterfall's PGM header {head!r} is not "
+                           f"the printed {h}x{w}")
+    fold = json.loads(outs["fold"].strip().splitlines()[-1])
+    phase = (SEARCH_T0 // cfg.navg_time) / cfg.out_block_shape[1]
+    log(f"[search] cli: fold --dm {SEARCH_DM:g} at one block "
+        f"({cfg.block_duration_s!r} s) in {walls['fold']:.1f} s: "
+        f"{json.dumps(fold)}; the pulse's arrival phase {phase:.4f}")
+    if abs(fold["peak_phase"] - phase) > 1.0 / FOLD_BINS:
+        raise RuntimeError(f"[search] fold's peak phase {fold['peak_phase']}"
+                           f" is not within 1/{FOLD_BINS} of {phase}")
+    log(f"[search] cli steps {time.perf_counter() - t0:.1f} s")
 
 
 def bank_bound(adds, nbytes) -> tuple:
@@ -2585,6 +2751,9 @@ N_LAUNCH_BLOCKS = 6
 #: rms (each ring its own bytes: a child that read another's ring, or a
 #: block out of order within one, changes the spliced product).
 LAUNCH_DISTINCT = 2
+#: Producers making their blocks at once (each on two threads, ~11 GB of
+#: host memory on the way).
+LAUNCH_MAKING = 2
 
 
 def launch_rms(i) -> float:
@@ -2592,6 +2761,12 @@ def launch_rms(i) -> float:
 
 
 SPLICE_BEAMS = (0, 100, 300, 511)
+#: Blocks of the joined live search (the pulse block, then the noise pool),
+#: and its search's window: dsabf-torch search's --chunk default.
+N_JOIN = 4
+CLI_SEARCH_CHUNK = 16384
+#: Block steps of the trace.
+N_TRACE = 3
 CLI_TIMEOUT = 900            # s: any one subprocess
 
 
@@ -2754,11 +2929,12 @@ def files_equal(a_dir, b_dir) -> tuple:
     return len(names), bad, nbytes
 
 
-def cli_dsa10c(tmp, smi) -> None:
+def cli_dsa10c(tmp, smi) -> tuple:
     """The deployed dsa10c configuration run by ``dsabf-torch run`` from a
     capture ring fed by ``dsabf-torch simulate`` (a dispersed pulse at DM 50
     towards beam ``CLI_BEAM`` in block 0), against the same blocks through
-    an in-process StreamingBeamformer with the same sinks and monitors."""
+    an in-process StreamingBeamformer with the same sinks and monitors.
+    Returns the blocks: the pulse block and the noise pool."""
     from dsabeamformer_tpu_torch.ingest.sigproc import _avg_freqs_mhz
     from dsabeamformer_tpu_torch.ops.dedisperse import read_candidates
 
@@ -2782,14 +2958,18 @@ def cli_dsa10c(tmp, smi) -> None:
              "--search-no-coincidence", "--search-cand",
              str(cand), "--blocks", str(N_CLI), "--stats-file",
              str(stats_path), "--timeout", "600"], tmp / "run.log"))
-        # The reference's blocks, simulate's block_at(i), made here while
-        # the two processes run (this process holds little else: the phase
-        # runs first).
-        pulse = make_dispersed_pulse_block(
-            cfg, SEARCH_DM, angle_rad=0.0, t0_sample=CLI_PULSE_T0,
-            width_samples=16, noise_rms=2.0, seed=1234)
-        pool = [make_noise_block(cfg, rms=2.0, seed=s)
-                for s in range(CLI_DISTINCT)]
+        # The reference's blocks, simulate's block_at(i), made here on two
+        # threads (the pulse first, as simulate makes them) while the two
+        # processes run (this process holds little else: the phase runs
+        # first).
+        with ThreadPoolExecutor(max_workers=2) as maker:
+            pulse = maker.submit(
+                make_dispersed_pulse_block, cfg, SEARCH_DM, angle_rad=0.0,
+                t0_sample=CLI_PULSE_T0, width_samples=16, noise_rms=2.0,
+                seed=1234)
+            pool = [maker.submit(make_noise_block, cfg, rms=2.0, seed=s)
+                    for s in range(CLI_DISTINCT)]
+            pulse, pool = pulse.result(), [f.result() for f in pool]
         run_out = finish_cli(procs[1], "run dsa10c", tmp / "run.log")
         sim_out = finish_cli(procs[0], "simulate dsa10c",
                              tmp / "simulate.log")
@@ -2896,6 +3076,152 @@ def cli_dsa10c(tmp, smi) -> None:
                            f"the in-process stream's ({bad} of {n} .fil "
                            f"files, {nbytes} bytes; incoherent equal: "
                            f"{inco_same})")
+    return pulse, pool
+
+
+def cli_joined(tmp, smi, pulse, pool) -> None:
+    """The reference deployment's search topology on one card: two capture
+    rings hold the channel halves of ``N_JOIN`` dsa10c blocks (the pulse
+    block, then ``cli_dsa10c``'s noise blocks), ``dsabf-torch launch
+    --subbands 2 --devices 0,0`` beamforms them into two product rings, and
+    ``dsabf-torch search --key <prod>0,<prod>1`` searches the joined band
+    while they are written; against one in-process full-band power stream
+    over the same blocks with a SearchMonitor of the CLI's parameters."""
+    cfg = DSA10_COMPACT
+    n_sub = 2
+    width = cfg.n_chan // n_sub
+    subs = [cfg.subband(i * width, width) for i in range(n_sub)]
+    axis = 1 if cfg.input_layout == "tfpa" else 0
+    full = [pulse] + [pool[k % CLI_DISTINCT] for k in range(1, N_JOIN)]
+    cap, prod = f"clijcap{os.getpid()}x", f"clijprod{os.getpid()}x"
+    out_bytes = int(np.prod(subs[0].out_block_shape)) * 4
+    free = shm_free()[1]
+    need_in = n_sub * (N_JOIN * subs[0].wire_block_bytes + 2 * 4096)
+    nbufs = min(N_JOIN, (free - need_in) // (n_sub * (out_bytes + 4096)))
+    log(f"[cli] joined: /dev/shm has {free / 1e9:.2f} GB free; capture rings "
+        f"{n_sub} x {N_JOIN} x {subs[0].wire_block_bytes / 1e6:.1f} MB, "
+        f"product rings {n_sub} x {nbufs} x {out_bytes / 1e6:.1f} MB")
+    if nbufs < 2:
+        raise RuntimeError(f"[cli] joined: /dev/shm ({free} B free) holds "
+                           f"no two product slots a subband")
+    beams = ",".join(map(str, CLI_SEARCH_BEAMS))
+    cand = tmp / "joined.cand"
+    rings, procs = [], []
+    try:
+        for i, sub in enumerate(subs):
+            ring = RingBuffer(f"{cap}{i}", create=True, nbufs=N_JOIN,
+                              bufsz=sub.wire_block_bytes)
+            rings.append(ring)
+            ring.write_header(dada.encode_header(sub))
+            for blk in full:
+                part = np.take(blk, np.arange(i * width, (i + 1) * width),
+                               axis=axis)
+                if not ring.write_block(part):
+                    raise RuntimeError(f"[cli] joined: capture ring {i} full")
+            ring.set_eod()
+        t0 = time.perf_counter()
+        procs.append(start_cli(
+            ["launch", "--subbands", str(n_sub), "--devices",
+             ",".join(["0"] * n_sub), "--", "--config", "dsa10c", "--key",
+             cap + "{i}", "--output-key", prod + "{i}", "--nbufs",
+             str(nbufs), "--blocks", str(N_JOIN), "--timeout", "600"],
+            tmp / "launch.log"))
+        procs.append(start_cli(
+            ["search", "--key", f"{prod}0,{prod}1", "--beam", beams,
+             "--no-coincidence", "--dm-max", str(SEARCH_DM_MAX), "--cand",
+             str(cand), "--timeout", "300", "--device", "0"],
+            tmp / "search.log"))
+        rep_out = finish_cli(procs[0], "launch dsa10c x2", tmp / "launch.log")
+        finish_cli(procs[1], "search --key joined", tmp / "search.log")
+        wall = time.perf_counter() - t0
+    finally:
+        stop_all(procs)
+        for ring in rings:
+            ring.destroy()
+        for i in range(n_sub):
+            try:
+                RingBuffer(f"{prod}{i}", connect_timeout_s=1).destroy()
+            except OSError:
+                pass
+    report = json.loads(rep_out.strip().splitlines()[-1])
+    launch_err = (tmp / "launch.log").read_text()
+    search_err = (tmp / "search.log").read_text()
+    head = [l for l in search_err.splitlines()
+            if l.startswith(("# ring", "[dsabf] search:",
+                             "[dsabf] search on"))]
+    skews = sum(int(l.rsplit(", ", 1)[1].split()[0]) for l in head
+                if l.endswith("join skew(s)"))
+    log(f"[cli] joined live search: launch --subbands {n_sub} --devices "
+        f"0,0 (dsa10c, {N_JOIN} blocks a child from its capture ring, "
+        f"--output-key, {nbufs} product slots) and search --key "
+        f"{prod}0,{prod}1 together in {wall:.1f} s: {json.dumps(report)}; "
+        f"{' | '.join(head)}; {skews} join skew(s) on {smi}")
+    drops = [l for l in launch_err.splitlines()
+             if "output ring dropped" in l]
+    if not report["ok"] or drops or any(
+            r["blocks"] != N_JOIN or r["dropped"] for r in report["subbands"]):
+        raise RuntimeError(f"[cli] joined: {report} {drops}")
+    meta, got = read_candidates(cand)
+    freqs = np.linspace(meta["f_lo_mhz"], meta["f_hi_mhz"],
+                        cfg.out_block_shape[0])
+    dms = dm_trial_grid(meta["f_lo_mhz"], meta["f_hi_mhz"], meta["tsamp_s"],
+                        dm_max=SEARCH_DM_MAX)
+    qw = prepare_weights(cfg, make_weights(cfg, device=DEV))
+    mon = SearchMonitor(freqs, meta["tsamp_s"], dms, beam=CLI_SEARCH_BEAMS,
+                        chunk_t=CLI_SEARCH_CHUNK, method="direct",
+                        coincidence=False, device=DEV)
+    bf = StreamingBeamformer(cfg, qw, SyntheticSource(cfg, full, N_JOIN),
+                             None, depth=RING_DEPTH)
+    bf.search_monitor = mon
+    bf.warmup()
+    stats = bf.run()
+    mon.flush()
+    want = sorted(mon.candidates, key=lambda c: -c.snr)
+    worst = same_candidates(got, want, "[cli] joined")
+    t_out = CLI_PULSE_T0 // cfg.navg_time
+    hits = [c for c in got if c.beam == CLI_BEAM
+            and abs(c.dm - SEARCH_DM) <= dms[1] - dms[0]
+            and abs(c.t_samp - t_out) <= max(DEFAULT_WIDTHS)]
+    log(f"[cli] joined: {len(got)} candidates equal to the in-process "
+        f"full-band monitor's one for one ({stats.n_blocks} blocks, S/N "
+        f"within {worst:.3f}, bar {SNR_RTOL:.0e} + 0.01); the pulse in beam "
+        f"{CLI_BEAM}: {[c.row() for c in hits[:2]]}")
+    if not hits:
+        raise RuntimeError(f"[cli] joined: the pulse (DM {SEARCH_DM}, beam "
+                           f"{CLI_BEAM}, t {t_out}) is not among "
+                           f"{[c.row() for c in got[:8]]}")
+
+
+def cli_trace(tmp, smi) -> dict:
+    """``dsabf-torch trace --config dsa10 --blocks 3 --device 0``: its rows
+    must name the detect kernel 3 times; the kernels' summed time over the
+    traced window (the device's busy share) read from its trace file."""
+    out = run_cli(["trace", "--config", "dsa10", "--blocks",
+                   str(N_TRACE), "--out", str(tmp / "trace"), "--device",
+                   "0"], "trace", tmp / "trace.log")
+    rec = json.loads(out)
+    det = [r for r in rec["ops"] if "detect_mma_kernel" in r["name"]]
+    if not det or det[0]["count"] != N_TRACE:
+        raise RuntimeError(f"[cli] trace: no detect kernel row of count "
+                           f"{N_TRACE}: {rec['ops']}")
+    events = trace_events(tmp / "trace")
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    span = (max(e["ts"] + e.get("dur", 0) for e in events)
+            - min(e["ts"] for e in events))
+    k_span = (max(e["ts"] + e["dur"] for e in kernels)
+              - min(e["ts"] for e in kernels))
+    busy = sum(e["dur"] for e in kernels)
+    res = {"detect_ms": det[0]["total_ms"] / N_TRACE,
+           "busy_ms": busy / 1e3, "span_ms": span / 1e3,
+           "kernel_span_ms": k_span / 1e3}
+    log(f"[cli] dsabf-torch trace --config dsa10 --blocks {N_TRACE} "
+        f"--device 0: rows {[(r['name'][:48], r['count'], r['total_ms']) for r in rec['ops']]}")
+    log(f"[cli] trace: the detect kernel {det[0]['count']} x, mean "
+        f"{res['detect_ms']:.3f} ms; {len(kernels)} kernels, "
+        f"{res['busy_ms']:.3f} ms busy over the traced window's "
+        f"{res['span_ms']:.3f} ms ({busy / span:.1%}), over the kernels' own "
+        f"span {res['kernel_span_ms']:.3f} ms ({busy / k_span:.1%}) on {smi}")
+    return res
 
 
 def cli_launch(tmp, smi) -> None:
@@ -2927,10 +3253,10 @@ def cli_launch(tmp, smi) -> None:
                     raise RuntimeError(f"[cli] simulate {k}/8 made no ring")
                 time.sleep(0.2)
 
-        # The children warm up and wait for their rings; at most two
-        # producers make their blocks at a time (eight at once would take
-        # ~45 GB of host memory on the way): each starts once the one before
-        # the last has created its ring.
+        # The children warm up and wait for their rings; at most
+        # LAUNCH_MAKING producers make their blocks at a time (eight at once
+        # would take ~45 GB of host memory on the way): each starts once the
+        # one LAUNCH_MAKING - 1 before it has created its ring.
         launch = start_cli(
             ["launch", "--subbands", str(N_LAUNCH), "--devices",
              ",".join(["0"] * N_LAUNCH), "--", "--config", "dsa110",
@@ -2946,9 +3272,10 @@ def cli_launch(tmp, smi) -> None:
                  "--rms", str(launch_rms(i)), "--nbufs",
                  str(N_LAUNCH_BLOCKS), "--linger", "120"],
                 tmp / f"simulate{i}.log"))
-            if i:
-                wait_ring(i - 1)
-        wait_ring(N_LAUNCH - 1)
+            if i >= LAUNCH_MAKING - 1:
+                wait_ring(i - LAUNCH_MAKING + 1)
+        for k in range(max(0, N_LAUNCH - LAUNCH_MAKING + 1), N_LAUNCH):
+            wait_ring(k)
         rep_out = finish_cli(launch, "launch dsa110", tmp / "launch.log")
         for i in range(N_LAUNCH):
             finish_cli(procs[1 + i], f"simulate dsa110 {i}/8",
@@ -2970,13 +3297,20 @@ def cli_launch(tmp, smi) -> None:
         raise RuntimeError(f"[cli] launch: {report}")
     merged = tmp / "merged"
     merged.mkdir()
-    for b in SPLICE_BEAMS:
-        files = [str(tmp / f"fil{i}" / f"beam{b:04d}.fil")
-                 for i in range(N_LAUNCH)]
-        out = run_cli(["splice", *files, "--out",
-                       str(merged / f"beam{b:04d}.fil")], f"splice {b}")
-        if b == SPLICE_BEAMS[0]:
-            log(f"[cli] splice beam {b}: {out.strip()}")
+    splices = {}
+    try:
+        for b in SPLICE_BEAMS:
+            files = [str(tmp / f"fil{i}" / f"beam{b:04d}.fil")
+                     for i in range(N_LAUNCH)]
+            splices[b] = start_cli(["splice", *files, "--out",
+                                    str(merged / f"beam{b:04d}.fil")],
+                                   tmp / f"splice{b}.log")
+        for b, proc in splices.items():
+            out = finish_cli(proc, f"splice {b}", tmp / f"splice{b}.log")
+            if b == SPLICE_BEAMS[0]:
+                log(f"[cli] splice beam {b}: {out.strip()}")
+    finally:
+        stop_all(list(splices.values()))
     qw = prepare_weights(cfg, make_weights(cfg, device=DEV))
     ref = FilterbankSink(tmp / "ref", cfg, beams=list(SPLICE_BEAMS),
                          nbits=32)
@@ -3011,10 +3345,12 @@ def cli_launch(tmp, smi) -> None:
                            f"the full band's by {worst:.3e}")
 
 
-def phase_cli(smi) -> None:
+def phase_cli(smi) -> dict:
     """Phase 32: ``dsabf-torch selftest`` and ``info`` on ``cuda:0``, the
-    deployed dsa10c from a ring (``cli_dsa10c``) and the DSA-110 launch
-    (``cli_launch``), each command a subprocess."""
+    deployed dsa10c from a ring (``cli_dsa10c``), the joined live search
+    over two subband product rings (``cli_joined``), the DSA-110 launch
+    (``cli_launch``) and a trace (``cli_trace``, returned), each command a
+    subprocess."""
     t0 = time.perf_counter()
     out = run_cli(["selftest", "--device", "0"], "selftest")
     rec = json.loads(out)
@@ -3025,14 +3361,23 @@ def phase_cli(smi) -> None:
     log(f"[cli] dsabf-torch info --config dsa10c: {out.strip()}")
     if json.loads(out)["backend"] != "cuda":
         raise RuntimeError(f"[cli] info: {out}")
-    for step in (cli_dsa10c, cli_launch):
-        with tempfile.TemporaryDirectory() as tmp:
-            step(Path(tmp), smi)
-        log(f"[cli] {step.__name__} done at {time.perf_counter() - t0:.1f} s")
+    with tempfile.TemporaryDirectory() as tmp:
+        blocks = cli_dsa10c(Path(tmp), smi)
+    log(f"[cli] cli_dsa10c done at {time.perf_counter() - t0:.1f} s")
+    with tempfile.TemporaryDirectory() as tmp:
+        cli_joined(Path(tmp), smi, *blocks)
+    del blocks
+    log(f"[cli] cli_joined done at {time.perf_counter() - t0:.1f} s")
+    with tempfile.TemporaryDirectory() as tmp:
+        cli_launch(Path(tmp), smi)
+    log(f"[cli] cli_launch done at {time.perf_counter() - t0:.1f} s")
+    with tempfile.TemporaryDirectory() as tmp:
+        trace = cli_trace(Path(tmp), smi)
     # The in-process references' pinned staging, back to the system.
     torch.cuda.empty_cache()
     getattr(torch._C, "_host_emptyCache", lambda: None)()
     log(f"[cli] phase {time.perf_counter() - t0:.1f} s")
+    return trace
 
 
 def bank_rows(live, checked) -> list:
@@ -3148,7 +3493,7 @@ def main() -> tuple:
     phase_build()
     # The port's CLI as a deployment runs it, each command a process of its
     # own: first, while this process holds little host memory.
-    phase_cli(smi)
+    trace = phase_cli(smi)
     mark("cli")
 
     cfg = DSA10
@@ -3165,6 +3510,9 @@ def main() -> tuple:
     kernel_vs_plain(cc, cc_block, cc_qw)
     phase_physics()
     res = phase_resident(cfg, blocks, qw, name, smi)
+    log(f"[cli] trace's detect kernel at dsa10, mean of {N_TRACE}: "
+        f"{trace['detect_ms']:.3f} ms (profiler); [resident] int8x2 "
+        f"{res['ms']:.3f} ms (CUDA events, {N_TIMED} launches) on {smi}")
     phase_transfers(cfg, blocks[0])
     launches = collections.Counter(
         base=phase_stream(cfg, blocks, qw, res["block0"], smi))

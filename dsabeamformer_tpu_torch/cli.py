@@ -1,6 +1,6 @@
 """Command-line interface of the PyTorch/CUDA port: ``dsabf-torch``.
 
-The deployment half of the JAX package's ``dsabf`` (its
+The deployment and search halves of the JAX package's ``dsabf`` (its
 ``dsabeamformer_tpu/cli.py``), subcommand for subcommand and flag for flag:
 
   dsabf-torch run       — attach to a voltage ring (or file) and beamform
@@ -16,9 +16,14 @@ The deployment half of the JAX package's ``dsabf`` (its
   dsabf-torch launch    — supervised one-process-per-subband deployment
   dsabf-torch fil       — inspect a SIGPROC filterbank product
   dsabf-torch splice    — merge per-subband .fil products into one band
+  dsabf-torch search    — single-pulse search of product files or live
+                          product rings (joined across subbands)
+  dsabf-torch waterfall — quick-look waterfall of a product (or a candidate)
+  dsabf-torch fold      — fold a product at a pulsar period
+  dsabf-torch trace     — profiler trace of a few block steps
 
-``run``, ``selftest``, ``weights``, ``levels`` and ``rfi`` take
-``--device``: a card index (``0`` or ``cuda:0``) or ``cpu``; with none they
+``run``, ``selftest``, ``weights``, ``levels``, ``rfi``, ``search`` and
+``trace`` take ``--device``: a card index (``0`` or ``cuda:0``) or ``cpu``; with none they
 run on ``cuda:0`` and refuse to run without a card
 (``utils.device.resolve_device``).  ``launch --devices`` takes the same
 tokens, one per child.  ``run --mesh`` is refused: channel
@@ -718,6 +723,8 @@ def cmd_run(args) -> int:
 
 
 def cmd_simulate(args) -> int:
+    from concurrent.futures import ThreadPoolExecutor
+
     from dsabeamformer_tpu_torch.ingest import dada
     from dsabeamformer_tpu_torch.ingest.generator import (
         make_dispersed_pulse_block, make_noise_block,
@@ -729,14 +736,6 @@ def cmd_simulate(args) -> int:
     if args.distinct < 1:
         print("error: --distinct must be >= 1", file=sys.stderr)
         return 2
-    blocks = []
-    if args.pulse_period is None:  # pulsar mode never reads the pool
-        for s in range(args.distinct):
-            if args.source_angle is not None:
-                blocks.append(make_point_source_block(
-                    cfg, np.deg2rad(args.source_angle), seed=s))
-            else:
-                blocks.append(make_noise_block(cfg, rms=args.rms, seed=s))
     first_block = None
     pulsar_angle = None
     if args.pulse_period is not None:
@@ -749,15 +748,32 @@ def cmd_simulate(args) -> int:
                   file=sys.stderr)
             return 2
         pulsar_angle = np.deg2rad(args.source_angle or 0.0)
-    elif args.pulse_dm is not None:
-        # Injected-FRB drill: the FIRST emitted block only (a pulse in the
-        # cycled pool would repeat every --distinct blocks) carries a
-        # dispersed pulse on the same noise floor.
-        angle = np.deg2rad(args.source_angle or 0.0)
-        first_block = make_dispersed_pulse_block(
-            cfg, args.pulse_dm, angle_rad=angle,
-            t0_sample=args.pulse_t0, width_samples=args.pulse_width,
-            noise_rms=args.rms, seed=1234)
+    # The drill's first block and the pool are made on two threads (NumPy's
+    # generators and ufuncs release the GIL): the same bytes, the slowest
+    # one (the pulse) started first.
+    with ThreadPoolExecutor(max_workers=2) as maker:
+        if args.pulse_period is None and args.pulse_dm is not None:
+            # Injected-FRB drill: the FIRST emitted block only (a pulse in
+            # the cycled pool would repeat every --distinct blocks) carries
+            # a dispersed pulse on the same noise floor.
+            first_block = maker.submit(
+                make_dispersed_pulse_block, cfg, args.pulse_dm,
+                angle_rad=np.deg2rad(args.source_angle or 0.0),
+                t0_sample=args.pulse_t0, width_samples=args.pulse_width,
+                noise_rms=args.rms, seed=1234)
+        pool = []
+        if args.pulse_period is None:  # pulsar mode never reads the pool
+            for s in range(args.distinct):
+                if args.source_angle is not None:
+                    pool.append(maker.submit(
+                        make_point_source_block, cfg,
+                        np.deg2rad(args.source_angle), seed=s))
+                else:
+                    pool.append(maker.submit(make_noise_block, cfg,
+                                             rms=args.rms, seed=s))
+        blocks = [f.result() for f in pool]
+        if first_block is not None:
+            first_block = first_block.result()
 
     def block_at(i):
         if pulsar_angle is not None:
@@ -1211,6 +1227,741 @@ def cmd_ring(args) -> int:
     return 0
 
 
+def cmd_waterfall(args) -> int:
+    """ASCII (and optional PGM) time-frequency waterfall of a beam
+    product — the quickest "did the observation work" check.  Reads both
+    product formats this package writes (.fil and .dada); the legend line
+    carries the beam/Stokes/shape provenance so a pasted frame is
+    self-describing.  Host NumPy only: no device."""
+    from dsabeamformer_tpu_torch.utils.quicklook import (
+        dedisperse,
+        downsample_mean,
+        load_dynamic_spectrum,
+        percentile_scale,
+        render_ascii,
+        write_pgm,
+    )
+
+    lo, hi = args.clip
+    if not 0.0 <= lo < hi <= 100.0:
+        print(f"error: --clip wants 0 <= LO < HI <= 100, got {lo:g} {hi:g}",
+              file=sys.stderr)
+        return 1
+    cand = None
+    if args.cand:
+        # Vetting flow: pull row --idx from a `dsabf-torch search --cand`
+        # file, inherit its DM (and beam, for DADA products), and window
+        # the view on the detection so the pulse fills the frame instead
+        # of being one column in an hour of data.
+        from dsabeamformer_tpu_torch.ops.dedisperse import read_candidates
+
+        try:
+            _, cands = read_candidates(args.cand)
+        except (OSError, ValueError) as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 1
+        if not 0 <= args.idx < len(cands):
+            print(f"error: --idx {args.idx}: {args.cand} has "
+                  f"{len(cands)} candidates", file=sys.stderr)
+            return 1
+        cand = cands[args.idx]
+        if args.dm is None:
+            args.dm = cand.dm
+        if args.beam is None and cand.beam >= 0:
+            args.beam = cand.beam
+        print(f"# candidate {args.idx}: snr {cand.snr:g}  "
+              f"DM {cand.dm:g}  t_samp {cand.t_samp}  width "
+              f"{cand.width}  beam {cand.beam}", file=sys.stderr)
+    try:
+        meta, x = load_dynamic_spectrum(args.path, beam=args.beam or 0,
+                                        stokes=args.stokes)
+        if args.dm is not None:
+            x = dedisperse(x, meta, args.dm)
+    except (OSError, ValueError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 1
+    if x.shape[0] == 0:
+        print("error: product file has no complete blocks", file=sys.stderr)
+        return 1
+    if cand is not None:
+        if cand.t_samp >= x.shape[0]:
+            # A t_samp just past the end would still slice a non-empty,
+            # pulse-free window that reads as "not real".
+            print(f"error: candidate t_samp {cand.t_samp} is beyond "
+                  f"this product ({args.path} has {x.shape[0]} "
+                  f"samples — wrong file for this .cand?)",
+                  file=sys.stderr)
+            return 1
+        # After dedispersion the pulse sits at its band-top arrival:
+        # window +-max(8 widths, half a frame's rows) around t_samp.
+        half = max(8 * cand.width, args.rows * 4)
+        t0 = max(0, cand.t_samp - half)
+        x = x[t0: cand.t_samp + cand.width + half]
+    small = downsample_mean(x, args.rows, args.cols)
+    frame = render_ascii(percentile_scale(small, lo, hi))
+    t, f = x.shape
+    band = (f"{meta['f_lo_mhz']:.1f}-{meta['f_hi_mhz']:.1f} MHz"
+            if "f_lo_mhz" in meta else "ascending")
+    dm_note = f"; DM {args.dm:g}" if args.dm is not None else ""
+    print(f"# {args.path}  [{meta['format']}]  beam={meta['beam']}  "
+          f"stokes={meta['stokes']}  {t} samples x {f} chans  "
+          f"(time down, freq right: {band}; clip {lo:g}-{hi:g}%{dm_note})")
+    print(frame)
+    if args.dm is not None:
+        # Frequency-collapsed time series at this DM (time runs RIGHT
+        # here): a pulse at the right DM is one bright char.
+        prof = x.mean(axis=1)[None, :]
+        prof = downsample_mean(prof.T, args.cols, 1).T
+        print(f"# profile(t) @ DM {args.dm:g}: "
+              + render_ascii(percentile_scale(prof, lo, hi)))
+    if args.out:
+        img = x if args.full else small
+        write_pgm(args.out, percentile_scale(img, lo, hi))
+        print(f"# wrote {args.out} ({img.shape[0]}x{img.shape[1]})",
+              file=sys.stderr)
+    return 0
+
+
+def cmd_fold(args) -> int:
+    """Fold a beam product at a pulsar period — the known-source
+    validation an operator runs after pointing at a catalog pulsar:
+    dedisperse at its DM, fold at its period, and the pulse stands up as
+    one bright phase row with S/N growing as sqrt(periods folded).  Prints
+    the phase-frequency frame, the frequency-collapsed phase profile, and
+    a JSON summary (peak S/N, peak phase, periods folded).  Host NumPy
+    only: no device."""
+    from dsabeamformer_tpu_torch.utils.quicklook import (
+        dedisperse,
+        downsample_mean,
+        fold_spectrogram,
+        load_dynamic_spectrum,
+        percentile_scale,
+        profile_snr,
+        render_ascii,
+        write_pgm,
+    )
+
+    try:
+        meta, x = load_dynamic_spectrum(args.path, beam=args.beam,
+                                        stokes=args.stokes)
+        if x.shape[0] == 0:
+            raise ValueError("product file has no complete blocks")
+        if args.dm:
+            x = dedisperse(x, meta, args.dm)
+        if "tsamp_s" not in meta:
+            raise ValueError("cannot fold: product header lacks tsamp_s")
+        tsamp = float(meta["tsamp_s"])
+        prof, counts = fold_spectrogram(x, tsamp, args.period,
+                                        n_bins=args.bins)
+    except (OSError, ValueError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 1
+    snr, peak = profile_snr(prof)
+    n_periods = x.shape[0] * tsamp / args.period
+    small = downsample_mean(prof, args.bins, args.cols)
+    print(f"# {args.path}  beam={meta['beam']}  stokes={meta['stokes']}  "
+          f"folded {n_periods:.1f} periods of {args.period:g}s into "
+          f"{prof.shape[0]} phase bins x {prof.shape[1]} chans "
+          f"(phase down, freq right"
+          + (f"; DM {args.dm:g}" if args.dm else "") + ")")
+    print(render_ascii(percentile_scale(small, *args.clip)))
+    p1 = prof.mean(axis=1)[None, :]
+    print("# profile(phase): "
+          + render_ascii(percentile_scale(
+              downsample_mean(p1.T, args.cols, 1).T, *args.clip)))
+    if args.out:
+        write_pgm(args.out, percentile_scale(prof, *args.clip))
+        print(f"# wrote {args.out} ({prof.shape[0]}x{prof.shape[1]})",
+              file=sys.stderr)
+    print(json.dumps({
+        "period_s": args.period, "dm": args.dm or 0.0,
+        "n_bins": prof.shape[0], "n_periods": round(n_periods, 2),
+        "peak_bin": peak,
+        "peak_phase": round((peak + 0.5) / prof.shape[0], 4),
+        "snr": round(snr, 2),
+        "min_bin_occupancy": int(counts.min()),
+    }))
+    return 0
+
+
+def _search_live_ring(args, device) -> int:
+    """``dsabf-torch search --key``: attach to a beamformer's OUTPUT
+    product ring and search blocks as they are produced — the reference
+    deployment's heimdall-reads-the-DADA-buffer topology, as a separate
+    process on the same SearchMonitor the in-process ``run
+    --search-dm-max`` uses (same windowing, same banks on ``device``, same
+    live coincidence veto).
+
+    ``--key`` takes a comma-separated list to join the one-process-per-
+    subband deployment's product rings into ONE full-band live search:
+    rings are band-ordered by their header's FREQ_START_HZ, validated
+    contiguous, and each step reads one seq-aligned block from every ring
+    and concatenates along the channel axis (a ring that dropped a block
+    forces the others to skip to the next common seq; the monitor's gap
+    logic flushes the sweep buffer, as a single-ring drop does).
+    Searching per subband instead would cost DM resolution: the sweep is
+    measured ACROSS the band."""
+    from dsabeamformer_tpu_torch.ingest import dada
+    from dsabeamformer_tpu_torch.ingest.ring import RingBuffer
+    from dsabeamformer_tpu_torch.utils.quicklook import (
+        _STOKES_INDEX,
+        _dada_meta,
+    )
+
+    keys = [k.strip() for k in args.key.split(",") if k.strip()]
+    if not keys:
+        print("error: empty --key", file=sys.stderr)
+        return 1
+    if len(set(keys)) != len(keys):
+        print(f"error: duplicate ring keys in {keys} (two attachments "
+              f"to one single-consumer ring interleave reads)",
+              file=sys.stderr)
+        return 1
+    rings = []
+    try:
+        entries = []  # (f_start, key, ring, hdr, shape)
+        payloads = set()
+        for key in keys:
+            try:
+                ring = RingBuffer(key, connect_timeout_s=args.timeout)
+            except OSError as e:
+                print(f"error: {e}", file=sys.stderr)
+                return 1
+            rings.append(ring)
+            if ring.readers > 0:
+                print(f"[dsabf] WARNING: ring {key!r} already has "
+                      f"{ring.readers} attached reader(s) — the ring "
+                      f"is single-consumer; both readers will see "
+                      f"gaps.", file=sys.stderr)
+            try:
+                hdr = dada.parse_header(ring.read_header(
+                    timeout_s=args.timeout))
+            except TimeoutError:
+                print(f"error: ring {key!r} has no committed header "
+                      f"after {args.timeout:g}s — is the producer "
+                      f"(`dsabf-torch run --output-key {key}`) up?",
+                      file=sys.stderr)
+                return 1
+            payload = hdr.get("PAYLOAD", "")
+            if payload not in ("BEAM_POWERS", "BEAM_STOKES_IQUV",
+                               "INCOHERENT_POWER"):
+                print(f"error: ring {key!r} carries "
+                      f"PAYLOAD={payload!r}, not a beam product — "
+                      f"point --key at `dsabf-torch run --output-key`'s "
+                      f"ring, not the voltage capture", file=sys.stderr)
+                return 1
+            payloads.add(payload)
+            shp = [int(hdr["OUT_NCHAN"]), int(hdr["OUT_NTIME"])]
+            if payload == "BEAM_STOKES_IQUV":
+                shp.append(int(hdr.get("OUT_NSTOKES", 4)))
+            if payload != "INCOHERENT_POWER":
+                shp.append(int(hdr["OUT_NBEAM"]))
+            per_block = int(np.prod(shp)) * 4
+            if per_block != ring.bufsz:
+                print(f"error: ring {key!r} bufsz {ring.bufsz} != "
+                      f"header block size {per_block} (mismatched "
+                      f"producer?)", file=sys.stderr)
+                return 1
+            entries.append((float(hdr.get("FREQ_START_HZ", 0.0)), key,
+                            ring, hdr, shp))
+        if len(payloads) != 1:
+            print(f"error: rings carry mixed payloads {sorted(payloads)}",
+                  file=sys.stderr)
+            return 1
+        payload = payloads.pop()
+        inco = payload == "INCOHERENT_POWER"
+        entries.sort(key=lambda e: e[0])  # ascending band order
+        hdr = entries[0][3]
+        if any(e[4][1:] != entries[0][4][1:] for e in entries):
+            print(f"error: subband rings disagree beyond the channel "
+                  f"axis: {[e[4] for e in entries]}", file=sys.stderr)
+            return 1
+        # Contiguity: each subband starts where the previous one ended.
+        df = float(hdr["BW_HZ"]) / int(hdr["NCHAN_TOTAL"])
+        navg_f = int(hdr.get("NAVG_FREQ", 1))
+        for (f0, k0, _, _, s0), (f1, k1, _, _, _) in zip(entries,
+                                                         entries[1:]):
+            if abs(f0 + s0[0] * navg_f * df - f1) > abs(df) * 0.5:
+                print(f"error: rings {k0!r} and {k1!r} are not "
+                      f"band-contiguous ({f0 + s0[0] * navg_f * df:g} "
+                      f"vs {f1:g} Hz)", file=sys.stderr)
+                return 1
+        shapes = [e[4] for e in entries]
+        shape = list(shapes[0])
+        shape[0] = sum(s[0] for s in shapes)  # joined channel count
+        stokes = payload == "BEAM_STOKES_IQUV"
+        if args.stokes != "I" and not stokes:
+            print(f"error: no Stokes {args.stokes}: {payload} ring "
+                  f"carries no Stokes axis", file=sys.stderr)
+            return 1
+        s_idx = _STOKES_INDEX[args.stokes]
+        meta = _dada_meta(hdr, 0, args.stokes, shape[0])
+        try:
+            # Beam indices are validated against the ring's own beam
+            # count here at attach time, not on the first block.
+            mon, dms = _build_search_monitor(
+                args, meta, inco, None if inco else shape[-1],
+                shape[0], device, src_kind="ring")
+        except ValueError as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 1
+        print(f"[dsabf] search: attached to {len(entries)} ring(s) "
+              f"{[e[1] for e in entries]} ({payload}, joined "
+              f"{shape[0]} chan x {shape[1]} samp/block), "
+              f"{len(dms)} DM trials [0, {dms[-1]:.1f}], threshold "
+              f"{args.threshold:g}", file=sys.stderr)
+
+        def _read_at_least(entry, target):
+            """Next block from one ring with seq >= target (stale blocks
+            from before a join-skip are consumed and dropped).  A read
+            timeout is a WAIT, not the end of the stream — the producer
+            may still be warming up or stalled; only EOD (or
+            ``--max-idle``) ends the search.  Returns (seq, [F_sub, ...])
+            or None at EOD / max-idle."""
+            _, key, ring, _, shp = entry
+            waited = 0.0
+            while True:
+                item = ring.read_block(timeout_s=args.timeout)
+                if item is None:
+                    if ring.eod():
+                        return None
+                    waited += args.timeout
+                    if (args.max_idle is not None
+                            and waited >= args.max_idle):
+                        print(f"[dsabf] ring {key!r}: no data for "
+                              f"{waited:.0f}s (--max-idle) — stopping",
+                              file=sys.stderr)
+                        return None
+                    if waited <= args.timeout:
+                        print(f"[dsabf] ring {key!r}: waiting for data "
+                              f"(producer warming up or stalled; "
+                              f"Ctrl-C or --max-idle bounds the wait)",
+                              file=sys.stderr)
+                    continue
+                seq, raw = item
+                if target is None or seq >= target:
+                    return seq, raw.view(np.float32).reshape(shp)
+                print(f"[dsabf] join: ring {key!r} seq {seq} < "
+                      f"common seq {target}, skipped", file=sys.stderr)
+
+        n, skews = 0, 0
+        try:
+            while args.blocks is None or n < args.blocks:
+                # One seq-aligned row across every subband ring: read each
+                # at the current common target; a ring that comes back
+                # ahead (it dropped the target block) raises the target
+                # and the laggards are read again.  Seqs only grow, so
+                # this converges.
+                target = None
+                got = [None] * len(entries)
+                ok = True
+                while True:
+                    for i, e in enumerate(entries):
+                        if got[i] is None or (target is not None
+                                              and got[i][0] < target):
+                            got[i] = _read_at_least(e, target)
+                            if got[i] is None:
+                                ok = False
+                                break
+                            if target is None or got[i][0] > target:
+                                if target is not None:
+                                    skews += 1
+                                target = got[i][0]
+                    if not ok or all(g[0] == target for g in got):
+                        break
+                if not ok:
+                    break
+                block = (got[0][1] if len(got) == 1
+                         else np.concatenate([g[1] for g in got], axis=0))
+                if inco:
+                    mon.observe(target, None, inco=block)
+                else:
+                    if stokes:  # [F, T, S, B] -> the requested plane
+                        block = np.ascontiguousarray(block[:, :, s_idx])
+                    mon.observe(target, block)
+                n += 1
+        except KeyboardInterrupt:
+            print("[dsabf] interrupted — flushing search buffer",
+                  file=sys.stderr)
+        except ValueError as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 1
+        mon.flush()
+        _finish_monitor_search(
+            mon, f"ring {args.key}", args, meta, dms, n,
+            extra_note=f", {skews} subband join skew(s)" if skews else "",
+            src_meta={"ring": args.key, "live": True})
+        return 0
+    finally:
+        for ring in rings:
+            ring.close()
+
+
+def _build_search_monitor(args, meta, inco: bool, n_beams, n_chan: int,
+                          device, src_kind: str = "product"):
+    """Shared head of the monitor-fed search paths (``--key`` ring
+    consumer, ``--stream`` file feed): band/cadence-field validation,
+    beam-target validation, DM-trial grid, SearchMonitor on ``device``.
+    Returns ``(mon, dms)``; raises ValueError with a printable message
+    (call sites print ``error: {e}`` and exit 1)."""
+    from dsabeamformer_tpu_torch.models.weights import parse_zap
+    from dsabeamformer_tpu_torch.ops.dedisperse import (
+        DEFAULT_WIDTHS,
+        SearchMonitor,
+        dm_trial_grid,
+    )
+
+    for key in ("f_lo_mhz", "f_hi_mhz", "tsamp_s"):
+        if key not in meta:
+            raise ValueError(f"cannot search: {src_kind} header lacks "
+                             f"the band/cadence fields ({key})")
+    try:
+        target = _parse_beam_target(args.beam, None if inco else n_beams)
+    except ValueError as e:
+        raise ValueError(f"bad --beam spec: {e}")
+    if inco and target not in ("incoherent", 0):
+        raise ValueError(
+            f"--beam {args.beam}: this {src_kind} has no beam axis "
+            f"(the incoherent product sums all antennas)")
+    if target == "incoherent" and not inco:
+        raise ValueError(f"--beam incoherent needs an INCOHERENT_POWER "
+                         f"{src_kind}")
+    tsamp = float(meta["tsamp_s"])
+    if args.dm_step:
+        dms = np.arange(args.dm_min, args.dm_max + args.dm_step,
+                        args.dm_step)
+    else:
+        dms = dm_trial_grid(meta["f_lo_mhz"], meta["f_hi_mhz"], tsamp,
+                            dm_max=args.dm_max, dm_min=args.dm_min,
+                            tol=args.dm_tol)
+    err = _dm_grid_error(dms, tsamp, args.dm_max)
+    if err:
+        raise ValueError(err)
+    freqs = np.linspace(meta["f_lo_mhz"], meta["f_hi_mhz"], n_chan)
+    mon = SearchMonitor(
+        freqs, tsamp, dms, beam=0 if inco else target, incoherent=inco,
+        threshold=args.threshold,
+        widths=tuple(args.widths) if args.widths else DEFAULT_WIDTHS,
+        chunk_t=args.chunk, topk=args.topk,
+        zap=parse_zap(args.zap) if args.zap else None,
+        zerodm=args.zerodm, method=args.method,
+        on_candidate=_emit_search_candidate,
+        coincidence=not args.no_coincidence,
+        coincidence_frac=args.coincidence_frac,
+        on_rfi=_emit_search_rfi, device=device)
+    return mon, dms
+
+
+def _search_device_note(device) -> None:
+    """Log the search process's host footprint and its bank kernels'
+    launches so far (zero on the CPU, where the plain versions run)."""
+    from dsabeamformer_tpu_torch.ops import dedisperse as dd
+    from dsabeamformer_tpu_torch.utils.hostenv import process_rss_mb
+
+    launches = {k.__name__: k.launches for k in (
+        dd.dedisperse_direct, dd.subband_stage1, dd.subband_stage2)}
+    print(f"[dsabf] search on {device}: host RSS {process_rss_mb():.1f} MB, "
+          f"bank launches {json.dumps(launches)}", file=sys.stderr)
+
+
+def _finish_monitor_search(mon, src: str, args, meta, dms, n_blocks,
+                           extra_note: str = "", src_meta=None) -> None:
+    """Shared tail of the monitor-fed search paths: summary line,
+    candidate table, optional .cand file.  Source-specific metadata
+    (``live``, ``ring``, ``file``, ``stream``) comes in via
+    ``src_meta``."""
+    from dsabeamformer_tpu_torch.ops.dedisperse import (
+        Candidate,
+        write_candidates,
+    )
+
+    cands = sorted(mon.candidates, key=lambda c: -c.snr)
+    print(f"# {src}: {n_blocks} block(s), "
+          f"{mon.searched_windows} window(s), {len(cands)} "
+          f"candidate(s)"
+          + (f" (+{mon.rfi_rejected} coincidence-rejected RFI)"
+             if mon.rfi_rejected else "")
+          + (f", {mon.gaps} stream gap(s)" if mon.gaps else "")
+          + extra_note, file=sys.stderr)
+    _search_device_note(mon.device)
+    print(Candidate.HEADER)
+    for c in cands[: args.limit]:
+        print(c.row())
+    if args.cand:
+        write_candidates(args.cand, cands, dict(
+            src_meta or {}, **_epoch_meta(meta), **{
+                "beam": args.beam,
+                "tsamp_s": meta["tsamp_s"],
+                "f_lo_mhz": meta["f_lo_mhz"],
+                "f_hi_mhz": meta["f_hi_mhz"],
+                "stokes": args.stokes,
+                "n_dm_trials": len(dms), "dm_min": dms[0],
+                "dm_max": dms[-1], "threshold": args.threshold,
+                "coincidence_rejected": mon.rfi_rejected,
+            }))
+        print(f"# wrote {args.cand} ({len(cands)} candidates)",
+              file=sys.stderr)
+
+
+def _search_stream_file(args, device) -> int:
+    """``dsabf-torch search big.dada --stream``: block-fed offline search
+    of ONE DADA product through the SearchMonitor — the product memmap is
+    read one block at a time, so peak memory is a block, not the
+    observation (a whole-night 256-beam product doesn't fit in host RAM
+    as a beam stack).  Coincidence applies per window (the live
+    semantics) instead of over the whole run."""
+    from dsabeamformer_tpu_torch.ingest.dada import read_product_file
+    from dsabeamformer_tpu_torch.utils.quicklook import (
+        _STOKES_INDEX,
+        _dada_meta,
+    )
+
+    path = args.paths[0]
+    try:
+        hdr, powers = read_product_file(path)
+    except (OSError, ValueError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 1
+    if powers.shape[0] == 0:
+        print("error: product file has no complete blocks",
+              file=sys.stderr)
+        return 1
+    inco = powers.ndim == 3
+    stokes = powers.ndim == 5
+    if args.stokes != "I" and not stokes:
+        print(f"error: no Stokes {args.stokes}: power-only product",
+              file=sys.stderr)
+        return 1
+    meta = _dada_meta(hdr, 0, args.stokes, powers.shape[1])
+    try:
+        mon, dms = _build_search_monitor(
+            args, meta, inco, None if inco else int(powers.shape[-1]),
+            int(powers.shape[1]), device, src_kind="product")
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 1
+    n = powers.shape[0] if args.blocks is None else min(
+        args.blocks, powers.shape[0])
+    s_idx = _STOKES_INDEX[args.stokes]
+    try:
+        for i in range(n):
+            blk = powers[i]
+            if stokes:
+                blk = blk[:, :, s_idx]  # [F, T, B] plane
+            if inco:
+                mon.observe(i, None, inco=blk)
+            else:
+                mon.observe(i, np.ascontiguousarray(blk))
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 1
+    mon.flush()
+    _finish_monitor_search(mon, path, args, meta, dms, n,
+                           src_meta={"file": path, "stream": True})
+    return 0
+
+
+def cmd_search(args) -> int:
+    """Single-pulse search of a beam product over a DM-trial bank on
+    ``--device`` (the CUDA banks of ``csrc/dedisperse.cu`` on a card).
+    Prints a heimdall-style candidate table; ``--cand`` writes it to a
+    file with the search parameters in the comment header.  With ``--key``
+    it instead attaches to LIVE output-product ring(s) (see
+    `_search_live_ring`)."""
+    import torch
+
+    from dsabeamformer_tpu_torch.models.weights import parse_zap
+    from dsabeamformer_tpu_torch.ops.dedisperse import (
+        DEFAULT_WIDTHS,
+        Candidate,
+        coincidence_filter,
+        delay_table,
+        dm_trial_grid,
+        search_spectrogram,
+        search_spectrograms,
+        write_candidates,
+    )
+    from dsabeamformer_tpu_torch.utils.quicklook import load_dynamic_spectra
+
+    device = _resolve_device(args)
+    if device is None:
+        return 2
+    if not 0 < args.coincidence_frac <= 1:
+        # validated BEFORE the search runs, not in the filter after it
+        print(f"error: --coincidence-frac must be in (0, 1], got "
+              f"{args.coincidence_frac}", file=sys.stderr)
+        return 1
+    if args.key and args.paths:
+        print("error: give product file(s) OR --key, not both",
+              file=sys.stderr)
+        return 1
+    if args.key:
+        return _search_live_ring(args, device)
+    if not args.paths:
+        print("error: need product file(s) or --key", file=sys.stderr)
+        return 1
+    if args.stream:
+        if len(args.paths) != 1:
+            print("error: --stream takes ONE DADA product (per-beam "
+                  ".fil sets load whole by design)", file=sys.stderr)
+            return 1
+        return _search_stream_file(args, device)
+    # Beam spec: an index, a '3,7,100-110' set, or 'all'.  Several input
+    # files (the per-beam .fil layout run --fil-dir writes) each
+    # contribute their own beam.
+    if args.beam.strip().lower() == "all":
+        beams = "all"
+    else:
+        try:
+            beams = parse_zap(args.beam)
+        except ValueError as e:
+            print(f"error: bad --beam spec: {e}", file=sys.stderr)
+            return 1
+    spectra = []  # (beam_label, [T, F])
+    meta = None
+    try:
+        for path in args.paths:
+            m, pairs = load_dynamic_spectra(path, beams=beams,
+                                            stokes=args.stokes)
+            if meta is None:
+                meta = m
+            elif any(abs(m.get(k, 0) - meta.get(k, 1)) > 1e-9
+                     for k in ("f_lo_mhz", "f_hi_mhz", "tsamp_s")):
+                raise ValueError(
+                    f"{path}: band/cadence disagrees with {args.paths[0]} "
+                    f"(searching mixed products makes no sense)")
+            spectra.extend(pairs)
+    except (OSError, ValueError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 1
+    labels = [b for b, _ in spectra]
+    if len(set(labels)) != len(labels):
+        dup = sorted({b for b in labels if labels.count(b) > 1})
+        print(f"error: duplicate beam label(s) {dup} across inputs — "
+              f"per-beam .fil files must carry distinct ibeam headers "
+              f"(dsabf-torch run --fil-dir stamps them)",
+              file=sys.stderr)
+        return 1
+    for key in ("f_lo_mhz", "f_hi_mhz", "tsamp_s"):
+        if key not in meta:
+            print(f"error: cannot search: product header lacks {key}",
+                  file=sys.stderr)
+            return 1
+    if any(x.shape[0] == 0 for _, x in spectra):
+        print("error: product file has no complete blocks", file=sys.stderr)
+        return 1
+    x = spectra[0][1]
+    tsamp = float(meta["tsamp_s"])
+    freqs = np.linspace(meta["f_lo_mhz"], meta["f_hi_mhz"], x.shape[1])
+    if args.dm_step:
+        dms = np.arange(args.dm_min, args.dm_max + args.dm_step,
+                        args.dm_step)
+    else:
+        dms = dm_trial_grid(meta["f_lo_mhz"], meta["f_hi_mhz"], tsamp,
+                            dm_max=args.dm_max, dm_min=args.dm_min,
+                            tol=args.dm_tol)
+    err = _dm_grid_error(dms, tsamp, args.dm_max)
+    if err:
+        print(f"error: {err}", file=sys.stderr)
+        return 1
+    widths = (tuple(args.widths) if args.widths else
+              tuple(w for w in DEFAULT_WIDTHS if w < x.shape[0]))
+    zap_chans = None
+    if args.zap:
+        try:
+            zap_chans = parse_zap(args.zap)
+        except ValueError as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 1
+    kw = dict(widths=widths, threshold=args.threshold, chunk_t=args.chunk,
+              topk=args.topk, zap=zap_chans, zerodm=args.zerodm,
+              method=args.method, device=device)
+    t0 = time.perf_counter()
+    try:
+        if len(spectra) > 1 and len({xb.shape for _, xb in spectra}) == 1:
+            # One observation's beams share [T, F]: the beam-batched bank.
+            by_beam = search_spectrograms(spectra, freqs, tsamp, dms, **kw)
+        else:
+            by_beam = {}
+            for b, xb in spectra:
+                cs = search_spectrogram(xb, freqs, tsamp, dms, **kw)
+                for c in cs:
+                    c.beam = b
+                by_beam[b] = cs
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 1
+    n_rfi = 0
+    if len(spectra) > 1 and not args.no_coincidence:
+        band_span = delay_table(freqs, dms, tsamp).max(axis=1)
+        by_beam, rfi_events = coincidence_filter(
+            by_beam, band_span, n_beams_searched=len(spectra),
+            frac=args.coincidence_frac)
+        for ev in rfi_events:
+            _emit_search_rfi(ev)
+        n_rfi = len(rfi_events)
+    cands = sorted((c for cs in by_beam.values() for c in cs),
+                   key=lambda c: -c.snr)
+    if device.type == "cuda":
+        # The candidates are host values already; nothing of the search
+        # may still run on the card when the clock stops.
+        torch.cuda.synchronize(device)
+    dt = time.perf_counter() - t0
+    span_s = x.shape[0] * tsamp
+    src = (args.paths[0] if len(args.paths) == 1
+           else f"{len(args.paths)} files")
+    print(f"# {src}: {len(spectra)} beam(s) x {x.shape[0]} samples x "
+          f"{x.shape[1]} chans ({span_s:.2f} s), {len(dms)} DM trials "
+          f"[{dms[0]:g}, {dms[-1]:.1f}] widths {list(widths)} "
+          f"thresh {args.threshold:g}  ->  {len(cands)} candidates"
+          + (f" (+{n_rfi} coincidence-rejected RFI)" if n_rfi else "")
+          + f" in {dt:.2f} s ({len(spectra) * span_s / dt:.1f}x realtime)",
+          file=sys.stderr)
+    _search_device_note(device)
+    print(Candidate.HEADER)
+    for c in cands[: args.limit]:
+        print(c.row())
+    if len(cands) > args.limit:
+        print(f"# ... {len(cands) - args.limit} more (raise --limit, "
+              f"or see --cand file)")
+    if args.cand:
+        write_candidates(args.cand, cands, dict(_epoch_meta(meta), **{
+            "file": src, "beams": len(spectra),
+            "stokes": meta["stokes"], "tsamp_s": tsamp,
+            "f_lo_mhz": meta["f_lo_mhz"], "f_hi_mhz": meta["f_hi_mhz"],
+            "n_dm_trials": len(dms), "dm_min": dms[0], "dm_max": dms[-1],
+            "widths": list(widths), "threshold": args.threshold,
+            "coincidence_rejected": n_rfi,
+        }))
+        print(f"# wrote {args.cand} ({len(cands)} candidates)",
+              file=sys.stderr)
+    return 0
+
+
+def cmd_trace(args) -> int:
+    """Trace a few block steps on ``--device`` (``torch.profiler``; CUDA
+    activity on a card) and print the per-op duration breakdown."""
+    from dsabeamformer_tpu_torch.utils.profiling import (
+        DEFAULT_LOG_DIR,
+        profile_block_step,
+    )
+
+    cfg = _load_cfg(args)
+    device = _resolve_device(args)
+    if device is None:
+        return 2
+    args.out = args.out or DEFAULT_LOG_DIR
+    try:
+        rows = profile_block_step(cfg, n_blocks=args.blocks,
+                                  log_dir=args.out, device=device)
+    except RuntimeError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 1
+    print(json.dumps({"log_dir": args.out, "blocks": args.blocks,
+                      "ops": rows}))
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="dsabf-torch", description=__doc__,
                                  formatter_class=argparse.
@@ -1459,6 +2210,155 @@ def main(argv=None) -> int:
                    help="per-subband beamNNNN.fil files (any order)")
     p.add_argument("--out", required=True, help="merged output .fil")
     p.set_defaults(fn=cmd_splice)
+
+    p = sub.add_parser("trace", help="capture + summarize a device trace")
+    _add_common(p)
+    p.add_argument("--blocks", type=int, default=3)
+    p.add_argument("--out",
+                   help="trace directory (a .trace.json.gz for Perfetto "
+                        "or chrome://tracing; default dsabf-trace in the "
+                        "temporary directory)")
+    _device_arg(p, "trace on this device")
+    p.set_defaults(fn=cmd_trace)
+
+    p = sub.add_parser(
+        "waterfall",
+        help="quick-look time-frequency waterfall of a product file")
+    p.add_argument("path", help=".fil or .dada beam-product file")
+    p.add_argument("--beam", type=int, default=None,
+                   help="beam index (DADA products; .fil files are "
+                        "already per-beam; default 0, or the "
+                        "candidate's beam with --cand)")
+    p.add_argument("--stokes", default="I", choices=list("IQUV"),
+                   help="Stokes plane for nifs=4 / Stokes products")
+    p.add_argument("--cand", help="a `dsabf-torch search --cand` file: vet "
+                                  "one of its rows — inherits the "
+                                  "row's DM/beam and windows the view "
+                                  "on the detection")
+    p.add_argument("--idx", type=int, default=0,
+                   help="candidate row to vet (0 = brightest; rows "
+                        "are SNR-sorted)")
+    p.add_argument("--rows", type=int, default=32,
+                   help="terminal rows (time bins)")
+    p.add_argument("--cols", type=int, default=78,
+                   help="terminal columns (frequency bins)")
+    p.add_argument("--clip", type=float, nargs=2, default=(1.0, 99.0),
+                   metavar=("LO", "HI"),
+                   help="contrast percentiles (robust to RFI pixels)")
+    p.add_argument("--dm", type=float,
+                   help="incoherently dedisperse at this DM (pc/cm^3) "
+                        "before rendering, and append the collapsed "
+                        "time profile — the known-pulsar/FRB check")
+    p.add_argument("--out", help="also write an 8-bit PGM image "
+                                 "(downsampled to --rows x --cols "
+                                 "unless --full)")
+    p.add_argument("--full", action="store_true",
+                   help="PGM at native resolution (no downsample)")
+    p.set_defaults(fn=cmd_waterfall)
+
+    p = sub.add_parser(
+        "fold",
+        help="fold a product at a pulsar period (known-source check)")
+    p.add_argument("path", help=".fil or .dada beam-product file")
+    p.add_argument("--period", type=float, required=True,
+                   help="fold period [s] (the catalog pulsar's)")
+    p.add_argument("--dm", type=float, default=0.0,
+                   help="dedisperse at this DM [pc/cm^3] before folding")
+    p.add_argument("--beam", type=int, default=0,
+                   help="beam index (DADA products)")
+    p.add_argument("--stokes", default="I", choices=list("IQUV"),
+                   help="Stokes plane for Stokes products")
+    p.add_argument("--bins", type=int, default=64,
+                   help="phase bins (capped at period/tsamp)")
+    p.add_argument("--cols", type=int, default=78,
+                   help="terminal columns (frequency bins)")
+    p.add_argument("--clip", type=float, nargs=2, default=(1.0, 99.0),
+                   metavar=("LO", "HI"),
+                   help="contrast percentiles")
+    p.add_argument("--out", help="also write the [bins, F] profile as "
+                                 "an 8-bit PGM image")
+    p.set_defaults(fn=cmd_fold)
+
+    p = sub.add_parser(
+        "search",
+        help="single-pulse search of a product over a DM-trial bank")
+    p.add_argument("paths", nargs="*", metavar="path",
+                   help=".fil or .dada beam-product file(s) — multiple "
+                        "per-beam .fil files search together with "
+                        "cross-beam coincidence RFI rejection")
+    p.add_argument("--key", help="search LIVE output-product ring(s) "
+                                 "(`dsabf-torch run --output-key`) "
+                                 "instead of files — the separate-process "
+                                 "search-consumer deployment; a "
+                                 "comma-separated list joins the "
+                                 "per-subband deployment's rings into "
+                                 "one full-band search (band-ordered, "
+                                 "contiguity-checked, seq-aligned)")
+    p.add_argument("--timeout", type=float, default=5.0,
+                   help="ring attach timeout / read poll interval (s)")
+    p.add_argument("--max-idle", type=float,
+                   help="give up after this many seconds without data "
+                        "(default: wait until end-of-data — a producer "
+                        "warms up for seconds)")
+    p.add_argument("--stream", action="store_true",
+                   help="feed ONE DADA product block-by-block through "
+                        "the streaming monitor instead of loading it "
+                        "whole — bounded memory for whole-night "
+                        "products (coincidence applies per window)")
+    p.add_argument("--blocks", type=int,
+                   help="stop after N ring blocks (default: until "
+                        "end-of-data)")
+    p.add_argument("--beam", default="0",
+                   help="beams to search in DADA products: an index, "
+                        "a '3,7,100-110' set, or 'all' (multi-beam "
+                        "searches get coincidence RFI rejection)")
+    p.add_argument("--stokes", default="I", choices=list("IQUV"),
+                   help="Stokes plane to search (usually I)")
+    p.add_argument("--dm-min", type=float, default=0.0)
+    p.add_argument("--dm-max", type=float, default=1000.0,
+                   help="top of the DM-trial range [pc/cm^3]")
+    p.add_argument("--dm-step", type=float,
+                   help="fixed trial spacing (default: auto from "
+                        "--dm-tol and the band/cadence)")
+    p.add_argument("--dm-tol", type=float, default=1.25,
+                   help="auto-grid spacing in output samples of "
+                        "band-edge differential delay per trial")
+    p.add_argument("--threshold", type=float, default=7.0,
+                   help="matched-filter S/N floor")
+    p.add_argument("--widths", type=int, nargs="+",
+                   help="boxcar widths in output samples "
+                        "(default 1 2 4 8 16 32)")
+    p.add_argument("--chunk", type=int, default=16384,
+                   help="host-side chunk length [output samples]")
+    p.add_argument("--topk", type=int, default=4,
+                   help="peaks kept per (width, trial) per chunk")
+    p.add_argument("--limit", type=int, default=20,
+                   help="candidate rows printed (file gets all)")
+    p.add_argument("--cand", help="write a candidate file (heimdall-"
+                                  "style columns, '#' header)")
+    p.add_argument("--zap",
+                   help="PRODUCT channels to neutralize before the "
+                        "search, e.g. '12,100-110' (dsabf-torch rfi's "
+                        "output frame divided by navg_freq)")
+    p.add_argument("--zerodm", action="store_true",
+                   help="subtract each sample's cross-channel mean "
+                        "(classic zero-DM filter: removes broadband "
+                        "undispersed RFI, costs ~1/F of pulse power)")
+    p.add_argument("--method", default="direct",
+                   choices=["conv", "direct", "subband"],
+                   help="dedispersion bank: brute-force (exact; the "
+                        "offline default), two-stage subband gather, "
+                        "or conv (the two-stage plan the live monitor "
+                        "uses — <=1 extra sample of smearing)")
+    p.add_argument("--no-coincidence", action="store_true",
+                   help="keep candidates that fire in many beams at "
+                        "once (default: they are RFI — a sky pulse is "
+                        "localized, sidelobe RFI is everywhere)")
+    p.add_argument("--coincidence-frac", type=float, default=0.25,
+                   help="fraction of searched beams a linked cluster "
+                        "must hit to be tagged RFI (floor: 3 beams)")
+    _device_arg(p, "search on this device")
+    p.set_defaults(fn=cmd_search)
 
     p = sub.add_parser("ring", help="inspect a ring's counters (JSON)")
     p.add_argument("--key", default="dsa")

@@ -11,6 +11,7 @@ tests/test_torch_pipeline_search.py)."""
 
 import json
 import os
+import shutil
 
 import numpy as np
 import pytest
@@ -742,20 +743,38 @@ def test_scan_commands_from_a_ring_match_jax(capsys, cmd):
             assert p[k] == j[k], k
 
 
-@pytest.mark.parametrize("cmd", ["weights", "levels", "rfi"])
+@pytest.mark.parametrize("cmd", ["weights", "levels", "rfi", "search",
+                                 "trace"])
 def test_device_cpu_and_missing_card(tmp_path, capsys, monkeypatch, cmd):
-    """weights, levels and rfi take ``--device`` as run does: ``cpu`` runs
-    on the host; ``0``, ``cuda:0`` or none with no usable card exits 2
-    with ``resolve_device``'s message and writes nothing."""
+    """weights, levels, rfi, search and trace take ``--device`` as run
+    does: ``cpu`` runs on the host; ``0``, ``cuda:0`` or none with no
+    usable card exits 2 with ``resolve_device``'s message and writes
+    nothing."""
     from dsabeamformer_tpu_torch.utils.device import resolve_device
 
     cap = _capture(tmp_path / "cap.raw", TINY, [70])
     out_file = tmp_path / "w.npz"
-    argv = [cmd, "--config", "tiny"] + (
-        ["--out", str(out_file)] if cmd == "weights"
-        else ["--input-file", cap])
+    if cmd == "search":
+        prod = tmp_path / "p.dada"
+        assert pcli.main(["run", "--config", "tiny", "--input-file", cap,
+                          "--output-file", str(prod), "--device",
+                          "cpu"]) == 0
+        out_file = tmp_path / "s.cand"
+        argv = ["search", str(prod), "--beam", "all", "--dm-max", "0.001",
+                "--cand", str(out_file)]
+    elif cmd == "trace":
+        out_file = tmp_path / "trace"
+        argv = ["trace", "--config", "tiny", "--blocks", "1", "--out",
+                str(out_file)]
+    else:
+        argv = [cmd, "--config", "tiny"] + (
+            ["--out", str(out_file)] if cmd == "weights"
+            else ["--input-file", cap])
     rc, out, _ = _main(pcli, argv + ["--device", "cpu"], capsys)
-    assert rc == 0 and json.loads(out)
+    assert rc == 0 and out.strip()
+    if cmd != "search":
+        assert json.loads(out)
+    shutil.rmtree(out_file, ignore_errors=True)
     out_file.unlink(missing_ok=True)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError) as want:

@@ -1367,3 +1367,118 @@ def test_cli_weights_and_scans_on_the_card(dev, tmp_path, capsys):
                 assert card[k] == host[k], k
         if cmd == "rfi":
             assert 5 in card["flagged"]
+
+
+def _write_beam_fils(tmp_path, n_beams=8, t=2048, nf=64, seed=40):
+    """Per-beam 32-bit .fil files of one observation: a dispersed pulse
+    (DM 90) in beams 3 and 4, a broadband spike in every beam."""
+    from dsabeamformer_tpu_torch.config import dm_delays_s
+    from dsabeamformer_tpu_torch.ingest.sigproc import _encode_header_dict
+
+    tsamp = 1.048576e-3
+    freqs = np.linspace(1280.0, 1530.0, nf)
+    shifts = np.rint(dm_delays_s(freqs, 90.0, freqs[-1]) / tsamp).astype(int)
+    paths = []
+    for b in range(n_beams):
+        x = np.random.default_rng(seed + b).normal(size=(t, nf)).astype(
+            np.float32)
+        if b in (3, 4):
+            for f in range(nf):
+                x[700 + shifts[f]: 704 + shifts[f], f] += 1.0
+        x[300:302] += 3.0
+        hdr = {"fch1": 1530.0, "foff": -250.0 / (nf - 1), "nchans": nf,
+               "nbits": 32, "nifs": 1, "tsamp": tsamp, "ibeam": b}
+        p = tmp_path / f"beam{b:04d}.fil"
+        with open(p, "wb") as fh:
+            fh.write(_encode_header_dict(hdr))
+            fh.write(np.ascontiguousarray(x[:, ::-1]).tobytes())
+        paths.append(str(p))
+    return paths
+
+
+@pytest.mark.parametrize("method", ["direct", "subband", "conv"])
+def test_cli_search_on_the_card_equals_cpu(dev, tmp_path, capsys, method):
+    """``dsabf-torch search --device 0`` over a multi-beam product runs the
+    banks' kernels and prints, row for row, what ``--device cpu`` prints
+    (coincidence on, and off)."""
+    from dsabeamformer_tpu_torch import cli
+    from dsabeamformer_tpu_torch.ops import dedisperse as dd
+
+    paths = _write_beam_fils(tmp_path)
+    for extra in ([], ["--no-coincidence", "--limit", "500"]):
+        rows = {}
+        for device in ("0", "cpu"):
+            for k in (dd.dedisperse_direct, dd.subband_stage1,
+                      dd.subband_stage2):
+                k.launches = 0
+            capsys.readouterr()
+            assert cli.main(["search", *paths, "--dm-max", "300",
+                             "--method", method, "--device", device,
+                             *extra]) == 0
+            rows[device] = [l for l in capsys.readouterr().out.splitlines()
+                            if l.strip() and not l.startswith("#")]
+            launched = (dd.dedisperse_direct.launches if method == "direct"
+                        else dd.subband_stage1.launches)
+            assert (launched > 0) == (device == "0")
+        assert rows["0"] and rows["0"] == rows["cpu"]
+
+
+def test_cli_search_joined_rings_on_the_card_equals_cpu(dev, capsys):
+    """``search --key k0,k1 --device 0`` over two subband product rings
+    (the same seeded blocks as for ``--device cpu``): the same rows."""
+    import os
+
+    from dsabeamformer_tpu_torch import cli
+    from dsabeamformer_tpu_torch.ingest.ring import RingBuffer
+    from dsabeamformer_tpu_torch.pipeline import RingSink
+
+    cfg = TINY.replace(navg_time=2)
+    width = cfg.n_chan // 2
+    subs = [cfg.subband(0, width), cfg.subband(width, width)]
+    rows = {}
+    for device in ("0", "cpu"):
+        rng = np.random.default_rng(9)
+        keys = [f"tcardjoin{device}{os.getpid()}_{i}" for i in range(2)]
+        rings = []
+        try:
+            for key, sub in zip(keys, subs):
+                fo, to, bo = sub.out_block_shape
+                ring = RingBuffer(key, create=True, nbufs=8,
+                                  bufsz=fo * to * bo * 4)
+                rings.append(ring)
+                sink = RingSink(ring, sub)
+                for seq in range(6):
+                    blk = rng.standard_normal((fo, to, bo)).astype(
+                        np.float32)
+                    if seq == 2:
+                        blk[:, 10:14, 5] += 4.0
+                    sink.write(seq, blk)
+                ring.set_eod()
+            capsys.readouterr()
+            assert cli.main(["search", "--key", ",".join(keys), "--beam",
+                             "all", "--no-coincidence", "--dm-max", "5",
+                             "--threshold", "7", "--widths", "1", "2", "4",
+                             "--timeout", "2", "--device", device]) == 0
+            rows[device] = [l for l in capsys.readouterr().out.splitlines()
+                            if l.strip() and not l.startswith("#")]
+        finally:
+            for r in rings:
+                r.destroy()
+    assert rows["0"] and rows["0"] == rows["cpu"]
+
+
+def test_cli_trace_on_the_card(dev, tmp_path, capsys):
+    """``dsabf-torch trace --device 0`` traces the card: its rows name the
+    detect kernel once a block (a 256-channel DSA-10 block, so that the
+    kernel is among the costliest rows)."""
+    import json
+
+    from dsabeamformer_tpu_torch import cli
+
+    capsys.readouterr()
+    assert cli.main(["trace", "--config", "dsa10", "--set", "n_chan=256",
+                     "--blocks", "3", "--out", str(tmp_path), "--device",
+                     "0"]) == 0
+    rec = json.loads(capsys.readouterr().out)
+    kernels = [r for r in rec["ops"] if "detect_mma_kernel" in r["name"]]
+    assert kernels and kernels[0]["count"] == 3, rec["ops"]

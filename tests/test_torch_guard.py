@@ -271,6 +271,16 @@ def test_cli_and_its_children_import_no_jax(tmp_path):
         ["launch", "--subbands", "2", "--devices", "cpu,cpu", "--",
          "--config", "tiny", "--input-file", t + "/cap{i}.raw",
          "--output-file", t + "/out{i}.dat"],
+        ["search", f"{t}/fil/beam0000.fil", f"{t}/fil/beam0001.fil",
+         "--dm-max", "10", "--cand", f"{t}/s.cand", "--device", "cpu"],
+        ["search", f"{t}/inco.dada", "--stream", "--beam", "incoherent",
+         "--dm-max", "10", "--device", "cpu"],
+        ["waterfall", f"{t}/fil/beam0000.fil", "--rows", "4", "--cols",
+         "4"],
+        ["fold", f"{t}/inco.dada", "--period",
+         str(4 * TINY.sample_period_s * TINY.navg_time)],
+        ["trace", "--config", "tiny", "--blocks", "1", "--out",
+         f"{t}/trace", "--device", "cpu"],
     ]
     code = (
         "import sys\n"
