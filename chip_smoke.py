@@ -11,7 +11,8 @@ Phases (each passes or raises; any failure exits non-zero with no result):
                mode's detect kernel; beam_voltages, every mode's voltage
                kernel; both on the tensor cores through mma_gemm.cuh) with
                nvcc for sm_90a from the checkout, one nvcc each, started
-               together, and prints ``ptxas -v``.
+               together (on a thread, while phase 32's first capture
+               process makes its blocks), and prints ``ptxas -v``.
 3. kernel vs plain -- at the full DSA10 preset (and the dsa10c compact
                wire), on one random-bytes block: the CUDA kernel against its
                plain PyTorch version on the same inputs, relative power error
@@ -244,12 +245,11 @@ The ring ingest and the live search (PR 10 of the port):
 
 The port's CLI, ``dsabf-torch`` (each command a subprocess on the card):
 
-32. cli     -- (run right after phase 2, while this process holds little
-               host memory) ``selftest --device 0`` and ``info``; then the
-               deployed
-               dsa10c configuration from a ring: ``simulate --pulse-dm 50``
-               (12 blocks: the pulse block, then 3 distinct noise blocks in
-               turn; a ring that holds them all) beside ``run --device 0
+32. cli     -- (run first, while this process holds little host memory)
+               the deployed dsa10c configuration from a ring: ``simulate
+               --pulse-dm 50`` (8 blocks: the pulse block, then 3 distinct
+               noise blocks in turn; a ring that holds them all; started
+               beside phase 2) and, once the kernels are built, ``run --device 0
                --fil-dir --fil-bits 8 --incoherent-file --rfi-auto
                --search-dm-max 100`` (32 beams, every 8th from 7,
                coincidence off), its record and per-block times logged (the
@@ -257,7 +257,8 @@ The port's CLI, ``dsabf-torch`` (each command a subprocess on the card):
                trial of 50, no candidate away from it at S/N 20 or more,
                and every .fil and the incoherent file byte-equal to an
                in-process stream over the sequence numbers the run
-               received; then ``launch --subbands 8 --devices
+               received; ``selftest --device 0`` and ``info``; then
+               ``launch --subbands 8 --devices
                0,0,0,0,0,0,0,0`` over eight ``simulate --config dsa110
                --subband i/8`` rings (each its own noise rms, 2 distinct
                blocks in turn, 6 blocks, 32-bit .fil of every beam),
@@ -275,6 +276,42 @@ The port's CLI, ``dsabf-torch`` (each command a subprocess on the card):
                within a DM trial of 50; last, ``trace --config dsa10
                --blocks 3``: the detect kernel 3 times in its rows, the
                kernels' busy share of the traced window logged.
+
+The calibration loop, the (l, m) beam grids, the beam pattern and bench
+(each path's detect launches counted from 0 and booked to the base row of its
+configuration's a_compute):
+
+33. calibrate -- full dsa10c width: one calibrator block at beam 100 (the
+               JAX package's corrupted instrument: gains 1 +- 0.15 in
+               amplitude and 1.5 rad in phase per antenna and channel, a
+               source of amplitude 2.5 in noise of rms 0.15) drawn on the
+               card and written to a .dada; ``dsabf-torch calibrate
+               --device 0`` solves it, and ``solve_gains`` solves the same
+               bytes on the card (timed, upload included) and on the CPU:
+               the tables within 1e-6 of the CPU's, the phases within 0.1
+               rad of the injected inverse; through make_weights(cal=) and
+               the detect kernel the target beam peaks, at >= 0.8x the
+               exact inverse's power and >= 1.5x the uncorrected.
+34. lm      -- DSA110.subband(0, 256), its 110 dishes on a seeded 600 m
+               square, a 16 x 32 (l, m) grid of the 512 beams:
+               make_weights_lm on the card within 1e-4 of the golden (its
+               phase is float32 there); a 2-D point source at grid beam 300
+               drawn on the card through the detect kernel within 1e-5 of
+               its plain version and peaking there; a 128-channel,
+               512-sample cut within 1e-3 of the float64 golden.
+35. beampattern -- beam_response at full dsa110 and dsa10 and
+               beam_response_lm at full dsa110 (the [lm] layout and grid) on
+               the card in complex128, timed: each swept source peaks in its
+               matched beam, single channels within 1e-9 of the CPU's, the
+               central beam's half-power width within 0.7-1.3 of
+               beam_fwhm_rad; then ``dsabf-torch beampattern --config dsa10
+               --device 0``: a PNG, or, on a host without matplotlib, exit 2
+               with one line naming it (logged as a render not run).
+36. bench   -- ``dsabf-torch bench --config dsa10`` (kernel mode, 16
+               blocks: within 5% of phase 5's int8x2 time) and ``bench
+               --config dsa10c --bench-mode stream`` (16 blocks, 0 dropped),
+               both records printed; ``bench_kernel`` at dsa10c in this
+               process counts the launches.
 
 Each streamed phase, and the voltage paths, set the launch counts to 0 just
 before their run and read them just after.  The last two lines are a JSON
@@ -317,7 +354,12 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from dsabeamformer_tpu_torch.config import DSA10, DSA10_COMPACT, DSA110
+from dsabeamformer_tpu_torch.config import (
+    DSA10,
+    DSA10_COMPACT,
+    DSA110,
+    SPEED_OF_LIGHT_M_S,
+)
 from dsabeamformer_tpu_torch.ingest import dada
 from dsabeamformer_tpu_torch.ingest.generator import (
     make_dispersed_pulse_block,
@@ -331,9 +373,18 @@ from dsabeamformer_tpu_torch.ingest.sigproc import (
     FilterbankSink,
     read_filterbank_header,
 )
+from dsabeamformer_tpu_torch.models.arrays import ArrayLayout, array_for
+from dsabeamformer_tpu_torch.models.beampattern import (
+    beam_fwhm_rad,
+    beam_response,
+    beam_response_lm,
+)
 from dsabeamformer_tpu_torch.models.calibration import CalTable
+from dsabeamformer_tpu_torch.models.calsolver import solve_gains
 from dsabeamformer_tpu_torch.models.weights import (
     make_weights,
+    make_weights_lm,
+    weights_lm_numpy_golden,
     weights_numpy_golden,
     zap_weights,
 )
@@ -361,6 +412,7 @@ from dsabeamformer_tpu_torch.ops.dedisperse import (
     subband_stage2_plain,
     bank_paths,
 )
+from dsabeamformer_tpu_torch.ops.packing import pack_4r4i
 from dsabeamformer_tpu_torch.ops.quantize import prepare_weights
 from dsabeamformer_tpu_torch.ops.reference import (
     beamform_block_ref,
@@ -373,6 +425,7 @@ from dsabeamformer_tpu_torch.pipeline import (
     StreamingBeamformer,
     SyntheticSource,
 )
+from dsabeamformer_tpu_torch.utils.bench import bench_kernel
 from dsabeamformer_tpu_torch.utils.metrics import tensor_core_utilization
 from dsabeamformer_tpu_torch.utils.profiling import trace_events
 from dsabeamformer_tpu_torch.utils.quicklook import (
@@ -429,6 +482,14 @@ class ChecksumSink:
         self.sums.append((seq, float(t.sum())))
         if seq == 0:
             self.first_equal = torch.equal(t, self.first_expected)
+
+
+def random_blocks(cfg, seeds) -> list:
+    """``make_random_bytes_block`` of each seed, made on two threads
+    (NumPy's generator runs without the GIL): the same bytes."""
+    with ThreadPoolExecutor(max_workers=2) as maker:
+        return list(maker.map(
+            lambda s: make_random_bytes_block(cfg, seed=s), seeds))
 
 
 def to_device(cfg, wire_np: np.ndarray) -> torch.Tensor:
@@ -509,15 +570,55 @@ def kernel_vs_plain(cfg, wire_np, qw) -> dict:
     return {"cfg": cfg.name, "rel_err": rel, "max_abs_err": max_abs}
 
 
+#: Host threads for the float64 golden references: NumPy's einsum runs
+#: without the GIL on one core each, while the card runs other checks.
+GOLDEN_POOL = ThreadPoolExecutor(max_workers=2)
+_GOLDEN: dict = {}
+
+
+def golden(kind, cfg, target=TARGET_BEAM):
+    """Future of ``make_golden(kind, cfg, target)``, started at the first
+    call for a geometry and shared by every later one: the references do
+    not depend on the weight mode or the layout (the ftpa block holds the
+    same voltages), so each is made once per run."""
+    key = (kind, cfg.replace(weight_mode="int8x2", input_layout="tfpa"),
+           target)
+    if key not in _GOLDEN:
+        _GOLDEN[key] = GOLDEN_POOL.submit(make_golden, *key)
+    return _GOLDEN[key]
+
+
+def make_golden(kind, cfg, target) -> tuple:
+    """``(wire, reference, table)``: the sub-band point source at beam
+    ``target`` (seed 7, noise rms 0.4) against the float64 golden model,
+    its power (``point``) or its four Stokes parameters (``stokes``), with
+    unity gains; or a noise block (seed 21, rms 2.5) through
+    ``CalTable.random(seed=11)`` (``noise``)."""
+    if kind == "noise":
+        cal = CalTable.random(cfg, seed=11)
+        wire = make_noise_block(cfg, rms=2.5, seed=21)
+        return wire, active_ref(beamform_block_ref, weights_numpy_golden(
+            cfg, cal=cal), wire, cfg), cal
+    wire = make_point_source_block(cfg, angle_rad=cfg.beam_angles_rad()[
+        target], noise_rms=0.4, seed=7)
+    ref = beamform_stokes_ref if kind == "stokes" else beamform_block_ref
+    return wire, active_ref(ref, weights_numpy_golden(cfg), wire, cfg), None
+
+
+def active_ref(ref, weights, wire, cfg):
+    """``ref`` (``beamform_block_ref`` / ``beamform_stokes_ref``) over the
+    active antennas alone: the padded slots' weights and bytes are zero, so
+    they add nothing but time (54 of DSA-10's 64 slots)."""
+    a = cfg.n_ant_active
+    return ref(weights[..., :a], wire[..., :a], cfg.input_layout,
+               cfg.navg_time)
+
+
 def phase_physics(cfg=DSA10.replace(n_chan=128, t_block=512),
                   target=TARGET_BEAM, bar=GOLDEN_RTOL) -> None:
     """A sub-band point source at beam ``target``, tfpa and ftpa, against
     the float64 golden model."""
-    angles = cfg.beam_angles_rad()
-    wire = make_point_source_block(cfg, angle_rad=angles[target],
-                                   noise_rms=0.4, seed=7)
-    p_ref = beamform_block_ref(weights_numpy_golden(cfg), wire,
-                               cfg.input_layout, cfg.navg_time)
+    wire, p_ref, _ = golden("point", cfg, target).result()
     # The ftpa block holds the same voltages, so the golden output is the same.
     for layout, blk in (("tfpa", wire),
                         ("ftpa", np.ascontiguousarray(wire.transpose(1, 0, 2, 3)))):
@@ -1122,10 +1223,8 @@ def phase_stokes_physics(cfg=DSA10.replace(n_chan=128, t_block=512),
                          target=TARGET_BEAM) -> None:
     """The sub-band point source through the Stokes kernel, against the
     float64 golden model; then the pure-X case."""
-    wire = make_point_source_block(cfg, angle_rad=cfg.beam_angles_rad()[
-        target], noise_rms=0.4, seed=7)
-    ref = torch.from_numpy(beamform_stokes_ref(
-        weights_numpy_golden(cfg), wire, cfg.input_layout, cfg.navg_time))
+    wire, ref, _ = golden("stokes", cfg, target).result()
+    ref = torch.from_numpy(ref)
     for layout, blk in (("tfpa", wire),
                         ("ftpa", np.ascontiguousarray(wire.transpose(1, 0, 2, 3)))):
         c = cfg.replace(input_layout=layout)
@@ -1398,7 +1497,7 @@ def phase_dsa110(smi) -> dict:
     128-channel sub-band.  Each stream runs with the counts set to 0."""
     cfg = DSA110
     t0 = time.perf_counter()
-    blocks = [make_random_bytes_block(cfg, seed=s) for s in (10, 11)]
+    blocks = random_blocks(cfg, (10, 11))
     log(f"[data] two {cfg.name} blocks {cfg.wire_block_shape} "
         f"({cfg.wire_block_bytes / 1e9:.3f} GB each) in "
         f"{time.perf_counter() - t0:.1f} s; kernel path "
@@ -1414,12 +1513,15 @@ def phase_dsa110(smi) -> dict:
     times = phase_resident_variants(cfg, blocks, qw, checked, smi,
                                     DSA110_VARIANTS)
     del qw
+    log(f"[dsa110] variants, physics and times in "
+        f"{time.perf_counter() - t0:.1f} s")
 
     sub = DSA110_SUBBAND
     sub_blocks = [make_random_bytes_block(sub, seed=s) for s in (12, 13)]
     phase_transfers(sub, sub_blocks[0])
     modes = phase_dsa110_modes(blocks, sub_blocks, smi)
     del blocks
+    log(f"[dsa110] modes done at {time.perf_counter() - t0:.1f} s")
     qs = prepare_weights(sub, make_weights(sub, device=DEV))
     launches = collections.Counter()
     for products in ("power", "stokes"):
@@ -1500,12 +1602,9 @@ def phase_mode_physics(mode) -> None:
     float64 golden model."""
     cfg = DSA10.replace(n_chan=128, t_block=512, weight_mode=mode)
     phase_physics(cfg, TARGET_BEAM, POINT_BARS[mode])
-    cal = CalTable.random(cfg, seed=11)
-    wire = make_noise_block(cfg, rms=2.5, seed=21)
+    wire, ref, cal = golden("noise", cfg).result()
     qw = prepare_weights(cfg, make_weights(cfg, cal=cal, device=DEV))
     p = gemm.beamform_power(to_device(cfg, wire), qw, cfg).cpu().numpy()
-    ref = beamform_block_ref(weights_numpy_golden(cfg, cal=cal), wire,
-                             cfg.input_layout, cfg.navg_time)
     err = relative_power_error(p, ref)
     log(f"[modes physics] {tag(cfg)} calibrated noise sub-band {p.shape}: "
         f"error vs float64 golden {err:.3e} (bar {NOISE_BARS[mode]:.0e})")
@@ -1571,6 +1670,7 @@ def phase_modes(blocks_np, smi) -> dict:
     channel.  mode -> its checks, times, stream launches and voltage row."""
     out = {}
     for mode in NEW_MODES:
+        t0 = time.perf_counter()
         cfg = DSA10.replace(weight_mode=mode)
         log_mode(cfg, "modes")
         checked, times = check_and_time(
@@ -1591,6 +1691,7 @@ def phase_modes(blocks_np, smi) -> dict:
         volt = phase_voltages(smi, cfg.replace(n_chan=VOLTAGE_CHANNELS))
         out[mode] = {"cfg": cfg, "checked": checked, "times": times,
                      "launches": launches, "volt": volt}
+        log(f"[modes] {tag(cfg)} in {time.perf_counter() - t0:.1f} s")
     return out
 
 
@@ -2723,7 +2824,8 @@ CLI = [sys.executable, "-m", "dsabeamformer_tpu_torch.cli"]
 #: waits for a slot (a full ring drops the block) and the run's block 0
 #: carries the 8-bit sink's auto-calibration, so a ring of 4 slots loses
 #: most of a short run (8 of 12 blocks on an H100); this one holds it all.
-N_CLI = 12
+#: Eight blocks: one search window of 4096 samples, then the flush.
+N_CLI = 8
 #: Distinct noise blocks its producer cycles after the pulse block (so the
 #: byte-equality below sees a block dropped, repeated or out of order).
 CLI_DISTINCT = 3
@@ -2929,12 +3031,15 @@ def files_equal(a_dir, b_dir) -> tuple:
     return len(names), bad, nbytes
 
 
-def cli_dsa10c(tmp, smi) -> tuple:
+def cli_dsa10c(tmp, smi, build) -> tuple:
     """The deployed dsa10c configuration run by ``dsabf-torch run`` from a
     capture ring fed by ``dsabf-torch simulate`` (a dispersed pulse at DM 50
     towards beam ``CLI_BEAM`` in block 0), against the same blocks through
     an in-process StreamingBeamformer with the same sinks and monitors.
-    Returns the blocks: the pulse block and the noise pool."""
+    ``run`` starts once ``build`` (the kernels' build) is done: a process
+    that found no library would build its own; the ring holds every block,
+    so none waits for it.  Returns the blocks: the pulse block and the
+    noise pool."""
     from dsabeamformer_tpu_torch.ingest.sigproc import _avg_freqs_mhz
     from dsabeamformer_tpu_torch.ops.dedisperse import read_candidates
 
@@ -2950,6 +3055,7 @@ def cli_dsa10c(tmp, smi) -> tuple:
              str(SEARCH_DM), "--pulse-t0", str(CLI_PULSE_T0), "--blocks",
              str(N_CLI), "--distinct", str(CLI_DISTINCT), "--nbufs",
              str(N_CLI), "--linger", "120"], tmp / "simulate.log"))
+        build.result()
         procs.append(start_cli(
             ["run", "--config", "dsa10c", "--key", key, "--device", "0",
              "--fil-dir", str(fil), "--fil-bits", "8", "--incoherent-file",
@@ -3345,25 +3451,35 @@ def cli_launch(tmp, smi) -> None:
                            f"the full band's by {worst:.3e}")
 
 
-def phase_cli(smi) -> dict:
-    """Phase 32: ``dsabf-torch selftest`` and ``info`` on ``cuda:0``, the
-    deployed dsa10c from a ring (``cli_dsa10c``), the joined live search
-    over two subband product rings (``cli_joined``), the DSA-110 launch
-    (``cli_launch``) and a trace (``cli_trace``, returned), each command a
-    subprocess."""
+def phase_cli(smi, build) -> dict:
+    """Phase 32: the deployed dsa10c from a ring (``cli_dsa10c``, whose
+    capture process makes its blocks while ``build``, the future of phase
+    2, runs), ``dsabf-torch selftest`` and ``info`` on ``cuda:0``, the
+    joined live search over two subband product rings (``cli_joined``), the
+    DSA-110 launch (``cli_launch``) and a trace (``cli_trace``, returned),
+    each command a subprocess."""
     t0 = time.perf_counter()
-    out = run_cli(["selftest", "--device", "0"], "selftest")
+    with tempfile.TemporaryDirectory() as tmp:
+        blocks = cli_dsa10c(Path(tmp), smi, build)
+    log(f"[cli] cli_dsa10c done at {time.perf_counter() - t0:.1f} s")
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [start_cli(["selftest", "--device", "0"],
+                           Path(tmp) / "selftest.log"),
+                 start_cli(["info", "--config", "dsa10c"],
+                           Path(tmp) / "info.log")]
+        try:
+            out = finish_cli(procs[0], "selftest", Path(tmp) / "selftest.log")
+            info = finish_cli(procs[1], "info", Path(tmp) / "info.log")
+        finally:
+            stop_all(procs)
     rec = json.loads(out)
     log(f"[cli] dsabf-torch selftest --device 0: {out.strip()}")
     if not rec["ok"] or rec["backend"] != "cuda":
         raise RuntimeError(f"[cli] selftest: {rec}")
-    out = run_cli(["info", "--config", "dsa10c"], "info")
+    out = info
     log(f"[cli] dsabf-torch info --config dsa10c: {out.strip()}")
     if json.loads(out)["backend"] != "cuda":
         raise RuntimeError(f"[cli] info: {out}")
-    with tempfile.TemporaryDirectory() as tmp:
-        blocks = cli_dsa10c(Path(tmp), smi)
-    log(f"[cli] cli_dsa10c done at {time.perf_counter() - t0:.1f} s")
     with tempfile.TemporaryDirectory() as tmp:
         cli_joined(Path(tmp), smi, *blocks)
     del blocks
@@ -3378,6 +3494,405 @@ def phase_cli(smi) -> dict:
     getattr(torch._C, "_host_emptyCache", lambda: None)()
     log(f"[cli] phase {time.perf_counter() - t0:.1f} s")
     return trace
+
+
+# --------------------------------------------------------------------- #
+# The calibration loop, the (l, m) beam grids, the beam pattern, bench
+# --------------------------------------------------------------------- #
+
+#: [calibrate]: the calibrator's beam, and the seed of its instrument and
+#: draws.  The JAX package's tests/test_calsolver.py::_corrupted_calibrator:
+#: gains of amplitude 1 +- 0.15 and phase sigma 1.5 rad per (antenna,
+#: channel), a source of amplitude 2.5, receiver noise of rms 0.15.
+CAL_TARGET = TARGET_BEAM
+CAL_SEED = 3
+#: Its bars (the JAX package's): solved phases within 0.1 rad of the
+#: injected inverse; the target's power at least 0.8x that through the exact
+#: inverse gains and 1.5x the uncorrected; the card's table within 1e-6 of
+#: the CPU's, relative.
+CAL_PHASE_BAR = 0.1
+CAL_GAIN_RTOL = 1e-6
+#: [lm]: the per-GPU DSA-110 process's configuration, its 110 dishes on a
+#: seeded 600 m square, a 16 x 32 (l, m) grid of its 512 beams over +-0.01,
+#: and the grid beam of the 2-D point source.
+LM_CFG = DSA110_SUBBAND
+LM_GRID = (16, 32)
+LM_HALF = 0.01
+LM_EXTENT_M = 300.0
+LM_TARGET = 300
+LM_SEED = 110
+#: make_weights_lm on the card against the golden: its phase is float32
+#: there, ~30 turns of path at most on this layout (~1e-5 rad).
+LM_WEIGHTS_ATOL = 1e-4
+#: The golden power error's cut (the NumPy reference at the full subband
+#: would take minutes): 128 channels x 512 samples, as [physics].
+LM_CUT = LM_CFG.replace(n_chan=VOLTAGE_CHANNELS, t_block=512)
+#: [beampattern]: card against CPU (complex128 both), relative to the peak;
+#: the channels compared; the FWHM's bar (tests/test_beampattern.py).
+PATTERN_RTOL = 1e-9
+PATTERN_FWHM_BAR = (0.7, 1.3)
+#: [bench]: the kernel record against [resident]'s int8x2 time.
+BENCH_BLOCKS = 16
+BENCH_RTOL = 0.05
+
+
+def point_source_on_card(cfg, path_m, amplitude, noise_rms, seed,
+                         gains=None) -> torch.Tensor:
+    """A point source plus receiver noise drawn on the card (torch's
+    generator, seeded): the model of ``make_point_source_block`` (a complex
+    Gaussian signal per channel, sample and pol, the geometric phase ``+2 pi
+    f path_a / c`` for each active antenna's path length ``path_m [a]``,
+    then ``gains [n_ant, n_chan]``, then noise, rounded and packed), its
+    draws and not its bytes.  The wire in ``cfg.input_layout``, on the
+    card."""
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(seed)
+    act = cfg.n_ant_active
+    f = torch.as_tensor(cfg.freqs_hz(), dtype=torch.float64,
+                        device=DEV)[:, None]
+    turns = f * torch.as_tensor(path_m, dtype=torch.float64,
+                                device=DEV)[None, :] / SPEED_OF_LIGHT_M_S
+    phase = 2.0 * np.pi * (turns - torch.round(turns))
+    steer = torch.polar(torch.ones_like(phase), phase)      # [F, a]
+    if gains is not None:
+        steer = steer * torch.as_tensor(np.asarray(gains)[:act].T,
+                                        dtype=torch.complex128, device=DEV)
+    steer = steer.to(torch.complex64)
+    shape = (cfg.n_chan, cfg.t_block, cfg.n_pol)
+    sig = torch.complex(torch.randn(shape, generator=gen, device=DEV),
+                        torch.randn(shape, generator=gen, device=DEV))
+    sig *= amplitude / np.sqrt(2.0)
+    wire = torch.zeros(shape + (cfg.n_ant,), dtype=torch.uint8, device=DEV)
+    for f0 in range(0, cfg.n_chan, 64):
+        v = sig[f0:f0 + 64, :, :, None] * steer[f0:f0 + 64, None, None, :]
+        re = v.real + noise_rms * torch.randn(v.shape, generator=gen,
+                                              device=DEV)
+        im = v.imag + noise_rms * torch.randn(v.shape, generator=gen,
+                                              device=DEV)
+        wire[f0:f0 + 64, ..., :act] = pack_4r4i(torch.round(re),
+                                                torch.round(im))
+    if cfg.input_layout == "tfpa":
+        wire = wire.permute(1, 0, 2, 3).contiguous()
+    return wire
+
+
+def calibrator_gains(cfg, seed=CAL_SEED) -> np.ndarray:
+    """``_corrupted_calibrator``'s instrument: ``[n_ant, n_chan]``
+    complex128, zero on the padded slots."""
+    rng = np.random.default_rng(seed)
+    act = cfg.n_ant_active
+    g = np.zeros((cfg.n_ant, cfg.n_chan), np.complex128)
+    amp = 1.0 + 0.15 * rng.standard_normal((act, cfg.n_chan))
+    ph = 1.5 * rng.standard_normal((act, cfg.n_chan))
+    g[:act] = amp * np.exp(1j * ph)
+    return g
+
+
+def gains_rel_err(got, want, act) -> float:
+    return float(np.max(np.abs(got[:act] - want[:act]) / np.abs(want[:act])))
+
+
+def phase_calibrate(tmp, smi) -> int:
+    """Phase 33: the calibration loop at full dsa10c width.  One calibrator
+    block (beam ``CAL_TARGET``, the corrupted instrument) drawn on the card
+    and written to a .dada; ``dsabf-torch calibrate --device 0`` solves it;
+    the port's ``solve_gains`` solves the same bytes on the card (upload
+    included) and on the CPU; then the table goes through ``make_weights(
+    cal=)`` -> ``prepare_weights`` -> ``beamform_power`` (the detect kernel,
+    counted from 0) beside the uncorrected weights and the exact inverse.
+    Returns the detect kernel's launches."""
+    cfg = DSA10_COMPACT
+    act = cfg.n_ant_active
+    angle = float(cfg.beam_angles_rad()[CAL_TARGET])
+    g = calibrator_gains(cfg)
+    t0 = time.perf_counter()
+    x = array_for(cfg).positions_m[:act]
+    wire = point_source_on_card(cfg, x * np.sin(angle), amplitude=2.5,
+                                noise_rms=0.15, seed=CAL_SEED, gains=g)
+    wire_np = wire.cpu().numpy()
+    cap = tmp / "cal.dada"
+    dada.write_dada_file(cap, cfg, [wire_np])
+    log(f"[calibrate] {cfg.name} calibrator block {tuple(wire.shape)} at beam "
+        f"{CAL_TARGET} ({np.rad2deg(angle):.6f} deg) drawn on the card and "
+        f"written in {time.perf_counter() - t0:.1f} s")
+    table = tmp / "cal.npz"
+    t0 = time.perf_counter()
+    proc = start_cli(["calibrate", "--config", cfg.name, "--input-file",
+                      str(cap), "--angle", repr(float(np.rad2deg(angle))),
+                      "--out", str(table), "--device", "0"],
+                     tmp / "calibrate.log")
+    try:
+        # The CPU's solve of the same bytes, while the CLI's runs.
+        t1 = time.perf_counter()
+        host = solve_gains(wire_np, cfg, angle, device="cpu").gains
+        host_s = time.perf_counter() - t1
+        out = finish_cli(proc, "calibrate", tmp / "calibrate.log")
+    finally:
+        stop_all([proc])
+    cli_s = time.perf_counter() - t0
+    rec = json.loads(out.strip().splitlines()[-1])
+    cli_gains = CalTable.load(str(table)).gains
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = solve_gains(torch.from_numpy(wire_np), cfg, angle,
+                       device=DEV).gains
+    card_s = time.perf_counter() - t0
+    err_card = gains_rel_err(card, host, act)
+    err_cli = gains_rel_err(cli_gains, host, act)
+    prod = cli_gains[:act] * g[:act]
+    phase_err = float(np.abs(np.angle(prod / prod[0:1])).max())
+    log(f"[calibrate] dsabf-torch calibrate --config {cfg.name} --device 0: "
+        f"{out.strip()} in {cli_s:.1f} s (process start included, the "
+        f"CPU's solve beside it); solve_gains on the card {card_s:.3f} s "
+        f"(upload of the {wire_np.nbytes / 1e9:.3f} GB block included), on "
+        f"the CPU {host_s:.1f} s ({torch.get_num_threads()} threads), on "
+        f"{smi}")
+    log(f"[calibrate] card table vs CPU {err_card:.3e}, the CLI's vs CPU "
+        f"{err_cli:.3e} (bar {CAL_GAIN_RTOL:.0e}, relative); solved phases "
+        f"against the injected inverse: max {phase_err:.4f} rad over {act} "
+        f"antennas x {cfg.n_chan} channels (bar {CAL_PHASE_BAR})")
+    if max(err_card, err_cli) > CAL_GAIN_RTOL or phase_err >= CAL_PHASE_BAR \
+            or rec["blocks"] != 1 or rec["n_chan"] != cfg.n_chan:
+        raise RuntimeError(f"[calibrate] the solved table misses its bars: "
+                           f"{err_card:.3e} / {err_cli:.3e} / {phase_err}")
+    exact = np.zeros((cfg.n_ant, cfg.n_chan), np.complex64)
+    exact[:act] = (1.0 / g[:act]).astype(np.complex64)
+    clear_launches()
+    powers = {}
+    for what, cal in (("uncorrected", None), ("solved", CalTable(cli_gains)),
+                      ("exact inverse", CalTable(exact))):
+        qw = prepare_weights(cfg, make_weights(cfg, cal=cal, device=DEV))
+        powers[what] = gemm.beamform_power(wire, qw, cfg).sum(
+            dim=(0, 1)).double().cpu().numpy()
+    launches = sum(gemm.fused_detect.launches.values())
+    peak = int(np.argmax(powers["solved"]))
+    t = {k: float(v[CAL_TARGET]) for k, v in powers.items()}
+    log(f"[calibrate] through the detect kernel ({launches} launches): peak "
+        f"beam {peak} (want {CAL_TARGET}); target power solved / exact "
+        f"inverse {t['solved'] / t['exact inverse']:.4f} (bar >= 0.8), "
+        f"solved / uncorrected {t['solved'] / t['uncorrected']:.3f} (bar >= "
+        f"1.5)")
+    if peak != CAL_TARGET or t["solved"] < 0.8 * t["exact inverse"] \
+            or t["solved"] < 1.5 * t["uncorrected"] or launches != 3:
+        raise RuntimeError(f"[calibrate] the solved table does not restore "
+                           f"the beam: peak {peak}, {t}, launches {launches}")
+    return launches
+
+
+def layout_2d(cfg, seed=LM_SEED) -> ArrayLayout:
+    """The active dishes uniform on a ``2 LM_EXTENT_M`` square (seeded)."""
+    rng = np.random.default_rng(seed)
+    a = cfg.n_ant_active
+    ew, ns = np.zeros(cfg.n_ant), np.zeros(cfg.n_ant)
+    ew[:a] = rng.uniform(-LM_EXTENT_M, LM_EXTENT_M, a)
+    ns[:a] = rng.uniform(-LM_EXTENT_M, LM_EXTENT_M, a)
+    return ArrayLayout(positions_m=ew, n_active=a, positions_ns_m=ns)
+
+
+def lm_grid() -> tuple:
+    """The (l, m) grid, flattened row-major: ``LM_GRID[0]`` l by
+    ``LM_GRID[1]`` m."""
+    ll, mm = np.meshgrid(np.linspace(-LM_HALF, LM_HALF, LM_GRID[0]),
+                         np.linspace(-LM_HALF, LM_HALF, LM_GRID[1]),
+                         indexing="ij")
+    return ll.ravel(), mm.ravel()
+
+
+def lm_path(cfg, layout, l0, m0) -> np.ndarray:
+    a = cfg.n_ant_active
+    return layout.positions_m[:a] * l0 + layout.ns[:a] * m0
+
+
+def start_lm_golden():
+    """The [lm] cut's point source (drawn on the card, to the host) and the
+    future of its float64 golden power: ``(wire, future)``."""
+    layout = layout_2d(LM_CUT)
+    l, m = lm_grid()
+    wire = point_source_on_card(
+        LM_CUT, lm_path(LM_CUT, layout, l[LM_TARGET], m[LM_TARGET]),
+        amplitude=3.0, noise_rms=0.4, seed=LM_SEED + 1).cpu().numpy()
+    gold = weights_lm_numpy_golden(LM_CUT, l, m, layout=layout)
+    return wire, GOLDEN_POOL.submit(active_ref, beamform_block_ref, gold,
+                                    wire, LM_CUT)
+
+
+def phase_lm(lm_golden, smi) -> int:
+    """Phase 34: the (l, m) beam grid at the per-GPU DSA-110 process's
+    width: ``make_weights_lm`` on the card against
+    ``weights_lm_numpy_golden``, then a 2-D point source at grid beam
+    ``LM_TARGET`` drawn on the card through ``prepare_weights`` ->
+    ``beamform_power`` (the detect kernel, counted from 0) against its plain
+    version on the same inputs, and the cut's against the float64 golden.
+    Returns the detect kernel's launches."""
+    cfg = LM_CFG
+    layout = layout_2d(cfg)
+    l, m = lm_grid()
+    t0 = time.perf_counter()
+    w = make_weights_lm(cfg, l, m, layout=layout, device=DEV)
+    torch.cuda.synchronize()
+    w_s = time.perf_counter() - t0
+    werr = float(np.abs(w.to_numpy() - weights_lm_numpy_golden(
+        cfg, l, m, layout=layout)).max())
+    log(f"[lm] {cfg.name} subband (256 channels), {cfg.n_ant_active} dishes "
+        f"on a {2 * LM_EXTENT_M:g} m square, a {LM_GRID[0]} x {LM_GRID[1]} "
+        f"(l, m) grid over +-{LM_HALF}: make_weights_lm on the card "
+        f"{w_s * 1e3:.1f} ms, max |w - golden| {werr:.2e} (bar "
+        f"{LM_WEIGHTS_ATOL:.0e})")
+    if werr > LM_WEIGHTS_ATOL:
+        raise RuntimeError(f"[lm] weights {werr:.3e} from the golden")
+    qw = prepare_weights(cfg, w)
+    wire = point_source_on_card(
+        cfg, lm_path(cfg, layout, l[LM_TARGET], m[LM_TARGET]),
+        amplitude=3.0, noise_rms=0.4, seed=LM_SEED)
+    clear_launches()
+    p = gemm.beamform_power(wire, qw, cfg)
+    launches = sum(gemm.fused_detect.launches.values())
+    x, tm = gemm._prepare_wire(wire, cfg)
+    plain = gemm.detect_power_plain(x, qw.terms, qw.scales, cfg, tm)[0]
+    rel = relative_power_error_on_card(p, plain)
+    peak = int(p.sum(dim=(0, 1)).argmax())
+    # The cut, against the float64 golden.
+    wire_cut, fut = lm_golden
+    qc = prepare_weights(LM_CUT, make_weights_lm(LM_CUT, l, m,
+                                                 layout=layout_2d(LM_CUT),
+                                                 device=DEV))
+    pc = gemm.beamform_power(to_device(LM_CUT, wire_cut), qc,
+                             LM_CUT).cpu().numpy()
+    gerr = relative_power_error(pc, fut.result())
+    peak_cut = int(np.argmax(pc.sum(axis=(0, 1))))
+    log(f"[lm] 2-D point source at grid beam {LM_TARGET} (l "
+        f"{l[LM_TARGET]:+.5f}, m {m[LM_TARGET]:+.5f}) through the detect "
+        f"kernel ({launches} launch): {tuple(p.shape)}, vs plain {rel:.3e} "
+        f"(bar {KERNEL_VS_PLAIN_RTOL:.0e}), peak beam {peak}; the "
+        f"{LM_CUT.n_chan}-channel x {LM_CUT.t_block}-sample cut vs the "
+        f"float64 golden {gerr:.3e} (bar {GOLDEN_RTOL:.0e}), peak beam "
+        f"{peak_cut}, on {smi}")
+    if rel > KERNEL_VS_PLAIN_RTOL or peak != LM_TARGET or launches != 1 \
+            or gerr > GOLDEN_RTOL or peak_cut != LM_TARGET \
+            or not bool(torch.isfinite(p).all()):
+        raise RuntimeError(f"[lm] failed: plain {rel:.3e}, peak {peak}, "
+                           f"golden {gerr:.3e}, cut peak {peak_cut}")
+    return launches
+
+
+def pattern_checks(cfg, what, respond, sweep_n, chans) -> None:
+    """``respond(chan, device)`` -> ``[S, B]``: on the card over the band
+    (timed), matched beams on the diagonal; a few single channels against
+    the CPU's."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    resp = respond(None, DEV)
+    secs = time.perf_counter() - t0
+    diag_ok = bool((np.argmax(resp, axis=1) == np.arange(sweep_n)).all())
+    diag_err = float(np.abs(np.diag(resp) - 1.0).max())
+    worst = max(relative_power_error(respond(c, DEV), respond(c, "cpu"))
+                for c in chans)
+    log(f"[beampattern] {what}: {resp.shape} on the card in {secs:.3f} s; "
+        f"matched beams on the diagonal {diag_ok} (max |diag - 1| "
+        f"{diag_err:.2e}); channels {list(chans)} card vs CPU {worst:.3e} "
+        f"(bar {PATTERN_RTOL:.0e})")
+    if not diag_ok or diag_err > 1e-6 or worst > PATTERN_RTOL:
+        raise RuntimeError(f"[beampattern] {what} failed")
+
+
+def phase_beampattern(tmp, smi) -> None:
+    """Phase 35: ``beam_response`` at full dsa110 and dsa10, and
+    ``beam_response_lm`` at full dsa110 on [lm]'s layout and grid, on the
+    card (complex128): matched beams on the diagonal, single channels
+    against the CPU, the central beam's half-power width against
+    ``beam_fwhm_rad``; and, beside them, ``dsabf-torch beampattern
+    --config dsa10``."""
+    png = tmp / "beams.png"
+    proc = subprocess.Popen(CLI + ["beampattern", "--config", "dsa10",
+                                   "--out", str(png), "--device", "0"],
+                            cwd=REPO, env=cli_env(), stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    try:
+        phase_beampattern_checks()
+        stdout, stderr = proc.communicate(timeout=CLI_TIMEOUT)
+    finally:
+        stop_all([proc])
+    err = stderr.strip().splitlines()
+    if proc.returncode == 2 and len(err) == 1 and "matplotlib" in err[0] \
+            and not png.exists():
+        log(f"[beampattern] dsabf-torch beampattern --config dsa10 --device "
+            f"0: exit 2, {err[0]!r}; render: not run on this host (no "
+            f"matplotlib)")
+    elif proc.returncode == 0 and png.exists() \
+            and png.read_bytes()[:4] == b"\x89PNG":
+        log(f"[beampattern] dsabf-torch beampattern --config dsa10 --device "
+            f"0: {stdout.strip()}; render: a {png.stat().st_size}-byte PNG")
+    else:
+        raise RuntimeError(f"[beampattern] the CLI: exit {proc.returncode}\n"
+                           f"{stdout[-2000:]}{stderr[-4000:]}")
+
+
+def phase_beampattern_checks() -> None:
+    """[beampattern]'s in-process checks on the card."""
+    for cfg in (DSA110, DSA10):
+        chans = (0, cfg.n_chan // 2, cfg.n_chan - 1)
+        angles = cfg.beam_angles_rad()
+        pattern_checks(cfg, f"beam_response {cfg.name} ({cfg.n_chan} "
+                       f"channels, {cfg.n_ant_active} dishes, sweep at the "
+                       f"{cfg.n_beams} beam angles)",
+                       lambda c, d, cfg=cfg, a=angles: beam_response(
+                           cfg, a, chan=c, device=d), cfg.n_beams, chans)
+        b = cfg.n_beams // 2
+        est = beam_fwhm_rad(cfg)
+        sweep = angles[b] + np.linspace(-3, 3, 601) * est
+        resp = beam_response(cfg, sweep, device=DEV)[:, b]
+        above = sweep[resp >= 0.5 * resp.max()]
+        ratio = float((above.max() - above.min()) / est)
+        log(f"[beampattern] {cfg.name} beam {b}: half-power width "
+            f"{above.max() - above.min():.4e} rad over 601 sweep points, "
+            f"beam_fwhm_rad {est:.4e}, ratio {ratio:.3f} (bar "
+            f"{PATTERN_FWHM_BAR})")
+        if not PATTERN_FWHM_BAR[0] < ratio < PATTERN_FWHM_BAR[1]:
+            raise RuntimeError(f"[beampattern] {cfg.name}: FWHM ratio {ratio}")
+    cfg = DSA110
+    layout = layout_2d(cfg)
+    l, m = lm_grid()
+    pattern_checks(cfg, f"beam_response_lm {cfg.name} (the [lm] layout and "
+                   f"grid, swept over the grid)",
+                   lambda c, d: beam_response_lm(cfg, l, m, l, m,
+                                                 layout=layout, chan=c,
+                                                 device=d),
+                   cfg.n_beams, (0, cfg.n_chan - 1))
+
+
+def phase_bench(resident_ms, smi) -> int:
+    """Phase 36: ``dsabf-torch bench --config dsa10`` (kernel mode) held to
+    [resident]'s int8x2 time, and ``bench --config dsa10c --bench-mode
+    stream`` (16 blocks, 0 dropped); then ``bench_kernel`` at dsa10c in this
+    process with the counts from 0.  Returns its detect launches."""
+    recs = {}
+    for cfg, mode in ((DSA10, "kernel"), (DSA10_COMPACT, "stream")):
+        t0 = time.perf_counter()
+        out = run_cli(["bench", "--config", cfg.name, "--bench-mode", mode,
+                       "--blocks", str(BENCH_BLOCKS), "--device", "0"],
+                      f"bench {cfg.name} {mode}")
+        recs[mode] = json.loads(out.strip().splitlines()[-1])
+        log(f"[bench] dsabf-torch bench --config {cfg.name} --bench-mode "
+            f"{mode} --blocks {BENCH_BLOCKS} --device 0 "
+            f"({time.perf_counter() - t0:.1f} s, process start included): "
+            f"{json.dumps(recs[mode])} on {smi}")
+    k, st = recs["kernel"], recs["stream"]
+    ratio = k["ms_per_block"] / resident_ms
+    log(f"[bench] kernel record {k['ms_per_block']:.3f} ms/block against "
+        f"[resident]'s int8x2 {resident_ms:.3f} ms: {ratio:.4f} (bar 1 +- "
+        f"{BENCH_RTOL}); stream {st['blocks']} blocks, dropped "
+        f"{st['dropped']}, {st['realtime_factor']:.4f}x realtime")
+    if abs(ratio - 1.0) > BENCH_RTOL or k["tc_utilization_issued"] is None \
+            or st["blocks"] != BENCH_BLOCKS or st["dropped"]:
+        raise RuntimeError(f"[bench] records off their bars: {recs}")
+    clear_launches()
+    rec = bench_kernel(DSA10_COMPACT, n_blocks=BENCH_BLOCKS, device=DEV)
+    launches = sum(gemm.fused_detect.launches.values())
+    log(f"[bench] bench_kernel(dsa10c) in this process: {json.dumps(rec)}; "
+        f"detect launches {launches} (1 warm-up + {BENCH_BLOCKS} x 3)")
+    if launches != 1 + 3 * BENCH_BLOCKS:
+        raise RuntimeError(f"[bench] {launches} launches")
+    return launches
 
 
 def bank_rows(live, checked) -> list:
@@ -3490,15 +4005,24 @@ def main() -> tuple:
         log(f"[time] {what} done at {time.perf_counter() - t_start:.1f} s")
 
     name, smi = phase_device()
-    phase_build()
+    # The kernels build on a thread of their own, beside the first capture
+    # process of [cli] (``cli_dsa10c`` starts no kernel user before it).
+    build_pool = ThreadPoolExecutor(max_workers=1)
+    build = build_pool.submit(phase_build)
+    # The float64 golden references are made once each, on host threads
+    # (``golden``): the first one phase 4 needs while the CLI's processes
+    # run, the others once phase 6 has timed the host's copies.
+    physics_dsa10 = DSA10.replace(n_chan=128, t_block=512)
+    golden("point", physics_dsa10)
     # The port's CLI as a deployment runs it, each command a process of its
     # own: first, while this process holds little host memory.
-    trace = phase_cli(smi)
+    trace = phase_cli(smi, build)
+    build_pool.shutdown()
     mark("cli")
 
     cfg = DSA10
     t0 = time.perf_counter()
-    blocks = [make_random_bytes_block(cfg, seed=s) for s in (0, 1)]
+    blocks = random_blocks(cfg, (0, 1))
     log(f"[data] two {cfg.name} blocks {cfg.wire_block_shape} "
         f"({cfg.wire_block_bytes / 1e9:.3f} GB each) in "
         f"{time.perf_counter() - t0:.1f} s")
@@ -3522,6 +4046,12 @@ def main() -> tuple:
                                              [DSA10_COMPACT])
     search_prod = Producer(search_cfg, "pulse", [(N_SEARCH, None, False)])
     mark("main path (phases 3-6)")
+    for kind in ("stokes", "noise"):
+        golden(kind, physics_dsa10)
+    for kind in ("point", "stokes"):
+        golden(kind, DSA110.replace(n_chan=VOLTAGE_CHANNELS, t_block=512),
+               DSA110_TARGET)
+    lm_golden = start_lm_golden()
 
     # The deployed path's variants, kernel against plain, then timed.
     checked = phase_variants(cfg, blocks[0], qw,
@@ -3583,6 +4113,23 @@ def main() -> tuple:
     mark("widths")
     kloop = phase_kloop(smi)
     mark("K loop")
+
+    # The calibration loop, the (l, m) grids, the beam pattern and bench:
+    # each path's detect launches counted from 0, booked to the base row of
+    # its configuration's a_compute.
+    with tempfile.TemporaryDirectory() as tmp:
+        cal_n = phase_calibrate(Path(tmp), smi)
+        mark("calibrate")
+        phase_beampattern(Path(tmp), smi)
+        mark("beampattern")
+    lm_n = phase_lm(lm_golden, smi)
+    mark("lm")
+    bench_n = phase_bench(res["ms"], smi)
+    mark("bench")
+    launches["base"] += cal_n + bench_n
+    d110["launches"]["base"] += lm_n
+    log(f"[slice] detect launches: calibrate {cal_n}, bench {bench_n} (the "
+        f"dsa10 base row), lm {lm_n} (the [dsa110] base row)")
 
     kernels = kernel_rows(cfg, ALL_VARIANTS, launches, checked, times, volt)
     kernels += kernel_rows(DSA110, DSA110_VARIANTS, d110["launches"],

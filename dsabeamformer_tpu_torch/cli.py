@@ -1,15 +1,18 @@
 """Command-line interface of the PyTorch/CUDA port: ``dsabf-torch``.
 
-The deployment and search halves of the JAX package's ``dsabf`` (its
-``dsabeamformer_tpu/cli.py``), subcommand for subcommand and flag for flag:
+Every subcommand of the JAX package's ``dsabf`` (its
+``dsabeamformer_tpu/cli.py``), flag for flag:
 
   dsabf-torch run       — attach to a voltage ring (or file) and beamform
                           (the main real-time binary)
   dsabf-torch simulate  — synthetic capture process: write blocks into a
                           ring (the packet-capture stand-in for tests/demos)
   dsabf-torch weights   — generate/quantize/save weights
+  dsabf-torch beampattern — render the formed-beam response (matplotlib)
   dsabf-torch selftest  — tiny end-to-end correctness check on a device
   dsabf-torch info      — device + config diagnostics
+  dsabf-torch bench     — single-device benchmark (JSON line)
+  dsabf-torch calibrate — solve antenna gains from a calibrator capture
   dsabf-torch ring      — inspect a ring's counters (dada_dbmonitor analog)
   dsabf-torch levels    — per-antenna rms + 4-bit clip report from a capture
   dsabf-torch rfi       — spectral-kurtosis RFI scan -> --zap/--flag-ants
@@ -22,8 +25,9 @@ The deployment and search halves of the JAX package's ``dsabf`` (its
   dsabf-torch fold      — fold a product at a pulsar period
   dsabf-torch trace     — profiler trace of a few block steps
 
-``run``, ``selftest``, ``weights``, ``levels``, ``rfi``, ``search`` and
-``trace`` take ``--device``: a card index (``0`` or ``cuda:0``) or ``cpu``; with none they
+``run``, ``selftest``, ``weights``, ``beampattern``, ``bench``,
+``calibrate``, ``levels``, ``rfi``, ``search`` and ``trace`` take
+``--device``: a card index (``0`` or ``cuda:0``) or ``cpu``; with none they
 run on ``cuda:0`` and refuse to run without a card
 (``utils.device.resolve_device``).  ``launch --devices`` takes the same
 tokens, one per child.  ``run --mesh`` is refused: channel
@@ -167,10 +171,11 @@ def _capture_cfg(args, cfg):
 
 
 def _scan_setup(args, default_ring_blocks=8):
-    """Shared preamble of the scan commands (levels/rfi): validate the
-    capture-or-ring input choice and resolve the stream config.  Returns
-    ``(cfg, offset)`` or None after printing the error (callers return 2).
-    Ring mode gets a bounded default block count so the command ends."""
+    """Shared preamble of the scan commands (levels/rfi/calibrate):
+    validate the capture-or-ring input choice and resolve the stream
+    config.  Returns ``(cfg, offset)`` or None after printing the error
+    (callers return 2).  Ring mode gets a bounded default block count so
+    the command ends."""
     if bool(args.input_file) == bool(getattr(args, "key", None)):
         print("error: give exactly one of --input-file or --key",
               file=sys.stderr)
@@ -836,6 +841,29 @@ def cmd_weights(args) -> int:
     return 0
 
 
+def cmd_beampattern(args) -> int:
+    """Render the formed-beam response, computed on ``--device``.  Without
+    matplotlib (an optional dependency) it exits 2 with one line naming
+    it."""
+    from dsabeamformer_tpu_torch.models.beampattern import plot_beam_pattern
+
+    cfg = _load_cfg(args)
+    device = _resolve_device(args)
+    if device is None:
+        return 2
+    try:
+        path = plot_beam_pattern(cfg, args.out, n_sweep=args.sweep,
+                                 device=device)
+    except ImportError as e:
+        if "matplotlib" not in str(e):
+            raise
+        print(f"error: beampattern renders with matplotlib, which this "
+              f"host lacks ({e})", file=sys.stderr)
+        return 2
+    print(json.dumps({"out": path, "beams": cfg.n_beams}))
+    return 0
+
+
 def cmd_selftest(args) -> int:
     import torch
 
@@ -899,6 +927,10 @@ def cmd_info(args) -> int:
         "n_devices": len(devs),
         "peak_int8_macs_per_s":
             peak_macs_per_s(devs[0], "int8x2") if devs else None,
+        # bench and the stats record give two labeled accountings
+        # (utils.metrics.tensor_core_utilization); this ratio converts
+        # between them: padded_k = issued * ratio.
+        "tc_padded_k_over_issued": round(cfg.n_ant / cfg.a_compute, 4),
         "config": cfg.name,
         "wire_block_bytes": cfg.wire_block_bytes,
         "block_duration_s": cfg.block_duration_s,
@@ -918,6 +950,70 @@ def cmd_info(args) -> int:
         "host_staging_bytes_depth2":
             staging_pool_size(cfg.wire_block_bytes, 2)
             * cfg.wire_block_bytes,
+    }))
+    return 0
+
+
+def cmd_bench(args) -> int:
+    from dsabeamformer_tpu_torch.utils.bench import run_benchmark
+
+    cfg = _load_cfg(args)
+    device = _resolve_device(args)
+    if device is None:
+        return 2
+    result = run_benchmark(cfg, n_blocks=args.blocks, mode=args.bench_mode,
+                           device=device)
+    print(json.dumps(result))
+    return 0
+
+
+def cmd_calibrate(args) -> int:
+    """Solve per-antenna complex gains from a recorded calibrator capture
+    or a live ring (models/calsolver.py, summed on ``--device``) and save
+    the CalTable for ``run --cal`` / ``weights --cal``."""
+    from dsabeamformer_tpu_torch.models.arrays import ArrayLayout
+    from dsabeamformer_tpu_torch.models.calsolver import solve_gains_blocks
+
+    scan = _scan_setup(args)
+    if scan is None:
+        return 2
+    cfg, offset = scan
+    device = _resolve_device(args)
+    if device is None:
+        return 2
+    layout = ArrayLayout.load(args.layout) if args.layout else None
+    n_seen = 0
+
+    def blocks():
+        nonlocal n_seen
+        for blk in _iter_capture_blocks(args, cfg, offset, device):
+            n_seen += 1
+            yield blk
+
+    try:
+        cal = solve_gains_blocks(blocks(), cfg, np.deg2rad(args.angle),
+                                 layout=layout, ref_ant=args.ref_ant,
+                                 device=device)
+    except ValueError as e:
+        if "no blocks" in str(e):
+            print(f"no blocks in "
+                  f"{args.input_file or 'ring ' + repr(args.key)}",
+                  file=sys.stderr)
+            return 1
+        raise
+    cal.save(args.out)
+    act = cfg.n_ant_active
+    print(json.dumps({
+        "out": args.out,
+        "blocks": n_seen,
+        "n_ant": cfg.n_ant,  # padded slot count, as everywhere in the CLI
+        "n_ant_active": act,
+        "n_chan": cfg.n_chan,
+        "median_amp": float(np.median(np.abs(cal.gains[:act]))),
+        "max_phase_rad": float(
+            np.abs(np.angle(cal.gains[:act] / cal.gains[args.ref_ant]))
+            .max()
+        ),
     }))
     return 0
 
@@ -2140,6 +2236,13 @@ def main(argv=None) -> int:
     _device_arg(p, "make the table on this device")
     p.set_defaults(fn=cmd_weights)
 
+    p = sub.add_parser("beampattern", help="render the formed-beam response")
+    _add_common(p)
+    p.add_argument("--out", required=True, help="output image path (.png)")
+    p.add_argument("--sweep", type=int, default=512, help="sweep points")
+    _device_arg(p, "compute the response on this device")
+    p.set_defaults(fn=cmd_beampattern)
+
     p = sub.add_parser("selftest", help="end-to-end correctness check")
     _add_common(p)
     _device_arg(p, "run on this device")
@@ -2148,6 +2251,19 @@ def main(argv=None) -> int:
     p = sub.add_parser("info", help="device + config diagnostics")
     _add_common(p)
     p.set_defaults(fn=cmd_info)
+
+    p = sub.add_parser("bench",
+                       help="single-device benchmark (JSON line)")
+    _add_common(p)
+    p.add_argument("--blocks", type=int, default=16)
+    p.add_argument("--bench-mode", default="kernel",
+                   choices=["stream", "kernel"],
+                   help="kernel (default) = device-resident launch loop, "
+                        "the device's per-block capability; stream = "
+                        "end-to-end host-to-device ingest, which measures "
+                        "the host's staging and copies too")
+    _device_arg(p, "benchmark this device")
+    p.set_defaults(fn=cmd_bench)
 
     def _scan_input(p, default_ring_blocks=8):
         # A capture file or a live ring; ring mode defaults to a bounded
@@ -2160,6 +2276,20 @@ def main(argv=None) -> int:
                        help=f"use at most N blocks (ring mode "
                             f"defaults to {default_ring_blocks})")
         _device_arg(p, "sum each block on this device")
+
+    p = sub.add_parser("calibrate",
+                       help="solve antenna gains from a calibrator "
+                            "capture or live ring")
+    _add_common(p)
+    _scan_input(p)
+    p.add_argument("--angle", type=float, required=True,
+                   help="calibrator angle (deg, east of boresight)")
+    p.add_argument("--out", required=True, help="output CalTable .npz")
+    p.add_argument("--ref-ant", type=int, default=0,
+                   help="reference antenna (phase zero point)")
+    p.add_argument("--layout",
+                   help="antenna position table (.npz or text)")
+    p.set_defaults(fn=cmd_calibrate)
 
     p = sub.add_parser("levels",
                        help="per-antenna rms + clip report from a "

@@ -100,6 +100,82 @@ def make_weights(
     )
 
 
+def steering_weights_lm(
+    positions_ew_m: torch.Tensor,   # [A]
+    positions_ns_m: torch.Tensor,   # [A]
+    beam_l: torch.Tensor,           # [B] direction cosine (east)
+    beam_m: torch.Tensor,           # [B] direction cosine (north)
+    freqs_hz: torch.Tensor,         # [F]
+    gains: CVec,                    # [A, F]
+) -> CVec:
+    """2-D generalization: weights ``[F, B, A]`` for a beam grid given in
+    direction cosines (l, m) over a 2-D station layout, on the device of
+    ``positions_ew_m``.  ``steering_weights`` is the case ``l =
+    sin(theta_b), m = 0, positions_ns = 0``."""
+    dt = _phase_dtype(positions_ew_m.device)
+    f = freqs_hz.to(dt)[:, None, None]
+    le = beam_l.to(dt)[None, :, None]
+    mn = beam_m.to(dt)[None, :, None]
+    xe = positions_ew_m.to(dt)[None, None, :]
+    xn = positions_ns_m.to(dt)[None, None, :]
+    tau = (xe * le + xn * mn) / SPEED_OF_LIGHT_M_S
+    turns = f * tau
+    phase = (-2.0 * math.pi) * (turns - torch.round(turns))
+    c = torch.cos(phase).to(torch.float32)
+    si = torch.sin(phase).to(torch.float32)
+    gr = gains.re.to(torch.float32).T[:, None, :]
+    gi = gains.im.to(torch.float32).T[:, None, :]
+    return CVec(re=c * gr - si * gi, im=si * gr + c * gi)
+
+
+def make_weights_lm(
+    cfg: ObsConfig,
+    beam_l: np.ndarray,
+    beam_m: np.ndarray,
+    layout: ArrayLayout | None = None,
+    cal: CalTable | None = None,
+    device="cuda",
+) -> CVec:
+    """Weights for an arbitrary (l, m) beam grid (2-D arrays) on ``device``
+    (the card unless the caller names another).  ``len(beam_l) ==
+    cfg.n_beams``: the kernel is agnostic to how the beam axis was laid
+    out."""
+    dev = resolve_device(device)
+    layout = layout if layout is not None else array_for(cfg)
+    cal = cal if cal is not None else CalTable.unity(cfg)
+    if len(beam_l) != cfg.n_beams or len(beam_m) != cfg.n_beams:
+        raise ValueError(
+            f"beam grid has {len(beam_l)} beams, config expects {cfg.n_beams}"
+        )
+    return steering_weights_lm(
+        torch.as_tensor(layout.positions_m, device=dev),
+        torch.as_tensor(layout.ns, device=dev),
+        torch.as_tensor(np.asarray(beam_l), device=dev),
+        torch.as_tensor(np.asarray(beam_m), device=dev),
+        torch.as_tensor(cfg.freqs_hz(), device=dev),
+        CVec.from_numpy(cal.gains, device=dev),
+    )
+
+
+def weights_lm_numpy_golden(
+    cfg: ObsConfig,
+    beam_l: np.ndarray,
+    beam_m: np.ndarray,
+    layout: ArrayLayout | None = None,
+    cal: CalTable | None = None,
+) -> np.ndarray:
+    """complex128 NumPy oracle for ``make_weights_lm``."""
+    layout = layout if layout is not None else array_for(cfg)
+    cal = cal if cal is not None else CalTable.unity(cfg)
+    f = cfg.freqs_hz()[:, None, None]
+    tau = (
+        layout.positions_m[None, None, :] * np.asarray(beam_l)[None, :, None]
+        + layout.ns[None, None, :] * np.asarray(beam_m)[None, :, None]
+    ) / SPEED_OF_LIGHT_M_S
+    w = np.exp(-2j * np.pi * f * tau)
+    return w * cal.gains.astype(np.complex128).T[:, None, :]
+
+
 def weights_numpy_golden(
     cfg: ObsConfig,
     layout: ArrayLayout | None = None,

@@ -744,12 +744,13 @@ def test_scan_commands_from_a_ring_match_jax(capsys, cmd):
 
 
 @pytest.mark.parametrize("cmd", ["weights", "levels", "rfi", "search",
-                                 "trace"])
+                                 "trace", "beampattern", "calibrate",
+                                 "bench"])
 def test_device_cpu_and_missing_card(tmp_path, capsys, monkeypatch, cmd):
-    """weights, levels, rfi, search and trace take ``--device`` as run
-    does: ``cpu`` runs on the host; ``0``, ``cuda:0`` or none with no
-    usable card exits 2 with ``resolve_device``'s message and writes
-    nothing."""
+    """weights, levels, rfi, search, trace, beampattern, calibrate and
+    bench take ``--device`` as run does: ``cpu`` runs on the host; ``0``,
+    ``cuda:0`` or none with no usable card exits 2 with
+    ``resolve_device``'s message and writes nothing."""
     from dsabeamformer_tpu_torch.utils.device import resolve_device
 
     cap = _capture(tmp_path / "cap.raw", TINY, [70])
@@ -766,6 +767,16 @@ def test_device_cpu_and_missing_card(tmp_path, capsys, monkeypatch, cmd):
         out_file = tmp_path / "trace"
         argv = ["trace", "--config", "tiny", "--blocks", "1", "--out",
                 str(out_file)]
+    elif cmd == "beampattern":
+        out_file = tmp_path / "b.png"
+        argv = ["beampattern", "--config", "tiny", "--out", str(out_file),
+                "--sweep", "32"]
+    elif cmd == "calibrate":
+        out_file = tmp_path / "cal.npz"
+        argv = ["calibrate", "--config", "tiny", "--input-file", cap,
+                "--angle", "0", "--out", str(out_file)]
+    elif cmd == "bench":
+        argv = ["bench", "--config", "tiny", "--blocks", "2"]
     else:
         argv = [cmd, "--config", "tiny"] + (
             ["--out", str(out_file)] if cmd == "weights"

@@ -1482,3 +1482,191 @@ def test_cli_trace_on_the_card(dev, tmp_path, capsys):
     rec = json.loads(capsys.readouterr().out)
     kernels = [r for r in rec["ops"] if "detect_mma_kernel" in r["name"]]
     assert kernels and kernels[0]["count"] == 3, rec["ops"]
+
+
+# ---------- the calibration loop, the lm grids, beampattern, bench ---------- #
+
+def _calibrator(cfg, target, seed=3):
+    """tests/test_torch_calsolver.py's corrupted calibrator at beam
+    ``target``: (wire, instrumental gains)."""
+    rng = np.random.default_rng(seed)
+    act = cfg.n_ant_active
+    g = np.zeros((cfg.n_ant, cfg.n_chan), np.complex128)
+    g[:act] = (1.0 + 0.15 * rng.standard_normal((act, cfg.n_chan))) \
+        * np.exp(1.5j * rng.standard_normal((act, cfg.n_chan)))
+    wire = make_point_source_block(cfg, cfg.beam_angles_rad()[target],
+                                   amplitude=2.5, noise_rms=0.15, seed=seed,
+                                   instrumental_gains=g)
+    return wire, g
+
+
+@pytest.mark.parametrize("cfg", [TINY, DSA10_COMPACT.replace(
+    n_chan=32, t_block=2048, input_layout="ftpa")], ids=["tiny", "dsa10c_32ch"])
+def test_calsolver_on_the_card_equals_cpu(dev, cfg):
+    """Gains summed on the card (the wire uploaded as uint8) within 1e-6 of
+    the CPU's, relative; the card's table restores the beam."""
+    from dsabeamformer_tpu_torch.models.calsolver import solve_gains
+
+    target = cfg.n_beams // 3
+    wire, g = _calibrator(cfg, target)
+    angle = cfg.beam_angles_rad()[target]
+    card = solve_gains(torch.from_numpy(wire).to(dev), cfg, angle,
+                       device=dev).gains
+    host = solve_gains(wire, cfg, angle, device="cpu").gains
+    act = cfg.n_ant_active
+    rel = np.abs(card[:act] - host[:act]) / np.abs(host[:act])
+    assert rel.max() <= 1e-6 and not np.any(card[act:])
+    prod = card[:act] * g[:act]
+    assert np.abs(np.angle(prod / prod[0:1])).max() < 0.1
+    qw = prepare_weights(cfg, make_weights(cfg, cal=CalTable(gains=card),
+                                           device=dev))
+    p = gemm.beamform_power(torch.from_numpy(wire).to(dev), qw, cfg)
+    assert int(p.sum(dim=(0, 1)).argmax()) == target
+
+
+def test_cli_calibrate_on_the_card(dev, tmp_path, capsys):
+    """``dsabf-torch calibrate --device 0`` prints the record of ``--device
+    cpu`` and saves the same table (1e-6)."""
+    import json
+
+    from dsabeamformer_tpu_torch import cli
+    from dsabeamformer_tpu_torch.ingest import dada
+
+    cfg = TINY
+    wire, _ = _calibrator(cfg, 10)
+    cap = tmp_path / "cal.dada"
+    dada.write_dada_file(cap, cfg, [wire, _calibrator(cfg, 10, seed=4)[0]])
+    recs, tables = {}, {}
+    for device in ("0", "cpu"):
+        out = tmp_path / f"cal{device}.npz"
+        capsys.readouterr()
+        assert cli.main(["calibrate", "--config", "tiny", "--input-file",
+                         str(cap), "--angle",
+                         str(np.rad2deg(cfg.beam_angles_rad()[10])), "--out",
+                         str(out), "--device", device]) == 0
+        recs[device] = json.loads(capsys.readouterr().out)
+        tables[device] = CalTable.load(str(out)).gains
+    card, host = recs["0"], recs["cpu"]
+    assert card["blocks"] == host["blocks"] == 2
+    for k in ("n_ant", "n_ant_active", "n_chan"):
+        assert card[k] == host[k]
+    for k in ("median_amp", "max_phase_rad"):
+        assert card[k] == pytest.approx(host[k], rel=1e-6, abs=1e-7)
+    act = cfg.n_ant_active
+    rel = np.abs(tables["0"][:act] - tables["cpu"][:act]) \
+        / np.abs(tables["cpu"][:act])
+    assert rel.max() <= 1e-6
+
+
+@pytest.mark.parametrize("cfg,chan", [
+    (DSA10.replace(n_chan=16), None), (DSA10.replace(n_chan=16), 5),
+    (DSA110.replace(n_chan=8), None)], ids=["dsa10", "dsa10_chan5", "dsa110"])
+def test_beam_response_on_the_card_equals_cpu(dev, cfg, chan):
+    """complex128 on the card against the CPU: 1e-9 relative to the
+    peak; matched beams on the diagonal."""
+    from dsabeamformer_tpu_torch.models.beampattern import beam_response
+
+    sweep = cfg.beam_angles_rad()
+    card = beam_response(cfg, sweep, chan=chan, device=dev)
+    host = beam_response(cfg, sweep, chan=chan, device="cpu")
+    assert relative_power_error(card, host) <= 1e-9
+    assert (np.argmax(card, axis=1) == np.arange(cfg.n_beams)).all()
+
+
+def test_beam_response_lm_on_the_card_equals_cpu(dev):
+    from dsabeamformer_tpu_torch.models.arrays import ArrayLayout
+    from dsabeamformer_tpu_torch.models.beampattern import beam_response_lm
+
+    cfg = TINY.replace(n_beams=36)
+    rng = np.random.default_rng(1)
+    ew, ns = np.zeros(cfg.n_ant), np.zeros(cfg.n_ant)
+    ew[:6], ns[:6] = rng.uniform(-20, 20, 6), rng.uniform(-20, 20, 6)
+    layout = ArrayLayout(positions_m=ew, n_active=6, positions_ns_m=ns)
+    grid = np.linspace(-0.01, 0.01, 6)
+    ll, mm = np.meshgrid(grid, grid, indexing="ij")
+    args = (cfg, ll.ravel(), mm.ravel(), ll.ravel(), mm.ravel())
+    card = beam_response_lm(*args, layout=layout, device=dev)
+    host = beam_response_lm(*args, layout=layout, device="cpu")
+    assert relative_power_error(card, host) <= 1e-9
+
+
+def _lm_grid(cfg, rows=16, cols=32, half=0.01):
+    l, m = np.meshgrid(np.linspace(-half, half, rows),
+                       np.linspace(-half, half, cols), indexing="ij")
+    assert l.size == cfg.n_beams
+    return l.ravel(), m.ravel()
+
+
+def _layout_2d(cfg, seed=110):
+    from dsabeamformer_tpu_torch.models.arrays import ArrayLayout
+
+    rng = np.random.default_rng(seed)
+    ew, ns = np.zeros(cfg.n_ant), np.zeros(cfg.n_ant)
+    a = cfg.n_ant_active
+    ew[:a], ns[:a] = rng.uniform(-300, 300, a), rng.uniform(-300, 300, a)
+    return ArrayLayout(positions_m=ew, n_active=a, positions_ns_m=ns)
+
+
+def test_lm_weights_through_the_detect_kernel(dev):
+    """DSA-110 (110 dishes on a 600 m square, a 16 x 32 grid of 512 beams)
+    on an 8-channel slice: make_weights_lm on the card within 1e-4 of the
+    golden (its phase is float32 on the card: ~30 turns of path at most,
+    ~1e-5 rad), a 2-D point source at grid beam 300 through the detect
+    kernel within 1e-5 of its plain version, peaking in beam 300."""
+    from dsabeamformer_tpu_torch.config import SPEED_OF_LIGHT_M_S
+    from dsabeamformer_tpu_torch.ingest.generator import _emit
+    from dsabeamformer_tpu_torch.models.weights import (
+        make_weights_lm, weights_lm_numpy_golden,
+    )
+
+    cfg = DSA110.replace(n_chan=8, t_block=512)
+    layout = _layout_2d(cfg)
+    l, m = _lm_grid(cfg)
+    w = make_weights_lm(cfg, l, m, layout=layout, device=dev)
+    assert w.device == dev
+    gold = weights_lm_numpy_golden(cfg, l, m, layout=layout)
+    assert np.abs(w.to_numpy() - gold).max() <= 1e-4
+    target = 300
+    rng = np.random.default_rng(7)
+    a = cfg.n_ant_active
+    steer = np.exp(2j * np.pi * cfg.freqs_hz()[:, None, None]
+                   * (layout.positions_m[None, None, :a] * l[target]
+                      + layout.ns[None, None, :a] * m[target])
+                   / SPEED_OF_LIGHT_M_S)
+    sig = 3.0 / np.sqrt(2) * (
+        rng.standard_normal((cfg.n_chan, cfg.t_block, cfg.n_pol))
+        + 1j * rng.standard_normal((cfg.n_chan, cfg.t_block, cfg.n_pol)))
+    v = sig[..., None] * steer[:, :, None, :]
+    shape = (cfg.n_chan, cfg.t_block, cfg.n_pol, cfg.n_ant)
+    re, im = np.zeros(shape), np.zeros(shape)
+    re[..., :a] = v.real + rng.normal(0, 0.3, v.shape)
+    im[..., :a] = v.imag + rng.normal(0, 0.3, v.shape)
+    wire = _emit(cfg, re, im)
+    qw = prepare_weights(cfg, w)
+    before = _launches()
+    got = gemm.beamform_power(torch.from_numpy(wire).to(dev), qw, cfg)
+    torch.cuda.synchronize()
+    assert _launches() == before + 1
+    want = gemm.beamform_power(wire, _to(qw, "cpu"), cfg).numpy()
+    got = got.cpu().numpy()
+    assert relative_power_error(got, want) <= 1e-5
+    assert int(np.argmax(got.sum(axis=(0, 1)))) == target
+
+
+def test_bench_kernel_record_on_the_card(dev):
+    """``bench_kernel`` on the card: the record's keys, a positive time,
+    the utilization booked against the card's int8 peak."""
+    from dsabeamformer_tpu_torch.utils.bench import bench_kernel
+
+    cfg = DSA10.replace(n_chan=64)
+    before = _launches()
+    rec = bench_kernel(cfg, n_blocks=4, repeats=2, device=dev)
+    assert _launches() == before + 1 + 4 * 2
+    assert set(rec) == {"mode", "config", "ms_per_block", "gb_per_s",
+                        "realtime_factor", "tc_utilization_issued",
+                        "tc_utilization_padded_k"}
+    assert rec["mode"] == "kernel" and rec["ms_per_block"] > 0
+    assert rec["tc_utilization_issued"] is not None
+    assert 0 < rec["tc_utilization_issued"] < 1
+    assert rec["tc_utilization_padded_k"] == pytest.approx(
+        rec["tc_utilization_issued"] * cfg.n_ant / cfg.a_compute)

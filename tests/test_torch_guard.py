@@ -281,6 +281,15 @@ def test_cli_and_its_children_import_no_jax(tmp_path):
          str(4 * TINY.sample_period_s * TINY.navg_time)],
         ["trace", "--config", "tiny", "--blocks", "1", "--out",
          f"{t}/trace", "--device", "cpu"],
+        ["beampattern", "--config", "tiny", "--out", f"{t}/beams.png",
+         "--sweep", "32", "--device", "cpu"],
+        ["calibrate", "--config", "tiny", "--input-file", f"{t}/cap.dada",
+         "--angle", "0", "--out", f"{t}/cal.npz", "--device", "cpu"],
+        ["weights", "--config", "tiny", "--cal", f"{t}/cal.npz", "--out",
+         f"{t}/wcal.npz", "--device", "cpu"],
+        ["bench", "--config", "tiny", "--blocks", "2", "--device", "cpu"],
+        ["bench", "--config", "tiny", "--blocks", "2", "--bench-mode",
+         "stream", "--device", "cpu"],
     ]
     code = (
         "import sys\n"
