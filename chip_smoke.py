@@ -312,6 +312,25 @@ configuration's a_compute):
                --config dsa10c --bench-mode stream`` (16 blocks, 0 dropped),
                both records printed; ``bench_kernel`` at dsa10c in this
                process counts the launches.
+37. mesh    -- inside phase 18 (dsa110), on its two full-band blocks: 8
+               slots of the card, each the per-GPU subband, byte-equal to
+               the single-device detect kernel in base, Stokes and
+               +sk+q8+inco (the band within 1e-5 of the product's channel
+               sum), the step timed with its shard copies and gather; a
+               4-block ``MeshStreamingBeamformer`` stream (the calibrated
+               table from block 2) equal to the single-device stream; and,
+               beside phases 10 and 15, ``run --config dsa10c --mesh 8
+               --device 0`` and ``run --device 0`` on a 3-block capture,
+               their files byte-equal.
+38. tp      -- inside phase 18: ``DSA110.subband(0, 256)`` on a (2, 2)
+               mesh in int8x2, bf16x2 and f32, power and Stokes: 4 voltage
+               launches a step, within 1e-5 of the fused detect kernel.
+39. multihost -- beside phase 29 (widths): 2 processes under gloo sharing
+               the card, 2 slots each, over full dsa110, each making its
+               own subband's bytes; 4 blocks, the calibrated table from
+               block 2; byte-equal (fingerprints) to the single-device
+               product's channel slices, the all-reduced band within 1e-5
+               of the full band's sum.
 
 Each streamed phase, and the voltage paths, set the launch counts to 0 just
 before their run and read them just after.  The last two lines are a JSON
@@ -336,6 +355,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import gc
 import hashlib
 import json
 import multiprocessing
@@ -344,6 +364,7 @@ import multiprocessing.util
 import os
 import shutil
 import signal
+import socket
 from concurrent.futures import ThreadPoolExecutor
 import subprocess
 import sys
@@ -419,13 +440,32 @@ from dsabeamformer_tpu_torch.ops.reference import (
     beamform_stokes_ref,
 )
 from dsabeamformer_tpu_torch.ops.rfi import RFIMonitor
+from dsabeamformer_tpu_torch.parallel.multihost import (
+    MultihostMeshStreamingBeamformer,
+    host_subbands,
+    initialize_multihost,
+    my_subband,
+)
+from dsabeamformer_tpu_torch.parallel.sharding import (
+    make_mesh,
+    place_weights,
+    sharded_beamformer,
+    sharded_wire_sharding,
+)
+from dsabeamformer_tpu_torch.parallel.tensor import (
+    make_tp_mesh,
+    shard_weights_tp,
+    tp_beamformer,
+)
 from dsabeamformer_tpu_torch.pipeline import (
     FileSink,
+    MeshStreamingBeamformer,
     RingSource,
     StreamingBeamformer,
     SyntheticSource,
 )
 from dsabeamformer_tpu_torch.utils.bench import bench_kernel
+from dsabeamformer_tpu_torch.utils.hostenv import process_rss_mb
 from dsabeamformer_tpu_torch.utils.metrics import tensor_core_utilization
 from dsabeamformer_tpu_torch.utils.profiling import trace_events
 from dsabeamformer_tpu_torch.utils.quicklook import (
@@ -482,6 +522,21 @@ class ChecksumSink:
         self.sums.append((seq, float(t.sum())))
         if seq == 0:
             self.first_equal = torch.equal(t, self.first_expected)
+
+
+class FingerprintSink:
+    """Per block the wrapping sum of the product's bytes taken as 64-bit
+    words (a one-bit difference changes it), and full copies of the first
+    ``keep`` blocks."""
+
+    def __init__(self, keep=2):
+        self.sums, self.first, self.keep = [], {}, keep
+
+    def write(self, seq, powers):
+        t = torch.from_numpy(powers)
+        self.sums.append(int(t.view(torch.int64).sum()))
+        if len(self.first) < self.keep:
+            self.first[len(self.first)] = t.clone()
 
 
 def random_blocks(cfg, seeds) -> list:
@@ -1515,10 +1570,14 @@ def phase_dsa110(smi) -> dict:
     del qw
     log(f"[dsa110] variants, physics and times in "
         f"{time.perf_counter() - t0:.1f} s")
+    # The channel mesh of the card's slots on the same blocks.
+    log(f"[dsa110] {host_memory()}")
+    scaleout = phase_mesh(blocks, scaleout_tables(cfg), times["base"], smi)
 
     sub = DSA110_SUBBAND
     sub_blocks = [make_random_bytes_block(sub, seed=s) for s in (12, 13)]
     phase_transfers(sub, sub_blocks[0])
+    tp = phase_tp(sub_blocks[0], smi)
     modes = phase_dsa110_modes(blocks, sub_blocks, smi)
     del blocks
     log(f"[dsa110] modes done at {time.perf_counter() - t0:.1f} s")
@@ -1543,7 +1602,459 @@ def phase_dsa110(smi) -> dict:
                            f"{missing}")
     volt = phase_voltages(smi, DSA110.replace(n_chan=VOLTAGE_CHANNELS))
     return {"checked": checked, "times": times, "launches": launches,
-            "volt": volt, "modes": modes}
+            "volt": volt, "modes": modes, "scaleout": scaleout, "tp": tp}
+
+
+# --------------------------------------------------------------------- #
+# Scale-out: the channel mesh, the antenna split, processes on one card
+# --------------------------------------------------------------------- #
+
+MESH_SLOTS = 8               # DSA-110's eight 256-channel subbands
+#: The mesh step's variants, each held to the single-device kernel byte for
+#: byte (the first two with band power, which turns the uint8 epilogue off).
+MESH_VARIANTS = ("base", "stokes", "sk+q8+inco")
+N_MESH_TIMED = 4             # back-to-back calls in the mesh's timings
+N_MESH_STREAM = 4            # blocks of the mesh stream
+MESH_CAL_SEED = 7            # the calibration of the table swapped in
+BAND_RTOL = 1e-5             # the band against the product's channel sum
+TP_SHAPE = (2, 2)            # (channel groups, antenna groups)
+TP_MODES = ("int8x2", "bf16x2", "f32")
+TP_RTOL = 1e-5               # against the single-device fused kernel
+MULTIHOST_PROCS = 2          # processes sharing the card under gloo
+MULTIHOST_SLOTS = 2          # mesh slots of each process
+#: The 8-bit .fil scale of the ``run --mesh`` comparison: fixed (the [cli]
+#: drill covers the auto scale), so the uint8 epilogue runs from block 0;
+#: a random-bytes dsa10c beam's power is ~1.4e4, so counts sit near 64.
+MESH_CLI_FIL_SCALE = 0.005
+
+
+def scaleout_tables(cfg=DSA110) -> list:
+    """The two full-band tables of the scale-out streams: unity, then the
+    calibration swapped in mid-stream (each process makes them alike: the
+    card makes the same bytes every time)."""
+    return [prepare_weights(cfg, make_weights(cfg, cal=cal, device=DEV))
+            for cal in (None, CalTable.random(cfg, seed=MESH_CAL_SEED))]
+
+
+class BandSink(FingerprintSink):
+    """A FingerprintSink that also keeps each block's band: its sum over
+    channels and beams."""
+
+    def __init__(self):
+        super().__init__(keep=1)
+        self.bands = []
+
+    def write(self, seq, powers):
+        super().write(seq, powers)
+        self.bands.append(torch.from_numpy(powers).sum(dim=(0, 2)))
+
+
+def band_close(got, want) -> bool:
+    got, want = torch.as_tensor(got).double(), torch.as_tensor(want).double()
+    return bool(((got - want).abs() <= BAND_RTOL * want.abs()).all())
+
+
+def phase_mesh(blocks_np, tables, single_ms, smi) -> int:
+    """[mesh]: full ``dsa110`` on 8 slots of the card, each slot the
+    deployment's per-GPU subband (``DSA110.subband(k*256, 256)``): the mesh
+    step of each of ``MESH_VARIANTS`` against the single-device kernel on
+    the same block, byte for byte, and the band against the product's own
+    channel sum; the step, its shard copies and its gather timed beside the
+    single-device kernel; then a 4-block ``MeshStreamingBeamformer`` stream
+    (band power on, the calibrated table swapped in at the drain of block
+    0, so from block 2) against the single-device stream of the same
+    blocks.  Returns the detect launches of the mesh stream."""
+    cfg = DSA110
+    t0 = time.perf_counter()
+    mesh = make_mesh(MESH_SLOTS, devices=[DEV] * MESH_SLOTS)
+    local = cfg.replace(n_chan=cfg.n_chan // MESH_SLOTS)
+    qw = tables[0]
+    qw_sh = place_weights(qw, mesh)
+    split = sharded_wire_sharding(cfg, mesh)
+    x = to_device(cfg, blocks_np[0])
+    f32 = gemm.beamform_power(x, qw, cfg)
+    for variant in MESH_VARIANTS:
+        q8, inco, sk = ALL_VARIANTS[variant]
+        stokes = variant in STOKES_VARIANTS or variant == "stokes"
+        kw = side_kwargs(cfg, variant, f32)
+        step = sharded_beamformer(
+            cfg, mesh, products="stokes" if stokes else "power",
+            incoherent=inco, flag_ants=(flagged_ant(cfg),) if inco else (),
+            sk_stats=sk, fused_quant8=q8, with_band_power=not q8)
+        args = (kw["quant8_scales"],) if q8 else ()
+        got = step(x, qw_sh, *args)
+        got = list(got) if isinstance(got, tuple) else [got]
+        detect = gemm.beamform_stokes if stokes else gemm.beamform_power
+        want = detect(x, qw, cfg, incoherent=inco,
+                      flag_ants=(flagged_ant(cfg),) if inco else (),
+                      sk_stats=sk, quant8_scales=kw["quant8_scales"])
+        want = list(want) if isinstance(want, tuple) else [want]
+        equal = [torch.equal(g, w) for g, w in zip(got, want)]
+        band_ok = True
+        if not q8:
+            plane = want[0][:, :, 0] if stokes else want[0]
+            band_ok = band_close(got[-1], plane.sum(dim=(0, 2)))
+        log(f"[mesh] {cfg.name} {variant} on {MESH_SLOTS} slots of "
+            f"{local.n_chan} channels: outputs "
+            f"{[tuple(g.shape) for g in got]} equal the single-device "
+            f"kernel's {equal}" + ("" if q8 else
+                                   f"; band within {BAND_RTOL} of the "
+                                   f"product's channel sum {band_ok}"))
+        if not all(equal) or not band_ok:
+            raise RuntimeError(f"[mesh] {variant}: mesh differs from one "
+                               f"device")
+        del got, want
+    del f32
+    step = sharded_beamformer(cfg, mesh)
+    shards = split.put(x)
+    outs = [gemm.beamform_power(s, q, local) for s, q in zip(shards, qw_sh)]
+    mesh_ms = time_ms(lambda i: step(x, qw_sh), N_MESH_TIMED)
+    split_ms = time_ms(lambda i: split.put(x), N_MESH_TIMED)
+    kernels_ms = time_ms(lambda i: [gemm.beamform_power(s, q, local)
+                                    for s, q in zip(shards, qw_sh)],
+                         N_MESH_TIMED)
+    gather_ms = time_ms(lambda i: torch.cat(outs), N_MESH_TIMED)
+    del shards, outs
+    log(f"[mesh] {cfg.name} step on {MESH_SLOTS} slots {mesh_ms:.3f} "
+        f"ms/block against the single-device kernel's {single_ms:.3f} "
+        f"(x{mesh_ms / single_ms:.3f}): the {MESH_SLOTS} kernels "
+        f"{kernels_ms:.3f} ms, the shard copies {split_ms:.3f} ms "
+        f"({cfg.wire_block_bytes / 1e9:.3f} GB), the gather "
+        f"{gather_ms:.3f} ms ({np.prod(cfg.out_block_shape) * 4 / 1e9:.3f} "
+        f"GB) on {smi}")
+    del x
+
+    runs = {}
+    for name in ("mesh", "single"):
+        sink = BandSink()
+        bands = {}
+        kw = dict(mesh=mesh, with_band_power=True,
+                  on_band_power=lambda seq, band: bands.__setitem__(
+                      seq, band)) if name == "mesh" else {}
+        klass = MeshStreamingBeamformer if name == "mesh" \
+            else StreamingBeamformer
+        bf = klass(cfg, tables[0], SyntheticSource(cfg, blocks_np,
+                                                   N_MESH_STREAM), sink,
+                   depth=1, **kw)
+        bf.on_block = lambda bs, bf=bf: bs.block_idx == 0 and \
+            bf.update_weights(tables[1])
+        bf.warmup()
+        clear_launches()
+        stats = bf.run()
+        bf.on_block = None  # its closure holds the stream: free both now
+        launches = sum(gemm.fused_detect.launches.values())
+        runs[name] = sink, bands, launches
+        log(f"[mesh] {name} stream: {stats.n_blocks} blocks, "
+            f"{stats.wall_s * 1e3 / stats.n_blocks:.2f} ms/block (4 blocks "
+            f"from host memory, start-up included: not a steady rate), "
+            f"detect launches {launches}")
+        if stats.n_blocks != N_MESH_STREAM or stats.dropped:
+            raise RuntimeError(f"[mesh] {name} stream: {stats.n_blocks} "
+                               f"blocks, {stats.dropped} dropped")
+        del bf
+    (m_sink, m_bands, m_n), (s_sink, _, s_n) = runs["mesh"], runs["single"]
+    same = m_sink.sums == s_sink.sums \
+        and torch.equal(m_sink.first[0], s_sink.first[0])
+    swapped = m_sink.sums[2] != m_sink.sums[0]
+    bands_ok = sorted(m_bands) == list(range(N_MESH_STREAM)) and all(
+        band_close(m_bands[k], s_sink.bands[k]) for k in m_bands)
+    log(f"[mesh] mesh stream equals the single-device stream block for "
+        f"block {same} (fingerprints, block 0 whole); the swapped table "
+        f"ran from block 2 {swapped}; bands within {BAND_RTOL} of the "
+        f"single-device blocks' sums {bands_ok}; launches {m_n} (mesh) / "
+        f"{s_n} (one device) in {time.perf_counter() - t0:.1f} s")
+    if not (same and swapped and bands_ok) \
+            or m_n != N_MESH_STREAM * MESH_SLOTS or s_n != N_MESH_STREAM:
+        raise RuntimeError("[mesh] the mesh stream differs from one device")
+    torch.cuda.empty_cache()
+    return m_n
+
+
+def start_mesh_cli(cc_blocks, tmp) -> dict:
+    """[mesh] ``dsabf-torch run --config dsa10c --mesh 8 --device 0`` and
+    ``run --device 0`` started at once on a 3-block capture (8-bit .fil of
+    256 beams at ``MESH_CLI_FIL_SCALE``, the incoherent .dada,
+    ``--rfi-auto`` excising the carrier); ``finish_mesh_cli`` compares
+    their files."""
+    # The two processes share the card with this one: its cached blocks go
+    # back to the device first.
+    torch.cuda.empty_cache()
+    cap = tmp / "cap.raw"
+    with open(cap, "wb") as f:
+        for k in (0, 1, 0):
+            f.write(cc_blocks[k].tobytes())
+    procs = {}
+    try:
+        for name, extra in (("mesh", ["--mesh", str(MESH_SLOTS)]),
+                            ("single", [])):
+            procs[name] = start_cli(
+                ["run", "--config", "dsa10c", "--input-file", str(cap),
+                 "--fil-dir", str(tmp / name), "--fil-bits", "8",
+                 "--fil-scale", str(MESH_CLI_FIL_SCALE),
+                 "--incoherent-file", str(tmp / f"{name}.dada"),
+                 "--rfi-auto", "--device", "0"] + extra,
+                tmp / f"{name}.log")
+    except BaseException:
+        stop_all(list(procs.values()))
+        raise
+    return {"procs": procs, "tmp": tmp, "t0": time.perf_counter()}
+
+
+def finish_mesh_cli(run, smi) -> None:
+    """The same files, byte for byte, from ``run --mesh`` and ``run``."""
+    procs, tmp = run["procs"], run["tmp"]
+    try:
+        recs = {name: json.loads(finish_cli(
+            p, f"run ({name})", tmp / f"{name}.log").strip().splitlines()[-1])
+            for name, p in procs.items()}
+    finally:
+        stop_all(list(procs.values()))
+    logs = {name: (tmp / f"{name}.log").read_text() for name in procs}
+    n, bad, nbytes = files_equal(tmp / "mesh", tmp / "single")
+    inco_same = (tmp / "mesh.dada").read_bytes() \
+        == (tmp / "single.dada").read_bytes()
+    rfi = [sum("[dsabf] rfi" in ln for ln in logs[k].splitlines())
+           for k in ("mesh", "single")]
+    log(f"[mesh] cli: run --config dsa10c --mesh {MESH_SLOTS} --device 0 "
+        f"and run --device 0 on 3 blocks: {n} .fil files, {bad} differ "
+        f"({nbytes} bytes); incoherent .dada equal {inco_same}; rfi lines "
+        f"{rfi}; records {recs['mesh']['blocks']} / "
+        f"{recs['single']['blocks']} blocks, {recs['mesh']['wall_s']:.2f} / "
+        f"{recs['single']['wall_s']:.2f} s (beside the other deployments) "
+        f"in {time.perf_counter() - run['t0']:.1f} s on {smi}")
+    if bad or not inco_same or rfi[0] != rfi[1] or not rfi[0] \
+            or f"mesh: {MESH_SLOTS} device(s)" not in logs["mesh"] \
+            or recs["mesh"]["blocks"] != 3 or recs["single"]["blocks"] != 3:
+        raise RuntimeError("[mesh] run --mesh differs from run")
+
+
+def phase_tp(sub_block, smi) -> collections.Counter:
+    """[tp]: the per-GPU subband ``DSA110.subband(0, 256)`` on a (2, 2)
+    mesh of the card in each of ``TP_MODES``, power and Stokes: the
+    voltage kernel on every slot (4 launches a step), the partial voltages
+    summed over the antenna axis, detected; held within 1e-5 of the
+    single-device fused detect kernel on the same block (Stokes: of the I
+    plane's peak), timed.  Returns the voltage launches by mode."""
+    t0 = time.perf_counter()
+    n_slots = TP_SHAPE[0] * TP_SHAPE[1]
+    mesh = make_tp_mesh(*TP_SHAPE, devices=[DEV] * n_slots)
+    launches = collections.Counter()
+    for mode in TP_MODES:
+        cfg = DSA110_SUBBAND.replace(weight_mode=mode)
+        x = to_device(cfg, sub_block)
+        qw_tp = shard_weights_tp(cfg, mesh)
+        qw = prepare_weights(cfg, make_weights(cfg, device=DEV))
+        for products in ("power", "stokes"):
+            step = tp_beamformer(cfg, mesh, products=products)
+            gemm.beamform_voltages.launches_by_mode.clear()
+            got = step(x, qw_tp)
+            n = gemm.beamform_voltages.launches_by_mode[mode]
+            launches[mode] += n
+            if products == "stokes":
+                want = gemm.beamform_stokes(x, qw, cfg)
+                err = max(plane_errors(got, want))
+            else:
+                want = gemm.beamform_power(x, qw, cfg)
+                err = relative_power_error_on_card(got, want)
+            del got, want
+            ms = time_ms(lambda i: step(x, qw_tp), 2)
+            log(f"[tp] {tag(cfg)} subband of {cfg.n_chan} channels "
+                f"{products} on a {TP_SHAPE} mesh: "
+                f"{n} voltage launches, {ms:.3f} ms a step, against the "
+                f"fused kernel {err:.3e} (limit {TP_RTOL}) on {smi}")
+            if n != n_slots or not err <= TP_RTOL:
+                raise RuntimeError(f"[tp] {mode} {products}: {n} launches, "
+                                   f"error {err}")
+        del qw_tp, qw, x
+    log(f"[tp] done in {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    return launches
+
+
+def multihost_seed(k, r) -> int:
+    """Seed of process ``r``'s subband of block ``k`` in [multihost]: each
+    process makes only its own subband's bytes."""
+    return 1100 + 10 * k + r
+
+
+def host_memory() -> str:
+    """This process's resident set, the pinned memory PyTorch holds for it
+    and the machine's available memory."""
+    avail = next(int(ln.split()[1]) for ln in open("/proc/meminfo")
+                 if ln.startswith("MemAvailable:"))
+    pinned = {k: v for k, v in torch.cuda.memory.host_memory_stats().items()
+              if k.endswith("bytes.current")}
+    return (f"host RSS {process_rss_mb() / 1024:.1f} GiB (pinned memory "
+            f"stats {pinned}), available {avail / 2**20:.1f} GiB")
+
+
+def multihost_child(rank, port, go, results) -> None:
+    """One process of [multihost]: makes its CUDA context, joins the gloo
+    group and waits for ``go``; then makes its own subband of the two
+    blocks, streams them through ``MultihostMeshStreamingBeamformer`` on
+    its own slots of the card, 4 blocks, the calibrated table from block
+    2, band power on; puts its blocks' fingerprints, bands and detect
+    launches on ``results``."""
+    import traceback
+
+    try:
+        torch.zeros(1, device=DEV)
+        initialize_multihost(f"localhost:{port}", MULTIHOST_PROCS, rank,
+                             backend="gloo")
+        try:
+            if not go.wait(timeout=2 * CLI_TIMEOUT):
+                raise RuntimeError("no go from the parent")
+            t0 = time.perf_counter()
+            steps = {}
+            cfg = DSA110
+            sub = my_subband(cfg)
+            sub_cfg = sub.config(cfg)
+            blocks = [make_random_bytes_block(sub_cfg,
+                                              seed=multihost_seed(k, rank))
+                      for k in range(2)]
+            steps["blocks"] = time.perf_counter() - t0
+            tables = scaleout_tables(cfg)
+            steps["tables"] = time.perf_counter() - t0
+            mesh = make_mesh(MULTIHOST_SLOTS, devices=[DEV] * MULTIHOST_SLOTS)
+            sink, bands = FingerprintSink(keep=0), {}
+            bf = MultihostMeshStreamingBeamformer(
+                cfg, tables[0], SyntheticSource(sub_cfg, blocks,
+                                                N_MESH_STREAM), sink,
+                mesh=mesh, depth=1, with_band_power=True,
+                on_band_power=lambda seq, band: bands.__setitem__(
+                    seq, band.tolist()))
+            bf.on_block = lambda bs: bs.block_idx == 0 and \
+                bf.update_weights(tables[1])
+            bf.warmup()
+            steps["warmup"] = time.perf_counter() - t0
+            clear_launches()
+            stats = bf.run()
+            steps["stream"] = time.perf_counter() - t0
+            results.put({
+                "rank": rank, "sub": [sub.chan_start, sub.n_chan],
+                "sums": sink.sums, "bands": bands, "blocks": stats.n_blocks,
+                "launches": sum(gemm.fused_detect.launches.values()),
+                "ms": stats.wall_s * 1e3 / max(stats.n_blocks, 1),
+                "steps": {k: round(v, 1) for k, v in steps.items()},
+                "memory": host_memory(), "error": None})
+        finally:
+            torch.distributed.destroy_process_group()
+    except Exception:
+        results.put({"rank": rank, "error": traceback.format_exc()})
+
+
+def spawn_multihost() -> dict:
+    """[multihost], spawned: 2 processes that import this script, make
+    their CUDA contexts and join their gloo group while the phases before
+    run, touching nothing else of the card until ``start_multihost``."""
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    ctx = multiprocessing.get_context("spawn")
+    go, results = ctx.Event(), ctx.Queue()
+    procs = [ctx.Process(target=multihost_child,
+                         args=(r, port, go, results), daemon=True)
+             for r in range(MULTIHOST_PROCS)]
+    for p in procs:
+        p.start()
+    return {"procs": procs, "go": go, "results": results}
+
+
+def start_multihost(run, smi) -> dict:
+    """[multihost], started: 2 processes sharing the card under gloo, 2
+    slots each, over full ``dsa110`` (1024 channels a process, 512 a
+    slot), each making only its own subband's bytes of two blocks
+    (``multihost_seed``), 4 blocks, the calibrated table from block 2.
+    While they run (and the phase after this one), a thread here makes the
+    full-band blocks of the references (the subbands side by side);
+    ``finish_multihost`` makes the single-device products and holds the
+    processes to them."""
+    cfg = DSA110
+    log(f"[multihost] before the processes go: {host_memory()}")
+    # The pinned buffers the streams above left go back to the host, and
+    # the card's cached blocks to the card: three processes share both now
+    # (torch 2.11 names the pinned cache's call so; a build without it
+    # keeps its cache).
+    gc.collect()
+    empty_pinned = getattr(torch._C, "_host_emptyCache", None)
+    if empty_pinned is not None:
+        empty_pinned()
+    torch.cuda.empty_cache()
+    log(f"[multihost] after the caches are emptied: {host_memory()}")
+    run = {**run, "t0": time.perf_counter(), "smi": smi}
+    run["go"].set()
+    subs = host_subbands(cfg, MULTIHOST_PROCS)
+    axis = 1 if cfg.input_layout == "tfpa" else 0
+    run["maker"] = ThreadPoolExecutor(max_workers=1)
+    run["blocks"] = [run["maker"].submit(lambda k=k: np.concatenate(
+        [make_random_bytes_block(s.config(cfg), seed=multihost_seed(
+            k, s.host_index)) for s in subs], axis=axis)) for k in range(2)]
+    return run
+
+
+def finish_multihost(run) -> int:
+    """[multihost], finished: each process's blocks held, byte for byte
+    (fingerprints), to the channel slice of the single-device product, and
+    its all-reduced bands to the full band's sums.  Returns the processes'
+    detect launches."""
+    cfg = DSA110
+    procs = run["procs"]
+    subs = host_subbands(cfg, MULTIHOST_PROCS)
+    try:
+        # The references: the single-device product of each (block, table),
+        # its subbands' fingerprints and its band.
+        refs = {}
+        tables = scaleout_tables(cfg)
+        for k, block in enumerate(run["blocks"]):
+            x = to_device(cfg, block.result())
+            for w, qw in enumerate(tables):
+                p = gemm.beamform_power(x, qw, cfg)
+                refs[k, w] = ([int(p[s.chan_start:s.chan_start
+                                     + s.n_chan].view(torch.int64).sum())
+                               for s in subs], p.sum(dim=(0, 2)).cpu())
+                del p
+            del x
+        del tables
+        got = sorted((run["results"].get(timeout=CLI_TIMEOUT)
+                      for _ in procs), key=lambda r: r["rank"])
+    finally:
+        run["maker"].shutdown(cancel_futures=True)
+        for p in procs:
+            p.join(timeout=120)
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=30)
+    errors = [r["error"] for r in got if r["error"]]
+    if errors or any(p.exitcode for p in procs):
+        raise RuntimeError(f"[multihost] a process failed (exit codes "
+                           f"{[p.exitcode for p in procs]}):\n"
+                           + "\n".join(errors))
+    launches = 0
+    for r in got:
+        # Blocks 0, 1, 0, 1; the calibrated table from block 2.
+        want = [refs[seq % 2, int(seq >= 2)] for seq in range(N_MESH_STREAM)]
+        same = r["sums"] == [fp[r["rank"]] for fp, _ in want]
+        bands_ok = sorted(r["bands"]) == list(range(N_MESH_STREAM)) and all(
+            band_close(r["bands"][seq], want[seq][1])
+            for seq in range(N_MESH_STREAM))
+        log(f"[multihost] process {r['rank']} (channels {r['sub'][0]}.."
+            f"{r['sub'][0] + r['sub'][1] - 1}, {MULTIHOST_SLOTS} slots): "
+            f"{r['blocks']} blocks, {r['ms']:.2f} ms/block (start-up "
+            f"included, beside [widths]), equal to the single-device "
+            f"slices {same}, all-reduced bands within {BAND_RTOL} of the "
+            f"full band's {bands_ok}, detect launches {r['launches']}; "
+            f"seconds from go to its blocks, tables, warmup and stream's "
+            f"end {r['steps']}; {r['memory']}")
+        if not (same and bands_ok) or r["blocks"] != N_MESH_STREAM \
+                or r["launches"] != N_MESH_STREAM * MULTIHOST_SLOTS:
+            raise RuntimeError(f"[multihost] process {r['rank']} differs")
+        launches += r["launches"]
+    log(f"[multihost] {MULTIHOST_PROCS} gloo processes x {MULTIHOST_SLOTS} "
+        f"slots on one card: {time.perf_counter() - run['t0']:.1f} s from "
+        f"go (their blocks, weights and warmup included; spawned, with "
+        f"their CUDA contexts and gloo group, before [dsa110]) on "
+        f"{run['smi']}")
+    return launches
 
 
 # --------------------------------------------------------------------- #
@@ -1984,7 +2495,8 @@ def phase_widths() -> None:
 # --------------------------------------------------------------------- #
 
 RING_DEPTH = 2               # the streams' depth; a ring holds depth+2 slots
-N_RING = 12                  # blocks in each ring power-only stream
+N_RING = 8                   # blocks in each ring power-only stream (12
+                             # before the scale-out phases: their time)
 N_RING_DEPLOYED = 8          # blocks in each ring deployed stream
 SHM = "/dev/shm"
 DD_KERNELS = (dedisperse_direct, subband_stage1, subband_stage2)
@@ -2192,21 +2704,6 @@ class TimedSource:
     @property
     def skipped(self):
         return self.src.skipped
-
-
-class FingerprintSink:
-    """Per block the wrapping sum of the product's bytes taken as 64-bit
-    words (a one-bit difference changes it), and full copies of the first
-    ``keep`` blocks."""
-
-    def __init__(self, keep=2):
-        self.sums, self.first, self.keep = [], {}, keep
-
-    def write(self, seq, powers):
-        t = torch.from_numpy(powers)
-        self.sums.append(int(t.view(torch.int64).sum()))
-        if len(self.first) < self.keep:
-            self.first[len(self.first)] = t.clone()
 
 
 def steady_ms(drained, n) -> float:
@@ -4086,8 +4583,13 @@ def main() -> tuple:
     del blocks
     cc_blocks = [with_carrier(cc, cc_block),
                  with_carrier(cc, make_random_bytes_block(cc, seed=3))]
-    launches.update(phase_other_deployments(cc, cc_blocks, smi))
-    launches.update(phase_other_deployments(cc, cc_blocks, smi, "stokes"))
+    with tempfile.TemporaryDirectory() as tmp:
+        # run --mesh against run, two processes beside these streams.
+        mesh_cli = start_mesh_cli(cc_blocks, Path(tmp))
+        launches.update(phase_other_deployments(cc, cc_blocks, smi))
+        launches.update(phase_other_deployments(cc, cc_blocks, smi,
+                                                "stokes"))
+        finish_mesh_cli(mesh_cli, smi)
     del cc_blocks
     # Bytes to candidates: the live search from the ring, the offline
     # search, and the bank kernels against their plain versions.
@@ -4104,13 +4606,17 @@ def main() -> tuple:
     volt = phase_voltages(smi)
     mark("voltages")
 
-    # DSA-110.
+    # DSA-110, while [multihost]'s processes start.
+    multihost = spawn_multihost()
     d110 = phase_dsa110(smi)
     mark("dsa110 (phases 18-22, 27-28)")
 
-    # Widths and shapes off the presets, and the K loop past them.
+    # Two processes sharing the card run beside the widths and shapes off
+    # the presets (their streams counted from 0 there), then the K loop.
+    multihost = start_multihost(multihost, smi)
     phase_widths()
-    mark("widths")
+    d110["scaleout"] += finish_multihost(multihost)
+    mark("widths and multihost")
     kloop = phase_kloop(smi)
     mark("K loop")
 
@@ -4127,9 +4633,15 @@ def main() -> tuple:
     bench_n = phase_bench(res["ms"], smi)
     mark("bench")
     launches["base"] += cal_n + bench_n
-    d110["launches"]["base"] += lm_n
+    d110["launches"]["base"] += lm_n + d110["scaleout"]
     log(f"[slice] detect launches: calibrate {cal_n}, bench {bench_n} (the "
-        f"dsa10 base row), lm {lm_n} (the [dsa110] base row)")
+        f"dsa10 base row), lm {lm_n}, the mesh and multihost streams "
+        f"{d110['scaleout']} (the [dsa110] base row)")
+    for mode, n in d110["tp"].items():
+        row = d110["volt"] if mode == "int8x2" else d110["modes"][mode]["volt"]
+        row["launches"] += n
+    log(f"[slice] voltage launches of [tp] (the [dsa110] voltage rows): "
+        f"{dict(d110['tp'])}")
 
     kernels = kernel_rows(cfg, ALL_VARIANTS, launches, checked, times, volt)
     kernels += kernel_rows(DSA110, DSA110_VARIANTS, d110["launches"],

@@ -21,7 +21,10 @@ run today:
          (dedispersion banks on csrc/dedisperse.cu) -> candidates
 
 and the unfused validation path, ops.gemm.beamform_voltages
-(csrc/beam_voltages.cu), that the fused products are held against.
+(csrc/beam_voltages.cu), that the fused products are held against.  The
+scale-out (parallel: the channel mesh, the antenna split, one mesh per
+process under torch.distributed) and pipeline.MeshStreamingBeamformer run
+the same kernels over several devices, or several slots of one.
 
 Entry points run on the card unless the caller names another device.
 This package imports PyTorch and NumPy, never JAX.

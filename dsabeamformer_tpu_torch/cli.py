@@ -30,8 +30,10 @@ Every subcommand of the JAX package's ``dsabf`` (its
 ``--device``: a card index (``0`` or ``cuda:0``) or ``cpu``; with none they
 run on ``cuda:0`` and refuse to run without a card
 (``utils.device.resolve_device``).  ``launch --devices`` takes the same
-tokens, one per child.  ``run --mesh`` is refused: channel
-scale-out is not ported yet.
+tokens, one per child.  ``run --mesh N`` streams through a channel mesh of
+N slots (``parallel.sharding``): N distinct cards, or, with ``--device``, N
+slots on that one device (the JAX package refuses ``--mesh`` with
+``--device``; on a one-card host or the CPU this is how a mesh runs).
 
 Run ``dsabf-torch <cmd> --help`` for flags.  Config presets come from
 ``dsabeamformer_tpu_torch.config``; any geometry field can be overridden
@@ -404,23 +406,19 @@ class _DiscardSink:
 def cmd_run(args) -> int:
     from dsabeamformer_tpu_torch.ingest.ring import RingBuffer
     from dsabeamformer_tpu_torch.pipeline import (
-        FileSink, FileSource, RingSink, RingSource, StreamingBeamformer,
+        FileSink, FileSource, MeshStreamingBeamformer, RingSink, RingSource,
+        StreamingBeamformer,
     )
 
     if args.fil_dir and (args.output_file or args.output_key):
         print("error: --fil-dir is exclusive with --output-file/"
               "--output-key (one product sink per run)", file=sys.stderr)
         return 2
-    if args.mesh:
-        print("error: --mesh (a channel-sharded mesh of devices) is not "
-              "ported to the PyTorch port yet: it is the scale-out item of "
-              "ROADMAP.md Queue 1; run one process per device with "
-              "`dsabf-torch launch --subbands N --devices ...` instead",
-              file=sys.stderr)
-        return 2
-    device = _resolve_device(args)
-    if device is None:
-        return 2
+    device = None
+    if not args.mesh or args.device is not None:
+        device = _resolve_device(args)
+        if device is None:
+            return 2
 
     cfg = _load_cfg(args)
     dada_offset = 0
@@ -431,6 +429,22 @@ def cmd_run(args) -> int:
             print(f"[dsabf] DADA header: {cfg.n_chan} chan x {cfg.n_ant} "
                   f"ant x {cfg.n_pol} pol, order {cfg.input_layout}, "
                   f"data at +{dada_offset}", file=sys.stderr)
+    mesh = None
+    if args.mesh:
+        from dsabeamformer_tpu_torch.parallel.sharding import (
+            _check_divisible, make_mesh,
+        )
+
+        try:
+            # The shard geometry is checked first, with the port's own
+            # messages; then the slots: N on --device, else N distinct cards.
+            _check_divisible(cfg, args.mesh)
+            mesh = make_mesh(args.mesh, devices=None if device is None
+                             else [device] * args.mesh)
+        except ValueError as e:
+            print(f"error: --mesh {args.mesh}: {e}", file=sys.stderr)
+            return 2
+        device = mesh.home
     if args.products == "stokes":
         inflight_gb = (args.depth * 4 * np.prod(cfg.out_block_shape) * 4
                        / 2**30)
@@ -542,10 +556,18 @@ def cmd_run(args) -> int:
 
     # The beamformer's sink goes in now so that its device-side transform
     # (the 8-bit .fil quantizer and layout) is built during warmup too.
-    warm = StreamingBeamformer(cfg, qw, source=None, sink=sink,
-                               products=args.products,
-                               incoherent_sink=inco_sink,
-                               flag_ants=_flag_ant_list(args))
+    if mesh is not None:
+        warm = MeshStreamingBeamformer(cfg, qw, source=None, sink=sink,
+                                       mesh=mesh, products=args.products,
+                                       incoherent_sink=inco_sink,
+                                       flag_ants=_flag_ant_list(args))
+        print(f"[dsabf] mesh: {args.mesh} device(s) x "
+              f"{cfg.n_chan // args.mesh} channels each", file=sys.stderr)
+    else:
+        warm = StreamingBeamformer(cfg, qw, source=None, sink=sink,
+                                   products=args.products,
+                                   incoherent_sink=inco_sink,
+                                   flag_ants=_flag_ant_list(args))
     warm.search_monitor = search_monitor
 
     rfi_monitor = None
@@ -2176,8 +2198,9 @@ def main(argv=None) -> int:
                    help="source declination (rad), sets the drift rate")
     _device_arg(p, "run on this device")
     p.add_argument("--mesh", type=int,
-                   help="a channel-sharded mesh of N devices: not ported "
-                        "(refused)")
+                   help="stream through a channel-sharded mesh of N "
+                        "slots: N distinct cards, or with --device N slots "
+                        "on that one device")
     p.add_argument("--depth", type=int, default=2, help="blocks in flight")
     p.add_argument("--blocks", type=int, help="stop after N blocks")
     p.add_argument("--latest", action="store_true",

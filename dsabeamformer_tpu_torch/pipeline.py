@@ -37,6 +37,10 @@ ring has one open read per consumer, so the loop hands block n's slot back
 (after its h2d_done) before it opens block n + 1: the H2D copies are
 serialized with the reads, the kernels and D2H copies keep overlapping.
 
+``MeshStreamingBeamformer`` runs the same loop through the channel mesh of
+``parallel.sharding``: the slots, streams and staging sit on the mesh's first
+device, and the step splits each block over the mesh's slots.
+
 On the CPU the same loop runs synchronously on plain tensors (the tests'
 path).  A sink receives a NumPy view of a buffer the loop reuses: it must
 consume or copy it before ``write`` returns.
@@ -45,6 +49,7 @@ consume or copy it before ``write`` returns.
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import time
 from pathlib import Path
@@ -58,6 +63,12 @@ from dsabeamformer_tpu_torch.ingest import dada
 from dsabeamformer_tpu_torch.ingest.ring import RingBuffer
 from dsabeamformer_tpu_torch.ops.gemm import beamform_power, beamform_stokes
 from dsabeamformer_tpu_torch.ops.quantize import QuantWeights
+from dsabeamformer_tpu_torch.parallel.sharding import (
+    AXIS as MESH_AXIS,
+    _check_divisible,
+    place_weights,
+    sharded_beamformer,
+)
 from dsabeamformer_tpu_torch.utils.device import resolve_device
 from dsabeamformer_tpu_torch.utils.metrics import BlockStats, StreamStats
 
@@ -455,7 +466,7 @@ class StreamingBeamformer:
         # Optional live single-pulse search: fed each drained block, flushed
         # at the end of the stream.
         self.search_monitor = None
-        self.device = weights.device
+        self.device = self._home_device(weights)
         self._cuda = self.device.type == "cuda"
         self._slots: list = []
         self._n_enq = 0
@@ -486,19 +497,33 @@ class StreamingBeamformer:
         every in-flight block, the one being enqueued and one spare."""
         return self.depth + 2
 
+    def _home_device(self, weights: QuantWeights) -> torch.device:
+        """The device the stream runs on: the weights'."""
+        return weights.device
+
     def update_weights(self, weights: QuantWeights) -> None:
         """Swap in new (already-quantized) weights for subsequent blocks."""
         if weights.device != self.device:
             raise ValueError(
                 f"weights are on {weights.device}, the stream on {self.device}")
-        if self._cuda:
-            # Order the weights' creation before the compute stream reads
-            # them, and keep their memory from reuse until the kernels
-            # queued on it have run (they may outlive this reference).
-            self._compute.wait_stream(torch.cuda.current_stream(self.device))
-            for t in (*weights.terms, weights.scales):
-                t.record_stream(self._compute)
+        self._hold_for_compute([*weights.terms, weights.scales])
         self.weights = weights
+
+    def _hold_for_compute(self, tensors) -> None:
+        """Order the making of ``tensors`` before the compute streams read
+        them, and keep their memory from reuse until the kernels queued
+        there have run (they may outlive the caller's reference)."""
+        if not self._cuda:
+            return
+        for stream in self._compute_streams():
+            stream.wait_stream(torch.cuda.current_stream(stream.device))
+            for t in tensors:
+                if t.device == stream.device:
+                    t.record_stream(stream)
+
+    def _compute_streams(self) -> list:
+        """The streams the kernels run on (one per device)."""
+        return [self._compute]
 
     def current_stats(self) -> StreamStats:
         """Stats for the in-progress (or completed) run, wall-clocked from
@@ -739,6 +764,7 @@ class StreamingBeamformer:
             # The monitor holds this array since dispatch; it reads it only
             # after this block has drained (poll below).
             sk_host[...] = sk
+        self._post_drain(seq)
         bs = BlockStats(
             block_idx=self._block_idx,
             seq=seq,
@@ -754,6 +780,10 @@ class StreamingBeamformer:
             self.rfi_monitor.poll(self._block_idx)
         if self.on_block is not None:
             self.on_block(bs)
+
+    def _post_drain(self, seq: int) -> None:
+        """Hook after a block's products are drained (the mesh stream's
+        band power)."""
 
     def _counts_of_selected(self, sel: np.ndarray) -> np.ndarray:
         """The search monitor's float32 beams of a block drained before the
@@ -841,6 +871,159 @@ class StreamingBeamformer:
                 # at block 1: a one-time startup stall.
                 while self._inflight and fused_q8() is None:
                     self._drain_one()
+
+
+class MeshStreamingBeamformer(StreamingBeamformer):
+    """Streams blocks through the channel-sharded step of
+    ``parallel.sharding.sharded_beamformer``: the streaming loop's
+    pipelining with the mesh's execution.
+
+    ``weights`` is the full-band table; ``mesh`` a ``("chan",)`` mesh
+    (``parallel.sharding.make_mesh``).  The staging slots and the copy,
+    compute and D2H streams sit on the mesh's first slot: a block goes to
+    its device whole, the step splits it by channel (each slot's part made
+    contiguous), runs the single-device detect kernel on every slot (the
+    launches of a slot on another device go on that device's own compute
+    stream, which the first slot's waits for before the gather), and
+    gathers the products there for the sinks.  ``update_weights`` (also the
+    tracker's and the RFI monitor's excisions) re-splits a full-band table
+    and swaps it in with no stall.
+
+    Every single-device side output rides along, as
+    ``sharded_beamformer`` computes them: the incoherent sink, the SK
+    accumulators of the RFI monitor, the 8-bit sink's fused quantization,
+    the search monitor (on the gathered product), and the optional band
+    total power (``with_band_power=True``: ``on_band_power(seq, band)`` is
+    called once a block has drained, with ``band`` ``[T/navg_t]`` float32).
+    Band power turns the fused quantization off (band power over uint8
+    counts would be scale-distorted; the sink's ``device_post`` covers the
+    8-bit output).
+    """
+
+    def __init__(
+        self,
+        cfg: ObsConfig,
+        weights: QuantWeights,
+        source,
+        sink=None,
+        *,
+        mesh,
+        depth: int = 2,
+        on_block: Optional[Callable[[BlockStats], None]] = None,
+        tracker=None,
+        products: str = "power",
+        incoherent_sink=None,
+        flag_ants: tuple = (),
+        with_band_power: bool = False,
+        on_band_power: Optional[Callable[[int, np.ndarray], None]] = None,
+    ):
+        _check_divisible(cfg, mesh.shape[MESH_AXIS])
+        self.mesh = mesh
+        self.with_band_power = with_band_power
+        self.on_band_power = on_band_power
+        # One step a (incoherent, sk, quant8) combination, made at first
+        # use: the RFI monitor is attached after construction.
+        self._mesh_steps: dict = {}
+        # The compute stream of every other CUDA device of the mesh.
+        self._slot_streams = {
+            d: torch.cuda.Stream(d) for d in dict.fromkeys(mesh.slots)
+            if d != mesh.home and d.type == "cuda"}
+        # In-flight band sums, FIFO: blocks drain in dispatch order, so
+        # position alone pairs each band with its block.
+        self._pending_band: collections.deque = collections.deque()
+        super().__init__(cfg, weights, source, sink, depth=depth,
+                         on_block=on_block, products=products,
+                         incoherent_sink=incoherent_sink,
+                         flag_ants=flag_ants, tracker=tracker)
+
+    def _home_device(self, weights: QuantWeights) -> torch.device:
+        return self.mesh.home
+
+    def _compute_streams(self) -> list:
+        return [self._compute, *self._slot_streams.values()]
+
+    def _place(self, qw: QuantWeights) -> tuple:
+        """Split a full-band table over the mesh (hook: the multihost
+        stream takes its subband's channels first)."""
+        return place_weights(qw, self.mesh)
+
+    def update_weights(self, weights: QuantWeights) -> None:
+        """Split a full-band table over the mesh and swap it in for
+        subsequent blocks."""
+        placed = self._place(weights)
+        self._hold_for_compute(
+            [t for q in placed for t in (*q.terms, q.scales)])
+        self.weights = placed
+
+    def _fused_quant8(self):
+        if self.with_band_power:
+            return None
+        return super()._fused_quant8()
+
+    def _get_step(self, inco: bool, sk: bool, q8: bool):
+        key = (inco, sk, q8)
+        step = self._mesh_steps.get(key)
+        if step is None:
+            step = self._mesh_steps[key] = sharded_beamformer(
+                self.cfg, self.mesh, products=self.products,
+                incoherent=inco, flag_ants=self.flag_ants if inco else (),
+                sk_stats=sk, fused_quant8=q8,
+                with_band_power=self.with_band_power)
+        return step
+
+    @contextlib.contextmanager
+    def _on_slot_streams(self):
+        """Each other device's compute stream current (after the first
+        slot's current stream), and the first slot's waiting for them on
+        the way out."""
+        if not self._slot_streams:
+            yield
+            return
+        home = torch.cuda.current_stream(self.device)
+        with contextlib.ExitStack() as stack:
+            for stream in self._slot_streams.values():
+                stream.wait_stream(home)
+                stack.enter_context(torch.cuda.stream(stream))
+            yield
+        for stream in self._slot_streams.values():
+            home.wait_stream(stream)
+
+    def _step(self, wire, quant8_scales=None, sk_stats=None):
+        inco_on = self.incoherent_sink is not None
+        sk_on = (self.rfi_monitor is not None) if sk_stats is None \
+            else sk_stats
+        q8 = quant8_scales is not None
+        step = self._get_step(inco_on, sk_on, q8)
+        with self._on_slot_streams():
+            res = step(wire, self.weights,
+                       *((quant8_scales,) if q8 else ()))
+        outs = list(res) if isinstance(res, tuple) else [res]
+        if self.with_band_power:
+            self._pending_band.append(outs.pop())
+        out = outs[0]
+        inco = outs[1] if inco_on else None
+        sk = outs[1 + inco_on] if sk_on else None
+        return out, inco, sk
+
+    def warmup(self) -> None:
+        super().warmup()
+        # The warmup blocks are never drained: drop their bands so that the
+        # FIFO pairing starts at block 0.
+        self._pending_band.clear()
+
+    def _reduce_band(self, band: torch.Tensor) -> torch.Tensor:
+        """A block's band sum over this process's slots -> the band
+        (hook: the multihost stream adds the other processes')."""
+        return band
+
+    def _post_drain(self, seq: int) -> None:
+        if not self._pending_band:
+            return
+        band = self._reduce_band(self._pending_band.popleft())
+        if self.on_band_power is not None:
+            # The block has drained: its kernels, and so the band, are
+            # complete.
+            self.on_band_power(seq, band.cpu().numpy())
 
 
 def run_stream(

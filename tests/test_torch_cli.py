@@ -12,6 +12,7 @@ tests/test_torch_pipeline_search.py)."""
 import json
 import os
 import shutil
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -224,14 +225,107 @@ def test_run_device_cpu_and_missing_card(tmp_path, capsys, monkeypatch):
     assert rc == 2 and "card index" in err
 
 
-def test_run_mesh_is_refused(tmp_path, capsys):
+#: tiny with the DSA-110 sharding structure: 16 channels over 8 slots
+#: (tests/test_cli.py's ``--mesh`` runs).
+MESH_SET = ["--set", "n_chan_total=16", "--set", "n_chan=16"]
+
+
+def test_run_mesh_streams_sharded(tmp_path, capsys):
+    """``run --mesh 8 --device cpu`` (eight slots on the host) against the
+    JAX package's ``run --mesh 8`` (its eight virtual devices): the same
+    record, the products within the power bar and golden-accurate, and
+    byte for byte the port's own run without ``--mesh``."""
+    from dsabeamformer_tpu_torch.models.weights import weights_numpy_golden
+    from dsabeamformer_tpu_torch.ops.reference import beamform_block_ref
+
+    cfg = TINY.replace(n_chan=16, n_chan_total=16)
+    inpath = _capture(tmp_path / "in.raw", cfg, range(3))
+    base = ["run", "--config", "tiny", *MESH_SET, "--input-file", inpath]
+    runs = {}
+    for name, which, extra in (
+            ("jax", jcli, ["--mesh", "8"]),
+            ("mesh", pcli, ["--mesh", "8", "--device", "cpu"]),
+            ("single", pcli, ["--device", "cpu"])):
+        out = str(tmp_path / f"{name}.raw")
+        rc, o, err = _main(which, base + extra + ["--output-file", out],
+                           capsys)
+        assert rc == 0, err
+        if name != "single":
+            assert "[dsabf] mesh: 8 device(s) x 2 channels each" in err
+        runs[name] = out, _last_json(o)
+    assert _static(runs["mesh"][1]) == _static(runs["jax"][1])
+    assert runs["mesh"][1]["blocks"] == 3 and runs["mesh"][1]["dropped"] == 0
+    _powers_close(runs["jax"][0], runs["mesh"][0])
+    mesh, single = (Path(runs[k][0]).read_bytes() for k in ("mesh",
+                                                             "single"))
+    assert mesh == single
+    powers = np.fromfile(runs["mesh"][0], np.float32).reshape(
+        (3,) + cfg.out_block_shape)
+    for i in range(3):
+        ref = beamform_block_ref(
+            weights_numpy_golden(cfg),
+            make_noise_block(cfg, rms=2.0, seed=i), cfg.input_layout,
+            cfg.navg_time, cfg.navg_freq)
+        assert relative_power_error(powers[i], ref) <= POWER_RTOL
+
+
+def test_run_mesh_with_monitors(tmp_path, capsys):
+    """``--mesh`` with the fused monitors (``--rfi-auto``'s SK accumulators
+    and ``--incoherent-file`` ride the sharded kernel): the incoherent
+    product equal to JAX's, the same RFI log lines."""
+    cfg = TINY.replace(n_chan=16, n_chan_total=16)
+    inpath = _capture(tmp_path / "in.raw", cfg, range(2))
+    got = {}
+    for name, which, extra in (("jax", jcli, []),
+                               ("port", pcli, ["--device", "cpu"])):
+        inco = tmp_path / f"{name}.dada"
+        rc, o, err = _main(which, [
+            "run", "--config", "tiny", *MESH_SET, "--mesh", "8",
+            "--input-file", inpath, "--incoherent-file", str(inco),
+            "--rfi-auto", "--rfi-interval", "2"] + extra, capsys)
+        assert rc == 0, err
+        assert _last_json(o)["blocks"] == 2
+        got[name] = (dada.read_product_file(inco),
+                     [ln for ln in err.splitlines() if "rfi" in ln])
+    (hp, ip), rfi_p = got["port"]
+    (hj, ij), rfi_j = got["jax"]
+    assert hp["PAYLOAD"] == "INCOHERENT_POWER"
+    np.testing.assert_array_equal(np.asarray(ip), np.asarray(ij))
+    np.testing.assert_allclose(
+        np.asarray(ip)[0],
+        incoherent_power_golden(make_noise_block(cfg, rms=2.0, seed=0), cfg),
+        rtol=1e-6)
+    assert rfi_p == rfi_j
+
+
+def test_run_mesh_must_divide_channels(tmp_path, capsys):
+    """A mesh that does not divide the channels exits 2 before anything is
+    made, with the JAX package's message."""
     inpath = _capture(tmp_path / "in.raw", TINY, range(1))
-    rc, out, err = _main(pcli, ["run", "--config", "tiny", "--input-file",
-                                inpath, "--mesh", "2", "--device", "cpu"],
-                         capsys)
-    assert rc == 2 and out == ""
-    assert "--mesh" in err and "ROADMAP.md Queue 1" in err \
-        and "scale-out" in err
+    errs = []
+    for which, extra in ((jcli, []), (pcli, ["--device", "cpu"])):
+        rc, out, err = _main(which, ["run", "--config", "tiny", "--mesh",
+                                     "3", "--input-file", inpath] + extra,
+                             capsys)
+        assert rc == 2 and out == ""
+        errs.append(err.strip().splitlines()[-1])
+    assert errs[1] == errs[0] \
+        == "error: --mesh 3: n_chan=8 not divisible by mesh size 3"
+
+
+def test_run_mesh_without_device_needs_the_cards(tmp_path, capsys,
+                                                 monkeypatch):
+    """Without ``--device`` the mesh takes N distinct cards: on a host
+    with fewer it exits 2 with ``make_mesh``'s message, and nothing runs
+    on the CPU."""
+    inpath = _capture(tmp_path / "in.raw", TINY, range(1))
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    out_file = tmp_path / "never.raw"
+    rc, out, err = _main(pcli, ["run", "--config", "tiny", "--mesh", "2",
+                                "--input-file", inpath, "--output-file",
+                                str(out_file)], capsys)
+    assert rc == 2 and out == "" and not out_file.exists()
+    assert "error: --mesh 2: requested 2 devices, have 1" in err
 
 
 def test_ring_monitor(capsys):

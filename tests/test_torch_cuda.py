@@ -2,8 +2,10 @@
 Stokes, with its side outputs) and the beam-voltage kernel against their
 plain PyTorch versions and the float64 golden model, at small shapes, at
 a_compute 8, 16, 24, 32, 64, 96 and 128 (the DSA-110 width) and on the random
-geometries of ``utils.testing.random_geometry``, and the streaming loop's
-CUDA path against its CPU path.
+geometries of ``utils.testing.random_geometry``, the streaming loop's
+CUDA path against its CPU path, and the scale-out on one card (mesh slots
+on it against one device, the antenna split against the fused kernel, two
+gloo processes sharing it).
 
 Marked ``cuda``; each test skips (inside a fixture) when no card is present.
 Imports no JAX, so on a machine with only PyTorch they run as
@@ -1670,3 +1672,205 @@ def test_bench_kernel_record_on_the_card(dev):
     assert 0 < rec["tc_utilization_issued"] < 1
     assert rec["tc_utilization_padded_k"] == pytest.approx(
         rec["tc_utilization_issued"] * cfg.n_ant / cfg.a_compute)
+
+
+# --------------------------------------------------------------------- #
+# Scale-out: the channel mesh, the antenna split, processes on one card
+# --------------------------------------------------------------------- #
+
+#: The DSA-110 structure (a_compute 128, 512 beams) on 64 channels.
+MESH_CFG = DSA110.replace(n_chan=64, t_block=512)
+
+
+def _mesh_variants():
+    return [("base", {}), ("stokes", {}),
+            ("sk+q8+inco", dict(incoherent=True, flag_ants=(77,),
+                                sk_stats=True, fused_quant8=True))]
+
+
+@pytest.mark.parametrize("name,kw", _mesh_variants(),
+                         ids=[n for n, _ in _mesh_variants()])
+def test_mesh_on_the_card_equals_one_device(dev, name, kw):
+    """Eight mesh slots on the card: every output byte for byte the
+    single-device kernel's (the per-channel arithmetic does not depend on
+    the channel count), one detect launch a slot, the band the product's
+    own channel sum."""
+    from dsabeamformer_tpu_torch.parallel.sharding import (
+        make_mesh, shard_weights, sharded_beamformer,
+    )
+
+    cfg = MESH_CFG
+    mesh = make_mesh(8, devices=[dev] * 8)
+    wire = torch.from_numpy(make_random_bytes_block(cfg, seed=3)).to(dev)
+    qw_sh = shard_weights(cfg, mesh)
+    qw = type(qw_sh[0])(tuple(torch.cat([q.terms[i] for q in qw_sh])
+                              for i in range(2)),
+                        torch.cat([q.scales for q in qw_sh]))
+    stokes = name.startswith("stokes")
+    band = not kw.get("fused_quant8")
+    step = sharded_beamformer(cfg, mesh, products="stokes" if stokes
+                              else "power", with_band_power=band, **kw)
+    scales = torch.full((cfg.n_beams,), 0.01, device=dev)
+    args = (scales,) if kw.get("fused_quant8") else ()
+    before = _launches()
+    got = step(wire, qw_sh, *args)
+    assert _launches() == before + 8
+    got = list(got) if isinstance(got, tuple) else [got]
+    detect = gemm.beamform_stokes if stokes else gemm.beamform_power
+    single_kw = {k: v for k, v in kw.items() if k != "fused_quant8"}
+    if args:
+        single_kw["quant8_scales"] = scales
+    want = detect(wire, qw, cfg, **single_kw)
+    want = list(want) if isinstance(want, tuple) else [want]
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    if band:
+        plane = want[0][:, :, 0] if stokes else want[0]
+        torch.testing.assert_close(got[-1], plane.sum(dim=(0, 2)),
+                                   rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("band", [False, True])
+def test_mesh_stream_on_the_card_equals_one_device(dev, band):
+    """A mesh stream with a weight update mid-stream (eight slots on the
+    card) against the single-device stream of the same blocks: every block
+    byte for byte; the bands the blocks' channel sums."""
+    from dsabeamformer_tpu_torch.parallel.sharding import make_mesh
+    from dsabeamformer_tpu_torch.pipeline import MeshStreamingBeamformer
+
+    cfg = MESH_CFG
+    blocks = [make_random_bytes_block(cfg, seed=s) for s in (4, 5)]
+    tables = [prepare_weights(cfg, make_weights(cfg, cal=cal, device=dev))
+              for cal in (None, CalTable.random(cfg, seed=2))]
+    outs, bands = {}, {}
+    for name in ("mesh", "single"):
+        sink = CollectSink()
+        kw = dict(mesh=make_mesh(8, devices=[dev] * 8),
+                  with_band_power=band,
+                  on_band_power=lambda s, b: bands.__setitem__(s, b)) \
+            if name == "mesh" else {}
+        klass = MeshStreamingBeamformer if name == "mesh" \
+            else StreamingBeamformer
+        bf = klass(cfg, tables[0], SyntheticSource(cfg, blocks, 4), sink,
+                   **kw)
+        bf.on_block = lambda bs, bf=bf: bs.block_idx == 0 and \
+            bf.update_weights(tables[1])
+        bf.warmup()
+        assert bf.run().n_blocks == 4
+        outs[name] = sink.outputs
+    for (_, a), (_, b) in zip(outs["mesh"], outs["single"]):
+        assert np.array_equal(a, b)
+    assert relative_power_error(outs["mesh"][3][1], outs["mesh"][1][1]) > 1e-3
+    if band:
+        assert sorted(bands) == [0, 1, 2, 3]
+        for seq, p in outs["mesh"]:
+            np.testing.assert_allclose(bands[seq], p.sum(axis=(0, 2)),
+                                       rtol=1e-5)
+
+
+@pytest.mark.parametrize("mode", ["int8x2", "bf16x2", "f32"])
+@pytest.mark.parametrize("products", ["power", "stokes"])
+def test_tp_on_the_card_matches_the_fused_kernel(dev, mode, products):
+    """The antenna split on a (2, 2) mesh of the card: four voltage launches
+    a step, the detected product within 1e-5 of the single-device fused
+    detect kernel's on the same block (Stokes: of the I plane's peak)."""
+    from dsabeamformer_tpu_torch.parallel.tensor import (
+        make_tp_mesh, shard_weights_tp, tp_beamformer,
+    )
+
+    cfg = DSA110.replace(n_chan=16, t_block=512, weight_mode=mode)
+    mesh = make_tp_mesh(2, 2, devices=[dev] * 4)
+    wire = torch.from_numpy(make_random_bytes_block(cfg, seed=8)).to(dev)
+    before = gemm.beamform_voltages.launches
+    got = tp_beamformer(cfg, mesh, products=products)(
+        wire, shard_weights_tp(cfg, mesh))
+    assert gemm.beamform_voltages.launches == before + 4
+    detect = gemm.beamform_stokes if products == "stokes" \
+        else gemm.beamform_power
+    want = detect(wire, prepare_weights(cfg, make_weights(cfg, device=dev)),
+                  cfg)
+    if products == "stokes":
+        scale = float(want[:, :, 0].abs().max())
+        assert float((got - want).abs().max()) / scale <= 1e-5
+    else:
+        assert relative_power_error(got.cpu().numpy(),
+                                    want.cpu().numpy()) <= 1e-5
+
+
+def test_two_gloo_processes_share_the_card(dev, tmp_path):
+    """Two processes of the multi-process stream on the card under gloo,
+    two slots each, over the DSA-110 structure (16 channels): each
+    process's step and 8-block stream (with its update) byte for byte the
+    single-device kernel's channel slice, the all-reduced band the
+    full-band sum."""
+    import os
+    import socket
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    repo = Path(__file__).resolve().parent.parent
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    env = {**os.environ, "PYTHONPATH": str(repo)}
+    procs = [subprocess.Popen(
+        [sys.executable, str(repo / "tests" / "torch_multihost_worker.py"),
+         "--coordinator", f"localhost:{port}", "--world", "2", "--rank",
+         str(r), "--slots", "2", "--preset", "dsa110s", "--mode",
+         "step+stream", "--out", str(tmp_path), "--device", "cuda:0",
+         "--backend", "gloo"], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    logs = []
+    try:
+        logs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        assert p.returncode == 0, log[-3000:]
+    cfg = DSA110.replace(n_chan=16, n_chan_total=2048, t_block=64,
+                         n_beams=64)
+    wire = torch.from_numpy(make_noise_block(cfg, rms=2.0, seed=9)).to(dev)
+    refs = [gemm.beamform_power(wire, prepare_weights(cfg, make_weights(
+        cfg, cal=cal, device=dev)), cfg).cpu().numpy()
+        for cal in (None, CalTable.random(cfg, seed=5))]
+    for r in range(2):
+        res = np.load(tmp_path / f"proc{r}.npz")
+        sl = slice(int(res["chan_start"]),
+                   int(res["chan_start"] + res["n_chan"]))
+        assert np.array_equal(res["step_out"], refs[0][sl])
+        np.testing.assert_allclose(res["step_band"],
+                                   refs[0].sum(axis=(0, 2)), rtol=1e-5)
+        regimes = []
+        for p, band in zip(res["stream_out"], res["stream_band"]):
+            k = next(i for i, ref in enumerate(refs)
+                     if np.array_equal(p, ref[sl]))
+            regimes.append(k)
+            np.testing.assert_allclose(band, refs[k].sum(axis=(0, 2)),
+                                       rtol=1e-5)
+        assert regimes == sorted(regimes) and 3 <= regimes.index(1) <= 5
+
+
+def test_cli_run_mesh_on_the_card_equals_one_device(dev, tmp_path, capsys):
+    """``dsabf-torch run --mesh 8 --device 0`` writes the files of ``run
+    --device 0`` byte for byte (8-bit .fil, incoherent .dada)."""
+    from dsabeamformer_tpu_torch import cli
+    from dsabeamformer_tpu_torch.ingest import dada
+
+    cfg = DSA10_COMPACT.replace(n_chan=64, t_block=1024)
+    cap = tmp_path / "cap.dada"
+    dada.write_dada_file(cap, cfg, [make_noise_block(cfg, rms=2.0, seed=s)
+                                    for s in range(3)])
+    for name, extra in (("mesh", ["--mesh", "8"]), ("single", [])):
+        assert cli.main(["run", "--config", "dsa10c", "--input-file",
+                         str(cap), "--fil-dir", str(tmp_path / name),
+                         "--fil-bits", "8", "--incoherent-file",
+                         str(tmp_path / f"{name}.dada"), "--device", "0"]
+                        + extra) == 0
+    for f in sorted((tmp_path / "single").iterdir()):
+        assert (tmp_path / "mesh" / f.name).read_bytes() == f.read_bytes()
+    assert (tmp_path / "mesh.dada").read_bytes() \
+        == (tmp_path / "single.dada").read_bytes()

@@ -62,20 +62,38 @@ def test_port_imports_no_jax():
     assert "BAD []" in proc.stdout
 
 
-def test_chip_smoke_imports_no_jax():
-    """chip_smoke.py names none of jax, the JAX package or ml_dtypes in an
-    import (it cannot be imported here: it needs a card)."""
+def _imported_packages(path) -> set:
     import ast
 
-    tree = ast.parse((REPO / "chip_smoke.py").read_text())
     names = set()
-    for node in ast.walk(tree):
+    for node in ast.walk(ast.parse(path.read_text())):
         if isinstance(node, ast.Import):
             names.update(a.name.split(".")[0] for a in node.names)
         elif isinstance(node, ast.ImportFrom):
             names.add((node.module or "").split(".")[0])
+    return names
+
+
+def test_chip_smoke_imports_no_jax():
+    """chip_smoke.py names none of jax, the JAX package or ml_dtypes in an
+    import (it cannot be imported here: it needs a card)."""
+    names = _imported_packages(REPO / "chip_smoke.py")
     assert "dsabeamformer_tpu_torch" in names
     assert not names & {"jax", "jaxlib", "dsabeamformer_tpu", "ml_dtypes"}
+
+
+def test_multihost_worker_imports_no_jax():
+    """The multi-process worker the port's tests spawn (on the CPU and on
+    the card) names none of them either, and the scale-out modules are
+    among those ``test_port_imports_no_jax`` walks."""
+    names = _imported_packages(REPO / "tests" / "torch_multihost_worker.py")
+    assert "dsabeamformer_tpu_torch" in names
+    assert not names & {"jax", "jaxlib", "dsabeamformer_tpu", "ml_dtypes"}
+    assert {"dsabeamformer_tpu_torch.parallel",
+            "dsabeamformer_tpu_torch.parallel.sharding",
+            "dsabeamformer_tpu_torch.parallel.tensor",
+            "dsabeamformer_tpu_torch.parallel.multihost"} \
+        <= set(_port_modules())
 
 
 def test_build_module_imports_without_nvcc(tmp_path):
@@ -262,6 +280,10 @@ def test_cli_and_its_children_import_no_jax(tmp_path):
          "--fil-dir", f"{t}/fil", "--fil-bits", "8", "--rfi-auto",
          "--incoherent-file", f"{t}/inco.dada", "--search-dm-max", "10",
          "--device", "cpu"],
+        ["run", "--config", "tiny", "--input-file", f"{t}/cap.dada",
+         "--mesh", "2", "--device", "cpu", "--output-file",
+         f"{t}/mesh.dada", "--rfi-auto", "--incoherent-file",
+         f"{t}/mesh-inco.dada"],
         ["fil", f"{t}/fil/beam0000.fil"],
         ["splice", f"{t}/fil/beam0000.fil", "--out", f"{t}/merged.fil"],
         ["levels", "--config", "tiny", "--input-file", f"{t}/cap.dada",
