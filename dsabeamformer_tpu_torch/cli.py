@@ -641,6 +641,19 @@ def cmd_run(args) -> int:
                             device=device)
 
     stats_f = open(args.stats_file, "a") if args.stats_file else None
+    block_trace = None
+    if args.trace_blocks:
+        from dsabeamformer_tpu_torch.utils import profiling
+
+        # Steady state: past the pipeline's fill and the first drains.
+        block_trace = profiling.BlockTrace(
+            args.trace_blocks, skip=args.depth + 2,
+            log_dir=profiling.DEFAULT_LOG_DIR, device=device)
+
+    def report_trace(path):
+        if path is not None:
+            print(f"[dsabf] trace of {args.trace_blocks} block(s): {path}",
+                  file=sys.stderr)
 
     def on_block(bs):
         if args.verbose:
@@ -648,8 +661,14 @@ def cmd_run(args) -> int:
         if stats_f is not None:
             rec = dict(block=bs.block_idx, seq=bs.seq, wall_s=bs.wall_s,
                        bytes=bs.bytes_in, dropped=bs.dropped,
-                       skipped=bs.skipped)
+                       skipped=bs.skipped, read_s=bs.read_s,
+                       enqueue_s=bs.enqueue_s, h2d_wait_s=bs.h2d_wait_s,
+                       inflight_s=bs.inflight_s,
+                       drain_wait_s=bs.drain_wait_s, sinks_s=bs.sinks_s,
+                       rfi_s=bs.rfi_s)
             stats_f.write(json.dumps(rec) + "\n")
+        if block_trace is not None:
+            report_trace(block_trace.drained())
 
     if args.track:
         from dsabeamformer_tpu_torch.models.calibration import CalTable
@@ -696,6 +715,8 @@ def cmd_run(args) -> int:
         print(warm.current_stats().json_line(cfg))
         return 130
     finally:
+        if block_trace is not None:
+            report_trace(block_trace.stop())
         if hasattr(source, "close"):
             source.close()
         if sink is not None:
@@ -2185,6 +2206,10 @@ def main(argv=None) -> int:
     p.add_argument("--pointing", type=float, default=0.0,
                    help="pointing angle (rad)")
     p.add_argument("--stats-file", help="append per-block JSONL stats here")
+    p.add_argument("--trace-blocks", type=int, default=0, metavar="N",
+                   help="record a torch.profiler trace of N steady-state "
+                        "blocks (from the drain after the first depth+2), "
+                        "with the loop's dsabf.* spans, and print its path")
     p.add_argument("--products", default="power",
                    choices=["power", "stokes"],
                    help="detection product: Stokes-I powers or full "

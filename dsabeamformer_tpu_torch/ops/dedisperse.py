@@ -40,6 +40,7 @@ import torch
 from dsabeamformer_tpu_torch.config import DM_CONST_S, dm_delays_s
 from dsabeamformer_tpu_torch.ops._build import CSRC_DIR, load_library
 from dsabeamformer_tpu_torch.utils.device import resolve_device
+from dsabeamformer_tpu_torch.utils.profiling import annotate
 
 __all__ = [
     "dm_trial_grid",
@@ -1260,38 +1261,39 @@ class SearchMonitor:
                        own: Optional[int]) -> List[Candidate]:
         """One window: single target through ``_search_chunk``, a beam set
         batched with per-window cross-beam coincidence."""
-        if self._beam_sel is None:
-            cands = _search_chunk(
-                window, self.delays, self.dms, self.tsamp_s,
-                self.band_span, self.widths, self.threshold, self.topk,
-                own=own, t_offset=self._t_base, dm_link=self.dm_link,
+        with annotate("dsabf.search.window"):
+            if self._beam_sel is None:
+                cands = _search_chunk(
+                    window, self.delays, self.dms, self.tsamp_s,
+                    self.band_span, self.widths, self.threshold, self.topk,
+                    own=own, t_offset=self._t_base, dm_link=self.dm_link,
+                    method=self.method, n_sub=self.n_sub, device=self.device)
+                if not self.incoherent:
+                    for c in cands:
+                        c.beam = self.beam
+                return cands
+            per_beam = _search_chunk_batch(
+                window, self.delays, self.dms, self.tsamp_s, self.band_span,
+                self.widths, self.threshold, self.topk, own=own,
+                t_offset=self._t_base, dm_link=self.dm_link,
                 method=self.method, n_sub=self.n_sub, device=self.device)
-            if not self.incoherent:
-                for c in cands:
-                    c.beam = self.beam
-            return cands
-        per_beam = _search_chunk_batch(
-            window, self.delays, self.dms, self.tsamp_s, self.band_span,
-            self.widths, self.threshold, self.topk, own=own,
-            t_offset=self._t_base, dm_link=self.dm_link,
-            method=self.method, n_sub=self.n_sub, device=self.device)
-        by_beam = {}
-        for lab, cs in zip(self._labels, per_beam):
-            for c in cs:
-                c.beam = lab
-            by_beam[lab] = cs
-        if self.coincidence:
-            by_beam, events = coincidence_filter(
-                by_beam, self.band_span,
-                n_beams_searched=len(self._labels),
-                frac=self.coincidence_frac)
-            self.rfi_rejected += len(events)
-            if self.on_rfi is not None:
-                for ev in events:
-                    self.on_rfi(ev)
-        out = [c for cs in by_beam.values() for c in cs]
-        out.sort(key=lambda c: -c.snr)
-        return out
+            by_beam = {}
+            for lab, cs in zip(self._labels, per_beam):
+                for c in cs:
+                    c.beam = lab
+                by_beam[lab] = cs
+            if self.coincidence:
+                by_beam, events = coincidence_filter(
+                    by_beam, self.band_span,
+                    n_beams_searched=len(self._labels),
+                    frac=self.coincidence_frac)
+                self.rfi_rejected += len(events)
+                if self.on_rfi is not None:
+                    for ev in events:
+                        self.on_rfi(ev)
+            out = [c for cs in by_beam.values() for c in cs]
+            out.sort(key=lambda c: -c.snr)
+            return out
 
     def _search_front(self) -> None:
         x = self._concat()

@@ -44,6 +44,28 @@ device, and the step splits each block over the mesh's slots.
 On the CPU the same loop runs synchronously on plain tensors (the tests'
 path).  A sink receives a NumPy view of a buffer the loop reuses: it must
 consume or copy it before ``write`` returns.
+
+The loop counts its work and times its host stages in ``StreamStats`` and
+each block's ``BlockStats`` (``utils.metrics.STAGES``), always; while a
+``torch.profiler`` trace records it also marks them as spans on the
+trace's clock (``utils.profiling.annotate``), nested as the calls nest:
+
+    dsabf.loop.h2d_wait      wait for the held ring slot's H2D copy
+    dsabf.source.release     hand the slot back
+    dsabf.source.read        the next block
+    dsabf.loop.weights       tracker poll and swap, the sink's scales
+    dsabf.loop.enqueue       dsabf.loop.stage (host -> pinned staging),
+                             dsabf.loop.h2d_launch, dsabf.loop.detect
+                             (kernel, post, beam selection, layout),
+                             dsabf.loop.d2h_launch
+    dsabf.loop.drain         dsabf.loop.drain_wait (the D2H copies),
+                             dsabf.sink.incoherent, dsabf.sink.write,
+                             dsabf.search.observe, dsabf.rfi.poll,
+                             dsabf.loop.on_block
+
+``dsabf.loop.h2d_wait``, ``dsabf.source.read``, ``dsabf.loop.enqueue`` and
+``dsabf.loop.drain`` each hold a ``dsabf.block.<seq>`` mark
+(``utils.profiling.mark_block``) naming the block they worked on.
 """
 
 from __future__ import annotations
@@ -71,6 +93,7 @@ from dsabeamformer_tpu_torch.parallel.sharding import (
 )
 from dsabeamformer_tpu_torch.utils.device import resolve_device
 from dsabeamformer_tpu_torch.utils.metrics import BlockStats, StreamStats
+from dsabeamformer_tpu_torch.utils.profiling import annotate, mark_block
 
 Block = Tuple[int, np.ndarray]
 
@@ -482,6 +505,7 @@ class StreamingBeamformer:
         self._inflight: collections.deque = collections.deque()
         self._block_idx = 0
         self._stats: Optional[StreamStats] = None
+        self._rfi_events0 = 0
 
     @property
     def out_block_shape(self) -> tuple:
@@ -531,9 +555,19 @@ class StreamingBeamformer:
         if self._stats is None:
             self._stats = StreamStats(cfg_name=self.cfg.name,
                                       device_kind=self.device_kind)
-        self._stats.dropped = getattr(self.source, "dropped", 0)
-        self._stats.skipped = getattr(self.source, "skipped", 0)
+        self._count_source(self._stats)
         return self._stats.finish()
+
+    def _rfi_event_count(self) -> int:
+        mon = self.rfi_monitor
+        return 0 if mon is None else len(mon.events) + mon.events_dropped
+
+    def _count_source(self, stats: StreamStats) -> None:
+        """The source's drop and skip counters and the RFI monitor's events
+        since the run began, into ``stats``."""
+        stats.dropped = getattr(self.source, "dropped", 0)
+        stats.skipped = getattr(self.source, "skipped", 0)
+        stats.rfi_events = self._rfi_event_count() - self._rfi_events0
 
     def _step(self, wire, quant8_scales=None, sk_stats=None):
         """One block's kernel call -> ``(out, inco_or_None, sk_or_None)``.
@@ -624,8 +658,9 @@ class StreamingBeamformer:
                 f"{cfg.wire_block_shape} nor {cfg.device_wire_shape}")
         wire = torch.as_tensor(wire).reshape(cfg.device_wire_shape)
         if not self._cuda:
-            return tuple(None if t is None else t.numpy()
-                         for t in self._products(wire, q8, sk_want, post))
+            with annotate("dsabf.loop.detect"):
+                dev = self._products(wire, q8, sk_want, post)
+            return tuple(None if t is None else t.numpy() for t in dev)
         self._make_slots()
         slot = self._slots[self._n_enq % len(self._slots)]
         self._n_enq += 1
@@ -638,19 +673,21 @@ class StreamingBeamformer:
             src = wire
             self._copy.wait_stream(torch.cuda.current_stream(self.device))
         else:
-            slot.h2d_done.synchronize()  # the staging buffer's last H2D is done
-            slot.host_wire.copy_(wire)                # host -> pinned staging
+            with annotate("dsabf.loop.stage"):
+                # The staging buffer's last H2D is done, then host -> pinned.
+                slot.h2d_done.synchronize()
+                slot.host_wire.copy_(wire)
             src = slot.host_wire
-        with torch.cuda.stream(self._copy):
+        with annotate("dsabf.loop.h2d_launch"), torch.cuda.stream(self._copy):
             self._copy.wait_event(slot.kernel_done)  # device buffer is free
             slot.dev_wire.copy_(src, non_blocking=True)
             slot.h2d_done.record(self._copy)
-        with torch.cuda.stream(self._compute):
+        with annotate("dsabf.loop.detect"), torch.cuda.stream(self._compute):
             self._compute.wait_event(slot.h2d_done)
             dev = self._products(slot.dev_wire, q8, sk_want, post)
             slot.kernel_done.record(self._compute)
         host = [None] * len(dev)
-        with torch.cuda.stream(self._d2h):
+        with annotate("dsabf.loop.d2h_launch"), torch.cuda.stream(self._d2h):
             # With nothing to copy, d2h_done is the kernel's completion.
             self._d2h.wait_event(slot.kernel_done)
             for i, (name, t) in enumerate(zip(("out", "inco", "sk", "mon"),
@@ -673,13 +710,25 @@ class StreamingBeamformer:
         slot.d2h_done.synchronize()
         return tuple(None if h is None else h.numpy() for h in host)
 
-    def _release_source(self) -> None:
+    def _release_source(self) -> float:
         """Hand the ring slot of the last enqueued block back to the
-        producer once its H2D copy has completed (pinned-ring route)."""
-        if self._held is not None:
-            self._held.synchronize()
-            self._held = None
+        producer once its H2D copy has completed (pinned-ring route); the
+        wait goes to that block's and the stream's ``h2d_wait_s``.  Returns
+        the seconds the release itself took."""
+        if self._held is None:
+            return 0.0
+        done, bs = self._held
+        t0 = time.perf_counter()
+        with annotate("dsabf.loop.h2d_wait"):
+            mark_block(bs.seq)
+            done.synchronize()
+        self._held = None
+        t1 = time.perf_counter()
+        with annotate("dsabf.source.release"):
             self.source.release()
+        bs.h2d_wait_s = t1 - t0
+        self._stats.h2d_wait_s += bs.h2d_wait_s
+        return time.perf_counter() - t1
 
     def _make_slots(self) -> None:
         """The slots, each with the pinned buffers of every product this
@@ -747,39 +796,62 @@ class StreamingBeamformer:
                 f"or lower the depth")
 
     def _drain_one(self) -> None:
-        seq, pending, sk_host, t_enq = self._inflight.popleft()
-        out, inco, sk, mon = self._fetch(pending)  # D2H complete
-        if inco is not None:
-            self.incoherent_sink.write(seq, inco)
-        if self._layout is not None:
-            self.sink.write_beams(seq, out)
-        elif self.sink is not None:
-            self.sink.write(seq, out)
-        if self.search_monitor is not None:
-            if mon is not None and mon.dtype != np.uint8 \
-                    and getattr(self.sink, "nbits", None) == 8:
-                mon = self._counts_of_selected(mon)
-            self.search_monitor.observe_selected(seq, mon, inco)
-        if sk_host is not None:
-            # The monitor holds this array since dispatch; it reads it only
-            # after this block has drained (poll below).
-            sk_host[...] = sk
-        self._post_drain(seq)
-        bs = BlockStats(
-            block_idx=self._block_idx,
-            seq=seq,
-            wall_s=time.perf_counter() - t_enq,
-            bytes_in=self.cfg.wire_block_bytes,
-            dropped=getattr(self.source, "dropped", 0),
-            skipped=getattr(self.source, "skipped", 0),
-        )
-        self._block_idx += 1
-        if self.rfi_monitor is not None:
-            # Only stats of drained blocks: touching a block still in
-            # flight would serialize the stream.
-            self.rfi_monitor.poll(self._block_idx)
-        if self.on_block is not None:
-            self.on_block(bs)
+        seq, pending, sk_host, t_enq, bs = self._inflight.popleft()
+        stats = self._stats
+        with annotate("dsabf.loop.drain"):
+            mark_block(seq)
+            t0 = time.perf_counter()
+            bs.inflight_s = t0 - t_enq - bs.enqueue_s
+            if self._cuda and not pending[0].d2h_done.query():
+                stats.drains_waited += 1
+            with annotate("dsabf.loop.drain_wait"):
+                out, inco, sk, mon = self._fetch(pending)  # D2H complete
+            t1 = time.perf_counter()
+            if inco is not None:
+                with annotate("dsabf.sink.incoherent"):
+                    self.incoherent_sink.write(seq, inco)
+            if self.sink is not None:
+                with annotate("dsabf.sink.write"):
+                    if self._layout is not None:
+                        self.sink.write_beams(seq, out)
+                    else:
+                        self.sink.write(seq, out)
+            if self.search_monitor is not None:
+                with annotate("dsabf.search.observe"):
+                    if mon is not None and mon.dtype != np.uint8 \
+                            and getattr(self.sink, "nbits", None) == 8:
+                        mon = self._counts_of_selected(mon)
+                    self.search_monitor.observe_selected(seq, mon, inco)
+            if sk_host is not None:
+                # The monitor holds this array since dispatch; it reads it
+                # only after this block has drained (poll below).
+                sk_host[...] = sk
+            self._post_drain(seq)
+            t2 = time.perf_counter()
+            bs.block_idx = self._block_idx
+            bs.wall_s = t2 - t_enq
+            bs.drain_wait_s = t1 - t0
+            bs.sinks_s = t2 - t1
+            bs.dropped = getattr(self.source, "dropped", 0)
+            bs.skipped = getattr(self.source, "skipped", 0)
+            self._block_idx += 1
+            if self.rfi_monitor is not None:
+                # Only stats of drained blocks: touching a block still in
+                # flight would serialize the stream.
+                weights = self.weights
+                with annotate("dsabf.rfi.poll"):
+                    self.rfi_monitor.poll(self._block_idx)
+                stats.weight_swaps += self.weights is not weights
+            t3 = time.perf_counter()
+            bs.rfi_s = t3 - t2
+            if self.on_block is not None:
+                with annotate("dsabf.loop.on_block"):
+                    self.on_block(bs)
+            t4 = time.perf_counter()
+        stats.drain_wait_s += bs.drain_wait_s
+        stats.sinks_s += bs.sinks_s
+        stats.rfi_s += bs.rfi_s
+        stats.on_block_s += t4 - t3
 
     def _post_drain(self, seq: int) -> None:
         """Hook after a block's products are drained (the mesh stream's
@@ -810,6 +882,7 @@ class StreamingBeamformer:
                              f"{self.device}")
         self._stats = stats = StreamStats(cfg_name=cfg.name,
                                           device_kind=self.device_kind)
+        self._rfi_events0 = self._rfi_event_count()
         # Device-side product transform offered by the sink (8-bit
         # quantization, so the D2H copy moves 1 byte per sample).
         post = getattr(self.sink, "device_post", None)
@@ -825,40 +898,61 @@ class StreamingBeamformer:
         while self._inflight:
             self._drain_one()
         if self.rfi_monitor is not None:
-            self.rfi_monitor.flush()
+            t0 = time.perf_counter()
+            with annotate("dsabf.rfi.poll"):
+                self.rfi_monitor.flush()
+            stats.rfi_s += time.perf_counter() - t0
         if self.search_monitor is not None:
             self.search_monitor.flush()
-        stats.dropped = getattr(self.source, "dropped", 0)
-        stats.skipped = getattr(self.source, "skipped", 0)
+        self._count_source(stats)
         return stats.finish()
 
     def _loop(self, stats, max_blocks, post, fused_q8, pinned) -> None:
         cfg = self.cfg
+        eight_bit = getattr(self.sink, "nbits", None) == 8
         n = 0
         while max_blocks is None or n < max_blocks:
-            self._release_source()  # one open ring slot at a time
-            item = self.source.read_block()
+            release_s = self._release_source()  # one open ring slot at a time
+            t0 = time.perf_counter()
+            with annotate("dsabf.source.read"):
+                item = self.source.read_block()
+                if item is not None:
+                    mark_block(item[0])
+            t_enq = time.perf_counter()
+            stats.read_s += release_s + t_enq - t0
             if item is None:
                 break
             seq, wire = item
-            t_enq = time.perf_counter()
-            if self.tracker is not None:
-                new_qw = self.tracker.maybe_update(seq * cfg.block_duration_s)
-                if new_qw is not None:
-                    self.update_weights(new_qw)
-            q8 = None if fused_q8 is None else fused_q8()
+            bs = BlockStats(block_idx=-1, seq=seq, wall_s=0.0,
+                            bytes_in=cfg.wire_block_bytes, dropped=0,
+                            skipped=0, read_s=release_s + t_enq - t0)
             mon = self.rfi_monitor
-            # The SK output only on the monitor's sampling grid.
-            sk_want = mon is not None and mon.wants_stats()
-            pending = self._enqueue(wire, q8, sk_want, post, pinned=pinned)
-            if pinned:
-                self._held = pending[0].h2d_done
-            sk_host = None
-            if mon is not None:
-                if sk_want:
-                    sk_host = np.empty((cfg.n_chan, 2), np.float32)
-                mon.observe_stats(sk_host)
-            self._inflight.append((seq, pending, sk_host, t_enq))
+            with annotate("dsabf.loop.weights"):
+                if self.tracker is not None:
+                    new_qw = self.tracker.maybe_update(
+                        seq * cfg.block_duration_s)
+                    if new_qw is not None:
+                        self.update_weights(new_qw)
+                        stats.weight_swaps += 1
+                q8 = None if fused_q8 is None else fused_q8()
+                # The SK output only on the monitor's sampling grid.
+                sk_want = mon is not None and mon.wants_stats()
+            with annotate("dsabf.loop.enqueue"):
+                mark_block(seq)
+                pending = self._enqueue(wire, q8, sk_want, post,
+                                        pinned=pinned)
+                if pinned:
+                    self._held = (pending[0].h2d_done, bs)
+                sk_host = None
+                if mon is not None:
+                    if sk_want:
+                        sk_host = np.empty((cfg.n_chan, 2), np.float32)
+                    mon.observe_stats(sk_host)
+            bs.enqueue_s = time.perf_counter() - t_enq
+            stats.enqueue_s += bs.enqueue_s
+            stats.sk_blocks += sk_want
+            stats.float_blocks += eight_bit and q8 is None
+            self._inflight.append((seq, pending, sk_host, t_enq, bs))
             stats.n_blocks += 1
             stats.bytes_in += cfg.wire_block_bytes
             stats.macs += cfg.macs_per_block * cfg.n_weight_terms

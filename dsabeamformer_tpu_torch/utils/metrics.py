@@ -78,9 +78,29 @@ def tensor_core_utilization(macs: int, wall_s: float, cfg: ObsConfig,
     return {"issued": issued, "padded_k": issued * (cfg.n_ant / cfg.a_compute)}
 
 
+#: The streaming loop's host stages, each timed on the host's clock: the
+#: source's release and read, the wait for a ring slot's H2D copy, the
+#: enqueue (weights, scales, the launches), the wait for a block's D2H
+#: copies, the sinks and the search monitor, the RFI monitor's poll and the
+#: caller's ``on_block``.
+STAGES = ("read", "h2d_wait", "enqueue", "drain_wait", "sinks", "rfi",
+          "on_block")
+
+#: The loop's counters and stage seconds in ``StreamStats.record``, beyond
+#: the JAX package's record.
+LOOP_KEYS = ("weight_swaps", "rfi_events", "sk_blocks", "float_blocks",
+             "drains_waited", *(f"{k}_s" for k in STAGES))
+
+
 @dataclasses.dataclass
 class BlockStats:
-    """One record per processed block."""
+    """One record per processed block.
+
+    The stage seconds are this block's: ``read_s`` (the source's release of
+    the block before and read of this one) ends where ``wall_s`` begins;
+    ``enqueue_s``, ``inflight_s`` (enqueue end -> drain start, which holds
+    ``h2d_wait_s``), ``drain_wait_s`` and ``sinks_s`` lie inside it, and
+    ``rfi_s`` follows it."""
 
     block_idx: int
     seq: int                 # source sequence number
@@ -88,6 +108,13 @@ class BlockStats:
     bytes_in: int
     dropped: int             # cumulative source drops at this point
     skipped: int             # cumulative reader skip-aheads
+    read_s: float = 0.0
+    enqueue_s: float = 0.0
+    h2d_wait_s: float = 0.0
+    inflight_s: float = 0.0
+    drain_wait_s: float = 0.0
+    sinks_s: float = 0.0
+    rfi_s: float = 0.0
 
     def line(self, cfg: ObsConfig) -> str:
         gbs = self.bytes_in / self.wall_s / 1e9 if self.wall_s > 0 else 0.0
@@ -111,6 +138,18 @@ class StreamStats:
     dropped: int = 0
     skipped: int = 0
     macs: int = 0
+    weight_swaps: int = 0    # weights swapped in mid-stream (tracker, RFI)
+    rfi_events: int = 0      # the RFI monitor's events (excisions, caps)
+    sk_blocks: int = 0       # blocks launched with the SK accumulators
+    float_blocks: int = 0    # 8-bit sink blocks run without the uint8 epilogue
+    drains_waited: int = 0   # drains whose D2H copies were not yet done
+    read_s: float = 0.0      # host seconds by stage (STAGES)
+    h2d_wait_s: float = 0.0
+    enqueue_s: float = 0.0
+    drain_wait_s: float = 0.0
+    sinks_s: float = 0.0
+    rfi_s: float = 0.0
+    on_block_s: float = 0.0
     _t_start: float = dataclasses.field(default_factory=time.perf_counter)
 
     def finish(self) -> "StreamStats":
@@ -144,6 +183,7 @@ class StreamStats:
                 None if util is None else util["padded_k"],
             "dropped": self.dropped,
             "skipped": self.skipped,
+            **{k: getattr(self, k) for k in LOOP_KEYS},
         }
 
     def json_line(self, cfg: ObsConfig) -> str:

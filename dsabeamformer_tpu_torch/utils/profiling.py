@@ -6,6 +6,12 @@ stage breakdown (the detect kernel against layout copies and host calls)
 and, on a card, the device's busy time over the traced window.  On a card
 the profiler records CUDA activity (CUPTI) as well as the host's; on the
 CPU only the host's.
+
+The streaming loop marks its stages with ``annotate`` (``dsabf.<layer>.<what>``
+spans) and each block's spans with ``mark_block``: both are a check of the
+profiler's own flag unless a trace is recording, and ``record_function``
+ranges on the trace's clock while one is.  ``BlockTrace`` records a window of
+a live stream's drained blocks (``dsabf-torch run --trace-blocks``).
 """
 
 from __future__ import annotations
@@ -17,40 +23,113 @@ import os
 import tempfile
 import time
 from pathlib import Path
+from typing import Optional
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
 
-__all__ = ["trace", "annotate", "summarize_trace", "trace_events",
+__all__ = ["trace", "annotate", "mark_block", "BLOCK_MARK", "Recording",
+           "BlockTrace", "summarize_trace", "trace_events",
            "profile_block_step", "DEFAULT_LOG_DIR"]
 
 #: Where ``trace`` writes when the caller names no directory.
 DEFAULT_LOG_DIR = os.path.join(tempfile.gettempdir(), "dsabf-trace")
 
+#: Name prefix of the zero-length mark that ties a span to its block's
+#: ``seq`` (``dsabf.block.<seq>``, nested in the span it marks).
+BLOCK_MARK = "dsabf.block."
+
+_NULL = contextlib.nullcontext()
+
+
+class Recording:
+    """A ``torch.profiler`` recording started and stopped by hand, written
+    to ``log_dir`` as ``<pid>.<ns>.trace.json.gz`` when it stops.  ``device``
+    of type ``cuda`` adds the card's activity (kernels, copies) to the
+    host's."""
+
+    def __init__(self, log_dir: str | Path = DEFAULT_LOG_DIR, device="cpu"):
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if torch.device(device).type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        self.log_dir = Path(log_dir)
+        self._prof = torch.profiler.profile(activities=activities)
+
+    def start(self) -> None:
+        self.log_dir.mkdir(parents=True, exist_ok=True)
+        self._prof.start()
+
+    def stop(self) -> str:
+        """Stop recording and write the trace; returns the file's path."""
+        self._prof.stop()
+        path = str(self.log_dir / f"{os.getpid()}.{time.time_ns()}"
+                                  f".trace.json.gz")
+        self._prof.export_chrome_trace(path)
+        return path
+
 
 @contextlib.contextmanager
 def trace(log_dir: str | Path = DEFAULT_LOG_DIR, device="cpu"):
     """Context manager: capture a trace around the enclosed block and write
-    it to ``log_dir`` as ``<pid>.<ns>.trace.json.gz``.  ``device`` of type
-    ``cuda`` adds the card's activity (kernels, copies) to the host's.
-    Yields ``log_dir``."""
-    activities = [torch.profiler.ProfilerActivity.CPU]
-    if torch.device(device).type == "cuda":
-        activities.append(torch.profiler.ProfilerActivity.CUDA)
-    log_dir = Path(log_dir)
-    log_dir.mkdir(parents=True, exist_ok=True)
-    prof = torch.profiler.profile(activities=activities)
-    prof.start()
+    it to ``log_dir`` (``Recording``).  Yields ``log_dir``."""
+    rec = Recording(log_dir, device)
+    rec.start()
     try:
-        yield str(log_dir)
+        yield str(rec.log_dir)
     finally:
-        prof.stop()
-        prof.export_chrome_trace(
-            str(log_dir / f"{os.getpid()}.{time.time_ns()}.trace.json.gz"))
+        rec.stop()
 
 
 def annotate(name: str):
-    """Named region that shows up in profiler timelines."""
+    """Named region in a profiler timeline: a ``record_function`` range while
+    a trace records, else a null context (the profiler's flag is the whole
+    cost)."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NULL
     return torch.profiler.record_function(name)
+
+
+def mark_block(seq: int) -> None:
+    """While a trace records, a zero-length ``dsabf.block.<seq>`` range: put
+    inside a span, it names the block the span worked on (a range's own
+    arguments do not survive the Chrome-trace export)."""
+    if _autograd_profiler._is_profiler_enabled:
+        with torch.profiler.record_function(f"{BLOCK_MARK}{seq}"):
+            pass
+
+
+class BlockTrace:
+    """A recording of ``n_blocks`` drained blocks of a live stream, begun
+    once ``skip`` blocks have drained: call ``drained`` from the stream's
+    ``on_block``, and ``stop`` when the stream ends early."""
+
+    def __init__(self, n_blocks: int, skip: int,
+                 log_dir: str | Path = DEFAULT_LOG_DIR, device="cpu"):
+        if n_blocks < 1 or skip < 1:
+            raise ValueError(f"n_blocks and skip must be >= 1, got "
+                             f"{n_blocks} and {skip}")
+        self._rec = Recording(log_dir, device)
+        self.n_blocks = n_blocks
+        self.skip = skip
+        self._seen = 0
+        self._recording = False
+
+    def drained(self) -> Optional[str]:
+        """Count one drained block; the trace's path once it is written."""
+        self._seen += 1
+        if self._seen == self.skip:
+            self._rec.start()
+            self._recording = True
+        elif self._seen == self.skip + self.n_blocks:
+            return self.stop()
+        return None
+
+    def stop(self) -> Optional[str]:
+        """Stop a recording in progress: its path, or None without one."""
+        if not self._recording:
+            return None
+        self._recording = False
+        return self._rec.stop()
 
 
 def trace_events(log_dir: str | Path) -> list:
