@@ -21,13 +21,29 @@ each product it brings back, and three events:
     copy:   wait kernel_done(slot) -> H2D staging -> device wire; record h2d_done
     compute: wait h2d_done         -> detect kernel;             record kernel_done
     d2h:    wait kernel_done       -> D2H products -> pinned;   record d2h_done
-    drain:  sync d2h_done          -> sinks, RFI monitor
+    deliver: d2h_done              -> sinks, search monitor, on_block
+    retire: depth later blocks enqueued -> RFI monitor's poll
 
 so a staging buffer is never overwritten before the H2D copy out of it has
 completed, and a device wire buffer never before the kernel reading it has
-finished.  The host waits only to drain the oldest block and on h2d_done
-before refilling a staging buffer; with depth + 2 slots that event has
-already passed in steady state.
+finished.  The host waits on h2d_done before refilling a staging buffer
+(with depth + 2 slots that event has already passed in steady state), on
+the held ring slot's h2d_done, on the source, and to retire the oldest
+block.
+
+Blocks are delivered in dispatch order, each as soon as its D2H copies
+have completed, wherever the loop would otherwise wait: for the held ring
+slot's H2D copy, or for a source that has no block ready yet (one that
+offers ``poll_block``, a read bounded by a timeout).  There the loop looks
+at the oldest undelivered block's d2h_done every ``POLL_S``, alternating
+with what it waits for (``h2d_done``, or a poll that does not wait).  A block not delivered by its retire point is delivered
+there.  Retiring stays where the loop has always drained a block, once
+``depth`` later blocks are enqueued: the RFI monitor's poll there makes an
+excision swap weights in for the same block whatever the timing, and
+``depth`` still bounds the blocks in flight.  Where the loop never waits
+(a source with a block always ready), every block is delivered at its
+retire point; the CPU route, which has no copies to wait on, always does
+so.
 
 A ``RingSource`` on a CUDA device takes the pinned-ring route instead: each
 ring slot is registered with the CUDA runtime (``cudaHostRegister``) the
@@ -58,14 +74,21 @@ trace's clock (``utils.profiling.annotate``), nested as the calls nest:
                              dsabf.loop.h2d_launch, dsabf.loop.detect
                              (kernel, post, beam selection, layout),
                              dsabf.loop.d2h_launch
-    dsabf.loop.drain         dsabf.loop.drain_wait (the D2H copies),
-                             dsabf.sink.incoherent, dsabf.sink.write,
-                             dsabf.search.observe, dsabf.rfi.poll,
-                             dsabf.loop.on_block
+    dsabf.loop.drain         the delivery: dsabf.loop.drain_wait (the D2H
+                             copies), dsabf.sink.incoherent,
+                             dsabf.sink.write, dsabf.search.observe,
+                             dsabf.loop.on_block; and dsabf.loop.retire
+                             where the block is delivered at its retire
+                             point
+    dsabf.loop.retire        dsabf.rfi.poll
 
+A delivery in a wait splits the wait's span (``dsabf.loop.h2d_wait`` or
+``dsabf.source.read``) around its ``dsabf.loop.drain``.
 ``dsabf.loop.h2d_wait``, ``dsabf.source.read``, ``dsabf.loop.enqueue`` and
 ``dsabf.loop.drain`` each hold a ``dsabf.block.<seq>`` mark
-(``utils.profiling.mark_block``) naming the block they worked on.
+(``utils.profiling.mark_block``) naming the block they worked on: of a
+split wait, the last piece, which ends when the copy has completed or the
+block has been read.
 """
 
 from __future__ import annotations
@@ -96,6 +119,19 @@ from dsabeamformer_tpu_torch.utils.metrics import BlockStats, StreamStats
 from dsabeamformer_tpu_torch.utils.profiling import annotate, mark_block
 
 Block = Tuple[int, np.ndarray]
+
+#: How often the loop, while it waits, looks at the oldest undelivered
+#: block's D2H copies and polls the source: a finished block waits about
+#: this long at most before it is delivered.
+POLL_S = 2e-4
+
+
+def _pause() -> None:
+    """Wait ``POLL_S``, yielding the interpreter meanwhile: a timed sleep
+    this short can last a millisecond on a host with coarse timers."""
+    end = time.perf_counter() + POLL_S
+    while time.perf_counter() < end:
+        time.sleep(0)
 
 
 # --------------------------------------------------------------------- #
@@ -165,19 +201,31 @@ class RingSource:
         return None if self.pinned else len(self._pool)
 
     def read_block(self):
+        """The next block, or None at end of data or after ``timeout_s``
+        with none: the end of the stream."""
+        return self._read(self.timeout_s)
+
+    def poll_block(self, timeout_s: float):
+        """The next block if one is ready within ``timeout_s``, else None.
+        The ring answers None alike on a timeout and at end of data, so
+        this None only means "nothing yet": ``read_block`` decides the end
+        of the stream."""
+        return self._read(timeout_s)
+
+    def _read(self, timeout_s: float):
         if not self.pinned:
             buf = self._pool[self._pool_i]
-            self._pool_i = (self._pool_i + 1) % len(self._pool)
-            got = self.ring.read_block(buf, timeout_s=self.timeout_s,
+            got = self.ring.read_block(buf, timeout_s=timeout_s,
                                        latest=self.latest)
             if got is None:
                 return None
+            self._pool_i = (self._pool_i + 1) % len(self._pool)
             seq, flat = got
             return seq, flat.reshape(self.cfg.wire_block_shape)
         if self._open:
             raise RuntimeError("release() the open ring slot before reading "
                                "the next block")
-        got = self.ring.open_read(self.timeout_s, self.latest)
+        got = self.ring.open_read(timeout_s, self.latest)
         if got is None:
             return None
         seq, addr = got
@@ -480,7 +528,7 @@ class StreamingBeamformer:
         # flags them on the weight side, models.weights.flag_antennas).
         self.flag_ants = tuple(sorted(flag_ants))
         # Optional streaming RFI monitor (ops/rfi.py): observed at dispatch,
-        # polled at drain; its on_event callback typically regenerates the
+        # polled at retire; its on_event callback typically regenerates the
         # weights and calls update_weights.
         self.rfi_monitor = None
         # Optional fringe tracker: polled once per block with the stream
@@ -502,8 +550,12 @@ class StreamingBeamformer:
         else:
             self.device_kind = "cpu"
         self.update_weights(weights)
+        # Blocks enqueued and not yet retired, oldest first; the first
+        # ``_n_early`` of them were delivered in a wait.
         self._inflight: collections.deque = collections.deque()
-        self._block_idx = 0
+        self._n_early = 0
+        self._block_idx = 0   # blocks delivered
+        self._n_retired = 0
         self._stats: Optional[StreamStats] = None
         self._rfi_events0 = 0
 
@@ -710,25 +762,102 @@ class StreamingBeamformer:
         slot.d2h_done.synchronize()
         return tuple(None if h is None else h.numpy() for h in host)
 
+    def _done(self, seq: int, pending) -> Optional[bool]:
+        """Whether block ``seq``'s products are on the host (its D2H copies
+        have completed); None where the loop cannot tell, on the CPU route,
+        whose blocks are finished when enqueued and are delivered at their
+        retire points."""
+        if not self._cuda:
+            return None
+        return pending[0].d2h_done.query()
+
+    def _next_done(self, spare: int = 0) -> Optional[bool]:
+        """``_done`` of the oldest block still to be delivered, of those in
+        flight less the ``spare`` newest; None where there is none."""
+        if self._n_early >= len(self._inflight) - spare:
+            return None
+        seq, pending = self._inflight[self._n_early][:2]
+        return self._done(seq, pending)
+
+    def _deliver_finished(self) -> float:
+        """Deliver, in dispatch order, each block in flight whose products
+        are on the host; returns the seconds it took."""
+        t0 = time.perf_counter()
+        while self._n_early < len(self._inflight):
+            entry = self._inflight[self._n_early]
+            if not self._done(*entry[:2]):
+                break
+            self._deliver(entry)
+            self._n_early += 1
+            self._stats.early_drains += 1
+        return time.perf_counter() - t0
+
+    def _await_h2d(self, done) -> bool:
+        """Wait for ``done``: True once it has completed, False as soon as
+        the oldest block to deliver, older than the newest, has finished
+        first.  With none such it is a plain synchronize."""
+        while not done.query():
+            finished = self._next_done(spare=1)
+            if finished is None:
+                done.synchronize()
+                break
+            if finished:
+                return False
+            _pause()
+        return True
+
     def _release_source(self) -> float:
         """Hand the ring slot of the last enqueued block back to the
-        producer once its H2D copy has completed (pinned-ring route); the
+        producer once its H2D copy has completed (pinned-ring route),
+        delivering meanwhile each older block that finishes first; the
         wait goes to that block's and the stream's ``h2d_wait_s``.  Returns
         the seconds the release itself took."""
         if self._held is None:
             return 0.0
         done, bs = self._held
-        t0 = time.perf_counter()
-        with annotate("dsabf.loop.h2d_wait"):
-            mark_block(bs.seq)
-            done.synchronize()
+        waited = 0.0
+        while True:
+            t0 = time.perf_counter()
+            with annotate("dsabf.loop.h2d_wait"):
+                copied = self._await_h2d(done)
+                if copied:
+                    mark_block(bs.seq)
+            waited += time.perf_counter() - t0
+            if copied:
+                break
+            self._deliver_finished()
         self._held = None
         t1 = time.perf_counter()
         with annotate("dsabf.source.release"):
             self.source.release()
-        bs.h2d_wait_s = t1 - t0
-        self._stats.h2d_wait_s += bs.h2d_wait_s
+        bs.h2d_wait_s = waited
+        self._stats.h2d_wait_s += waited
         return time.perf_counter() - t1
+
+    def _read(self) -> tuple:
+        """``(block or None, seconds spent delivering)``: the source's next
+        block, None at the end of the stream.  While a block in flight is
+        still to be delivered and the source can say "nothing yet"
+        (``poll_block``), the loop polls it and delivers each block that
+        finishes before the next one arrives; then it blocks in
+        ``read_block``, whose None alone ends the stream."""
+        poll = getattr(self.source, "poll_block", None)
+        delivering = 0.0
+        while poll is not None and self._next_done() is not None:
+            with annotate("dsabf.source.read"):
+                item = poll(0.0)
+                while item is None and self._next_done() is False:
+                    _pause()
+                    item = poll(0.0)
+                if item is not None:
+                    mark_block(item[0])
+                    return item, delivering
+            delivering += self._deliver_finished()
+        with annotate("dsabf.source.read"):
+            item = self.source.read_block()
+            if item is not None:
+                mark_block(item[0])
+        return item, delivering
 
     def _make_slots(self) -> None:
         """The slots, each with the pinned buffers of every product this
@@ -795,8 +924,36 @@ class StreamingBeamformer:
                 f"has only {pool_n}; raise RingSource(n_host_buffers=...) "
                 f"or lower the depth")
 
-    def _drain_one(self) -> None:
-        seq, pending, sk_host, t_enq, bs = self._inflight.popleft()
+    def _retire_one(self) -> None:
+        """Retire the oldest block in flight, delivering it first if no
+        wait has."""
+        entry = self._inflight.popleft()
+        if self._n_early:
+            self._n_early -= 1
+            self._retire(entry[-1])
+        else:
+            self._deliver(entry, retire=True)
+
+    def _retire(self, bs: BlockStats) -> None:
+        """A block's retire: the RFI monitor's poll of the blocks retired
+        so far (only stats of delivered blocks: touching a block still in
+        flight would serialize the stream)."""
+        self._n_retired += 1
+        t0 = time.perf_counter()
+        with annotate("dsabf.loop.retire"):
+            if self.rfi_monitor is not None:
+                weights = self.weights
+                with annotate("dsabf.rfi.poll"):
+                    self.rfi_monitor.poll(self._n_retired)
+                self._stats.weight_swaps += self.weights is not weights
+        bs.rfi_s = time.perf_counter() - t0
+        self._stats.rfi_s += bs.rfi_s
+
+    def _deliver(self, entry, retire: bool = False) -> None:
+        """Hand a block's products to the sinks, the search monitor and
+        ``on_block``; with ``retire`` (a block delivered at its retire
+        point) retire it before ``on_block``."""
+        seq, pending, sk_host, t_enq, bs = entry
         stats = self._stats
         with annotate("dsabf.loop.drain"):
             mark_block(seq)
@@ -824,7 +981,7 @@ class StreamingBeamformer:
                     self.search_monitor.observe_selected(seq, mon, inco)
             if sk_host is not None:
                 # The monitor holds this array since dispatch; it reads it
-                # only after this block has drained (poll below).
+                # only at this block's retire.
                 sk_host[...] = sk
             self._post_drain(seq)
             t2 = time.perf_counter()
@@ -835,22 +992,15 @@ class StreamingBeamformer:
             bs.dropped = getattr(self.source, "dropped", 0)
             bs.skipped = getattr(self.source, "skipped", 0)
             self._block_idx += 1
-            if self.rfi_monitor is not None:
-                # Only stats of drained blocks: touching a block still in
-                # flight would serialize the stream.
-                weights = self.weights
-                with annotate("dsabf.rfi.poll"):
-                    self.rfi_monitor.poll(self._block_idx)
-                stats.weight_swaps += self.weights is not weights
+            if retire:
+                self._retire(bs)
             t3 = time.perf_counter()
-            bs.rfi_s = t3 - t2
             if self.on_block is not None:
                 with annotate("dsabf.loop.on_block"):
                     self.on_block(bs)
             t4 = time.perf_counter()
         stats.drain_wait_s += bs.drain_wait_s
         stats.sinks_s += bs.sinks_s
-        stats.rfi_s += bs.rfi_s
         stats.on_block_s += t4 - t3
 
     def _post_drain(self, seq: int) -> None:
@@ -896,7 +1046,7 @@ class StreamingBeamformer:
             if pinned:  # a slot opened by a block that failed to enqueue
                 self.source.release()
         while self._inflight:
-            self._drain_one()
+            self._retire_one()
         if self.rfi_monitor is not None:
             t0 = time.perf_counter()
             with annotate("dsabf.rfi.poll"):
@@ -914,18 +1064,16 @@ class StreamingBeamformer:
         while max_blocks is None or n < max_blocks:
             release_s = self._release_source()  # one open ring slot at a time
             t0 = time.perf_counter()
-            with annotate("dsabf.source.read"):
-                item = self.source.read_block()
-                if item is not None:
-                    mark_block(item[0])
+            item, delivering_s = self._read()
             t_enq = time.perf_counter()
-            stats.read_s += release_s + t_enq - t0
+            read_s = release_s + t_enq - t0 - delivering_s
+            stats.read_s += read_s
             if item is None:
                 break
             seq, wire = item
             bs = BlockStats(block_idx=-1, seq=seq, wall_s=0.0,
                             bytes_in=cfg.wire_block_bytes, dropped=0,
-                            skipped=0, read_s=release_s + t_enq - t0)
+                            skipped=0, read_s=read_s)
             mon = self.rfi_monitor
             with annotate("dsabf.loop.weights"):
                 if self.tracker is not None:
@@ -958,13 +1106,13 @@ class StreamingBeamformer:
             stats.macs += cfg.macs_per_block * cfg.n_weight_terms
             n += 1
             while len(self._inflight) > self.depth:
-                self._drain_one()
+                self._retire_one()
             if fused_q8 is not None and q8 is None:
                 # Auto-cal scales are learned when the sink sees the float32
                 # block.  Drain until they exist, so the uint8 kernel engages
                 # at block 1: a one-time startup stall.
                 while self._inflight and fused_q8() is None:
-                    self._drain_one()
+                    self._retire_one()
 
 
 class MeshStreamingBeamformer(StreamingBeamformer):

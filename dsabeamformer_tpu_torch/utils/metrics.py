@@ -89,7 +89,7 @@ STAGES = ("read", "h2d_wait", "enqueue", "drain_wait", "sinks", "rfi",
 #: The loop's counters and stage seconds in ``StreamStats.record``, beyond
 #: the JAX package's record.
 LOOP_KEYS = ("weight_swaps", "rfi_events", "sk_blocks", "float_blocks",
-             "drains_waited", *(f"{k}_s" for k in STAGES))
+             "drains_waited", "early_drains", *(f"{k}_s" for k in STAGES))
 
 
 @dataclasses.dataclass
@@ -100,7 +100,8 @@ class BlockStats:
     the block before and read of this one) ends where ``wall_s`` begins;
     ``enqueue_s``, ``inflight_s`` (enqueue end -> drain start, which holds
     ``h2d_wait_s``), ``drain_wait_s`` and ``sinks_s`` lie inside it, and
-    ``rfi_s`` follows it."""
+    ``rfi_s`` (the block's retire) follows it.  A block delivered before
+    its retire point reaches ``on_block`` with ``rfi_s`` still 0."""
 
     block_idx: int
     seq: int                 # source sequence number
@@ -143,6 +144,7 @@ class StreamStats:
     sk_blocks: int = 0       # blocks launched with the SK accumulators
     float_blocks: int = 0    # 8-bit sink blocks run without the uint8 epilogue
     drains_waited: int = 0   # drains whose D2H copies were not yet done
+    early_drains: int = 0    # blocks delivered in a wait, before retire
     read_s: float = 0.0      # host seconds by stage (STAGES)
     h2d_wait_s: float = 0.0
     enqueue_s: float = 0.0

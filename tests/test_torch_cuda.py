@@ -1276,6 +1276,153 @@ def test_pinned_ring_route_equals_staged_route(dev, depth):
         assert np.array_equal(a, b)
 
 
+def test_paced_ring_delivers_each_block_before_the_next_read(dev, tmp_path):
+    """The deployed stream (8-bit .fil, incoherent .dada, RFI monitor that
+    excises a carrier mid-stream) from a pinned ring paced at 1x: a pre-roll
+    of one block a ring slot (the sink calibrates on block 0, each slot is
+    registered at its first read), then one block every 67.1 ms, published
+    in the reader's own calls.  Each block is delivered once and in order,
+    and each paced block before the next block's read returns, in a wait;
+    the products, the scales and the excision are those of the same blocks
+    published as fast as the ring takes them."""
+    import math
+    import time
+    import uuid
+
+    from dsabeamformer_tpu_torch.ingest import dada
+    from dsabeamformer_tpu_torch.ingest.generator import make_tone_block
+    from dsabeamformer_tpu_torch.ingest.ring import RingBuffer
+    from dsabeamformer_tpu_torch.ingest.sigproc import (
+        FilterbankSink,
+        read_filterbank,
+    )
+    from dsabeamformer_tpu_torch.models.weights import zap_weights
+    from dsabeamformer_tpu_torch.ops.rfi import RFIMonitor
+    from dsabeamformer_tpu_torch.pipeline import FileSink, RingSource
+
+    cfg = DSA10.replace(n_chan=16)
+    n, nbufs, period = 12, 4, cfg.block_duration_s
+    blocks = []
+    for s in range(4):
+        w = make_noise_block(cfg, rms=2.0, seed=60 + s).reshape(
+            cfg.wire_block_shape).copy()
+        w[:, 2] = make_tone_block(cfg, chan=2, amplitude=6.0)[:, 2]
+        blocks.append(w)
+
+    class Paced:
+        """Publishes, in the reader's calls and while a slot is free, the
+        pre-roll (blocks 0 .. nbufs - 1) at once and block i at t0 + (i -
+        nbufs) * period, t0 being the first call after the pre-roll was
+        read; unpaced, every block at once.  Stamps each read's return."""
+        pinned = True
+        dropped = skipped = 0
+
+        def __init__(self, prod, src, paced):
+            self.prod, self.src, self.paced = prod, src, paced
+            self.t0, self.i, self.read_at = None, 0, {}
+
+        def _due(self, i):
+            if not self.paced or i < nbufs:
+                return 0.0
+            return math.inf if self.t0 is None else \
+                self.t0 + (i - nbufs) * period
+
+        def _publish(self):
+            """Seconds to the next block's due time (None: all out)."""
+            now = time.perf_counter()
+            if self.t0 is None and len(self.read_at) == nbufs:
+                self.t0 = now
+            while self.i < n and self._due(self.i) <= now and \
+                    self.prod.n_written - self.prod.n_read < nbufs:
+                assert self.prod.write_block(blocks[self.i % 4])
+                self.i += 1
+                if self.i == n:
+                    self.prod.set_eod()
+            return None if self.i == n else \
+                max(0.0, min(self._due(self.i) - now, 1.0))
+
+        def _got(self, got):
+            if got is not None:
+                assert got[0] not in self.read_at and got[1].is_pinned()
+                self.read_at[got[0]] = time.perf_counter()
+            return got
+
+        def poll_block(self, timeout_s):
+            wait = self._publish()
+            return self._got(self.src.poll_block(
+                timeout_s if wait is None else min(timeout_s, wait)))
+
+        def read_block(self):
+            while True:
+                wait = self._publish()
+                if wait is None:
+                    return self._got(self.src.read_block())
+                got = self.src.poll_block(0.0)
+                if got is not None:
+                    return self._got(got)
+                time.sleep(wait)
+
+        def release(self):
+            self.src.release()
+
+    # The excised table, made ahead: the swap in the retire then takes the
+    # loop no part of a period.
+    zapped = {(2,): prepare_weights(cfg, zap_weights(
+        make_weights(cfg, device=dev), [2], cfg))}
+    runs = {}
+    for name, paced in (("unpaced", False), ("paced", True)):
+        events, delivered = [], []
+        qw = prepare_weights(cfg, make_weights(cfg, device=dev))
+        fil = FilterbankSink(tmp_path / name, cfg, nbits=8)
+        inco = FileSink(tmp_path / f"{name}.dada", cfg, products="incoherent")
+        key = f"paced-{uuid.uuid4().hex[:10]}"
+        with RingBuffer(key, create=True, nbufs=nbufs,
+                        bufsz=cfg.wire_block_bytes) as prod:
+            prod.write_header(dada.encode_header(cfg))
+            cons = RingBuffer(key)
+            src = RingSource(cfg, cons, timeout_s=5.0)
+            source = Paced(prod, src, paced)
+            bf = StreamingBeamformer(
+                cfg, qw, source, fil, depth=2, incoherent_sink=inco,
+                flag_ants=(1,), on_block=lambda bs: delivered.append(
+                    (bs.seq, time.perf_counter())))
+
+            def on_event(ev, bf=bf):
+                events.append((ev, time.perf_counter()))
+                if ev["type"] == "excise" and not ev.get("final"):
+                    bf.update_weights(zapped[tuple(ev["zapped"])])
+
+            bf.rfi_monitor = RFIMonitor(cfg, interval=2, sample=2,
+                                        on_event=on_event)
+            bf.warmup()
+            stats = bf.run()
+            src.close()
+            cons.close()
+        fil.close()
+        inco.close()
+        assert stats.n_blocks == n and stats.dropped == 0
+        assert [s for s, _ in delivered] == list(range(n))
+        if paced:
+            why = (delivered, source.read_at, [t for _, t in events])
+            for seq, t in delivered[nbufs:-1]:
+                assert t < source.read_at[seq + 1], (seq, why)
+            assert stats.early_drains >= n - nbufs, why
+        runs[name] = [e for e, _ in events], fil.scales, stats.weight_swaps
+    assert runs["paced"][0] == runs["unpaced"][0]
+    assert [e["type"] for e in runs["paced"][0]] == ["excise"]
+    assert runs["paced"][0][0]["new"] == [2]
+    assert runs["paced"][2] == runs["unpaced"][2] == 1
+    for b in range(cfg.n_beams):
+        assert np.array_equal(runs["paced"][1][b], runs["unpaced"][1][b])
+        f = f"beam{b:04d}.fil"
+        (hp, dp), (hu, du) = (read_filterbank(tmp_path / name / f)
+                              for name in ("paced", "unpaced"))
+        assert hp == hu and dp.shape[0] == n * cfg.out_block_shape[1]
+        assert np.array_equal(dp, du)
+    assert (tmp_path / "paced.dada").read_bytes() == \
+        (tmp_path / "unpaced.dada").read_bytes()
+
+
 def test_cli_run_from_file_equals_the_stream(dev, tmp_path, capsys):
     """``dsabf-torch run --device 0`` from a capture file: its .dada power
     product and its incoherent product equal an in-process

@@ -19,6 +19,7 @@ from dsabeamformer_tpu_torch.ingest.generator import make_noise_block, make_tone
 from dsabeamformer_tpu_torch.models.weights import make_weights, zap_weights
 from dsabeamformer_tpu_torch.ops.rfi import RFIMonitor
 from dsabeamformer_tpu_torch.utils.testing import relative_power_error
+from torch_early_delivery import OnCue, PacedSource
 
 CFG = pcfg.TINY
 JCFG = jcfg.TINY
@@ -186,12 +187,16 @@ def test_sampled_sk_gates_kernel_variant(monkeypatch):
         events[0]["new"] == [2]
 
 
+@pytest.mark.parametrize("early", [False, True], ids=["unpaced", "paced"])
 @pytest.mark.parametrize("depth", [0, 2])
-def test_midstream_excision_zeroes_channel_like_jax(depth, tmp_path):
+def test_midstream_excision_zeroes_channel_like_jax(depth, early, tmp_path):
     """The excise glue (regenerate the weights with the grown zap set,
     swap them in mid-stream) on both streaming loops: the same events,
     the same products within float32 order, and channel 6 exactly zero
-    once the new weights run."""
+    once the new weights run.  Paced: the port's source makes the loop
+    wait before each block and every block finishes in that wait, so it is
+    delivered before the next read (``torch_early_delivery``); the swap
+    engages at the same block as the JAX package's."""
     blocks = [_tone_infected(40 + s, chan=6) for s in range(6)]
     runs = {}
     for name, mod, cfg, mk, zap, prep, mon_cls in (
@@ -200,9 +205,13 @@ def test_midstream_excision_zeroes_channel_like_jax(depth, tmp_path):
             ("port", ppipe, CFG, lambda c: make_weights(c, device="cpu"),
              zap_weights, pq.prepare_weights, RFIMonitor)):
         sink, events = mod.CollectSink(), []
-        bf = mod.StreamingBeamformer(cfg, prep(cfg, mk(cfg)),
-                                     mod.SyntheticSource(cfg, blocks, 6),
-                                     sink, depth=depth)
+        if name == "port" and early:
+            bf = OnCue(cfg, prep(cfg, mk(cfg)), PacedSource(blocks, 6), sink,
+                       depth=depth)
+        else:
+            bf = mod.StreamingBeamformer(cfg, prep(cfg, mk(cfg)),
+                                         mod.SyntheticSource(cfg, blocks, 6),
+                                         sink, depth=depth)
 
         def excise(ev, bf=bf, cfg=cfg, mk=mk, zap=zap, prep=prep,
                    events=events):
@@ -211,8 +220,10 @@ def test_midstream_excision_zeroes_channel_like_jax(depth, tmp_path):
                 bf.update_weights(prep(cfg, zap(mk(cfg), ev["zapped"], cfg)))
 
         bf.rfi_monitor = mon_cls(cfg, interval=1, on_event=excise)
-        bf.run()
+        stats = bf.run()
         runs[name] = events, sink.outputs
+    # Depth 0 retires each block as it is enqueued: no wait comes first.
+    assert stats.early_drains == (6 if early and depth else 0)
     (ev_j, out_j), (ev_p, out_p) = runs["jax"], runs["port"]
     assert ev_p == ev_j and 6 in ev_p[0]["new"]
     assert [s for s, _ in out_p] == list(range(6))

@@ -297,6 +297,31 @@ def test_ring_stream_equals_synthetic_stream(ring_name, qw):
         assert np.array_equal(a, b)
 
 
+def test_ring_source_poll_block_is_not_the_end(ring_name):
+    """``poll_block`` answers None on an empty ring and at end of data
+    alike, and ends nothing: a block written after an empty poll is read,
+    into the next staging buffer (an empty poll takes none), and only
+    ``read_block`` ends the stream."""
+    blocks = [make_noise_block(CFG, rms=2.0, seed=s) for s in range(2)]
+    with RingBuffer(ring_name, create=True, nbufs=2,
+                    bufsz=CFG.wire_block_bytes) as prod:
+        prod.write_header(dada.encode_header(CFG))
+        cons = RingBuffer(ring_name)
+        src = RingSource(CFG, cons, timeout_s=0.05, device="cpu")
+        for seq, blk in enumerate(blocks):
+            assert src.poll_block(1e-4) is None
+            assert src._pool_i == seq
+            assert prod.write_block(blk)
+            if seq == len(blocks) - 1:
+                prod.set_eod()
+            got, data = src.poll_block(0.5)
+            assert got == seq and np.array_equal(data, blk)
+        assert src._pool_i == len(blocks)
+        assert src.poll_block(1e-4) is None
+        assert src.read_block() is None
+        cons.close()
+
+
 def test_ring_sink_writes_header_and_blocks(ring_name, qw):
     """RingSink commits the output header (PAYLOAD, OUT_*) and the float32
     blocks; close() sets end of data.  The JAX package's ring reads it."""

@@ -188,9 +188,10 @@ def test_rfi_sk_and_float_counters(tmp_path, depth):
     assert stats.rfi_events == 1 and stats.weight_swaps == 1
     assert stats.sk_blocks == 3 and stats.float_blocks == 1
     assert stats.drains_waited == 0  # the CPU route never waits
+    assert stats.early_drains == 0   # nor delivers before retiring
     rec = stats.record(CFG)
     for k in ("rfi_events", "sk_blocks", "float_blocks", "drains_waited",
-              "weight_swaps"):
+              "early_drains", "weight_swaps"):
         assert rec[k] == getattr(stats, k)
 
 
@@ -233,7 +234,7 @@ def test_cli_stats_file_has_the_stage_keys(tmp_path, capsys):
     assert rc == 0
     rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     for k in ("weight_swaps", "rfi_events", "sk_blocks", "float_blocks",
-              "drains_waited", *(f"{s}_s" for s in STAGES)):
+              "drains_waited", "early_drains", *(f"{s}_s" for s in STAGES)):
         assert k in rec
     lines = [json.loads(line) for line in open(st)]
     assert [r["seq"] for r in lines] == [0, 1, 2]
