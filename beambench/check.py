@@ -4,94 +4,117 @@ Run once the window has closed and the program's state is freed.  The
 reference (``reference/beamform.py``, float64) works everything out again
 from the inputs the benchmark made: the weights from the seed, each
 sampled block's wire from the seed and its index, and the 8-bit scales from
-its own powers of block 0, as the sink made the program's.  Numbers, each
-held to the configuration file's limit (``checks``):
+its own powers of block 0, as the sink made the program's.  The reference's
+products of each sampled content are computed once and handed to the
+module of every product the mix names (``products/<name>.py``), which
+returns its own numbers; the check keeps each number's largest over the
+blocks.  Beside them, for every mix:
 
-- ``power_err``: over every sample of the kept uint8 beam powers, how far
-  the count lies outside the half count of rounding around the reference's
-  scaled power ``r`` (clipped to [0, 255]), relative to ``max(r, 1)``: the
-  configuration's power bar, carried through the 8-bit rounding;
-- ``scale_err``: the largest relative gap between the program's 8-bit
-  scales, which its sink set from its own powers of block 0, and the
-  reference's.  A gain in all the program's powers leaves the counts as
-  they were (the scales take it back) and shows here alone;
-- ``inco_err``: the incoherent sums' largest relative gap (exact integers);
-- ``sk_err``: the SK accumulators' largest relative gap;
 - ``order_faults``: blocks drained out of order, twice, or never;
 - ``lost``: sampled blocks offered and never drained whole;
 - ``compared``: sampled blocks compared; its limit is the least number.
 
-In the control (``control=True``) the side outputs are the reference's own,
-rounded to bfloat16, in the program's place.
+Each number is held to the configuration file's limit of that name
+(``checks``).  Every limit has to be returned by exactly one of these or
+one of the mix's products, and every number returned has to have a limit:
+``product_modules`` refuses a pairing of configuration and mix that breaks
+this before the run starts.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import functools
+import math
+from typing import NamedTuple
+
 import torch
 
-from beambench import inputs
+from beambench import inputs, products
 from beambench.core import Outcome
 from beambench.reference import beamform as ref
 
-
-def _power_err(counts: torch.Tensor, power: torch.Tensor,
-               scales: torch.Tensor) -> float:
-    r = (power * scales).clamp(0.0, 255.0)
-    gap = ((counts.to(torch.float64) - r).abs() - 0.5).clamp_min(0.0)
-    return float((gap / r.clamp_min(1.0)).max())
+#: The numbers of every mix, whatever its products.
+GENERIC = ("order_faults", "lost", "compared")
 
 
-def _rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
-    gap = (got.to(torch.float64) - want).abs()
-    return float((gap / want.abs().clamp_min(1.0)).max())
+class Reference(NamedTuple):
+    """The reference's products of one input block, float64."""
+
+    power: torch.Tensor  # [F', T', B]
+    inco: torch.Tensor   # [F', T']
+    sk: torch.Tensor     # [F, 2]
 
 
-def compare(spec: dict, seed: int, outcome: Outcome, device,
+@dataclasses.dataclass
+class Context:
+    """What a product's ``compare`` knows of the run."""
+
+    spec: dict              # configs/<name>.json
+    seed: int
+    outcome: Outcome
+    device: torch.device
+    control: bool
+    weights: torch.Tensor   # the reference's [F, B, A_active] weights
+
+    def reference(self, content: int) -> Reference:
+        wire = inputs.wire_block(self.spec, self.seed, content, self.device)
+        return Reference(*ref.products(self.spec["obs"], self.weights, wire))
+
+    @functools.cached_property
+    def scales(self) -> torch.Tensor:
+        """The reference's 8-bit scales ``[B]``, from its own powers of
+        block 0."""
+        return ref.quant8_scales(self.reference(0).power)
+
+
+def product_modules(spec: dict, mix: dict) -> dict:
+    """``{name: module}`` of each product the mix names, once the
+    configuration's limits are found to match the numbers returned."""
+    mods = {name: products.module(name) for name in mix["products"]}
+    returned = list(GENERIC) + [n for m in mods.values() for n in m.NUMBERS]
+    limits = set(spec["checks"])
+    faults = []
+    if twice := sorted({n for n in returned if returned.count(n) > 1}):
+        faults.append(f"returned by more than one part: {twice}")
+    if unlimited := sorted(set(returned) - limits):
+        faults.append(f"returned with no limit in checks: {unlimited}")
+    if unreturned := sorted(limits - set(returned)):
+        faults.append(f"limits that nothing returns: {unreturned}")
+    if faults:
+        raise ValueError(f"{spec['name']} under products {mix['products']}: "
+                         + "; ".join(faults))
+    return mods
+
+
+def compare(spec: dict, mix: dict, seed: int, outcome: Outcome, device,
             control: bool = False) -> dict:
-    """``{name: (value, limit)}``."""
-    obs = spec["obs"]
+    """``{name: (value, limit)}``; a product's number that no block gave
+    reads as infinite."""
+    mods = product_modules(spec, mix)
     limits = spec["checks"]
-    weights = inputs.steering_weights(spec, seed, device)
-
-    def reference(content):
-        wire = inputs.wire_block(spec, seed, content, device)
-        return ref.products(obs, weights, wire)
-
-    power0, _, _ = reference(0)
-    scales = ref.quant8_scales(power0)
-    del power0
-    worst = {"power_err": 0.0, "inco_err": 0.0, "sk_err": 0.0,
-             "scale_err": float("inf")}
-    if outcome.scales is not None:
-        got = torch.as_tensor(outcome.scales, dtype=torch.float64,
-                              device=device)
-        worst["scale_err"] = float(((got - scales).abs() / scales).max())
+    ctx = Context(spec, seed, outcome, torch.device(device), control,
+                  inputs.steering_weights(spec, seed, device))
+    worst: dict = {}
     n = 0
     by_content: dict = {}
     for k in outcome.kept:
         by_content.setdefault(k.content, []).append(k)
     for content, group in sorted(by_content.items()):
-        power, inco, sk = reference(content)
+        reference = ctx.reference(content)
         for k in group:
-            counts = torch.from_numpy(k.power).to(device)
-            if k.layout == "fil":  # [B, T', F'] channels descending
-                counts = counts.flip(2).permute(2, 1, 0)
-            worst["power_err"] = max(worst["power_err"],
-                                     _power_err(counts, power, scales))
-            got_inco, got_sk = k.inco, k.sk
-            if control:
-                got_inco = inco.to(torch.bfloat16)
-                got_sk = sk.to(torch.bfloat16)
-            if got_inco is None or got_sk is None:
-                worst["inco_err"] = worst["sk_err"] = float("inf")
-            else:
-                worst["inco_err"] = max(worst["inco_err"], _rel_err(
-                    torch.as_tensor(got_inco, device=device), inco))
-                worst["sk_err"] = max(worst["sk_err"], _rel_err(
-                    torch.as_tensor(got_sk, device=device), sk))
+            for name, mod in mods.items():
+                got = mod.compare(ctx, reference, k.products.get(name))
+                if set(got) != set(mod.NUMBERS):
+                    raise ValueError(f"product {name} returned {sorted(got)},"
+                                     f" not its NUMBERS {mod.NUMBERS}")
+                for number, value in got.items():
+                    value = math.inf if math.isnan(value) else value
+                    worst[number] = max(worst.get(number, value), value)
             n += 1
-        del power, inco, sk
-    checks = {name: (value, limits[name]) for name, value in worst.items()}
+        del reference
+    checks = {number: (worst.get(number, math.inf), limits[number])
+              for mod in mods.values() for number in mod.NUMBERS}
     checks["order_faults"] = (outcome.order_faults, limits["order_faults"])
     checks["lost"] = (outcome.lost, limits["lost"])
     checks["compared"] = (n, limits["compared"])

@@ -45,11 +45,8 @@ class Run:
 class Kept:
     """One sampled block's products as the program returned them."""
 
-    content: int                 # index of the input block (inputs.wire_block)
-    power: np.ndarray            # uint8, [F', T', B] ("native") or [B, T', F']
-    layout: str                  # "native" | "fil" (channels descending)
-    inco: Optional[np.ndarray]   # [F', T'] float32
-    sk: Optional[np.ndarray]     # [F, 2] float32
+    content: int    # index of the input block (inputs.wire_block)
+    products: dict  # product name (products/<name>.py) -> its data, or None
 
 
 @dataclasses.dataclass

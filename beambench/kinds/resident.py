@@ -21,11 +21,17 @@ from beambench.core import Kept, Outcome, Run
 from beambench.trace import Tracer
 from dsabeamformer_tpu_torch.ops import gemm
 
+#: The products of the deployed detect call (``products/<name>.py``), in
+#: the order it returns them.
+OWN = ("uint8", "incoherent", "sk")
+
 
 def run(r: Run) -> Outcome:
     dev = r.device
     cuda = dev.type == "cuda"
-    program.require_products(r.mix, ("uint8", "incoherent", "sk"))
+    if extra := program.require_products(r.mix, OWN):
+        raise ValueError(f"the resident kind makes {list(OWN)} only, the mix "
+                         f"also asks for {extra}")
     cfg = program.obs_config(r.config, r.control)
     tracer = Tracer(r.trace, dev)
     qw = program.port_weights(cfg, inputs.steering_weights(r.config, r.seed,
@@ -90,9 +96,9 @@ def run(r: Run) -> Outcome:
     launches = sum(gemm.fused_detect.launches.values()) - launches0
     out = Outcome(
         t0=t0, t1=t1, setup_s=t0 - r.t_process, attempted=i, failed=0,
-        kept=[Kept(content=k % n_pool, power=p.cpu().numpy(), layout="native",
-                   inco=inc.cpu().numpy(), sk=sk.cpu().numpy())
-              for k, (p, inc, sk) in sorted(kept, key=lambda kv: kv[0])],
+        kept=[Kept(content=k % n_pool, products={
+                  name: t.cpu().numpy() for name, t in zip(OWN, outs)})
+              for k, outs in sorted(kept, key=lambda kv: kv[0])],
         memory_peak_bytes=int(memory_peak), completed=i,
         scales=sink.scale_vector())
     del kept, pool, qw, scales

@@ -14,10 +14,11 @@ The mix sets ``pace``:
   capture process that is never the bottleneck would.  The window opens at
   the drain of the pre-roll's last block (every slot registered, the loop
   in its steady state) and lasts ``--seconds``;
-- ``realtime``: after the pre-roll has drained, block ``i`` of the window
-  is due ``i * block / rate`` after it opens and is published then, or
-  dropped and counted when its slot is still unread.  The clock never
-  slows for the consumer, and runs in the ring's own calls
+- ``realtime``: once the loop has handed back the pre-roll's last slot
+  (every slot read and registered once, the last copy done), block ``i``
+  of the window is due ``i * block / rate`` after it opens and is
+  published then, or dropped and counted when its slot is still unread.
+  The clock never slows for the consumer, and runs in the ring's own calls
   (``CaptureRing.advance``): no producer thread and no late timer stands
   between a block's due time and the loop's read of it.
 
@@ -26,6 +27,10 @@ device from the seed and copied in): in a deployment the NIC writes the
 ring, so the host copies nothing per block.  Blocks drain in order; the
 sinks keep those the check samples, drawn from the seed among the window's
 first ``--seconds`` of sky.
+
+Any product the mix names beyond those three is attached by its own module
+(``products/<name>.py``, ``attach``) to the built loop before its warm-up,
+and keeps its data of the sampled blocks the same way.
 """
 
 from __future__ import annotations
@@ -36,22 +41,26 @@ import time
 import numpy as np
 import torch
 
-from beambench import inputs, program
+from beambench import inputs, products, program
 from beambench.capture_ring import CaptureRing
 from beambench.core import Kept, Outcome, Run
 from beambench.trace import Tracer
 from dsabeamformer_tpu_torch.ops import gemm
 from dsabeamformer_tpu_torch.pipeline import RingSource, StreamingBeamformer
 
+#: The deployed products this kind builds itself (``products/<name>.py``).
+OWN = ("uint8_fil", "incoherent", "sk")
+
 
 class _Clock:
-    """The window's state, kept at each drain (the loop's ``on_block``)."""
+    """The window's state, kept at each drain (the loop's ``on_block``)
+    and, paced, at each slot's release (the ring's ``on_release``)."""
 
-    def __init__(self, r: Run, n_pre: int, depth: int, saturated: bool,
-                 tracer: Tracer, monitor, keep: set):
+    def __init__(self, r: Run, n_pre: int, saturated: bool, tracer: Tracer,
+                 monitor, keep: set):
         self.r = r
         self.n_pre = n_pre
-        self.depth = depth
+        self.released = 0
         self.saturated = saturated
         self.tracer = tracer
         self.monitor = monitor
@@ -65,6 +74,14 @@ class _Clock:
         self.t0, self.t_end = t, t + self.r.seconds
         return t
 
+    def on_release(self) -> None:  # called with the ring's lock held
+        """The paced window opens as the loop hands back the pre-roll's last
+        slot: no slot is registered inside the window, and no block of the
+        pre-roll waits for the copy engine there, on any route."""
+        self.released += 1
+        if self.released == self.n_pre:
+            self.open(time.perf_counter())
+
     def on_block(self, bs) -> None:
         t = time.perf_counter()
         with self.tracer.span("on_block"):
@@ -73,11 +90,6 @@ class _Clock:
             if bs.seq in self.keep and sk is not None:
                 self.sk[bs.seq] = np.array(sk)
             if len(self.drains) == self.n_pre and self.saturated:
-                self.open(t)
-            if len(self.drains) == self.n_pre - self.depth \
-                    and not self.saturated:
-                # The loop drains a block once ``depth`` later ones are in
-                # flight: the rest of the pre-roll drains in the window.
                 self.open(t)
         tr = self.tracer
         if tr.enabled and self.t0 is not None:
@@ -119,8 +131,8 @@ class _Refill:
 
 class _Paced:
     """The real-time producer, a clock the ring reads (``ring.advance``):
-    the pre-roll's blocks published at once; then, from the drain that
-    ends the pre-roll (``clock.t0``), block ``i`` of the window published
+    the pre-roll's blocks published at once; then, from the release of the
+    pre-roll's last slot (``clock.t0``), block ``i`` of the window published
     at ``t0 + i * period_s`` whether or not the loop is ready for it
     (dropped and counted when no slot is free), and the data ended after
     the last.  No thread: the ring works out each block's fate at its due
@@ -164,7 +176,7 @@ class _Paced:
 
 def run(r: Run) -> Outcome:
     mix, dev = r.mix, r.device
-    program.require_products(mix, ("uint8_fil", "incoherent", "sk"))
+    extra = program.require_products(mix, OWN)
     cfg = program.obs_config(r.config, r.control)
     block_s = cfg.block_duration_s
     depth = int(mix["depth"])
@@ -191,11 +203,13 @@ def run(r: Run) -> Outcome:
     sink = program.KeepSink(cfg, keep, tracer.span)
     inco = program.KeepIncoherent(cfg, keep, tracer.span)
     monitor = program.KeepRFIMonitor(cfg, **mix["rfi"])
-    clock = _Clock(r, n_pre, depth, saturated, tracer, monitor, keep)
+    clock = _Clock(r, n_pre, saturated, tracer, monitor, keep)
     source = RingSource(cfg, ring, validate=False, timeout_s=60.0, device=dev)
     bf = StreamingBeamformer(cfg, qw, source, sink, depth=depth,
                              incoherent_sink=inco, on_block=clock.on_block)
     bf.rfi_monitor = monitor
+    attached = {name: products.module(name).attach(r, cfg, bf, keep, tracer)
+                for name in extra}
     bf.warmup()
     tracer.prepare()
     if dev.type == "cuda":
@@ -207,6 +221,7 @@ def run(r: Run) -> Outcome:
         period_s = block_s / float(mix["rate"])
         producer = _Paced(ring, clock, period_s,
                           n_due=math.ceil(r.seconds / period_s))
+        ring.on_release = clock.on_release
     producer.start()
     try:
         bf.run()
@@ -227,9 +242,12 @@ def run(r: Run) -> Outcome:
     published = set(ring_slot)
     order_faults = (sum(1 for a, b in zip(seqs, seqs[1:]) if b <= a)
                     + len(published - set(seqs)) + len(set(seqs) - published))
-    kept = [Kept(content=ring_slot[s], power=sink.kept[s], layout="fil",
-                 inco=inco.kept.get(s), sk=clock.sk.get(s))
+    kept = [Kept(content=ring_slot[s], products={
+                "uint8_fil": sink.kept[s], "incoherent": inco.kept.get(s),
+                "sk": clock.sk.get(s),
+                **{name: a.kept.get(s) for name, a in attached.items()}})
             for s in sorted(keep) if s in sink.kept]
+    del attached
     out = Outcome(
         t0=clock.t0, t1=clock.t_end if saturated else clock.t0 + r.seconds,
         setup_s=clock.t0 - r.t_process, attempted=0, failed=0, kept=kept,

@@ -24,12 +24,13 @@ from dsabeamformer_tpu_torch.ops.quantize import prepare_weights
 from dsabeamformer_tpu_torch.ops.rfi import RFIMonitor
 
 
-def require_products(mix: dict, products: tuple) -> None:
-    """A kind drives the deployed products only: refuse a mix that asks
-    for others."""
-    if sorted(mix["products"]) != sorted(products):
-        raise ValueError(f"this kind makes {sorted(products)}, the mix asks "
-                         f"for {sorted(mix['products'])}")
+def require_products(mix: dict, own: tuple) -> list:
+    """A kind builds its own products: refuse a mix that lacks one of
+    them; -> the mix's other products, in its order."""
+    if missing := [p for p in own if p not in mix["products"]]:
+        raise ValueError(f"this kind makes {list(own)}, the mix lacks "
+                         f"{missing}")
+    return [p for p in mix["products"] if p not in own]
 
 
 #: The program's own path in the nearest precision below each weight mode

@@ -84,13 +84,15 @@ def execute(r, bench: dict) -> tuple:
     import torch
     from beambench import check
 
+    check.product_modules(r.config, r.mix)
     kind = importlib.import_module(f"beambench.kinds.{r.mix['kind']}")
     out = kind.run(r)
     if found := forbidden_modules():
         raise ForbiddenModules(", ".join(found))
     if r.device.type == "cuda":
         torch.cuda.empty_cache()
-    checks = check.compare(r.config, r.seed, out, r.device, control=r.control)
+    checks = check.compare(r.config, r.mix, r.seed, out, r.device,
+                           control=r.control)
     e2e, layer = cell_metrics(bench, r.cell)
     metrics = {}
     for m in (layer if r.trace else e2e):

@@ -12,10 +12,11 @@ launched it lies: the copy and the call carry the same ``correlation``.
 Blocks are paired by ``seq``, never by position, so a change of the drain
 policy leaves the pairing right.
 
-The benchmark's ``TraceView`` keeps neither the program's spans nor the
-runtime's copy calls; ``SpanView``, a ``TraceView`` that keeps both, is
-what every function here reads.  No per-layer metric of ``BENCHMARK.json``
-reads this module.
+Every function here reads the benchmark's ``TraceView``, which keeps the
+program's spans (``program_spans``) and the runtime's copy calls
+(``copy_calls``); ``SpanView`` is another name for it.  No per-layer metric
+of ``BENCHMARK.json`` reads this module yet; a reader in
+``layer_metrics/`` can, with no edit elsewhere.
 
 Host and device events share the trace's clock only as far as the profiler
 lines them up, and in some processes the device's times drift from the
@@ -35,11 +36,11 @@ spans (a program that has none).
 
     python3 -m beambench.spans --workload <cell> --seed <n> --seconds <s>
 
-runs one traced window of a cell on the card, with a ``SpanView`` in place
-of the benchmark's view, and prints one JSON line: the H2D gap's split, the
-loop's own time and the drain hold, the device's idle time by the innermost
-program span the host was in, and, for a paced cell, each piece of the
-due -> drain latency of the blocks drained in the traced window.
+runs one traced window of a cell on the card and prints one JSON line: the
+H2D gap's split, the loop's own time and the drain hold, the device's idle
+time by the innermost program span the host was in, and, for a paced cell,
+each piece of the due -> drain latency of the blocks drained in the traced
+window.
 """
 
 from __future__ import annotations
@@ -72,25 +73,14 @@ def _end(e) -> float:
     return float(e["ts"]) + float(e.get("dur", 0))
 
 
-class SpanView(TraceView):
-    """A ``TraceView`` that also keeps the program's spans (``dsabf.*``,
-    ``program_spans``) and the runtime's copy calls (``copy_calls``), each
-    naming its device copy by the ``correlation`` both carry."""
-
-    def __init__(self, events: list):
-        super().__init__(events)
-        self.program_spans = [e for e in events
-                              if e.get("cat") == "user_annotation"
-                              and e.get("name", "").startswith("dsabf.")]
-        self.copy_calls = [e for e in events
-                           if e.get("cat") == "cuda_runtime"
-                           and "Memcpy" in e.get("name", "")]
+#: The view every function here reads: the benchmark's own.
+SpanView = TraceView
 
 
 class ProgramSpans:
     """The trace's program spans, each with the ``seq`` of its block."""
 
-    def __init__(self, view: SpanView):
+    def __init__(self, view: TraceView):
         self.view = view
         raw, marks = [], []
         for e in view.program_spans:
@@ -363,10 +353,8 @@ def main(argv=None) -> int:
     import argparse
     import importlib
     import json
-    from unittest import mock
 
     from beambench import run as bench
-    from beambench import trace
     from beambench.layer_metrics import h2d_gap_ms
     from beambench.layer_metrics.h2d_gbps import _wire_bytes
 
@@ -378,8 +366,7 @@ def main(argv=None) -> int:
     cell = bench.cell_entry(bench.benchmark(), args.workload)
     r = bench.make_run(cell, args.seconds, args.seed, True, "cuda:0")
     kind = importlib.import_module(f"beambench.kinds.{r.mix['kind']}")
-    with mock.patch.object(trace, "TraceView", SpanView):
-        out = kind.run(r)
+    out = kind.run(r)
     view = out.trace
     idle = idle_by_span(view)
     split = h2d_split(view, _wire_bytes(r.config["obs"]))

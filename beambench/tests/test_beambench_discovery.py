@@ -7,7 +7,7 @@ import re
 
 import pytest
 
-from beambench import program, run
+from beambench import check, products, program, run
 
 BENCH = run.benchmark()
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
@@ -41,6 +41,7 @@ def test_cells_find_config_mix_kind(cell):
     kind = importlib.import_module(f"beambench.kinds.{mix['kind']}")
     assert callable(kind.run)
     assert cell["config"] in {c["name"] for c in BENCH["configs"]}
+    check.product_modules(run.config_spec(cell["config"]), mix)
     e2e, layer = run.cell_metrics(BENCH, cell["name"])
     names = {m["name"] for m in e2e}
     assert "setup_s" in names and len(names) >= 2
@@ -85,6 +86,20 @@ def test_one_layer_name_per_reader():
     for m in BENCH["per_layer"]:
         layers.setdefault(m["name"].split(".")[0], set()).add(m["layer"])
     assert all(len(v) == 1 for v in layers.values())
+
+
+@pytest.mark.parametrize("path", sorted((run.HERE / "traffic").iterdir()),
+                         ids=lambda p: p.stem)
+def test_every_product_of_a_mix_finds_its_module(path):
+    mix = json.loads(path.read_text())
+    own = importlib.import_module(f"beambench.kinds.{mix['kind']}").OWN
+    assert mix["products"]
+    for name in mix["products"]:
+        assert NAME.match(name)
+        module = products.module(name)
+        assert module.NUMBERS and callable(module.compare)
+        if name not in own:
+            assert callable(module.attach)
 
 
 def test_traffic_files_are_data():

@@ -9,9 +9,12 @@ and releases, the sinks' writes, the drain hook and the resident launch
 loop.  Without ``--trace 1`` a span is a null context.
 
 ``TraceView`` holds the complete events of the window, in the trace's own
-microseconds: device operations (kernels, copies, memsets), the H2D copies
-and the spans.  A view with no CUDA kernel event raises: no number of the
-device is ever read from the host's activity alone.
+microseconds: device operations (kernels, copies, memsets), the H2D copies,
+the benchmark's spans, the program's own spans (``dsabf.*``, which
+``spans.py`` reads) and the runtime's copy calls, each naming its device
+copy by the ``correlation`` both carry.  A view with no CUDA kernel event
+raises: no number of the device is ever read from the host's activity
+alone.
 """
 
 from __future__ import annotations
@@ -111,6 +114,12 @@ class TraceView:
         self.spans = [e for e in events if e.get("cat") == "user_annotation"
                       and e.get("name", "").startswith("bb.")
                       and e["name"] not in (_OPEN, _CLOSE)]
+        self.program_spans = [e for e in events
+                              if e.get("cat") == "user_annotation"
+                              and e.get("name", "").startswith("dsabf.")]
+        self.copy_calls = [e for e in events
+                           if e.get("cat") == "cuda_runtime"
+                           and "Memcpy" in e.get("name", "")]
 
     @property
     def window_s(self) -> float:
