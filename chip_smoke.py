@@ -230,7 +230,13 @@ The ring ingest and the live search (PR 10 of the port):
                timed over 10 launches, with its bound, its share of it and
                the share of (warp, channel)s its register window serves; and
                stage 1's library yardstick, one float32 grouped one-hot
-               ``conv1d`` (TF32 off), timed over 3 launches.  Between the
+               ``conv1d`` (TF32 off), timed over 3 launches; then, at the
+               dsa10_frb cell's shapes (256 beams to DM 1000, 4637 trials,
+               9923-sample windows) on seeded noise counts, stage 1 and
+               stage 2 on one stage-1 chunk of beams and ``snr_topk`` on
+               one beam group sized as the cell sizes it, each bit-equal to
+               its plain version and timed beside its bound (the top-k's
+               launches counted from 0 on the live stream).  Between the
                offline search and the kernels, ``dsabf-torch`` on the same
                products (subprocesses, ``--device 0``): ``search`` of the
                four offline beams' .fil files (coincidence off), its .cand
@@ -415,18 +421,26 @@ from dsabeamformer_tpu_torch.ops.dedisperse import (
     KERNEL_SOURCE as DEDISPERSE_SOURCE,
     SearchMonitor,
     _bank,
+    _beam_group,
     _cluster,
     _conv_auto_n_sub,
     _conv_plan,
-    _padded_columns,
+    _fill,
+    _limits,
+    _normalize,
     _snr_topk,
+    _stage1_beams,
     _table,
     _threshold_points,
+    _valid_len,
+    _window_columns,
     dedisperse_direct,
     dedisperse_direct_plain,
     dm_trial_grid,
     read_candidates,
     search_spectrograms,
+    snr_topk,
+    snr_topk_plain,
     subband_stage1,
     subband_stage1_plain,
     subband_stage2,
@@ -2499,7 +2513,7 @@ N_RING = 8                   # blocks in each ring power-only stream (12
                              # before the scale-out phases: their time)
 N_RING_DEPLOYED = 8          # blocks in each ring deployed stream
 SHM = "/dev/shm"
-DD_KERNELS = (dedisperse_direct, subband_stage1, subband_stage2)
+DD_KERNELS = (dedisperse_direct, subband_stage1, subband_stage2, snr_topk)
 #: The live search drill: a dispersed pulse at DM 50 towards beam 100, in
 #: every block, searched to DM 100 over a 32-beam set (every 8th beam from
 #: 4, so the beam pattern's main lobe covers a few of them: coincidence
@@ -2523,6 +2537,16 @@ SNR_RTOL = 1e-5
 FOLD_BINS = 64
 #: An add issues at the FMA rate: 67 TFLOP/s counts an FMA as two.
 H100_F32_ADDS_PER_S = 67e12 / 2
+#: The dsa10_frb cell's search (beambench/configs/dsa10_frb.json): all 256
+#: DSA-10 beams to DM 1000 at the default tolerance (4637 trials) in
+#: 4096-sample windows of 9923 samples, beside the dsa10 stream's own
+#: device memory (14.1 GB: beambench's dsa10.stream memory_peak_bytes), so
+#: that the beam group sized here is the size the cell searches.
+CELL_DM_MAX = 1000.0
+CELL_STREAM_BYTES = 14.1e9
+#: Beams of the cell's group the plain top-k takes at a time (its
+#: temporaries are ~8 banks' worth).
+PLAIN_TOPK_BEAMS = 4
 
 
 def ring_need(cfg) -> int:
@@ -2944,19 +2968,15 @@ def phase_search(prod, cfg, why, smi) -> tuple:
             mon = SearchMonitor(f_mhz, tsamp, dms, beam=SEARCH_SET,
                                 chunk_t=SEARCH_CHUNK, method="conv",
                                 device=DEV)
-            search_window = mon._search_window
+            start = mon._start
 
-            window_s = []
-
-            def keep_first(window, own):
+            def keep_first(own):
+                pending = start(own)
                 if not windows:
-                    windows.append(np.array(window))
-                t = time.perf_counter()
-                found = search_window(window, own)
-                window_s.append(time.perf_counter() - t)
-                return found
+                    windows.append(mon._concat()[..., :pending.n].clone())
+                return pending
 
-            mon._search_window = keep_first
+            mon._start = keep_first
             bf.search_monitor = mon
             bf.warmup()
             clear_launches()
@@ -2980,8 +3000,9 @@ def phase_search(prod, cfg, why, smi) -> tuple:
                 f"{dict(gemm.fused_detect.launches)}, bank launches {live}, "
                 f"{len(mon.candidates)} candidates, {mon.rfi_rejected} "
                 f"clusters rejected as RFI on {smi}")
-            log(f"[search] window search times {[round(w * 1e3, 1) for w in window_s]} "
-                f"ms (host window, upload, bank, normalization, top-k, "
+            log(f"[search] {stats.search_s * 1e3 / max(1, mon.searched_windows):.1f} "
+                f"ms of the loop's time in the monitor a window (the window "
+                f"on the card: append, banks, normalization, top-k, "
                 f"clustering, coincidence)")
             if stats.n_blocks != N_SEARCH or stats.dropped or stats.skipped:
                 raise RuntimeError(f"search stream: {stats.n_blocks} blocks, "
@@ -3171,17 +3192,19 @@ def bank_bound(adds, nbytes) -> tuple:
 
 def phase_bank_kernels(window, mon, smi) -> dict:
     """Each bank kernel against its plain version on the monitor's first
-    window (the 32 beams), max abs error (bit-equal expected: the same adds
-    in the same order), 10 timed launches, the plain version once, and the
-    bound: the adds over the FP32 rate and the bytes (every input read
-    once, the output written once) over the memory rate."""
-    b, t, f = window.shape
+    window (the 32 beams), then the two stages and the top-k at the
+    dsa10_frb cell's shapes (``phase_cell_kernels``): max abs error
+    (bit-equal expected: the same adds in the same order), 10 timed
+    launches, the plain version once, and the bound: the adds over the
+    FP32 rate and the bytes (every input read once, the output written
+    once) over the memory rate."""
+    b, f, t = window.shape
     delays = mon.delays
     n_dm = delays.shape[0]
-    fill = np.median(window[:, ::max(1, t // 512)], axis=1).astype(np.float32)
+    fill = _fill(window, max(1, t // 512), False)
     out = {}
     # direct
-    p = _padded_columns(window, fill, t + int(delays.max()), 0, DEV)
+    p = _window_columns(window, fill, t + int(delays.max()), 0)
     dt = torch.from_numpy(delays).to(DEV)
     k = dedisperse_direct(p, dt, t)
     plain_t0 = time.perf_counter()
@@ -3196,47 +3219,9 @@ def phase_bank_kernels(window, mon, smi) -> dict:
                                 (b, f, t, n_dm), ":156", None,
                                 float((bank_paths(delays) == 0).mean()))
     del p, k, kp
-    # the conv plan's two stages
-    intra_c, inter, rep_of, pad_f = _conv_plan(delays, _conv_auto_n_sub(delays),
-                                               1)
-    g, j, c = intra_c.shape
-    t1 = t + int(inter.max())
-    t_pad = t1 + int(intra_c.max())
-    p = _padded_columns(window, fill, t_pad, pad_f, DEV).view(b, g, c, -1)
-    it = torch.from_numpy(intra_c).to(DEV)
-    s = subband_stage1(p, it, t1)
-    plain_t0 = time.perf_counter()
-    sp = subband_stage1_plain(p, it, t1)
-    torch.cuda.synchronize()
-    plain_ms = (time.perf_counter() - plain_t0) * 1e3
-    err = float((s - sp).abs().max())
-    ms = time_ms(lambda i: subband_stage1(p, it, t1), N_TIMED)
-    adds = b * g * j * c * t1
-    nbytes = p.numel() * 4 + it.numel() * 4 + s.numel() * 4
-    lib_ms, lib_err = stage1_conv1d(p, intra_c, t1, s)
-    served = np.mean([(bank_paths(intra_c[gg]) == 0).mean()
-                      for gg in range(g)])
-    out["subband_stage1"] = (err, ms, plain_ms, *bank_bound(adds, nbytes),
-                             (b, g, c, t_pad, j, t1), ":179", lib_ms,
-                             float(served))
-    log(f"[search kernels] subband_stage1's library call: one float32 "
-        f"grouped conv1d with a one-hot weight [{g * j}, {c}, "
-        f"{int(intra_c.max()) + 1}] (cuDNN, TF32 off), {lib_ms:.3f} ms, max "
-        f"abs error vs the kernel {lib_err!r} (its own sum order) on {smi}")
-    offsets = _table(rep_of[None, :] * t1 + inter.T, DEV)
-    o = subband_stage2(s, offsets, t)
-    plain_t0 = time.perf_counter()
-    op = subband_stage2_plain(s, offsets, t)
-    torch.cuda.synchronize()
-    plain_ms = (time.perf_counter() - plain_t0) * 1e3
-    err2 = float((o - op).abs().max())
-    ms2 = time_ms(lambda i: subband_stage2(s, offsets, t), N_TIMED)
-    adds = b * n_dm * g * t
-    nbytes = s.numel() * 4 + offsets.numel() * 4 + o.numel() * 4
-    out["subband_stage2"] = (err2, ms2, plain_ms, *bank_bound(adds, nbytes),
-                             (b, g, j, t1, n_dm, t), ":179", None, None)
-    del p, s, sp, o, op
+    out.update(stage_checks(window, fill, delays, "", smi, library=True))
     search_window_breakdown(window, mon, smi)
+    out.update(phase_cell_kernels(smi))
     for name, (err, ms, plain_ms, bnd, by, shape, _, lib_ms, served) \
             in out.items():
         log(f"[search kernels] {name} {shape}: max abs err vs plain {err!r}, "
@@ -3250,6 +3235,118 @@ def phase_bank_kernels(window, mon, smi) -> dict:
             raise RuntimeError(f"{name} differs from its plain version by "
                                f"{err!r} (the same adds in the same order "
                                f"must be bit-equal)")
+    return out
+
+
+def stage_checks(window, fill, delays, suffix, smi, library) -> dict:
+    """The conv plan's two stages of the ``[B, F, T]`` window against their
+    plain versions, timed, as ``phase_bank_kernels``' entries named with
+    ``suffix``; ``library``: time the one-call cuDNN stage 1 beside."""
+    b, f, t = window.shape
+    n_dm = delays.shape[0]
+    intra_c, inter, rep_of, pad_f = _conv_plan(delays, _conv_auto_n_sub(delays),
+                                               1)
+    g, j, c = intra_c.shape
+    t1 = t + int(inter.max())
+    t_pad = t1 + int(intra_c.max())
+    p = _window_columns(window, fill, t_pad, pad_f).view(b, g, c, -1)
+    it = torch.from_numpy(intra_c).to(DEV)
+    s = subband_stage1(p, it, t1)
+    plain_t0 = time.perf_counter()
+    sp = subband_stage1_plain(p, it, t1)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - plain_t0) * 1e3
+    err = float((s - sp).abs().max())
+    del sp
+    ms = time_ms(lambda i: subband_stage1(p, it, t1), N_TIMED)
+    adds = b * g * j * c * t1
+    nbytes = p.numel() * 4 + it.numel() * 4 + s.numel() * 4
+    lib_ms = None
+    if library:
+        lib_ms, lib_err = stage1_conv1d(p, intra_c, t1, s)
+        log(f"[search kernels] subband_stage1's library call: one float32 "
+            f"grouped conv1d with a one-hot weight [{g * j}, {c}, "
+            f"{int(intra_c.max()) + 1}] (cuDNN, TF32 off), {lib_ms:.3f} ms, "
+            f"max abs error vs the kernel {lib_err!r} (its own sum order) "
+            f"on {smi}")
+    served = np.mean([(bank_paths(intra_c[gg]) == 0).mean()
+                      for gg in range(g)])
+    out = {"subband_stage1" + suffix: (
+        err, ms, plain_ms, *bank_bound(adds, nbytes),
+        (b, g, c, t_pad, j, t1), ":179", lib_ms, float(served))}
+    del p
+    offsets = _table(rep_of[None, :] * t1 + inter.T, DEV)
+    o = subband_stage2(s, offsets, t)
+    plain_t0 = time.perf_counter()
+    op = subband_stage2_plain(s, offsets, t)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - plain_t0) * 1e3
+    err2 = float((o - op).abs().max())
+    ms2 = time_ms(lambda i: subband_stage2(s, offsets, t), N_TIMED)
+    adds = b * n_dm * g * t
+    nbytes = s.numel() * 4 + offsets.numel() * 4 + o.numel() * 4
+    out["subband_stage2" + suffix] = (
+        err2, ms2, plain_ms, *bank_bound(adds, nbytes),
+        (b, g, j, t1, n_dm, t), ":179", None, None)
+    del s, o, op
+    return out
+
+
+def _gap(a, b) -> float:
+    """The largest |a - b|, 0 where the two are equal (-inf alike)."""
+    return float(torch.where(a == b, 0.0, (a.double() - b.double()).abs())
+                 .max())
+
+
+def phase_cell_kernels(smi) -> dict:
+    """The dsa10_frb cell's search kernels at its own shapes, on seeded
+    noise counts: stage 1 and stage 2 of its plan on one stage-1 chunk of
+    beams (``_stage1_beams``), and ``snr_topk`` on one beam group of its
+    window sized as the cell sizes it (``_beam_group``, less the dsa10
+    stream's memory), each against its plain version, bit-equal expected,
+    timed as ``phase_bank_kernels``' entries."""
+    mon = SearchMonitor.for_stream(DSA10, CELL_DM_MAX, beam="all",
+                                   device=DEV)
+    b, f = DSA10.n_beams, DSA10.n_chan // DSA10.navg_freq
+    t, n_dm, widths = mon.window_t, len(mon.dms), mon.widths
+    g = _beam_group(b, f, t, mon.delays, mon.method, mon.n_sub, DEV,
+                    reserve=CELL_STREAM_BYTES + b * f * (t + 2 * mon.chunk_t))
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=DEV).manual_seed(21)
+    window = (torch.randn((g, f, t), generator=gen, device=DEV) * 8 + 64
+              ).round_().clamp_(0, 255).to(torch.uint8)
+    n1 = _stage1_beams(_conv_plan(mon.delays, _conv_auto_n_sub(mon.delays),
+                                  1), t)
+    out = stage_checks(window[:n1], _fill(window[:n1], max(1, t // 512),
+                                          False),
+                       mon.delays, " [dsa10_frb]", smi, library=False)
+    norm = _normalize(_bank(mon.method, window, mon.delays, mon.n_sub,
+                            False))
+    del window
+    k = min(mon.topk, t - mon.max_w + 1)
+    limit = _limits(_valid_len(mon.delays, t), widths, mon.chunk_t)
+    got = snr_topk(norm, widths, k, limit)
+    torch.cuda.synchronize()
+    plain_t0 = time.perf_counter()
+    parts = [snr_topk_plain(norm[i:i + PLAIN_TOPK_BEAMS], widths, k, limit)
+             for i in range(0, g, PLAIN_TOPK_BEAMS)]
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - plain_t0) * 1e3
+    want = [torch.cat(x) for x in zip(*parts)]
+    del parts
+    err = max(_gap(a, w) for a, w in zip(got, want))
+    del got, want
+    ms = time_ms(lambda i: snr_topk(norm, widths, k, limit), N_TIMED)
+    adds = g * n_dm * (t + sum(t - w + 1 for w in widths))
+    nbytes = 4 * g * n_dm * t + g * n_dm * len(widths) * (16 * k + 8)
+    out["snr_topk"] = (err, ms, plain_ms, *bank_bound(adds, nbytes),
+                       (g, n_dm, t, len(widths), k), ":626", None, None)
+    log(f"[search kernels] dsa10_frb shapes: a beam group of {g} of {b} "
+        f"beams at {n_dm} trials x {t} samples (as the cell sizes it beside "
+        f"{CELL_STREAM_BYTES / 1e9:.1f} GB of stream), stage 1 on {n1} beams; "
+        f"device peak {torch.cuda.max_memory_allocated() / 1e9:.1f} GB on "
+        f"{smi}")
+    del norm
     return out
 
 
@@ -3291,22 +3388,24 @@ def search_window_breakdown(window, mon, smi) -> None:
     times = {}
     torch.cuda.synchronize()
     t = time.perf_counter()
-    bank, valid_len = _bank("conv", window, mon.delays, mon.n_sub, DEV)
+    bank = _bank("conv", window, mon.delays, mon.n_sub, False)
     torch.cuda.synchronize()
     times["bank"] = time.perf_counter() - t
     t = time.perf_counter()
     k = min(mon.topk, bank.shape[2] - mon.max_w + 1)
-    snr, idx = _snr_topk(bank, mon.widths, k)
+    limit = _limits(_valid_len(mon.delays, bank.shape[2]), mon.widths,
+                    SEARCH_CHUNK)
+    snr, idx, _peak = _snr_topk(bank, mon.widths, k, limit)
+    points = _threshold_points(snr, idx, mon.widths, limit, 0,
+                               mon.threshold)
     times["snr_topk"] = time.perf_counter() - t
     t = time.perf_counter()
     n_points = 0
-    for bi in range(window.shape[0]):
-        pts = _threshold_points(snr[bi], idx[bi], mon.widths, valid_len,
-                                SEARCH_CHUNK, 0, mon.threshold)
+    for pts in points:
         n_points += len(pts)
         _cluster(pts, mon.dms, mon.tsamp_s, mon.band_span, mon.dm_link)
     times["cluster"] = time.perf_counter() - t
-    log(f"[search window] {list(window.shape)} float32 window: "
+    log(f"[search window] {list(window.shape)} {window.dtype} window: "
         + ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in times.items())
         + f" ({n_points} points above threshold clustered) on {smi}")
 
@@ -4393,13 +4492,15 @@ def phase_bench(resident_ms, smi) -> int:
 
 
 def bank_rows(live, checked) -> list:
-    """The kernels line's rows of the three dedispersion kernels."""
+    """The kernels line's rows of the dedispersion kernels and the top-k
+    (``launches``: the live search's; a ``[dsa10_frb]`` row is its kernel
+    at that cell's shapes)."""
     return [{
         "name": name,
         "route": "cuda",
         "source": "dsabeamformer_tpu_torch/csrc/dedisperse.cu",
         "replaces": f"dsabeamformer_tpu/ops/dedisperse.py{line}",
-        "launches": live[name],
+        "launches": live[name.split()[0]],
         "max_abs_err": err,
         "ms": ms,
         "plain_ms": plain_ms,

@@ -508,14 +508,8 @@ def cmd_run(args) -> int:
     # fused incoherent product turned on at construction.
     search_monitor = None
     if args.search_dm_max is not None:
-        from dsabeamformer_tpu_torch.ingest.sigproc import _avg_freqs_mhz
-        from dsabeamformer_tpu_torch.ops.dedisperse import (
-            SearchMonitor,
-            dm_trial_grid,
-        )
+        from dsabeamformer_tpu_torch.ops.dedisperse import SearchMonitor
 
-        tsamp_out = cfg.sample_period_s * cfg.navg_time
-        freqs_avg = _avg_freqs_mhz(cfg)
         try:
             # target: 'incoherent', one index, a '3,7,100-110' set, or
             # 'all' (sets/'all' search beam-batched with live cross-beam
@@ -523,11 +517,8 @@ def cmd_run(args) -> int:
             target = _parse_beam_target(args.search_beam, cfg.n_beams)
             sm_inco = target == "incoherent"
             beam_arg = 0 if sm_inco else target
-            dms = dm_trial_grid(
-                float(freqs_avg.min()), float(freqs_avg.max()), tsamp_out,
-                dm_max=args.search_dm_max)
-            search_monitor = SearchMonitor(
-                freqs_avg, tsamp_out, dms, beam=beam_arg,
+            search_monitor = SearchMonitor.for_stream(
+                cfg, args.search_dm_max, beam=beam_arg,
                 incoherent=sm_inco, threshold=args.search_threshold,
                 chunk_t=args.search_chunk, zerodm=args.search_zerodm,
                 method=args.search_method,
@@ -540,6 +531,7 @@ def cmd_run(args) -> int:
                 sink.close()
             print(f"error: {e}", file=sys.stderr)
             return 2
+        dms = search_monitor.dms
         if sm_inco and inco_sink is None:
             inco_sink = _DiscardSink()
         target = ("incoherent sum" if sm_inco

@@ -11,6 +11,9 @@
 //   dsabf_dedisperse_direct  out[b, d, t] = sum_f  P[b, f, t + delay[d, f]]
 //   dsabf_subband_stage1     S[b, g, j, t] = sum_c P[b, g, c, t + intra[g, j, c]]
 //   dsabf_subband_stage2     out[b, d, t] = sum_g S[b, g].flat[off[g, d] + t]
+//   dsabf_snr_topk           of each normalized bank row: its cumulative
+//                            sum, then per boxcar width the top-k S/N and
+//                            the peak over the row's owned starts
 //
 // Each output sample is a float32 sum taken in ascending channel (group)
 // order from zero with plain adds (__fadd_rn: nothing fused or reordered),
@@ -64,6 +67,22 @@
 // one sample a thread, the shifts staged in shared memory): bound by its
 // bytes, not its adds (a few groups a sum), it ran at 61% of that bound on
 // the dsa10c window.
+//
+// snr_topk_kernel, a block a bank row (one beam's trial series), takes the
+// row in shared memory once and does everything after the normalization
+// there: the reference's blocked cumulative sum (sequential within blocks of
+// 16 from zero, the block totals scanned the same way, recursively, each
+// total added to the next level's block; ops/dedisperse.py
+// _cumsum_blocked), then for each width w the boxcar sums c[t + w] - c[t],
+// each thread's best k of its samples (a larger sum first, the lower start
+// of two equal ones: the reference's stable sort), merged over the block,
+// and the largest sum over the starts below the row's limit.  The S/N is
+// the sum in float64 times 1 / sqrt(w), as the reference's.  Every add is
+// __fadd_rn in the reference's order, so the results equal the plain
+// version bit for bit; the bank's bytes are read once.  A row longer than
+// shared memory holds keeps its scan in a global scratch of its block
+// instead (kTopkScratchBlocks blocks, each taking rows in turn): the same
+// adds, slower.
 //
 // Plain C interface (no PyTorch headers), bound with ctypes; the wrapper
 // checks shapes, types and devices, and the callers bound the shifts
@@ -592,6 +611,214 @@ int vec_of(const float* p, long long t_pad, long long data_z) {
          data_z % 4 == 0;
 }
 
+// ------------------------------- top-k -----------------------------------
+
+constexpr int kTopkThreads = 256;    // threads of a row's block
+constexpr int kTopkMaxK = 8;         // the most peaks a (width, trial) keeps
+constexpr int kScanBlock = 16;       // the reference's cumulative-sum block
+constexpr int kTopkScratchBlocks = 1024;  // blocks of a scan in global memory
+
+struct Topk {
+  const float* norm;   // [rows, t]: rows = b * n_dm, normalized bank rows
+  long long rows;
+  int n_dm;
+  int t;
+  const int* widths;   // [n_w]
+  int n_w;
+  int k;
+  const int* limit;    // [n_w, n_dm]: starts a (width, trial) owns
+  double* snr;         // [b, n_w, n_dm, k]
+  long long* idx;      // [b, n_w, n_dm, k]
+  double* peak;        // [b, n_w, n_dm]
+  float* scratch;      // [grid, topk_scan_floats(t)], or null: the scan in
+                       // shared memory
+};
+
+// Floats of shared memory before the merge's lists: the cumulative sum
+// (t + 1) and the block totals of every level above it.
+__host__ __device__ inline int topk_scan_floats(int t) {
+  int n = t + 1, level = t;
+  while ((level + kScanBlock - 1) / kScanBlock > 1) {
+    level = (level + kScanBlock - 1) / kScanBlock;
+    n += level;
+  }
+  return (n + 3) / 4 * 4;
+}
+
+__host__ __device__ inline int topk_smem_bytes(int t) {
+  return topk_scan_floats(t) * 4 + kTopkThreads * kTopkMaxK * 8;
+}
+
+__device__ inline float neg_inf() { return __int_as_float(0xff800000); }
+
+// (v, i) before (w, j): the larger sum, or the lower start of equal ones.
+__device__ inline bool before(float v, int i, float w, int j) {
+  return v > w || (v == w && i < j);
+}
+
+__global__ void __launch_bounds__(kTopkThreads)
+    snr_topk_kernel(Topk q) {
+  extern __shared__ float smem[];
+  const int tid = threadIdx.x;
+  const int t = q.t;
+  // c[0] = 0, c[1 + j] = the scan: in shared memory before the merge's
+  // lists, or in the block's own piece of the scratch.
+  float* c = q.scratch ? q.scratch + static_cast<long long>(blockIdx.x) *
+                                         topk_scan_floats(t)
+                       : smem;
+  float* lv[8];
+  int ln[8];
+  float* merge_v = q.scratch ? smem : smem + topk_scan_floats(t);
+  int* merge_i = reinterpret_cast<int*>(merge_v + kTopkThreads * kTopkMaxK);
+  __shared__ float warp_max[kTopkThreads / 32];
+
+  for (long long r = blockIdx.x; r < q.rows; r += gridDim.x) {
+    const float* row = q.norm + r * t;
+    __syncthreads();  // the previous row's lists have been read
+    for (int j = tid; j < t; j += kTopkThreads) c[1 + j] = row[j];
+    if (tid == 0) c[0] = 0.0f;
+    // Up the levels: each block's sums in place, its total one level up.
+    lv[0] = c + 1;
+    ln[0] = t;
+    int top = 0;
+    float* next = c + 1 + t;
+    while ((ln[top] + kScanBlock - 1) / kScanBlock > 1) {
+      const int nb = (ln[top] + kScanBlock - 1) / kScanBlock;
+      __syncthreads();
+      float* a = lv[top];
+      const int n = ln[top];
+      for (int b = tid; b < nb; b += kTopkThreads) {
+        float acc = 0.0f;
+#pragma unroll
+        for (int i = 0; i < kScanBlock; ++i) {
+          const int j = b * kScanBlock + i;
+          acc = __fadd_rn(acc, j < n ? a[j] : 0.0f);
+          if (j < n) a[j] = acc;
+        }
+        next[b] = acc;
+      }
+      lv[top + 1] = next;
+      ln[top + 1] = nb;
+      next += nb;
+      ++top;
+    }
+    __syncthreads();
+    if (tid == 0) {
+      float acc = 0.0f;
+      for (int j = 0; j < ln[top]; ++j) {
+        acc = __fadd_rn(acc, lv[top][j]);
+        lv[top][j] = acc;
+      }
+    }
+    // Down the levels: each block's sums after the totals before it.
+    for (int l = top - 1; l >= 0; --l) {
+      __syncthreads();
+      float* a = lv[l];
+      const float* up = lv[l + 1];
+      for (int j = tid; j < ln[l]; j += kTopkThreads) {
+        const int b = j / kScanBlock;
+        a[j] = __fadd_rn(b == 0 ? 0.0f : up[b - 1], a[j]);
+      }
+    }
+    __syncthreads();
+
+    const long long bi = r / q.n_dm;
+    const int d = static_cast<int>(r % q.n_dm);
+    for (int wi = 0; wi < q.n_w; ++wi) {
+      __syncthreads();  // the last width's lists and maxima have been read
+      const int w = q.widths[wi];
+      const int n_s = t - w + 1;
+      const int lim = q.limit[wi * q.n_dm + d];
+      float v[kTopkMaxK];
+      int ix[kTopkMaxK];
+#pragma unroll
+      for (int m = 0; m < kTopkMaxK; ++m) {
+        v[m] = neg_inf();
+        ix[m] = 0x7fffffff;
+      }
+      float last_v = neg_inf();   // the list's k-th entry
+      int last_i = 0x7fffffff;
+      float pmax = neg_inf();
+      for (int j = tid; j < n_s; j += kTopkThreads) {
+        const float s = __fsub_rn(c[j + w], c[j]);
+        if (j < lim) pmax = fmaxf(pmax, s);
+        if (!before(s, j, last_v, last_i)) continue;
+        // Insert, keeping the list in order (its entries are earlier
+        // starts, so an equal sum goes after them).
+        float cv = s;
+        int ci = j;
+#pragma unroll
+        for (int m = 0; m < kTopkMaxK; ++m) {
+          if (m < q.k && before(cv, ci, v[m], ix[m])) {
+            const float tv = v[m];
+            const int ti = ix[m];
+            v[m] = cv;
+            ix[m] = ci;
+            cv = tv;
+            ci = ti;
+          }
+          if (m == q.k - 1) {
+            last_v = v[m];
+            last_i = ix[m];
+          }
+        }
+      }
+      // The block's largest owned sum.
+      for (int o = 16; o > 0; o >>= 1)
+        pmax = fmaxf(pmax, __shfl_down_sync(0xffffffffu, pmax, o));
+      if ((tid & 31) == 0) warp_max[tid >> 5] = pmax;
+      // The block's best k: the threads' lists merged pairwise.
+      __syncthreads();
+#pragma unroll
+      for (int m = 0; m < kTopkMaxK; ++m) {
+        merge_v[tid * kTopkMaxK + m] = v[m];
+        merge_i[tid * kTopkMaxK + m] = ix[m];
+      }
+      for (int half = kTopkThreads / 2; half > 0; half >>= 1) {
+        __syncthreads();
+        if (tid < half) {
+          const float* av = merge_v + tid * kTopkMaxK;
+          const int* ai = merge_i + tid * kTopkMaxK;
+          const float* bv = merge_v + (tid + half) * kTopkMaxK;
+          const int* bi2 = merge_i + (tid + half) * kTopkMaxK;
+          float ov[kTopkMaxK];
+          int oi[kTopkMaxK];
+          int pa = 0, pb = 0;
+          for (int m = 0; m < q.k; ++m) {
+            if (before(av[pa], ai[pa], bv[pb], bi2[pb])) {
+              ov[m] = av[pa];
+              oi[m] = ai[pa];
+              ++pa;
+            } else {
+              ov[m] = bv[pb];
+              oi[m] = bi2[pb];
+              ++pb;
+            }
+          }
+          for (int m = 0; m < q.k; ++m) {
+            merge_v[tid * kTopkMaxK + m] = ov[m];
+            merge_i[tid * kTopkMaxK + m] = oi[m];
+          }
+        }
+      }
+      __syncthreads();
+      if (tid == 0) {
+        const double inv = __ddiv_rn(1.0, __dsqrt_rn(static_cast<double>(w)));
+        const long long o = (bi * q.n_w + wi) * q.n_dm + d;
+        for (int m = 0; m < q.k; ++m) {
+          q.snr[o * q.k + m] =
+              __dmul_rn(static_cast<double>(merge_v[m]), inv);
+          q.idx[o * q.k + m] = merge_i[m];
+        }
+        float best = warp_max[0];
+        for (int i = 1; i < kTopkThreads / 32; ++i)
+          best = fmaxf(best, warp_max[i]);
+        q.peak[o] = __dmul_rn(static_cast<double>(best), inv);
+      }
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -649,6 +876,36 @@ int dsabf_subband_stage2(const float* s, const int* offsets, float* out,
   stage2_kernel<<<grid, kTileT, 0, stream>>>(s, offsets, out, n_grp, plane,
                                              n_dm, t_out);
   return static_cast<int>(cudaGetLastError());
+}
+
+int dsabf_snr_topk(const float* norm, const int* widths, const int* limit,
+                   double* snr, long long* idx, double* peak, int b, int n_dm,
+                   int t, int n_w, int k, float* scratch,
+                   cudaStream_t stream) {
+  if (b <= 0 || n_dm <= 0 || n_w <= 0) return 0;
+  if (t <= 0 || k <= 0 || k > kTopkMaxK) return int(cudaErrorInvalidValue);
+  const int smem = scratch ? kTopkThreads * kTopkMaxK * 8 : topk_smem_bytes(t);
+  cudaError_t e = cudaFuncSetAttribute(
+      snr_topk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return int(e);
+  Topk q;
+  q.norm = norm;
+  q.rows = static_cast<long long>(b) * n_dm;
+  q.n_dm = n_dm;
+  q.t = t;
+  q.widths = widths;
+  q.n_w = n_w;
+  q.k = k;
+  q.limit = limit;
+  q.snr = snr;
+  q.idx = idx;
+  q.peak = peak;
+  q.scratch = scratch;
+  const long long cap = scratch ? kTopkScratchBlocks : (1LL << 30);
+  const long long grid = q.rows < cap ? q.rows : cap;
+  snr_topk_kernel<<<static_cast<unsigned>(grid), kTopkThreads, smem,
+                    stream>>>(q);
+  return int(cudaGetLastError());
 }
 
 const char* dsabf_error_string(int code) {

@@ -7,20 +7,24 @@ clustering and cross-beam coincidence.  The live ``SearchMonitor`` runs it
 over the streaming loop's own products.
 
 Host half (NumPy, as in the JAX package): the trial grid, the delay table,
-the subband plan, the conv plan and its tail fill, clustering, coincidence,
-preprocessing and the candidate files.
+the subband plan, the conv plan, clustering, coincidence, preprocessing and
+the candidate files.
 
-Device half: every bank method runs on one hand-written CUDA library,
-``csrc/dedisperse.cu`` (``dedisperse_direct``, ``subband_stage1``,
-``subband_stage2``), which replaces the reference's XLA gathers
+Device half: the window (the monitor's is held on the device), its tail
+fill and padded operand, the normalization, and every bank method on one
+hand-written CUDA library, ``csrc/dedisperse.cu`` (``dedisperse_direct``,
+``subband_stage1``, ``subband_stage2``), which replaces the reference's
+XLA gathers
 (``_dedisperse_jit`` and ``_subband_jit``, ``dsabeamformer_tpu/ops/
 dedisperse.py:156`` and ``:179``).  ``method="conv"`` keeps the reference's
 contract (automatic group count, a tail fill from a 512-row subsample, that
 fill rounded for uint8 input, ``valid_len``) and computes the two-stage bank
 on its plan with the same two subband kernels; the reference's one-hot
-convolution is a TPU device and has no counterpart here.  Each kernel has a
+convolution is a TPU device and has no counterpart here.  After the
+normalization (torch ops), ``snr_topk`` of the same library takes each
+trial series' cumulative sum, top-k and owned peaks.  Each kernel has a
 plain PyTorch version beside it (a loop of shifted adds in the kernel's
-order) that a CPU tensor runs; the normalization and top-k are torch ops.
+order, the scan and top-k in the reference's) that a CPU tensor runs.
 
 The delay curve is ``config.dm_delays_s`` (referenced to the top of the
 band), shared with the pulse generator.
@@ -28,6 +32,7 @@ band), shared with the pulse generator.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import dataclasses
 import math
@@ -58,6 +63,7 @@ __all__ = [
     "search_spectrogram",
     "search_spectrograms",
     "SearchMonitor",
+    "SearchWindow",
     "write_candidates",
     "read_candidates",
 ]
@@ -160,6 +166,11 @@ BANK_MIN_STEP = _BANK["kMinStep"]
 BANK_MAX_STEP = _BANK["kMaxStep"]
 BANK_BLOCK_SPAN = _BANK["kBlockSpan"]
 BANK_CHUNK = _BANK["kChunk"]
+#: ``snr_topk_kernel``'s threads a row, the most peaks it keeps a (width,
+#: trial), and its blocks where a row's scan is in global memory.
+TOPK_THREADS = _BANK["kTopkThreads"]
+TOPK_MAX_K = _BANK["kTopkMaxK"]
+TOPK_SCRATCH_BLOCKS = _BANK["kTopkScratchBlocks"]
 #: How a warp adds a row (``bank_paths``): from its register window, from
 #: the staged row a load a trial, from global memory a load a trial.
 WINDOW_PATH, STAGED_PATH, GLOBAL_PATH = 0, 1, 2
@@ -247,8 +258,10 @@ def _kernel_lib() -> ctypes.CDLL:
         lib.dsabf_dedisperse_direct.argtypes = [p, p, p, i, i, ll, i, i, p]
         lib.dsabf_subband_stage1.argtypes = [p, p, p, i, i, i, ll, i, i, p]
         lib.dsabf_subband_stage2.argtypes = [p, p, p, i, i, ll, i, i, p]
+        lib.dsabf_snr_topk.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p,
+                                       p]
         for fn in (lib.dsabf_dedisperse_direct, lib.dsabf_subband_stage1,
-                   lib.dsabf_subband_stage2):
+                   lib.dsabf_subband_stage2, lib.dsabf_snr_topk):
             fn.restype = i
         lib.dsabf_error_string.argtypes = [i]
         lib.dsabf_error_string.restype = ctypes.c_char_p
@@ -385,52 +398,91 @@ def _valid_len(delays: np.ndarray, t: int) -> np.ndarray:
     return np.maximum(t - delays.max(axis=1), 0).astype(np.int64)
 
 
-def _padded_columns(x: np.ndarray, fill: np.ndarray, t_pad: int,
-                    pad_f: int, device: torch.device) -> torch.Tensor:
-    """``[B, F + pad_f, T_pad']`` float32 on ``device`` (``T_pad`` rounded
-    up to a multiple of 4): the ``[B, T, F]`` window (any real dtype,
-    uploaded as it is and cast there), its tail filled with ``fill``
-    ``[B, F]``, zero channels appended, each channel's time series
-    contiguous."""
-    b, t, f = x.shape
+def _upload(x_btf: np.ndarray, device) -> torch.Tensor:
+    """A host ``[B, T, F]`` stack on ``device`` as it is (any real dtype),
+    seen as ``[B, F, T]``: the banks' view of a window."""
+    dev = resolve_device(device)
+    return torch.from_numpy(np.ascontiguousarray(x_btf)).to(dev).transpose(
+        1, 2)
+
+
+def _window_columns(x: torch.Tensor, fill: torch.Tensor, t_pad: int,
+                    pad_f: int) -> torch.Tensor:
+    """``[B, F + pad_f, T_pad']`` float32 on ``x``'s device (``T_pad`` rounded
+    up to a multiple of 4): the ``[B, F, T]`` window ``x`` (any real dtype,
+    any strides: cast here), its tail filled with ``fill`` ``[B, F]``, zero
+    channels appended, each channel's time series contiguous."""
+    b, f, t = x.shape
     t_pad = -(-t_pad // 4) * 4   # rows on 16 bytes: the kernels' wide copies
-    xd = torch.from_numpy(np.ascontiguousarray(x)).to(device)
-    fd = torch.from_numpy(np.ascontiguousarray(fill, np.float32)).to(device)
     cols = torch.empty((b, f + pad_f, t_pad), dtype=torch.float32,
-                       device=device)
-    cols[:, :f, :t] = xd.transpose(1, 2)
-    cols[:, :f, t:] = fd[:, :, None]
+                       device=x.device)
+    cols[:, :f, :t] = x
+    cols[:, :f, t:] = fill[:, :, None]
     cols[:, f:] = 0.0
     return cols
+
+
+def _fill(x: torch.Tensor, step: int, rounded: bool) -> torch.Tensor:
+    """The tail fill ``[B, F]`` of a ``[B, F, T]`` window: each channel's
+    median (the mean of the middle two, as NumPy's) over every ``step``-th
+    sample, float32; rounded to an integer where ``rounded``."""
+    fill = _median_last(x[..., ::step].to(torch.float32))
+    return fill.round() if rounded else fill
 
 
 def _table(a: np.ndarray, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
 
 
-def _direct_bank(x: np.ndarray, fill: np.ndarray, delays: np.ndarray,
-                 device) -> torch.Tensor:
-    dev = resolve_device(device)
-    t = x.shape[1]
-    p = _padded_columns(x, fill, t + int(delays.max()), 0, dev)
-    return dedisperse_direct(p, _table(delays, dev), t)
+def _direct_bank(x: torch.Tensor, fill: torch.Tensor,
+                 delays: np.ndarray) -> torch.Tensor:
+    """The brute-force bank ``[B, n_dm, T]`` of the ``[B, F, T]`` window
+    ``x`` with tail fill ``fill``."""
+    t = x.shape[2]
+    p = _window_columns(x, fill, t + int(delays.max()), 0)
+    return dedisperse_direct(p, _table(delays, x.device), t)
 
 
-def _two_stage_bank(x: np.ndarray, fill: np.ndarray, plan,
-                    device) -> torch.Tensor:
-    """The two-stage bank of ``x`` ``[B, T, F]`` on ``plan`` (``subband_plan``'s
-    tuple): stage 1 on the groups, stage 2 at each trial's offsets."""
-    dev = resolve_device(device)
+#: The most bytes of stage-1 planes made at once: a window's beams go
+#: through both stages this many planes' worth at a time.
+STAGE1_BYTES = 8 << 30
+
+
+def _stage1_beams(plan, t: int) -> int:
+    """Beams whose stage-1 planes ``STAGE1_BYTES`` holds (at least one)."""
+    intra_c, inter, _, _ = plan
+    g, j, _ = intra_c.shape
+    return max(1, STAGE1_BYTES // (4 * g * j * (t + int(inter.max()))))
+
+
+def _two_stage_bank(x: torch.Tensor, fill: torch.Tensor,
+                    plan) -> torch.Tensor:
+    """The two-stage bank of the ``[B, F, T]`` window ``x`` on ``plan``
+    (``subband_plan``'s tuple): stage 1 on the groups, stage 2 at each
+    trial's offsets, ``_stage1_beams`` beams at a time."""
     intra_c, inter, rep_of, pad_f = plan
     g, n_coarse, c = intra_c.shape
-    b, t, _ = x.shape
+    b, _, t = x.shape
     t1 = t + int(inter.max())
     t_pad = t1 + (int(intra_c.max()) if intra_c.size else 0)
-    p = _padded_columns(x, fill, t_pad, pad_f, dev).view(b, g, c, -1)
-    s = subband_stage1(p, _table(intra_c, dev), t1)
+    intra = _table(intra_c, x.device)
     # flat offset of (group g, trial d) in group g's [J * t1] stage-1 plane
-    offsets = rep_of[None, :] * t1 + inter.T                      # [G, n_dm]
-    return subband_stage2(s, _table(offsets, dev), t)
+    offsets = _table(rep_of[None, :] * t1 + inter.T, x.device)   # [G, n_dm]
+    step = _stage1_beams(plan, t)
+    if step >= b:
+        p = _window_columns(x, fill, t_pad, pad_f).view(b, g, c, -1)
+        return subband_stage2(subband_stage1(p, intra, t1), offsets, t)
+    bank = torch.empty((b, len(rep_of), t), dtype=torch.float32,
+                       device=x.device)
+    for b0 in range(0, b, step):
+        n = min(step, b - b0)
+        p = _window_columns(x[b0:b0 + n], fill[b0:b0 + n], t_pad,
+                            pad_f).view(n, g, c, -1)
+        s = subband_stage1(p, intra, t1)
+        del p
+        bank[b0:b0 + step] = subband_stage2(s, offsets, t)
+        del s
+    return bank
 
 
 #: Conv-method plans keyed by the delay table's bytes: the streaming monitor
@@ -449,22 +501,19 @@ def _conv_plan(delays: np.ndarray, n_sub: int, max_err_samples: int):
     return plan
 
 
-def _conv_bank_prep(power_btf: np.ndarray, delays: np.ndarray,
-                    n_sub: int, max_err_samples: int):
-    """Host prep of the conv method, as the reference's: validate, plan
-    (cached), and the tail fill from a subsample of at most 512 rows (the
-    per-channel median; rounded to an integer for uint8 input).  Returns
-    ``(plan, fill [B, F], valid_len)``."""
-    b, t, f = power_btf.shape
-    _check_table(delays, f)
+def _conv_bank(x: torch.Tensor, delays: np.ndarray, n_sub: Optional[int],
+               max_err_samples: int, rounded: bool) -> torch.Tensor:
+    """The conv method's bank of the ``[B, F, T]`` window ``x``, as the
+    reference's: ``n_sub=None`` picks the group count
+    (``_conv_auto_n_sub``), the plan is cached, and the tail fill is each
+    channel's median over a subsample of at most 512 rows, rounded to an
+    integer where ``rounded`` (the reference's rule for uint8 input)."""
+    _check_table(delays, x.shape[1])
+    if n_sub is None:
+        n_sub = _conv_auto_n_sub(delays)
     plan = _conv_plan(delays, n_sub, max_err_samples)
-    x = np.asarray(power_btf)
-    step = max(1, t // 512)
-    fill = np.median(x[:, ::step].astype(np.float32, copy=False),
-                     axis=1).astype(np.float32)     # [B, F]
-    if x.dtype == np.uint8:
-        np.rint(fill, out=fill)
-    return plan, fill, _valid_len(delays, t)
+    fill = _fill(x, max(1, x.shape[2] // 512), rounded)
+    return _two_stage_bank(x, fill, plan)
 
 
 def conv_dedisperse_bank(
@@ -494,12 +543,10 @@ def conv_dedisperse_bank_batch(
 ) -> Tuple[torch.Tensor, np.ndarray]:
     """``conv_dedisperse_bank`` over a ``[B, T, F]`` beam stack (one plan,
     each beam's own fill): bank ``[B, n_dm, T]``."""
-    if n_sub is None:
-        n_sub = _conv_auto_n_sub(delays)
-    plan, fill, valid_len = _conv_bank_prep(
-        np.asarray(power_btf), delays, n_sub, max_err_samples)
-    return _two_stage_bank(np.asarray(power_btf), fill, plan,
-                           device), valid_len
+    x = np.asarray(power_btf)
+    bank = _conv_bank(_upload(x, device), delays, n_sub, max_err_samples,
+                      rounded=x.dtype == np.uint8)
+    return bank, _valid_len(delays, x.shape[1])
 
 
 def subband_plan(delays: np.ndarray, n_sub: int,
@@ -553,9 +600,10 @@ def subband_dedisperse_bank(
     t, f = power_tf.shape
     _check_table(delays, f)
     plan = subband_plan(delays, n_sub, max_err_samples)
+    dev = resolve_device(device)
     fill = np.median(power_tf, axis=0).astype(np.float32)
-    x = np.asarray(power_tf, np.float32)[None]
-    bank = _two_stage_bank(x, fill[None], plan, device)[0]
+    x = _upload(np.asarray(power_tf, np.float32)[None], dev)
+    bank = _two_stage_bank(x, torch.from_numpy(fill[None]).to(dev), plan)[0]
     return bank, _valid_len(delays, t)
 
 
@@ -569,11 +617,19 @@ def subband_dedisperse_bank_batch(
     """``subband_dedisperse_bank`` over a ``[B, T, F]`` beam stack, the plan
     computed once."""
     b, t, f = power_btf.shape
-    _check_table(delays, f)
+    x = _upload(np.asarray(power_btf, np.float32), device)
+    return _subband_bank(x, delays, n_sub, max_err_samples), \
+        _valid_len(delays, t)
+
+
+def _subband_bank(x: torch.Tensor, delays: np.ndarray, n_sub: int,
+                  max_err_samples: int = 1) -> torch.Tensor:
+    """The subband method's bank of the ``[B, F, T]`` window ``x``: the
+    plan computed here, each channel's median over the whole window as
+    the tail fill."""
+    _check_table(delays, x.shape[1])
     plan = subband_plan(delays, n_sub, max_err_samples)
-    x = np.asarray(power_btf, np.float32)
-    fill = np.median(x, axis=1).astype(np.float32)  # [B, F]
-    return _two_stage_bank(x, fill, plan, device), _valid_len(delays, t)
+    return _two_stage_bank(x, _fill(x, 1, False), plan)
 
 
 def dedisperse_bank(
@@ -590,9 +646,10 @@ def dedisperse_bank(
     """
     t, f = power_tf.shape
     _check_table(delays, f)
+    dev = resolve_device(device)
     fill = np.median(power_tf, axis=0).astype(np.float32)  # [F]
-    x = np.asarray(power_tf, np.float32)[None]
-    return _direct_bank(x, fill[None], delays, device)[0], \
+    x = _upload(np.asarray(power_tf, np.float32)[None], dev)
+    return _direct_bank(x, torch.from_numpy(fill[None]).to(dev), delays)[0], \
         _valid_len(delays, t)
 
 
@@ -604,18 +661,24 @@ def dedisperse_bank_batch(
     median; ``valid_len`` is shared."""
     b, t, f = power_btf.shape
     _check_table(delays, f)
-    x = np.asarray(power_btf, np.float32)
-    fill = np.median(x, axis=1).astype(np.float32)  # [B, F]
-    return _direct_bank(x, fill, delays, device), _valid_len(delays, t)
+    x = _upload(np.asarray(power_btf, np.float32), device)
+    return _direct_bank(x, _fill(x, 1, False), delays), _valid_len(delays, t)
 
 
 def _median_last(x: torch.Tensor) -> torch.Tensor:
     """Median over the last axis as the reference takes it: the mean of the
     two middle values for an even length (``torch.median`` returns the
-    lower one)."""
-    s = x.sort(dim=-1).values
+    lower one).  The lower is found by selection, not a sort; the upper is
+    the lower where more than half the values are at most it, else the
+    least value above it."""
     n = x.shape[-1]
-    return (s[..., (n - 1) // 2] + s[..., n // 2]) * 0.5
+    lo = x.kthvalue((n - 1) // 2 + 1, dim=-1, keepdim=True).values
+    hi = lo
+    if n % 2 == 0:
+        above = torch.where(x > lo, x, math.inf).amin(dim=-1, keepdim=True)
+        hi = torch.where((x <= lo).sum(dim=-1, keepdim=True) > n // 2, lo,
+                         above)
+    return ((lo + hi) * 0.5)[..., 0]
 
 
 #: Block length of the reference's cumulative sum (XLA's reduce-window
@@ -649,30 +712,129 @@ def _cumsum_blocked(x: torch.Tensor) -> torch.Tensor:
     return (excl[..., None] + within).reshape(*x.shape[:-1], -1)[..., :n]
 
 
-def _snr_topk(bank: torch.Tensor, widths: Tuple[int, ...],
-              k: int) -> Tuple[np.ndarray, np.ndarray]:
-    """Robust-normalize each trial series (median / MAD), then for each
-    boxcar width the top-k S/N peaks per trial, ties to the lower index as
-    ``lax.top_k`` breaks them: ``(snr, idx)`` each ``[..., n_w, n_dm, k]``
-    on the host.  The boxcar sums are float32 differences of the cumulative
-    sum; the division by sqrt(width) is a float64 multiply by its
-    reciprocal, as XLA compiles the reference's (a float32 array over
-    NumPy's float64 ``sqrt``)."""
-    med = _median_last(bank)[..., None]
-    mad = _median_last((bank - med).abs())[..., None]
-    sigma = torch.clamp(mad * 1.4826, min=1e-30)
-    norm = (bank - med) / sigma
+def snr_topk_plain(norm: torch.Tensor, widths: Tuple[int, ...], k: int,
+                   limit: np.ndarray) -> Tuple[torch.Tensor, ...]:
+    """Of normalized bank rows ``norm`` ``[B, n_dm, T]``: the cumulative sum
+    in the reference's order (``_cumsum_blocked``), then for each boxcar
+    width the top-k S/N per trial, ties to the lower start as ``lax.top_k``
+    breaks them (the first largest, k times), and the peak S/N over each
+    (width, trial)'s first ``limit [n_w, n_dm]`` starts (-inf where there
+    are none): ``(snr [B, n_w, n_dm, k] float64, idx int64, peak [B, n_w,
+    n_dm] float64)``.  The boxcar sums are float32 differences of the
+    cumulative sum; the S/N is a sum times the float64 reciprocal of
+    sqrt(width), as XLA compiles the reference's (a float32 array over
+    NumPy's float64 ``sqrt``), which orders the sums as the float32 sums do.
+    """
     csum = torch.cat([torch.zeros_like(norm[..., :1]),
                       _cumsum_blocked(norm)], dim=-1)  # [..., T+1]
-    snrs, idxs = [], []
-    for w in widths:
-        s = (csum[..., w:] - csum[..., :-w]).double() * (1.0 / math.sqrt(w))
-        top = torch.sort(s, dim=-1, descending=True, stable=True)
-        snrs.append(top.values[..., :k])
-        idxs.append(top.indices[..., :k])
-    snr = torch.stack(snrs, dim=-3)
-    idx = torch.stack(idxs, dim=-3)
-    return snr.cpu().numpy(), idx.cpu().numpy()
+    lim = torch.as_tensor(limit, device=norm.device)
+    t_idx = torch.arange(csum.shape[-1], device=norm.device)
+    snrs, idxs, peaks = [], [], []
+    for wi, w in enumerate(widths):
+        inv = 1.0 / math.sqrt(w)
+        s = csum[..., w:] - csum[..., :-w]
+        owned = t_idx[: s.shape[-1]] < lim[wi, :, None]        # [n_dm, T']
+        peaks.append(s.masked_fill(~owned, -math.inf).amax(dim=-1).double()
+                     * inv)
+        rest, top = s.clone(), []
+        for _ in range(k):
+            i = rest.argmax(dim=-1, keepdim=True)
+            top.append(i)
+            rest.scatter_(-1, i, -math.inf)
+        top = torch.cat(top, dim=-1)
+        snrs.append(s.gather(-1, top).double() * inv)
+        idxs.append(top)
+        del s, rest
+    return (torch.stack(snrs, dim=-3), torch.stack(idxs, dim=-3),
+            torch.stack(peaks, dim=-2))
+
+
+def snr_topk(norm: torch.Tensor, widths: Tuple[int, ...], k: int,
+             limit: np.ndarray) -> Tuple[torch.Tensor, ...]:
+    """``snr_topk_plain``'s results.  A CPU tensor runs it; a CUDA one
+    launches ``snr_topk_kernel`` (a block a row, the row in shared memory,
+    or its scan in a global scratch where it does not fit there,
+    ``snr_topk_fits``: bit-equal, the same adds in the same order) on the
+    current stream, counted in ``snr_topk.launches``.  On the card ``k``
+    must lie in 1 to ``TOPK_MAX_K``: anything else is a ``ValueError``."""
+    if norm.dtype != torch.float32 or norm.dim() != 3 \
+            or not norm.is_contiguous():
+        raise ValueError(f"snr_topk: rows must be contiguous float32 "
+                         f"[B, n_dm, T], got {norm.dtype} "
+                         f"{tuple(norm.shape)}")
+    if norm.device.type == "cpu":
+        return snr_topk_plain(norm, widths, k, limit)
+    b, n_dm, t = norm.shape
+    _check_topk(k)
+    n_w = len(widths)
+    dev = norm.device
+    scratch = None
+    if not snr_topk_fits(t):
+        scratch = torch.empty((min(b * n_dm, TOPK_SCRATCH_BLOCKS),
+                               _topk_scan_floats(t)), dtype=torch.float32,
+                              device=dev)
+    w_t = torch.tensor(widths, dtype=torch.int32, device=dev)
+    lim = _table(np.clip(limit, -1, t), dev)
+    snr = torch.empty((b, n_w, n_dm, k), dtype=torch.float64, device=dev)
+    idx = torch.empty((b, n_w, n_dm, k), dtype=torch.int64, device=dev)
+    peak = torch.empty((b, n_w, n_dm), dtype=torch.float64, device=dev)
+    _launch("dsabf_snr_topk",
+            [norm.data_ptr(), w_t.data_ptr(), lim.data_ptr(), snr.data_ptr(),
+             idx.data_ptr(), peak.data_ptr(), b, n_dm, t, n_w, k,
+             None if scratch is None else scratch.data_ptr()], dev)
+    snr_topk.launches += 1
+    return snr, idx, peak
+
+
+snr_topk.launches = 0
+
+
+def _topk_scan_floats(t: int) -> int:
+    """Floats of a ``t``-sample row's scan (``topk_scan_floats``): the
+    cumulative sum and the block totals of every level above it."""
+    floats, level = t + 1, t
+    while -(-level // _SCAN_BLOCK) > 1:
+        level = -(-level // _SCAN_BLOCK)
+        floats += level
+    return -(-floats // 4) * 4
+
+
+def snr_topk_fits(t: int) -> bool:
+    """Whether a ``t``-sample row's scan fits ``snr_topk_kernel``'s shared
+    memory (as ``topk_smem_bytes`` counts it) on the card's 227 KB."""
+    return 4 * _topk_scan_floats(t) + TOPK_THREADS * TOPK_MAX_K * 8 \
+        <= 227 * 1024
+
+
+def _topk_scratch_bytes(t: int) -> int:
+    """Device bytes of ``snr_topk``'s global scratch at ``t``-sample rows
+    (none where a row's scan fits shared memory)."""
+    return 0 if snr_topk_fits(t) else \
+        4 * TOPK_SCRATCH_BLOCKS * _topk_scan_floats(t)
+
+
+def _check_topk(k: int) -> None:
+    """Refuse, before any work, a ``k`` that ``snr_topk_kernel`` cannot
+    keep: outside 1 to ``TOPK_MAX_K``."""
+    if not 1 <= k <= TOPK_MAX_K:
+        raise ValueError(f"top-k on the card keeps 1 to {TOPK_MAX_K} peaks "
+                         f"per (width, trial), got {k}")
+
+
+def _normalize(bank: torch.Tensor) -> torch.Tensor:
+    """Each trial series of ``bank`` ``[B, n_dm, T]`` robust-normalized
+    (median / MAD, float32, as the reference), a new tensor."""
+    med = _median_last(bank)[..., None]
+    dev = bank - med
+    mad = _median_last(dev.abs())[..., None]
+    sigma = torch.clamp(mad * 1.4826, min=1e-30)
+    return dev.div_(sigma)
+
+
+def _snr_topk(bank: torch.Tensor, widths: Tuple[int, ...], k: int,
+              limit: np.ndarray) -> Tuple[torch.Tensor, ...]:
+    """``_normalize``, then ``snr_topk``."""
+    return snr_topk(_normalize(bank), widths, k, limit)
 
 
 @dataclasses.dataclass
@@ -736,92 +898,129 @@ def _cluster(
     return out
 
 
+def _channel_sum(x: torch.Tensor) -> torch.Tensor:
+    """``[..., F, T]`` -> ``[..., T]``: each sample's float32 sum over the
+    channels, one channel after another, the order in which NumPy sums the
+    reference's ``x[:, keep].mean(axis=1)`` (its fancy-indexed operand is
+    column-major, so the reduction runs channel by channel)."""
+    acc = torch.zeros_like(x[..., 0, :])
+    for c in range(x.shape[-2]):
+        acc = acc + x[..., c, :]
+    return acc
+
+
 def preprocess_spectrogram(
-    x: np.ndarray,
+    x,
     zap: Optional[Sequence[int]] = None,
     zerodm: bool = False,
-) -> np.ndarray:
-    """RFI conditioning before dedispersion, float32 copy of ``[T, F]``:
-    ``zap`` channels set to the constant 0; ``zerodm`` subtracts each time
-    sample's mean over the kept channels from the kept channels."""
-    x = np.array(x, np.float32, copy=True)
-    keep = np.ones(x.shape[1], bool)
+) -> torch.Tensor:
+    """RFI conditioning before dedispersion, a float32 copy of the
+    ``[..., F, T]`` tensor (or array) ``x`` on its device: ``zap`` channels
+    set to the constant 0; ``zerodm`` subtracts each time sample's mean over
+    the kept channels (summed as NumPy sums, ``_channel_sum``) from the
+    kept channels.  Per block equals whole stream: the zap fill is a
+    constant and zero-DM is per sample."""
+    if isinstance(x, torch.Tensor):
+        x = x.to(torch.float32, copy=True)
+    else:
+        x = torch.from_numpy(np.array(x, np.float32))
+    f = x.shape[-2]
+    keep = torch.ones(f, dtype=torch.bool, device=x.device)
     if zap:
-        zap = np.asarray(sorted(set(int(c) for c in zap)))
-        if zap.size and (zap[0] < 0 or zap[-1] >= x.shape[1]):
-            raise ValueError(
-                f"zap channels {zap[zap < 0].tolist() + zap[zap >= x.shape[1]].tolist()} "
-                f"outside [0, {x.shape[1]})")
+        zap = sorted(set(int(c) for c in zap))
+        bad = [c for c in zap if not 0 <= c < f]
+        if bad:
+            raise ValueError(f"zap channels {bad} outside [0, {f})")
         keep[zap] = False
-        if not keep.any():
+        if not bool(keep.any()):
             raise ValueError("zap spec removes every channel")
-        x[:, ~keep] = 0.0
+        x[..., ~keep, :] = 0.0
     if zerodm:
-        x[:, keep] -= x[:, keep].mean(axis=1, keepdims=True)
+        kept = x[..., keep, :]
+        mean = _channel_sum(kept) / kept.shape[-2]
+        x[..., keep, :] = kept - mean[..., None, :]
     return x
 
 
-def _bank(method: str, x_btf: np.ndarray, delays: np.ndarray, n_sub: int,
-          device) -> Tuple[torch.Tensor, np.ndarray]:
-    """The ``[B, n_dm, T]`` bank of a beam stack by ``method``."""
+def _bank(method: str, x: torch.Tensor, delays: np.ndarray, n_sub: int,
+          rounded: bool) -> torch.Tensor:
+    """The ``[B, n_dm, T]`` bank of the ``[B, F, T]`` window ``x`` by
+    ``method``; ``rounded``: the conv fill's rounding (uint8 input)."""
     if method == "conv":
-        return conv_dedisperse_bank_batch(x_btf, delays, n_sub=None,
-                                          device=device)
+        return _conv_bank(x, delays, None, 1, rounded)
     if method == "subband":
-        return subband_dedisperse_bank_batch(
-            x_btf, delays, n_sub=min(n_sub, x_btf.shape[2]), device=device)
+        return _subband_bank(x, delays, min(n_sub, x.shape[1]))
     if method == "direct":
-        return dedisperse_bank_batch(x_btf, delays, device=device)
+        _check_table(delays, x.shape[1])
+        return _direct_bank(x, _fill(x, 1, False), delays)
     raise ValueError(f"method must be conv|direct|subband, got {method!r}")
 
 
-def _search_chunk(
-    chunk: np.ndarray,        # [T_ext, F] data incl. extension
-    delays: np.ndarray,       # [n_dm, F]
-    dms: np.ndarray,
-    tsamp_s: float,
-    band_span: np.ndarray,
+def _limits(valid_len: np.ndarray, widths: Tuple[int, ...],
+            own: Optional[int]) -> np.ndarray:
+    """``[n_w, n_dm]``: how many leading boxcar starts of each (width,
+    trial) a window searches, its data-covered extent less the boxcar,
+    within the samples it owns (``own``; None: every one)."""
+    w_arr = np.asarray(widths, np.int64)[:, None]
+    lim = valid_len if own is None else np.minimum(valid_len, own)
+    return np.minimum(valid_len[None, :] - w_arr + 1, lim[None, :])
+
+
+def _threshold_points(
+    snr: torch.Tensor,        # [B, n_w, n_dm, k]
+    idx: torch.Tensor,
+    widths: Tuple[int, ...],
+    limit: np.ndarray,        # [n_w, n_dm], _limits
+    t_offset: int,
+    threshold: float,
+) -> List[List[tuple]]:
+    """Thresholding of the top-k grid into each beam's raw candidate points
+    ``(snr, dm_idx, t, width)``, in the grid's order, each (width, trial)
+    limited to the boxcar starts ``limit`` allows: the mask is made on the
+    grid's device and only the points cross to the host."""
+    lim = torch.as_tensor(limit, device=snr.device)
+    mask = (snr >= threshold) & (idx < lim[None, :, :, None])
+    where = torch.nonzero(mask).cpu().numpy()
+    vals = snr[mask].cpu().numpy()
+    ts = idx[mask].cpu().numpy()
+    out: List[List[tuple]] = [[] for _ in range(snr.shape[0])]
+    for (bi, wi, d, _), v, t in zip(where, vals, ts):
+        out[bi].append((float(v), int(d), int(t) + t_offset,
+                        int(widths[wi])))
+    return out
+
+
+def _search_group(
+    x: torch.Tensor,          # [B, F, T] window of a beam group
+    delays: np.ndarray,
     widths: Tuple[int, ...],
     threshold: float,
     topk: int,
     own: Optional[int],       # samples owned by this window (None = final)
-    t_offset: int,            # absolute sample index of chunk[0]
-    dm_link: Optional[int],
-    method: str = "direct",
-    n_sub: int = 64,
-    device="cuda",
-) -> List[Candidate]:
-    """One search window: bank, normalization and top-k on the device,
-    threshold, ownership gate and clustering on the host (a stack of one
-    beam: the single-beam banks' fill equals the stacked one's)."""
-    return _search_chunk_batch(
-        np.asarray(chunk)[None], delays, dms, tsamp_s, band_span, widths,
-        threshold, topk, own, t_offset, dm_link, method, n_sub, device)[0]
-
-
-def _threshold_points(
-    snr: np.ndarray,          # [n_w, n_dm, k]
-    idx: np.ndarray,
-    widths: Tuple[int, ...],
-    valid_len: np.ndarray,
-    own: Optional[int],
-    t_offset: int,
-    threshold: float,
-) -> List[tuple]:
-    """Host thresholding of the top-k grid into raw candidate points, each
-    (width, trial) limited to its data-covered extent minus the boxcar and
-    to the samples this window owns."""
-    w_arr = np.asarray(widths, np.int64)[:, None]
-    lim = valid_len if own is None else np.minimum(valid_len, own)
-    limit = np.minimum(valid_len[None, :] - w_arr + 1, lim[None, :])
-    mask = (snr >= threshold) & (idx < limit[:, :, None])
-    return [(float(snr[wi, d, kk]), int(d), int(idx[wi, d, kk]) + t_offset,
-             int(widths[wi]))
-            for wi, d, kk in np.argwhere(mask)]
+    t_offset: int,            # absolute sample index of the window's first
+    method: str,
+    n_sub: int,
+    rounded: bool,
+) -> tuple:
+    """One window of a beam group: bank, normalization and top-k on the
+    window's device (``dsabf.search.bank``, ``dsabf.search.topk``), the
+    threshold's points to the host; returns ``(each beam's raw points,
+    peak [B, n_w, n_dm] on the device)``."""
+    t = x.shape[2]
+    with annotate("dsabf.search.bank"):
+        bank = _bank(method, x, delays, n_sub, rounded)
+    limit = _limits(_valid_len(delays, t), widths, own)
+    with annotate("dsabf.search.topk"):
+        snr, idx, peak = _snr_topk(bank, widths,
+                                   min(topk, t - max(widths) + 1), limit)
+        del bank
+        points = _threshold_points(snr, idx, widths, limit, t_offset,
+                                   threshold)
+    return points, peak
 
 
 def _search_chunk_batch(
-    chunk_btf: np.ndarray,    # [B, T_ext, F] beam-stacked window
+    chunk: torch.Tensor,      # [B, F, T_ext] float32 host beam group
     delays: np.ndarray,
     dms: np.ndarray,
     tsamp_s: float,
@@ -829,25 +1028,21 @@ def _search_chunk_batch(
     widths: Tuple[int, ...],
     threshold: float,
     topk: int,
-    own: Optional[int],
-    t_offset: int,
+    own: Optional[int],       # samples owned by this window (None = final)
+    t_offset: int,            # absolute sample index of the chunk's first
     dm_link: Optional[int],
-    method: str = "direct",
-    n_sub: int = 64,
-    device="cuda",
+    method: str,
+    n_sub: int,
+    device: torch.device,
 ) -> List[List[Candidate]]:
-    """``_search_chunk`` over a beam stack: one batched bank and one batched
-    top-k for the group; thresholding and clustering per beam."""
-    bank, valid_len = _bank(method, chunk_btf, delays, n_sub, device)
-    snr, idx = _snr_topk(bank, widths,
-                         min(topk, bank.shape[2] - max(widths) + 1))
+    """One search window of a beam group: one batched bank and top-k on the
+    device, thresholding, ownership gate and clustering per beam on the
+    host."""
+    points, _peak = _search_group(
+        chunk.to(device), delays, widths, threshold, topk, own, t_offset,
+        method, n_sub, rounded=False)
     dms = np.asarray(dms)
-    return [
-        _cluster(_threshold_points(snr[bi], idx[bi], widths, valid_len,
-                                   own, t_offset, threshold),
-                 dms, tsamp_s, band_span, dm_link)
-        for bi in range(chunk_btf.shape[0])
-    ]
+    return [_cluster(p, dms, tsamp_s, band_span, dm_link) for p in points]
 
 
 def search_spectrogram(
@@ -872,36 +1067,14 @@ def search_spectrogram(
     Long observations go in chunks of ``chunk_t`` output samples, each
     extended by ``max_delay + max_width`` so that a pulse across a boundary
     is wholly inside one chunk (the extension is searched in the earlier
-    chunk only).  Returns candidates sorted by S/N, strongest first.
+    chunk only).  Returns candidates sorted by S/N, strongest first (beam
+    -1: ``search_spectrograms`` of the one spectrum).
     """
-    power_tf = preprocess_spectrogram(power_tf, zap, zerodm)
-    t_total, f = power_tf.shape
-    delays = delay_table(freqs_mhz, dms, tsamp_s)
-    widths = tuple(int(w) for w in widths)
-    max_w = max(widths)
-    overlap = int(delays.max()) + max_w
-    band_span = delays.max(axis=1)
-
-    cands: List[Candidate] = []
-    start = 0
-    while start < t_total:
-        stop = min(start + chunk_t, t_total)
-        ext_stop = min(stop + overlap, t_total)
-        # A chunk whose extension reaches the end owns every sample left.
-        final = ext_stop >= t_total
-        chunk = power_tf[start:ext_stop]
-        if chunk.shape[0] <= max_w:
-            break
-        cands.extend(_search_chunk(
-            chunk, delays, dms, tsamp_s, band_span, widths, threshold,
-            topk, own=None if final else (stop - start),
-            t_offset=start, dm_link=dm_link, method=method, n_sub=n_sub,
-            device=device))
-        if final:
-            break
-        start = stop
-    cands.sort(key=lambda c: -c.snr)
-    return cands
+    return search_spectrograms(
+        [(-1, power_tf)], freqs_mhz, tsamp_s, dms, widths=widths,
+        threshold=threshold, chunk_t=chunk_t, topk=topk, dm_link=dm_link,
+        zap=zap, zerodm=zerodm, method=method, n_sub=n_sub, beam_batch=1,
+        device=device)[-1]
 
 
 def search_spectrograms(
@@ -924,8 +1097,8 @@ def search_spectrograms(
     """Multi-beam ``search_spectrogram``: ``spectra`` is ``[(beam_label,
     [T, F]), ...]`` of one shape; returns ``{beam_label: [Candidate, ...]}``
     with each candidate's ``beam`` set.  Beams go ``beam_batch`` at a time
-    through the batched bank and top-k (None: groups whose ``[g, n_dm, T]``
-    bank and padded operand stay under ~256 MB)."""
+    through the batched bank and top-k (None: as many as ``_beam_group``
+    sizes at a chunk's window, the live monitor's rule)."""
     if not spectra:
         raise ValueError("no spectra to search")
     labels = [b for b, _ in spectra]
@@ -936,33 +1109,36 @@ def search_spectrograms(
         raise ValueError(
             f"beam spectra shapes differ ({sorted(shapes)}): batched "
             f"search needs one [T, F] shape across beams")
-    xs = np.stack([preprocess_spectrogram(x, zap, zerodm)
-                   for _, x in spectra])  # [B, T, F]
-    b, t_total, f = xs.shape
+    dev = resolve_device(device)
+    xs = preprocess_spectrogram(
+        np.stack([x for _, x in spectra]).transpose(0, 2, 1), zap,
+        zerodm)  # [B, F, T]
+    b, f, t_total = xs.shape
     delays = delay_table(freqs_mhz, dms, tsamp_s)
     widths = tuple(int(w) for w in widths)
     max_w = max(widths)
     overlap = int(delays.max()) + max_w
     band_span = delays.max(axis=1)
     if beam_batch is None:
-        t_c = min(chunk_t, t_total)
-        per_beam = 4 * (len(dms) * t_c + f * (t_c + overlap))
-        beam_batch = max(1, min(b, int(256e6 // max(per_beam, 1))))
+        t_w = min(chunk_t + overlap, t_total)
+        beam_batch = _beam_group(b, f, t_w, delays, method, n_sub, dev,
+                                 upload=4 * f * t_w)
     by_beam: dict = {lab: [] for lab in labels}
     start = 0
     while start < t_total:
         stop = min(start + chunk_t, t_total)
         ext_stop = min(stop + overlap, t_total)
+        # A chunk whose extension reaches the end owns every sample left.
         final = ext_stop >= t_total
-        chunk = xs[:, start:ext_stop]
-        if chunk.shape[1] <= max_w:
+        chunk = xs[..., start:ext_stop]
+        if chunk.shape[2] <= max_w:
             break
         for g0 in range(0, b, beam_batch):
             per_beam_cands = _search_chunk_batch(
                 chunk[g0:g0 + beam_batch], delays, dms, tsamp_s,
                 band_span, widths, threshold, topk,
                 own=None if final else (stop - start), t_offset=start,
-                dm_link=dm_link, method=method, n_sub=n_sub, device=device)
+                dm_link=dm_link, method=method, n_sub=n_sub, device=dev)
             for bi, cs in enumerate(per_beam_cands):
                 lab = labels[g0 + bi]
                 for c in cs:
@@ -1040,26 +1216,114 @@ def coincidence_filter(
     return kept, rfi_events
 
 
+@dataclasses.dataclass
+class SearchWindow:
+    """What one searched window of a ``SearchMonitor`` gives its caller."""
+
+    #: ``(seq, absolute index of its first sample)`` of each block with
+    #: samples in the window, in order.
+    blocks: List[Tuple[int, int]]
+    t_base: int             # absolute sample index of its first sample
+    n_samples: int          # samples searched
+    own: Optional[int]      # samples it owns from t_base (None: all)
+    beams: List[int]        # beam of each row of ``peaks`` (-1: incoherent)
+    group: int              # rows searched together (the last group: the rest)
+    #: ``[B, n_w, n_dm]`` float64: each beam's peak S/N per (width, DM
+    #: trial) over the boxcar starts the window owns, -inf where none.
+    peaks: np.ndarray
+    #: Each beam's candidates before the cross-beam coincidence veto.
+    found: dict
+
+    @property
+    def seqs(self) -> Tuple[int, int]:
+        """The first and last block with samples in the window."""
+        return self.blocks[0][0], self.blocks[-1][0]
+
+
+def _group_bytes(n_chan: int, t: int, delays: np.ndarray, method: str,
+                 n_sub: int) -> tuple:
+    """``(fixed, per beam)`` device bytes of a beam group at a ``t``-sample
+    window.  Per beam: its ``[n_dm, T]`` float32 bank and the 5 more
+    bank-sized float32 temporaries the normalization and the top-k kernel
+    hold beside it; fixed: the top-k's scratch (``_topk_scratch_bytes``)
+    and what makes a bank, one ``_stage1_beams`` chunk's padded operand and
+    stage-1 planes (a direct bank's operand, per beam)."""
+    n_dm = delays.shape[0]
+    per = 6 * 4 * n_dm * t
+    scratch = _topk_scratch_bytes(t)
+    if method == "direct":
+        return scratch, per + 4 * n_chan * (t + int(delays.max()) + 4)
+    n = _conv_auto_n_sub(delays) if method == "conv" else min(n_sub, n_chan)
+    plan = _conv_plan(delays, n, 1)
+    intra_c, inter, _, _ = plan
+    g, j, c = intra_c.shape
+    t1 = t + int(inter.max())
+    chunk = 4 * g * c * (t1 + int(intra_c.max()) + 4) + 4 * g * j * t1
+    return scratch + _stage1_beams(plan, t) * chunk, per
+
+
+def _beam_group(n_beams: int, n_chan: int, t: int, delays: np.ndarray,
+                method: str, n_sub: int, device: torch.device,
+                reserve: float = 0, upload: int = 0) -> int:
+    """Beams to search together at a ``t``-sample window (``_group_bytes``
+    a beam, plus the ``upload`` bytes of its window where the group's
+    window is put on the device with it): on the card as many as 80% of its
+    free memory holds, less ``reserve`` bytes still to be allocated; on the
+    CPU as many as 256 MB holds."""
+    fixed, per = _group_bytes(n_chan, t, delays, method, n_sub)
+    per += upload
+    if device.type == "cuda":
+        free, _total = torch.cuda.mem_get_info(device)
+        free += torch.cuda.memory_reserved(device) \
+            - torch.cuda.memory_allocated(device)
+        budget = 0.8 * (free - reserve) - fixed
+    else:
+        budget = 256e6
+    return max(1, min(n_beams, int(budget // per)))
+
+
+@dataclasses.dataclass
+class _PendingWindow:
+    """The window a ``SearchMonitor`` is searching, group by group."""
+
+    n: int                   # its samples, the first held
+    own: Optional[int]
+    t_base: int
+    beams: int
+    group: int               # beams a group
+    n_groups: int
+    rounded: bool            # the conv fill rounded (``_bank``)
+    per_block: int = 0       # groups searched after each block
+    g0: int = 0              # the next group's first beam
+    points: list = dataclasses.field(default_factory=list)
+    peaks: list = dataclasses.field(default_factory=list)
+
+
 class SearchMonitor:
     """Streaming single-pulse search over the beamformer's own product
     blocks: the live FRB trigger.
 
-    The streaming loop hands it each drained block; it keeps a rolling
-    ``[T, F]`` buffer of the selected beam (or the incoherent sum; or
-    ``[B, T, F]`` for a beam set / ``beam="all"``), and whenever
-    ``chunk_t`` owned samples have accumulated it searches them extended by
-    ``max_delay + max_width`` carried samples: the offline chunk loop's
-    windowing, so a pulse across block or window boundaries is found once.
-    Beam sets search batched, with per-window cross-beam coincidence RFI
-    rejection.  A sequence gap flushes the buffer through a final-owned
-    search and restarts it (``gaps`` counts them).
+    The streaming loop hands it each drained block; it appends the searched
+    beams (one beam, a beam set, ``beam="all"``, or the incoherent sum) to
+    a rolling ``[B, F, T]`` window held on ``device``, uint8 where the
+    blocks are 8-bit counts, and whenever ``chunk_t`` owned samples have
+    accumulated it searches them extended by ``max_delay + max_width``
+    carried samples: the offline chunk loop's windowing, so a pulse across
+    block or window boundaries is found once.  A window's bank operand is
+    built on the device from the window, in beam groups sized to the
+    device's free memory (``beam_batch`` fixes the size instead); only
+    the candidates' points and the window's peaks (``SearchWindow``, to
+    ``on_window``) cross to the host.  Beam sets run cross-beam coincidence
+    RFI rejection over every searched beam of the window.  A sequence gap
+    flushes the window through a final-owned search and restarts it
+    (``gaps`` counts them).
 
     Two ways in, one result: ``observe(seq, powers, inco)`` takes the whole
     ``[F, T, B]`` (or ``[F, T, 4, B]``) product as the reference's monitor
     does; the streaming loop instead takes ``select_beams`` of the product
-    on the device and hands the selection to ``observe_selected``, so only
-    the searched beams cross to the host.  Windows are searched on
-    ``device`` (the card unless the caller names another).
+    on the device and hands the selection to ``observe_selected``, with no
+    copy to the host.  Windows are searched on ``device`` (the card unless
+    the caller names another).
     """
 
     def __init__(
@@ -1079,10 +1343,12 @@ class SearchMonitor:
         zerodm: bool = False,
         method: str = "conv",
         n_sub: int = 64,
+        beam_batch: Optional[int] = None,
         on_candidate=None,
         coincidence: bool = True,
         coincidence_frac: float = 0.25,
         on_rfi=None,
+        on_window=None,
         device="cuda",
     ):
         if method not in ("conv", "direct", "subband"):
@@ -1133,7 +1399,11 @@ class SearchMonitor:
         self.zerodm = bool(zerodm)
         self.method = method
         self.n_sub = int(n_sub)
+        if beam_batch is not None and beam_batch < 1:
+            raise ValueError(f"beam_batch must be >= 1, got {beam_batch}")
+        self.beam_batch = beam_batch
         self.on_candidate = on_candidate
+        self.on_window = on_window
         self.delays = delay_table(self.freqs_mhz, self.dms, self.tsamp_s)
         self.band_span = self.delays.max(axis=1)
         self.max_w = max(self.widths)
@@ -1143,19 +1413,44 @@ class SearchMonitor:
             raise ValueError(
                 f"chunk_t {chunk_t} shorter than the widest boxcar "
                 f"{self.max_w}")
+        if self.device.type == "cuda":
+            _check_topk(min(self.topk, self.window_t - self.max_w + 1))
         self.candidates: List[Candidate] = []
         self.gaps = 0
         self.searched_windows = 0
-        self._buf: List[np.ndarray] = []
-        self._buffered = 0
-        self._t_base = 0      # absolute sample index of _buf[0][0]
+        self.last_window: Optional[SearchWindow] = None
+        self._win: Optional[torch.Tensor] = None   # [B, F, capacity]
+        self._buffered = 0    # samples held in _win
+        self._t_base = 0      # absolute sample index of _win's first
+        self._blocks: collections.deque = collections.deque()  # (seq, t0)
         self._next_seq: Optional[int] = None
+        self._pending: Optional[_PendingWindow] = None
+        self._groups: dict = {}   # (beams, channels, samples) -> group
+
+    @classmethod
+    def for_stream(cls, cfg, dm_max: float, **kw) -> "SearchMonitor":
+        """The live monitor of a stream of ``cfg`` (an ``ObsConfig``): its
+        output channels' centres, its output sample period and the trial
+        grid from 0 to ``dm_max`` at the default tolerance; ``kw`` as the
+        constructor's."""
+        from dsabeamformer_tpu_torch.ingest.sigproc import _avg_freqs_mhz
+
+        freqs = _avg_freqs_mhz(cfg)
+        tsamp = cfg.sample_period_s * cfg.navg_time
+        dms = dm_trial_grid(float(freqs.min()), float(freqs.max()), tsamp,
+                            dm_max=dm_max)
+        return cls(freqs, tsamp, dms, **kw)
 
     @property
     def wants_beams(self) -> bool:
         """True when the monitor reads the beam product (the streaming loop
         then brings its beams back even with no sink attached)."""
         return not self.incoherent
+
+    @property
+    def window_t(self) -> int:
+        """Samples in a full window: ``chunk_t`` owned plus the carry."""
+        return self.chunk_t + self.overlap
 
     def select_beams(self, powers: torch.Tensor) -> torch.Tensor:
         """The searched beams of one ``[F, T, B]`` (or ``[F, T, 4, B]``,
@@ -1180,75 +1475,97 @@ class SearchMonitor:
                              f"(product has {nb})")
         return powers[:, :, self.beam].T.contiguous()
 
-    def _extract(self, powers: Optional[np.ndarray],
-                 inco: Optional[np.ndarray]) -> np.ndarray:
-        """One block's ``[T_out, F]`` spectrogram (``[B_sel, T_out, F]`` for
-        a beam set) from the whole drained product: ``[F, T]`` incoherent,
-        ``[F, T, B]`` power or ``[F, T, 4, B]`` Stokes."""
-        if self.incoherent:
-            return self._condition(None, inco)
-        if powers is None:
-            raise ValueError("search monitor needs the beam product")
-        sel = self.select_beams(torch.from_numpy(np.ascontiguousarray(powers)))
-        return self._condition(sel.numpy(), None)
-
-    def _condition(self, sel: Optional[np.ndarray],
-                   inco: Optional[np.ndarray]) -> np.ndarray:
-        """The buffered form of a selection (a copy: the caller may reuse
-        its array): float32, except a single beam's uint8 product with no
-        conditioning, which stays uint8 to the device; zap / zero-DM
-        applied (per block equals whole stream: the zap fill is a constant
-        and zero-DM is per sample)."""
+    def _condition(self, sel, inco) -> torch.Tensor:
+        """One block as the window holds it, ``[B, F, T]`` on ``device``:
+        the selection (``[B_sel, T, F]`` or ``[T, F]``, a tensor or an
+        array) or the incoherent sum ``[F, T]``; uint8 counts stay uint8
+        unless conditioned (``preprocess_spectrogram``'s zap / zero-DM),
+        anything else is float32."""
         if self.incoherent:
             if inco is None:
                 raise ValueError("search monitor targets the incoherent "
                                  "sum but the pipeline has no incoherent "
                                  "product enabled")
-            x = np.asarray(inco, np.float32).T
-        elif self._beam_sel is not None:
-            x = sel.astype(np.float32)
-            if self.zap or self.zerodm:
-                x = np.stack([
-                    preprocess_spectrogram(xb, self.zap, self.zerodm)
-                    for xb in x])
-            return x
-        elif sel.dtype == np.uint8 and not (self.zap or self.zerodm):
-            x = np.array(sel)
+            x = torch.as_tensor(inco, device=self.device)[None]
         else:
-            x = np.array(sel, dtype=np.float32)
+            x = torch.as_tensor(sel, device=self.device)
+            if x.dim() == 2:
+                x = x[None]
+            x = x.transpose(1, 2)
         if self.zap or self.zerodm:
-            x = preprocess_spectrogram(x, self.zap, self.zerodm)
-        return x
+            return preprocess_spectrogram(x, self.zap, self.zerodm)
+        return x if x.dtype == torch.uint8 and not self.incoherent \
+            else x.to(torch.float32)
 
     def observe(self, seq: int, powers: Optional[np.ndarray],
                 inco: Optional[np.ndarray] = None) -> None:
         """Take one drained block: the whole product (``[F, T, B]`` or
         ``[F, T, 4, B]``, or None for an incoherent target) and the
         incoherent sum ``[F, T]``."""
-        self._push(seq, self._extract(powers, inco))
-
-    def observe_selected(self, seq: int, sel: Optional[np.ndarray],
-                         inco: Optional[np.ndarray] = None) -> None:
-        """Take one drained block as ``select_beams`` of its product (None
-        for an incoherent target) and the incoherent sum ``[F, T]``."""
+        sel = None
+        if not self.incoherent:
+            if powers is None:
+                raise ValueError("search monitor needs the beam product")
+            sel = self.select_beams(
+                torch.from_numpy(np.ascontiguousarray(powers)))
         self._push(seq, self._condition(sel, inco))
 
-    def _push(self, seq: int, x: np.ndarray) -> None:
+    def observe_selected(self, seq: int, sel, inco=None) -> None:
+        """Take one drained block as ``select_beams`` of its product (a
+        device tensor from the loop, or an array; None for an incoherent
+        target) and the incoherent sum ``[F, T]``."""
+        self._push(seq, self._condition(sel, inco))
+
+    def _push(self, seq: int, x: torch.Tensor) -> None:
         if self._next_seq is not None and seq != self._next_seq:
             self.gaps += 1
             self.flush()
             self._t_base += self.overlap  # nominal; times stay per-run
         self._next_seq = seq + 1
-        self._buf.append(x)
-        self._buffered += x.shape[-2]
-        while self._buffered >= self.chunk_t + self.overlap:
-            self._search_front()
+        with annotate("dsabf.search.append"):
+            self._append(seq, x)
+        self._step(x.shape[2])
 
-    def _concat(self) -> np.ndarray:
-        # time is the second-to-last axis for both [T, F] and [B, T, F]
-        if len(self._buf) > 1:
-            self._buf = [np.concatenate(self._buf, axis=-2)]
-        return self._buf[0]
+    def _append(self, seq: int, x: torch.Tensor) -> None:
+        """Copy a ``[B, F, t]`` block behind the held samples, growing (or
+        widening to float32) the window where it has to: it holds a window
+        being searched and the next window's samples behind it."""
+        n, held, win = x.shape[2], self._buffered, self._win
+        if held and tuple(win.shape[:2]) != tuple(x.shape[:2]):
+            raise ValueError(f"block of {tuple(x.shape[:2])} beams x "
+                             f"channels after {tuple(win.shape[:2])}")
+        dtype = x.dtype if not held else torch.promote_types(win.dtype,
+                                                             x.dtype)
+        if win is None or win.shape[2] < held + n or win.dtype != dtype \
+                or tuple(win.shape[:2]) != tuple(x.shape[:2]):
+            cap = max(held + n, self.window_t + self.chunk_t + n)
+            grown = torch.empty((*x.shape[:2], cap), dtype=dtype,
+                                device=self.device)
+            if held:
+                grown[..., :held] = win[..., :held]
+            self._win = win = grown
+        win[..., held:held + n] = x
+        self._blocks.append((seq, self._t_base + held))
+        self._buffered = held + n
+
+    def _concat(self) -> Optional[torch.Tensor]:
+        """The held samples, ``[B, F, T]`` (a view of the window)."""
+        if self._win is None:
+            return None
+        return self._win[..., : self._buffered]
+
+    def _drop(self, n: int) -> None:
+        """Forget the first ``n`` held samples: the rest move to the front
+        of the window, in pieces no longer than ``n`` so that no piece
+        overlaps its own destination."""
+        rest = self._buffered - n
+        for a in range(0, rest, n):
+            b = min(a + n, rest)
+            self._win[..., a:b] = self._win[..., n + a:n + b]
+        self._buffered = rest
+        self._t_base += n
+        while len(self._blocks) > 1 and self._blocks[1][1] <= self._t_base:
+            self._blocks.popleft()
 
     def _emit(self, cands: List[Candidate]) -> None:
         self.searched_windows += 1
@@ -1257,60 +1574,161 @@ class SearchMonitor:
             if self.on_candidate is not None:
                 self.on_candidate(c)
 
-    def _search_window(self, window: np.ndarray,
-                       own: Optional[int]) -> List[Candidate]:
-        """One window: single target through ``_search_chunk``, a beam set
-        batched with per-window cross-beam coincidence."""
+    def _group(self, n_beams: int, n_chan: int, t: int) -> int:
+        """Beams searched together: ``beam_batch``, or ``_beam_group``'s
+        count, less the window's own bytes where it is still to be made.
+        Worked out once for each window shape (``warmup`` does so before a
+        stream), so that every window asks the memory pool for the blocks
+        it kept."""
+        if self.beam_batch is not None:
+            return min(self.beam_batch, n_beams)
+        key = (n_beams, n_chan, t)
+        if key not in self._groups:
+            reserve = 0 if self._win is not None else \
+                n_beams * n_chan * (self.window_t + 2 * self.chunk_t)
+            self._groups[key] = _beam_group(
+                n_beams, n_chan, t, self.delays, self.method, self.n_sub,
+                self.device, reserve)
+        return self._groups[key]
+
+    def _step(self, block_t: int) -> None:
+        """After a block of ``block_t`` samples: go on with the window being
+        searched, as many beam groups as keep it ahead of the next window
+        (all of them by the time ``chunk_t`` more samples have come), and
+        start the next window once its samples are held.  A window's groups
+        are so spread over the blocks that fill the next one; the drain
+        that completes a window clusters it."""
+        while True:
+            p = self._pending
+            if p is None:
+                if self._buffered < self.window_t:
+                    return
+                p = self._start(own=self.chunk_t)
+                p.per_block = -(-p.n_groups * block_t // self.chunk_t)
+            if self._buffered >= p.n + self.chunk_t:
+                self._finish()      # the next window is due: no more delay
+                continue
+            self._search_groups(p.per_block)
+            if p.g0 < p.beams:
+                return
+            self._finish()
+
+    def _start(self, own: Optional[int]) -> "_PendingWindow":
+        """Take the first ``window_t`` held samples (or, final, all) as the
+        window being searched."""
+        n = self.window_t if own is not None else self._buffered
+        b, f = self._win.shape[:2]
+        g = self._group(b, f, n)
+        # The conv fill of a single target's 8-bit counts is rounded, as
+        # the reference's is for uint8 input.
+        rounded = self._beam_sel is None and self._win.dtype == torch.uint8
+        self._pending = _PendingWindow(n=n, own=own, t_base=self._t_base,
+                                       beams=b, group=g, n_groups=-(-b // g),
+                                       rounded=rounded)
+        return self._pending
+
+    def _search_groups(self, n_groups: int) -> None:
+        """Search up to ``n_groups`` more beam groups of the window being
+        searched."""
+        p = self._pending
+        if p.g0 >= p.beams or n_groups <= 0:
+            return
         with annotate("dsabf.search.window"):
-            if self._beam_sel is None:
-                cands = _search_chunk(
-                    window, self.delays, self.dms, self.tsamp_s,
-                    self.band_span, self.widths, self.threshold, self.topk,
-                    own=own, t_offset=self._t_base, dm_link=self.dm_link,
-                    method=self.method, n_sub=self.n_sub, device=self.device)
-                if not self.incoherent:
-                    for c in cands:
-                        c.beam = self.beam
-                return cands
-            per_beam = _search_chunk_batch(
-                window, self.delays, self.dms, self.tsamp_s, self.band_span,
-                self.widths, self.threshold, self.topk, own=own,
-                t_offset=self._t_base, dm_link=self.dm_link,
-                method=self.method, n_sub=self.n_sub, device=self.device)
+            window = self._win[..., : p.n]
+            for _ in range(n_groups):
+                if p.g0 >= p.beams:
+                    break
+                pts, peak = _search_group(
+                    window[p.g0:p.g0 + p.group], self.delays, self.widths,
+                    self.threshold, self.topk, p.own, p.t_base, self.method,
+                    self.n_sub, p.rounded)
+                p.points.extend(pts)
+                p.peaks.append(peak.cpu())
+                p.g0 += p.group
+
+    def _finish(self) -> None:
+        """Search the window's remaining groups, cluster its beams, run the
+        coincidence veto over all of them, emit its candidates and
+        ``SearchWindow``, and drop the samples it owned."""
+        p = self._pending
+        self._search_groups(p.beams)
+        with annotate("dsabf.search.window"):
+            self._emit(self._close(p))
+        self._pending = None
+        if p.own is None:
+            return
+        self._drop(self.chunk_t)
+
+    def _close(self, p: "_PendingWindow") -> List[Candidate]:
+        single = self._beam_sel is None
+        labels = [-1 if self.incoherent else self.beam] if single \
+            else list(self._labels)
+        with annotate("dsabf.search.cluster"):
             by_beam = {}
-            for lab, cs in zip(self._labels, per_beam):
+            for lab, pts in zip(labels, p.points):
+                cs = _cluster(pts, self.dms, self.tsamp_s, self.band_span,
+                              self.dm_link)
                 for c in cs:
                     c.beam = lab
                 by_beam[lab] = cs
-            if self.coincidence:
-                by_beam, events = coincidence_filter(
-                    by_beam, self.band_span,
-                    n_beams_searched=len(self._labels),
-                    frac=self.coincidence_frac)
-                self.rfi_rejected += len(events)
-                if self.on_rfi is not None:
-                    for ev in events:
-                        self.on_rfi(ev)
-            out = [c for cs in by_beam.values() for c in cs]
-            out.sort(key=lambda c: -c.snr)
-            return out
-
-    def _search_front(self) -> None:
-        x = self._concat()
-        window = x[..., : self.chunk_t + self.overlap, :]
-        self._emit(self._search_window(window, own=self.chunk_t))
-        self._buf = [x[..., self.chunk_t:, :]]
-        self._buffered -= self.chunk_t
-        self._t_base += self.chunk_t
+            found = {lab: list(cs) for lab, cs in by_beam.items()}
+            if single:
+                out = by_beam[labels[0]]
+            else:
+                if self.coincidence:
+                    by_beam, events = coincidence_filter(
+                        by_beam, self.band_span,
+                        n_beams_searched=len(labels),
+                        frac=self.coincidence_frac)
+                    self.rfi_rejected += len(events)
+                    if self.on_rfi is not None:
+                        for ev in events:
+                            self.on_rfi(ev)
+                out = [c for cs in by_beam.values() for c in cs]
+                out.sort(key=lambda c: -c.snr)
+        self.last_window = SearchWindow(
+            blocks=[(q, t0) for q, t0 in self._blocks
+                    if t0 < p.t_base + p.n],
+            t_base=p.t_base, n_samples=p.n,
+            own=p.own, beams=labels, group=p.group,
+            peaks=torch.cat(p.peaks).numpy(),
+            found=found)
+        if self.on_window is not None:
+            self.on_window(self.last_window)
+        return out
 
     def flush(self) -> None:
-        """Search whatever remains (the final window owns everything its
-        data covers), then reset the buffer.  Called at the end of a stream
-        and on a sequence gap."""
+        """Finish the window being searched, search whatever remains (the
+        final window owns everything its data covers), then reset the
+        window.  Called at the end of a stream and on a sequence gap."""
+        if self._pending is not None:
+            self._finish()
+        while self._buffered >= self.window_t:
+            self._start(own=self.chunk_t)
+            self._finish()
         if self._buffered > self.max_w:
-            self._emit(self._search_window(self._concat(), own=None))
+            self._start(own=None)
+            self._finish()
         self._t_base += self._buffered
-        self._buf, self._buffered = [], 0
+        self._buffered = 0
+        self._blocks.clear()
+
+    def warmup(self, n_beams: int, n_chan: int, dtype=torch.uint8) -> None:
+        """Search one all-zero full window of ``n_beams`` x ``n_chan`` once,
+        leaving no trace in the monitor: builds the bank kernels, makes the
+        plan and sizes the device's memory pool before a live stream, so
+        that its first window costs what every later one does."""
+        b = 1 if self._beam_sel is None else \
+            len(self._labels) if self._labels is not None else n_beams
+        g = self._group(b, n_chan, self.window_t)
+        zero = torch.zeros((b, n_chan, self.window_t), dtype=dtype,
+                           device=self.device)
+        for g0 in range(0, b, g):
+            _search_group(zero[g0:g0 + g], self.delays, self.widths,
+                          self.threshold, self.topk, self.chunk_t, 0,
+                          self.method, self.n_sub, rounded=False)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
 
 def write_candidates(path, cands: Sequence[Candidate], meta: dict) -> None:

@@ -558,6 +558,7 @@ class StreamingBeamformer:
         self._n_retired = 0
         self._stats: Optional[StreamStats] = None
         self._rfi_events0 = 0
+        self._search0 = (0, 0, 0)
 
     @property
     def out_block_shape(self) -> tuple:
@@ -614,12 +615,23 @@ class StreamingBeamformer:
         mon = self.rfi_monitor
         return 0 if mon is None else len(mon.events) + mon.events_dropped
 
+    def _search_counts(self) -> tuple:
+        """The search monitor's windows, candidates and RFI rejections."""
+        sm = self.search_monitor
+        return (getattr(sm, "searched_windows", 0),
+                len(getattr(sm, "candidates", ())),
+                getattr(sm, "rfi_rejected", 0))
+
     def _count_source(self, stats: StreamStats) -> None:
-        """The source's drop and skip counters and the RFI monitor's events
-        since the run began, into ``stats``."""
+        """The source's drop and skip counters, the RFI monitor's events and
+        the search monitor's counts since the run began, into ``stats``."""
         stats.dropped = getattr(self.source, "dropped", 0)
         stats.skipped = getattr(self.source, "skipped", 0)
         stats.rfi_events = self._rfi_event_count() - self._rfi_events0
+        (stats.search_windows, stats.search_candidates,
+         stats.search_rfi_rejected) = (
+            now - then for now, then in zip(self._search_counts(),
+                                            self._search0))
 
     def _step(self, wire, quant8_scales=None, sk_stats=None):
         """One block's kernel call -> ``(out, inco_or_None, sk_or_None)``.
@@ -741,9 +753,9 @@ class StreamingBeamformer:
         host = [None] * len(dev)
         with annotate("dsabf.loop.d2h_launch"), torch.cuda.stream(self._d2h):
             # With nothing to copy, d2h_done is the kernel's completion.
+            # The search monitor's beams stay on the device.
             self._d2h.wait_event(slot.kernel_done)
-            for i, (name, t) in enumerate(zip(("out", "inco", "sk", "mon"),
-                                              dev)):
+            for i, (name, t) in enumerate(zip(("out", "inco", "sk"), dev)):
                 if t is not None:
                     host[i] = slot.host_buffer(name, t.shape, t.dtype)
                     host[i].copy_(t, non_blocking=True)
@@ -754,13 +766,16 @@ class StreamingBeamformer:
         return slot, dev, host
 
     def _fetch(self, pending) -> tuple:
-        """``(out, inco, sk, mon)`` NumPy arrays of a started block, None
-        where the block has no such product."""
+        """``(out, inco, sk, mon)`` of a started block, None where the block
+        has no such product: NumPy arrays, but for ``mon``, the search
+        monitor's beams, which on a CUDA device stay there (made on the
+        compute stream, complete once ``d2h_done`` is)."""
         if not self._cuda:
             return pending
-        slot, _dev, host = pending
+        slot, dev, host = pending
         slot.d2h_done.synchronize()
-        return tuple(None if h is None else h.numpy() for h in host)
+        return (*(None if h is None else h.numpy() for h in host[:3]),
+                dev[3])
 
     def _done(self, seq: int, pending) -> Optional[bool]:
         """Whether block ``seq``'s products are on the host (its D2H copies
@@ -911,6 +926,14 @@ class StreamingBeamformer:
             warm = self.sink.device_post
             self._fetch(self._enqueue(zero, sk_want=sk_variants[0],
                                       post=lambda o: warm(o, warmup=True)))
+        # The search monitor's first window, at the size and type the
+        # steady state's take (a monitor that warms nothing has no warmup).
+        warm_search = getattr(self.search_monitor, "warmup", None)
+        if warm_search is not None:
+            f_out, _t, n_beams = self.cfg.out_block_shape
+            eight_bit = getattr(self.sink, "nbits", None) == 8
+            warm_search(n_beams, f_out,
+                        torch.uint8 if eight_bit else torch.float32)
 
     def _check_staging_pool(self) -> None:
         """A copying source's staging buffer must not be recycled while a
@@ -974,11 +997,11 @@ class StreamingBeamformer:
                     else:
                         self.sink.write(seq, out)
             if self.search_monitor is not None:
+                t_s = time.perf_counter()
                 with annotate("dsabf.search.observe"):
-                    if mon is not None and mon.dtype != np.uint8 \
-                            and getattr(self.sink, "nbits", None) == 8:
-                        mon = self._counts_of_selected(mon)
-                    self.search_monitor.observe_selected(seq, mon, inco)
+                    self._observe(seq, pending, mon, inco)
+                bs.search_s = time.perf_counter() - t_s
+                stats.search_s += bs.search_s
             if sk_host is not None:
                 # The monitor holds this array since dispatch; it reads it
                 # only at this block's retire.
@@ -1007,20 +1030,35 @@ class StreamingBeamformer:
         """Hook after a block's products are drained (the mesh stream's
         band power)."""
 
-    def _counts_of_selected(self, sel: np.ndarray) -> np.ndarray:
+    def _observe(self, seq: int, pending, mon, inco) -> None:
+        """Hand the search monitor block ``seq``'s beams where they are (on
+        a CUDA device: ordered after the kernel that made them, and kept
+        from reuse until the monitor's copy of them has run)."""
+        if mon is not None:
+            mon = torch.as_tensor(mon)
+        if self._cuda and mon is not None:
+            stream = torch.cuda.current_stream(self.device)
+            stream.wait_event(pending[0].kernel_done)
+            mon.record_stream(stream)
+        if mon is not None and mon.dtype != torch.uint8 \
+                and getattr(self.sink, "nbits", None) == 8:
+            mon = self._counts_of_selected(mon)
+        self.search_monitor.observe_selected(seq, mon, inco)
+
+    def _counts_of_selected(self, sel: torch.Tensor) -> torch.Tensor:
         """The search monitor's float32 beams of a block drained before the
         8-bit sink's scales existed (its first, whose auto-calibration the
         sink's write has just made), as the uint8 counts the file holds and
-        every later block brings: a window of powers and counts together
-        would leave the monitor's median/MAD the counts' and lift the
-        powers' block thousands of sigma above it."""
+        every later block brings, made where the beams are: a window of
+        powers and counts together would leave the monitor's median/MAD the
+        counts' and lift the powers' block thousands of sigma above it."""
         sm = self.search_monitor
-        scales = self.sink.fused_quant8_scales("cpu").numpy()
+        scales = self.sink.fused_quant8_scales(sel.device)
         if sm._labels is not None:
             s = scales[sm._labels][:, None, None]   # [B_sel, T, F]
         else:
             s = scales[sm.beam]                      # [T, F]
-        return np.clip(np.rint(sel * s), 0, 255).astype(np.uint8)
+        return torch.clamp(torch.round(sel * s), 0, 255).to(torch.uint8)
 
     def run(self, max_blocks: Optional[int] = None) -> StreamStats:
         cfg = self.cfg
@@ -1033,6 +1071,7 @@ class StreamingBeamformer:
         self._stats = stats = StreamStats(cfg_name=cfg.name,
                                           device_kind=self.device_kind)
         self._rfi_events0 = self._rfi_event_count()
+        self._search0 = self._search_counts()
         # Device-side product transform offered by the sink (8-bit
         # quantization, so the D2H copy moves 1 byte per sample).
         post = getattr(self.sink, "device_post", None)
@@ -1053,7 +1092,10 @@ class StreamingBeamformer:
                 self.rfi_monitor.flush()
             stats.rfi_s += time.perf_counter() - t0
         if self.search_monitor is not None:
-            self.search_monitor.flush()
+            t0 = time.perf_counter()
+            with annotate("dsabf.search.observe"):
+                self.search_monitor.flush()
+            stats.search_s += time.perf_counter() - t0
         self._count_source(stats)
         return stats.finish()
 

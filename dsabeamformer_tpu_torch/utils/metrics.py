@@ -89,7 +89,9 @@ STAGES = ("read", "h2d_wait", "enqueue", "drain_wait", "sinks", "rfi",
 #: The loop's counters and stage seconds in ``StreamStats.record``, beyond
 #: the JAX package's record.
 LOOP_KEYS = ("weight_swaps", "rfi_events", "sk_blocks", "float_blocks",
-             "drains_waited", "early_drains", *(f"{k}_s" for k in STAGES))
+             "drains_waited", "early_drains", *(f"{k}_s" for k in STAGES),
+             "search_windows", "search_candidates", "search_rfi_rejected",
+             "search_s")
 
 
 @dataclasses.dataclass
@@ -101,7 +103,9 @@ class BlockStats:
     ``enqueue_s``, ``inflight_s`` (enqueue end -> drain start, which holds
     ``h2d_wait_s``), ``drain_wait_s`` and ``sinks_s`` lie inside it, and
     ``rfi_s`` (the block's retire) follows it.  A block delivered before
-    its retire point reaches ``on_block`` with ``rfi_s`` still 0."""
+    its retire point reaches ``on_block`` with ``rfi_s`` still 0.
+    ``search_s`` is the search monitor's part of ``sinks_s``: the block's
+    append to its window and the beam groups searched after it."""
 
     block_idx: int
     seq: int                 # source sequence number
@@ -116,6 +120,7 @@ class BlockStats:
     drain_wait_s: float = 0.0
     sinks_s: float = 0.0
     rfi_s: float = 0.0
+    search_s: float = 0.0
 
     def line(self, cfg: ObsConfig) -> str:
         gbs = self.bytes_in / self.wall_s / 1e9 if self.wall_s > 0 else 0.0
@@ -145,6 +150,9 @@ class StreamStats:
     float_blocks: int = 0    # 8-bit sink blocks run without the uint8 epilogue
     drains_waited: int = 0   # drains whose D2H copies were not yet done
     early_drains: int = 0    # blocks delivered in a wait, before retire
+    search_windows: int = 0  # windows the search monitor searched
+    search_candidates: int = 0  # its candidates, after the coincidence veto
+    search_rfi_rejected: int = 0  # its clusters rejected as RFI
     read_s: float = 0.0      # host seconds by stage (STAGES)
     h2d_wait_s: float = 0.0
     enqueue_s: float = 0.0
@@ -152,6 +160,7 @@ class StreamStats:
     sinks_s: float = 0.0
     rfi_s: float = 0.0
     on_block_s: float = 0.0
+    search_s: float = 0.0    # host seconds in the search monitor (of sinks_s)
     _t_start: float = dataclasses.field(default_factory=time.perf_counter)
 
     def finish(self) -> "StreamStats":

@@ -1191,6 +1191,58 @@ def test_dedisperse_kernels_reject_what_they_do_not_take(dev):
                              d, 8)
 
 
+#: (B, n_dm, T, widths, k): rows under one scan block, one level, three
+#: levels (a full DSA-10 window's 9923 samples), k from 1 to the most;
+#: rows past shared memory (their scan in the global scratch), fewer and
+#: more than the scratch's blocks.
+TOPK_SHAPES = [(2, 3, 11, (1, 2, 4), 4), (1, 5, 300, (1, 3, 8), 1),
+               (3, 7, 4100, (1, 2, 4, 8, 16, 32), 4),
+               (1, 4, 9923, (1, 2, 4, 8, 16, 32), 8),
+               (2, 3, 56787, (1, 2, 4), 4), (1, 1030, 50700, (1, 2), 2)]
+
+
+@pytest.mark.parametrize("shape", TOPK_SHAPES)
+def test_snr_topk_kernel_equals_plain(dev, shape):
+    """The normalized rows' scan, top-k and owned peaks against the plain
+    version, bit for bit, on integer rows full of ties (the lower start
+    first), on continuous rows, and with limits from none to all."""
+    from dsabeamformer_tpu_torch.ops import dedisperse as dd
+
+    b, n_dm, t, widths, k = shape
+    rng = np.random.default_rng(t)
+    limit = rng.integers(-2, t - max(widths) + 2, (len(widths), n_dm))
+    limit[0, 0], limit[-1, -1] = 0, t - max(widths) + 1
+    for rows in (rng.integers(-3, 4, (b, n_dm, t)).astype(np.float32),
+                 rng.normal(size=(b, n_dm, t)).astype(np.float32)):
+        norm = torch.from_numpy(rows)
+        want = dd.snr_topk_plain(norm, widths, k, limit)
+        n0 = dd.snr_topk.launches
+        got = dd.snr_topk(norm.to(dev), widths, k, limit)
+        assert dd.snr_topk.launches == n0 + 1
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w)
+
+
+def test_snr_topk_refuses_a_k_its_kernel_cannot_keep(dev):
+    """On the card a k outside 1 to ``TOPK_MAX_K`` is a ValueError, not
+    another path, and a monitor that would ask for one is refused when
+    built."""
+    from dsabeamformer_tpu_torch.ops import dedisperse as dd
+
+    norm = torch.zeros((1, 2, 64), device=dev)
+    limit = np.full((1, 2), 64, np.int64)
+    n0 = dd.snr_topk.launches
+    for k in (0, dd.TOPK_MAX_K + 1):
+        with pytest.raises(ValueError, match="peaks"):
+            dd.snr_topk(norm, (1,), k, limit)
+    assert dd.snr_topk.launches == n0
+    freqs = np.linspace(1280.0, 1530.0, 64)
+    dms = dd.dm_trial_grid(1280.0, 1530.0, 1e-3, dm_max=100.0)
+    with pytest.raises(ValueError, match="peaks"):
+        dd.SearchMonitor(freqs, 1e-3, dms, topk=dd.TOPK_MAX_K + 1,
+                         device=dev)
+
+
 @pytest.mark.parametrize("method", ["direct", "subband", "conv"])
 def test_search_on_card_equals_cpu(dev, method):
     """The whole search, banks on the kernels, equals the CPU's: candidates

@@ -13,6 +13,7 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 import dsabeamformer_tpu.ops.dedisperse as J
 import dsabeamformer_tpu_torch.ops.dedisperse as P
@@ -406,19 +407,26 @@ def test_zap_kills_bursty_channel_keeps_pulse():
 
 
 def test_preprocess_validation_and_equals_jax():
-    x = np.ones((16, 4), np.float32)
+    """The port conditions ``[..., F, T]`` tensors; each beam's result is
+    the reference's of its ``[T, F]`` spectrum, bit for bit (zero-DM's mean
+    summed channel after channel, as NumPy sums the reference's)."""
+    x = torch.ones((4, 16))
     with pytest.raises(ValueError, match="outside"):
         preprocess_spectrogram(x, zap=[4])
     with pytest.raises(ValueError, match="every channel"):
         preprocess_spectrogram(x, zap=[0, 1, 2, 3])
     y = preprocess_spectrogram(x, zap=[1], zerodm=True)
-    assert np.all(y[:, 1] == 0.0)
-    assert np.allclose(y[:, [0, 2, 3]], 0.0)
-    assert x[0, 1] == 1.0  # input untouched
-    z = np.random.default_rng(0).normal(size=(64, 16)).astype(np.float32)
-    assert np.array_equal(preprocess_spectrogram(z, zap=[3, 5], zerodm=True),
-                          J.preprocess_spectrogram(z, zap=[3, 5],
-                                                   zerodm=True))
+    assert y.dtype == torch.float32 and torch.all(y[1] == 0.0)
+    assert torch.allclose(y[[0, 2, 3]], torch.zeros(3, 16))
+    assert x[1, 0] == 1.0  # input untouched
+    rng = np.random.default_rng(0)
+    for t, f in [(64, 16), (40, 1000)]:
+        z = (rng.normal(size=(3, t, f)) * 100).astype(np.float32)
+        got = preprocess_spectrogram(torch.from_numpy(z).transpose(1, 2),
+                                     zap=[3, 5], zerodm=True)
+        for bi in range(3):
+            assert np.array_equal(got[bi].T.numpy(), J.preprocess_spectrogram(
+                z[bi], zap=[3, 5], zerodm=True))
 
 
 def test_coincidence_filter_unit():
