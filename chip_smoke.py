@@ -427,6 +427,7 @@ from dsabeamformer_tpu_torch.ops.dedisperse import (
     _conv_plan,
     _fill,
     _limits,
+    _median_last,
     _normalize,
     _snr_topk,
     _stage1_beams,
@@ -437,6 +438,7 @@ from dsabeamformer_tpu_torch.ops.dedisperse import (
     dedisperse_direct,
     dedisperse_direct_plain,
     dm_trial_grid,
+    median_rows,
     read_candidates,
     search_spectrograms,
     snr_topk,
@@ -2513,7 +2515,8 @@ N_RING = 8                   # blocks in each ring power-only stream (12
                              # before the scale-out phases: their time)
 N_RING_DEPLOYED = 8          # blocks in each ring deployed stream
 SHM = "/dev/shm"
-DD_KERNELS = (dedisperse_direct, subband_stage1, subband_stage2, snr_topk)
+DD_KERNELS = (dedisperse_direct, subband_stage1, subband_stage2, snr_topk,
+              median_rows)
 #: The live search drill: a dispersed pulse at DM 50 towards beam 100, in
 #: every block, searched to DM 100 over a 32-beam set (every 8th beam from
 #: 4, so the beam pattern's main lobe covers a few of them: coincidence
@@ -2982,10 +2985,16 @@ def phase_search(prod, cfg, why, smi) -> tuple:
             clear_launches()
             for k in DD_KERNELS:
                 k.launches = 0
+            snr_topk.normalized = 0
             t0 = time.perf_counter()
             stats = bf.run(max_blocks=N_SEARCH)
             wall = time.perf_counter() - t0
             live = {k.__name__: k.launches for k in DD_KERNELS}
+            live["snr_topk.normalized"] = snr_topk.normalized
+            if snr_topk.normalized != snr_topk.launches:
+                raise RuntimeError(f"live search: {snr_topk.launches} top-k "
+                                   f"launches, {snr_topk.normalized} of them "
+                                   f"normalizing (every one should)")
             fil.close()
             inco.close()
             log(f"[search] {tag(cfg)} deployed stream from the ring with the "
@@ -3301,10 +3310,16 @@ def _gap(a, b) -> float:
 def phase_cell_kernels(smi) -> dict:
     """The dsa10_frb cell's search kernels at its own shapes, on seeded
     noise counts: stage 1 and stage 2 of its plan on one stage-1 chunk of
-    beams (``_stage1_beams``), and ``snr_topk`` on one beam group of its
-    window sized as the cell sizes it (``_beam_group``, less the dsa10
-    stream's memory), each against its plain version, bit-equal expected,
-    timed as ``phase_bank_kernels``' entries."""
+    beams (``_stage1_beams``), and ``snr_topk`` on the raw bank of one beam
+    group of its window sized as the cell sizes it (``_beam_group``, less
+    the dsa10 stream's memory), normalizing it as ``_snr_topk`` does on the
+    card, and ``median_rows`` on that group's fill subsample as ``_fill``
+    takes it; each against its plain version (the top-k's: ``_normalize``,
+    on torch's ``kthvalue``, then ``snr_topk_plain``; the fill's:
+    ``_median_last``, timed alike), bit-equal expected, timed as
+    ``phase_bank_kernels``' entries.  The top-k on the raw bank is
+    also timed against the route it replaced, ``_normalize`` then the
+    kernel on the normalized rows."""
     mon = SearchMonitor.for_stream(DSA10, CELL_DM_MAX, beam="all",
                                    device=DEV)
     b, f = DSA10.n_beams, DSA10.n_chan // DSA10.navg_freq
@@ -3320,12 +3335,21 @@ def phase_cell_kernels(smi) -> dict:
     out = stage_checks(window[:n1], _fill(window[:n1], max(1, t // 512),
                                           False),
                        mon.delays, " [dsa10_frb]", smi, library=False)
-    norm = _normalize(_bank(mon.method, window, mon.delays, mon.n_sub,
-                            False))
+    xs = window[..., ::max(1, t // 512)].float()
+    med = median_rows(xs)
+    err = _gap(med, _median_last(xs))
+    ms = time_ms(lambda i: median_rows(xs), N_TIMED)
+    plain_ms = time_ms(lambda i: _median_last(xs), N_TIMED)
+    out["median_rows [dsa10_frb]"] = (
+        err, ms, plain_ms, *bank_bound(0, 4 * (xs.numel() + med.numel())),
+        tuple(xs.shape), ":380", None, None)
+    del xs, med
+    bank = _bank(mon.method, window, mon.delays, mon.n_sub, False)
     del window
     k = min(mon.topk, t - mon.max_w + 1)
     limit = _limits(_valid_len(mon.delays, t), widths, mon.chunk_t)
-    got = snr_topk(norm, widths, k, limit)
+    got = _snr_topk(bank, widths, k, limit)
+    norm = _normalize(bank)
     torch.cuda.synchronize()
     plain_t0 = time.perf_counter()
     parts = [snr_topk_plain(norm[i:i + PLAIN_TOPK_BEAMS], widths, k, limit)
@@ -3333,10 +3357,12 @@ def phase_cell_kernels(smi) -> dict:
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - plain_t0) * 1e3
     want = [torch.cat(x) for x in zip(*parts)]
-    del parts
+    del parts, norm
     err = max(_gap(a, w) for a, w in zip(got, want))
     del got, want
-    ms = time_ms(lambda i: snr_topk(norm, widths, k, limit), N_TIMED)
+    ms = time_ms(lambda i: _snr_topk(bank, widths, k, limit), N_TIMED)
+    old_ms = time_ms(lambda i: snr_topk(_normalize(bank), widths, k, limit),
+                     N_TIMED)
     adds = g * n_dm * (t + sum(t - w + 1 for w in widths))
     nbytes = 4 * g * n_dm * t + g * n_dm * len(widths) * (16 * k + 8)
     out["snr_topk"] = (err, ms, plain_ms, *bank_bound(adds, nbytes),
@@ -3344,9 +3370,11 @@ def phase_cell_kernels(smi) -> dict:
     log(f"[search kernels] dsa10_frb shapes: a beam group of {g} of {b} "
         f"beams at {n_dm} trials x {t} samples (as the cell sizes it beside "
         f"{CELL_STREAM_BYTES / 1e9:.1f} GB of stream), stage 1 on {n1} beams; "
+        f"snr_topk on the raw bank (the kernel normalizes) {ms:.3f} ms, the "
+        f"replaced route (_normalize, then the kernel) {old_ms:.3f} ms; "
         f"device peak {torch.cuda.max_memory_allocated() / 1e9:.1f} GB on "
         f"{smi}")
-    del norm
+    del bank
     return out
 
 

@@ -11,9 +11,12 @@
 //   dsabf_dedisperse_direct  out[b, d, t] = sum_f  P[b, f, t + delay[d, f]]
 //   dsabf_subband_stage1     S[b, g, j, t] = sum_c P[b, g, c, t + intra[g, j, c]]
 //   dsabf_subband_stage2     out[b, d, t] = sum_g S[b, g].flat[off[g, d] + t]
-//   dsabf_snr_topk           of each normalized bank row: its cumulative
-//                            sum, then per boxcar width the top-k S/N and
-//                            the peak over the row's owned starts
+//   dsabf_snr_topk           of each bank row, robust-normalized here or
+//                            by the caller: its cumulative sum, then per
+//                            boxcar width the top-k S/N and the peak over
+//                            the row's owned starts
+//   dsabf_median_rows        each row's median (the mean of the middle two
+//                            of an even count): the bank's tail fill
 //
 // Each output sample is a float32 sum taken in ascending channel (group)
 // order from zero with plain adds (__fadd_rn: nothing fused or reordered),
@@ -69,8 +72,12 @@
 // the dsa10c window.
 //
 // snr_topk_kernel, a block a bank row (one beam's trial series), takes the
-// row in shared memory once and does everything after the normalization
-// there: the reference's blocked cumulative sum (sequential within blocks of
+// row in shared memory once and does the reference's whole _snr_topk_jit
+// (dsabeamformer_tpu/ops/dedisperse.py:627) there.  First, unless the
+// caller hands it rows already normalized, the robust normalization
+// (x - med) / max(1.4826 * MAD, 1e-30) in place, each median an exact
+// selection (below, "the robust normalization").  Then the reference's
+// blocked cumulative sum (sequential within blocks of
 // 16 from zero, the block totals scanned the same way, recursively, each
 // total added to the next level's block; ops/dedisperse.py
 // _cumsum_blocked), then for each width w the boxcar sums c[t + w] - c[t],
@@ -619,7 +626,8 @@ constexpr int kScanBlock = 16;       // the reference's cumulative-sum block
 constexpr int kTopkScratchBlocks = 1024;  // blocks of a scan in global memory
 
 struct Topk {
-  const float* norm;   // [rows, t]: rows = b * n_dm, normalized bank rows
+  const float* bank;   // [rows, t]: rows = b * n_dm, bank rows
+  int normalize;       // 1: normalize each row here; 0: they come normalized
   long long rows;
   int n_dm;
   int t;
@@ -656,6 +664,167 @@ __device__ inline bool before(float v, int i, float w, int j) {
   return v > w || (v == w && i < j);
 }
 
+// ------------------------ the robust normalization ------------------------
+//
+// The reference's (ops/dedisperse.py _normalize, _median_last): med the
+// row's median, MAD the median of |x - med|, each the mean of the two middle
+// values of an even count (the upper one is the lower where more than half
+// the values are at most it, else the least value above it), then
+// (x - med) / max(MAD * 1.4826, 1e-30), every step one float32 operation
+// rounded to nearest as torch's are.  The lower middle value is an exact
+// selection: a radix select over order-preserving uint32 keys (torch's
+// radix select's, so -0 orders before +0 as kthvalue orders them), four
+// passes of 8-bit digits, each through a 256-bin histogram in shared
+// memory and a block-wide scan of it to find the digit that holds the rank.
+// The MAD's values |x - med| are made afresh on each pass, never stored.
+// Values near the median share their high digits, so a warp adds each
+// distinct digit of its lanes once (one add where all 32 agree) rather than
+// queueing 32 atomics on one bin.  What bounds it: shared-memory reads and
+// the histogram's atomics, ~9 passes over the row against the scan's few.
+
+constexpr int kBins = 256;           // a radix digit's bins (8 bits)
+static_assert(kBins == kTopkThreads, "the scan over the bins: a bin a thread");
+// Shared words of a selection: the histogram, a count a warp, the digit
+// picked and the rank left within it, a float a warp.
+constexpr int kSelectWords = kBins + 2 * (kTopkThreads / 32) + 2;
+
+// torch's key of a float (TopKTypeConfig<float>::convert): unsigned order is
+// the float order, -0 before +0, NaN last.
+__device__ inline unsigned order_key(float v) {
+  const unsigned x = __float_as_uint(v);
+  if (v != v) return 0xffffffffu;
+  return x ^ ((x & 0x80000000u) ? 0xffffffffu : 0x80000000u);
+}
+
+__device__ inline float key_value(unsigned k) {
+  return __uint_as_float(k ^ ((k & 0x80000000u) ? 0x80000000u : 0xffffffffu));
+}
+
+struct Same {
+  __device__ float operator()(float v) const { return v; }
+};
+
+struct AbsDev {  // |x - med|, as the reference's (bank - med).abs()
+  float med;
+  __device__ float operator()(float v) const {
+    return fabsf(__fsub_rn(v, med));
+  }
+};
+
+// The key of the rank-th smallest (from 0) of value(x[j]), j in [0, n), to
+// every thread of the block (kTopkThreads threads, all of which call it;
+// ws: kSelectWords words of shared memory).
+template <class Value>
+__device__ unsigned select_key(const float* x, int n, unsigned rank,
+                               Value value, unsigned* ws) {
+  unsigned* hist = ws;
+  unsigned* part = ws + kBins;
+  unsigned* pick = part + kTopkThreads / 32;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  unsigned prefix = 0, mask = 0;
+  for (int shift = 24; shift >= 0; shift -= 8) {
+    hist[tid] = 0;
+    __syncthreads();  // x is written and the bins are zero
+    // Every lane of a warp goes round alike: the vote and the match need
+    // all 32.
+    for (int j0 = 0; j0 < n; j0 += kTopkThreads) {
+      const int j = j0 + tid;
+      unsigned bin = kBins;  // none
+      if (j < n) {
+        const unsigned key = order_key(value(x[j]));
+        if ((key & mask) == prefix) bin = (key >> shift) & (kBins - 1);
+      }
+      const unsigned first = __shfl_sync(0xffffffffu, bin, 0);
+      if (__all_sync(0xffffffffu, bin == first)) {
+        if (lane == 0 && bin < kBins) atomicAdd(hist + bin, 32u);
+      } else {
+        const unsigned peers = __match_any_sync(0xffffffffu, bin);
+        if (bin < kBins && lane == __ffs(peers) - 1)
+          atomicAdd(hist + bin, static_cast<unsigned>(__popc(peers)));
+      }
+    }
+    __syncthreads();
+    // The digit holding the rank: an inclusive scan over the bins, a bin a
+    // thread.
+    const unsigned h = hist[tid];
+    unsigned incl = h;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const unsigned u = __shfl_up_sync(0xffffffffu, incl, o);
+      if (lane >= o) incl += u;
+    }
+    if (lane == 31) part[warp] = incl;
+    __syncthreads();
+    for (int w = 0; w < warp; ++w) incl += part[w];
+    if (rank >= incl - h && rank < incl) {
+      pick[0] = tid;
+      pick[1] = rank - (incl - h);
+    }
+    __syncthreads();
+    prefix |= pick[0] << shift;
+    mask |= static_cast<unsigned>(kBins - 1) << shift;
+    rank = pick[1];
+  }
+  return prefix;
+}
+
+// The block's sum of `count` and least of `least`, to every thread.
+__device__ void block_count_min(unsigned& count, float& least,
+                                unsigned* ws) {
+  unsigned* part = ws + kBins;
+  float* fpart =
+      reinterpret_cast<float*>(part + kTopkThreads / 32 + 2);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    count += __shfl_xor_sync(0xffffffffu, count, o);
+    least = fminf(least, __shfl_xor_sync(0xffffffffu, least, o));
+  }
+  if (lane == 0) {
+    part[warp] = count;
+    fpart[warp] = least;
+  }
+  __syncthreads();
+  count = 0;
+  least = __int_as_float(0x7f800000);
+  for (int w = 0; w < kTopkThreads / 32; ++w) {
+    count += part[w];
+    least = fminf(least, fpart[w]);
+  }
+}
+
+// The median of value(x[j]), j in [0, n), as _median_last takes it, to
+// every thread.
+template <class Value>
+__device__ float row_median(const float* x, int n, Value value,
+                            unsigned* ws) {
+  const float lo = key_value(select_key(x, n, (n - 1) / 2, value, ws));
+  float hi = lo;
+  if (n % 2 == 0) {
+    unsigned at_most = 0;
+    float above = __int_as_float(0x7f800000);  // +inf: none above
+    for (int j = threadIdx.x; j < n; j += kTopkThreads) {
+      const float v = value(x[j]);
+      if (v <= lo) ++at_most;
+      if (v > lo) above = fminf(above, v);
+    }
+    block_count_min(at_most, above, ws);
+    hi = at_most > static_cast<unsigned>(n / 2) ? lo : above;
+  }
+  return __fmul_rn(__fadd_rn(lo, hi), 0.5f);
+}
+
+// x[0 .. n) robust-normalized in place.  The clamp keeps a NaN, as
+// torch.clamp does.
+__device__ void normalize_row(float* x, int n, unsigned* ws) {
+  const float med = row_median(x, n, Same(), ws);
+  const float mad = row_median(x, n, AbsDev{med}, ws);
+  const float s = __fmul_rn(mad, 1.4826f);
+  const float sigma = s < 1e-30f ? 1e-30f : s;
+  for (int j = threadIdx.x; j < n; j += kTopkThreads)
+    x[j] = __fdiv_rn(__fsub_rn(x[j], med), sigma);
+}
+
 __global__ void __launch_bounds__(kTopkThreads)
     snr_topk_kernel(Topk q) {
   extern __shared__ float smem[];
@@ -673,10 +842,14 @@ __global__ void __launch_bounds__(kTopkThreads)
   __shared__ float warp_max[kTopkThreads / 32];
 
   for (long long r = blockIdx.x; r < q.rows; r += gridDim.x) {
-    const float* row = q.norm + r * t;
+    const float* row = q.bank + r * t;
     __syncthreads();  // the previous row's lists have been read
     for (int j = tid; j < t; j += kTopkThreads) c[1 + j] = row[j];
     if (tid == 0) c[0] = 0.0f;
+    // The selections' workspace is the merge lists' memory, free until the
+    // first width.
+    if (q.normalize)
+      normalize_row(c + 1, t, reinterpret_cast<unsigned*>(merge_v));
     // Up the levels: each block's sums in place, its total one level up.
     lv[0] = c + 1;
     ln[0] = t;
@@ -819,6 +992,16 @@ __global__ void __launch_bounds__(kTopkThreads)
   }
 }
 
+// grid: a block a row (rows taken in turn past the grid).
+__global__ void __launch_bounds__(kTopkThreads)
+    median_rows_kernel(const float* x, float* out, long long rows, int n) {
+  __shared__ unsigned ws[kSelectWords];
+  for (long long r = blockIdx.x; r < rows; r += gridDim.x) {
+    const float m = row_median(x + r * n, n, Same(), ws);
+    if (threadIdx.x == 0) out[r] = m;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -878,9 +1061,9 @@ int dsabf_subband_stage2(const float* s, const int* offsets, float* out,
   return static_cast<int>(cudaGetLastError());
 }
 
-int dsabf_snr_topk(const float* norm, const int* widths, const int* limit,
+int dsabf_snr_topk(const float* bank, const int* widths, const int* limit,
                    double* snr, long long* idx, double* peak, int b, int n_dm,
-                   int t, int n_w, int k, float* scratch,
+                   int t, int n_w, int k, int normalize, float* scratch,
                    cudaStream_t stream) {
   if (b <= 0 || n_dm <= 0 || n_w <= 0) return 0;
   if (t <= 0 || k <= 0 || k > kTopkMaxK) return int(cudaErrorInvalidValue);
@@ -889,7 +1072,8 @@ int dsabf_snr_topk(const float* norm, const int* widths, const int* limit,
       snr_topk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return int(e);
   Topk q;
-  q.norm = norm;
+  q.bank = bank;
+  q.normalize = normalize;
   q.rows = static_cast<long long>(b) * n_dm;
   q.n_dm = n_dm;
   q.t = t;
@@ -905,6 +1089,16 @@ int dsabf_snr_topk(const float* norm, const int* widths, const int* limit,
   const long long grid = q.rows < cap ? q.rows : cap;
   snr_topk_kernel<<<static_cast<unsigned>(grid), kTopkThreads, smem,
                     stream>>>(q);
+  return int(cudaGetLastError());
+}
+
+int dsabf_median_rows(const float* x, float* out, long long rows, int n,
+                      cudaStream_t stream) {
+  if (rows <= 0) return 0;
+  if (n <= 0) return int(cudaErrorInvalidValue);
+  const long long grid = rows < (1LL << 30) ? rows : (1LL << 30);
+  median_rows_kernel<<<static_cast<unsigned>(grid), kTopkThreads, 0,
+                       stream>>>(x, out, rows, n);
   return int(cudaGetLastError());
 }
 

@@ -20,11 +20,14 @@ dedisperse.py:156`` and ``:179``).  ``method="conv"`` keeps the reference's
 contract (automatic group count, a tail fill from a 512-row subsample, that
 fill rounded for uint8 input, ``valid_len``) and computes the two-stage bank
 on its plan with the same two subband kernels; the reference's one-hot
-convolution is a TPU device and has no counterpart here.  After the
-normalization (torch ops), ``snr_topk`` of the same library takes each
-trial series' cumulative sum, top-k and owned peaks.  Each kernel has a
-plain PyTorch version beside it (a loop of shifted adds in the kernel's
-order, the scan and top-k in the reference's) that a CPU tensor runs.
+convolution is a TPU device and has no counterpart here.  After the robust
+normalization, ``snr_topk`` of the same library takes each
+trial series' cumulative sum, top-k and owned peaks; on the card one launch
+of it (``_snr_topk``) normalizes each row first, where it holds it, and
+``median_rows`` takes the tail fill's medians.  Each kernel has a plain
+PyTorch version beside it (a loop of shifted adds in the kernel's order,
+the scan and top-k in the reference's, ``_normalize`` and ``_median_last``
+on ``kthvalue``) that a CPU tensor runs.
 
 The delay curve is ``config.dm_delays_s`` (referenced to the top of the
 band), shared with the pulse generator.
@@ -258,10 +261,12 @@ def _kernel_lib() -> ctypes.CDLL:
         lib.dsabf_dedisperse_direct.argtypes = [p, p, p, i, i, ll, i, i, p]
         lib.dsabf_subband_stage1.argtypes = [p, p, p, i, i, i, ll, i, i, p]
         lib.dsabf_subband_stage2.argtypes = [p, p, p, i, i, ll, i, i, p]
-        lib.dsabf_snr_topk.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p,
-                                       p]
+        lib.dsabf_snr_topk.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i,
+                                       p, p]
+        lib.dsabf_median_rows.argtypes = [p, p, ll, i, p]
         for fn in (lib.dsabf_dedisperse_direct, lib.dsabf_subband_stage1,
-                   lib.dsabf_subband_stage2, lib.dsabf_snr_topk):
+                   lib.dsabf_subband_stage2, lib.dsabf_snr_topk,
+                   lib.dsabf_median_rows):
             fn.restype = i
         lib.dsabf_error_string.argtypes = [i]
         lib.dsabf_error_string.restype = ctypes.c_char_p
@@ -426,7 +431,7 @@ def _fill(x: torch.Tensor, step: int, rounded: bool) -> torch.Tensor:
     """The tail fill ``[B, F]`` of a ``[B, F, T]`` window: each channel's
     median (the mean of the middle two, as NumPy's) over every ``step``-th
     sample, float32; rounded to an integer where ``rounded``."""
-    fill = _median_last(x[..., ::step].to(torch.float32))
+    fill = median_rows(x[..., ::step].to(torch.float32))
     return fill.round() if rounded else fill
 
 
@@ -681,6 +686,27 @@ def _median_last(x: torch.Tensor) -> torch.Tensor:
     return ((lo + hi) * 0.5)[..., 0]
 
 
+def median_rows(x: torch.Tensor) -> torch.Tensor:
+    """``_median_last`` of a float32 tensor, bit-equal: a CPU tensor runs
+    it; a CUDA one launches ``median_rows_kernel`` (a block a row, an exact
+    radix selection, no ``kthvalue``) on the current stream, counted in
+    ``median_rows.launches``."""
+    if x.dtype != torch.float32 or x.shape[-1] == 0:
+        raise ValueError(f"median_rows: rows must be non-empty float32, got "
+                         f"{x.dtype} {tuple(x.shape)}")
+    if x.device.type == "cpu":
+        return _median_last(x)
+    x = x.contiguous()
+    out = torch.empty(x.shape[:-1], dtype=torch.float32, device=x.device)
+    _launch("dsabf_median_rows", [x.data_ptr(), out.data_ptr(),
+                                  out.numel(), x.shape[-1]], x.device)
+    median_rows.launches += 1
+    return out
+
+
+median_rows.launches = 0
+
+
 #: Block length of the reference's cumulative sum (XLA's reduce-window
 #: rewrite on the CPU: sequential within blocks of 16, the block totals
 #: scanned the same way, recursively).
@@ -757,17 +783,30 @@ def snr_topk(norm: torch.Tensor, widths: Tuple[int, ...], k: int,
     ``snr_topk_fits``: bit-equal, the same adds in the same order) on the
     current stream, counted in ``snr_topk.launches``.  On the card ``k``
     must lie in 1 to ``TOPK_MAX_K``: anything else is a ``ValueError``."""
-    if norm.dtype != torch.float32 or norm.dim() != 3 \
-            or not norm.is_contiguous():
-        raise ValueError(f"snr_topk: rows must be contiguous float32 "
-                         f"[B, n_dm, T], got {norm.dtype} "
-                         f"{tuple(norm.shape)}")
+    _check_rows("snr_topk", norm)
     if norm.device.type == "cpu":
         return snr_topk_plain(norm, widths, k, limit)
-    b, n_dm, t = norm.shape
+    return _topk_kernel(norm, widths, k, limit, normalize=False)
+
+
+def _check_rows(name: str, rows: torch.Tensor) -> None:
+    if rows.dtype != torch.float32 or rows.dim() != 3 \
+            or not rows.is_contiguous():
+        raise ValueError(f"{name}: rows must be contiguous float32 "
+                         f"[B, n_dm, T], got {rows.dtype} "
+                         f"{tuple(rows.shape)}")
+
+
+def _topk_kernel(rows: torch.Tensor, widths: Tuple[int, ...], k: int,
+                 limit: np.ndarray,
+                 normalize: bool) -> Tuple[torch.Tensor, ...]:
+    """One ``snr_topk_kernel`` launch on the card's ``rows``, which it
+    robust-normalizes first where ``normalize`` (``_normalize``'s
+    arithmetic, counted in ``snr_topk.normalized`` too)."""
+    b, n_dm, t = rows.shape
     _check_topk(k)
     n_w = len(widths)
-    dev = norm.device
+    dev = rows.device
     scratch = None
     if not snr_topk_fits(t):
         scratch = torch.empty((min(b * n_dm, TOPK_SCRATCH_BLOCKS),
@@ -779,14 +818,17 @@ def snr_topk(norm: torch.Tensor, widths: Tuple[int, ...], k: int,
     idx = torch.empty((b, n_w, n_dm, k), dtype=torch.int64, device=dev)
     peak = torch.empty((b, n_w, n_dm), dtype=torch.float64, device=dev)
     _launch("dsabf_snr_topk",
-            [norm.data_ptr(), w_t.data_ptr(), lim.data_ptr(), snr.data_ptr(),
+            [rows.data_ptr(), w_t.data_ptr(), lim.data_ptr(), snr.data_ptr(),
              idx.data_ptr(), peak.data_ptr(), b, n_dm, t, n_w, k,
-             None if scratch is None else scratch.data_ptr()], dev)
+             int(normalize), None if scratch is None else scratch.data_ptr()],
+            dev)
     snr_topk.launches += 1
+    snr_topk.normalized += int(normalize)
     return snr, idx, peak
 
 
 snr_topk.launches = 0
+snr_topk.normalized = 0
 
 
 def _topk_scan_floats(t: int) -> int:
@@ -833,7 +875,13 @@ def _normalize(bank: torch.Tensor) -> torch.Tensor:
 
 def _snr_topk(bank: torch.Tensor, widths: Tuple[int, ...], k: int,
               limit: np.ndarray) -> Tuple[torch.Tensor, ...]:
-    """``_normalize``, then ``snr_topk``."""
+    """``snr_topk`` of the ``_normalize``d bank ``[B, n_dm, T]``: on the card
+    one ``snr_topk_kernel`` launch that normalizes each row where it holds
+    it (bit-equal: the same selections and float32 steps); on the CPU
+    ``_normalize``, then ``snr_topk_plain``."""
+    if bank.device.type == "cuda":
+        _check_rows("_snr_topk", bank)
+        return _topk_kernel(bank, widths, k, limit, normalize=True)
     return snr_topk(_normalize(bank), widths, k, limit)
 
 
@@ -1243,11 +1291,14 @@ class SearchWindow:
 def _group_bytes(n_chan: int, t: int, delays: np.ndarray, method: str,
                  n_sub: int) -> tuple:
     """``(fixed, per beam)`` device bytes of a beam group at a ``t``-sample
-    window.  Per beam: its ``[n_dm, T]`` float32 bank and the 5 more
-    bank-sized float32 temporaries the normalization and the top-k kernel
-    hold beside it; fixed: the top-k's scratch (``_topk_scratch_bytes``)
-    and what makes a bank, one ``_stage1_beams`` chunk's padded operand and
-    stage-1 planes (a direct bank's operand, per beam)."""
+    window.  Per beam: 6 bank-sized float32 buffers, of which the
+    ``[n_dm, T]`` bank is the only one held: the top-k kernel normalizes
+    each row in its shared memory, with no temporary beside the bank.  The
+    other 5, the torch normalization's temporaries, are kept as a margin on
+    purpose: they keep a window's beam groups, and so their schedule over
+    the drains, as the torch normalization sized them.  Fixed: the top-k's scratch (``_topk_scratch_bytes``) and what makes a
+    bank, one ``_stage1_beams`` chunk's padded operand and stage-1 planes
+    (a direct bank's operand, per beam)."""
     n_dm = delays.shape[0]
     per = 6 * 4 * n_dm * t
     scratch = _topk_scratch_bytes(t)

@@ -1243,6 +1243,101 @@ def test_snr_topk_refuses_a_k_its_kernel_cannot_keep(dev):
                          device=dev)
 
 
+#: Raw bank rows the top-k kernel normalizes itself: integer rows in which
+#: more than half the values equal the lower median, rows all equal (MAD 0,
+#: so sigma 1e-30), negative rows with zeros of both signs (a zero-DM'd
+#: window's), and sums of 8-bit counts as a uint8 window's bank holds them.
+RAW_ROWS = ("ties", "equal", "signed_zeros", "counts")
+
+
+def _raw_rows(kind: str, shape: tuple, rng) -> np.ndarray:
+    if kind == "ties":
+        x = rng.integers(-3, 4, shape).astype(np.float32)
+        x[rng.random(shape) < 0.6] = 1.0
+        return x
+    if kind == "equal":
+        return np.broadcast_to(rng.integers(-50, 50, shape[:-1] + (1,)),
+                               shape).astype(np.float32)
+    if kind == "signed_zeros":
+        x = np.round(rng.normal(-0.5, 1.0, shape), 1).astype(np.float32)
+        zero = x == 0
+        x[zero] = np.where(rng.random(int(zero.sum())) < 0.5, -0.0, 0.0)
+        return x
+    return np.rint(rng.normal(64 * 2048, 64 * 45, shape)).astype(np.float32)
+
+
+@pytest.mark.parametrize("kind", RAW_ROWS)
+@pytest.mark.parametrize("shape", TOPK_SHAPES)
+def test_snr_topk_kernel_normalizes_the_raw_bank(dev, shape, kind):
+    """On the card ``_snr_topk`` is one ``snr_topk_kernel`` launch on the raw
+    bank, counted in ``snr_topk.normalized``, bit-equal to ``_normalize``
+    then ``snr_topk_plain`` on the CPU (the rows past shared memory
+    included)."""
+    from dsabeamformer_tpu_torch.ops import dedisperse as dd
+
+    b, n_dm, t, widths, k = shape
+    rng = np.random.default_rng([t, RAW_ROWS.index(kind)])
+    limit = rng.integers(-2, t - max(widths) + 2, (len(widths), n_dm))
+    limit[0, 0], limit[-1, -1] = 0, t - max(widths) + 1
+    bank = torch.from_numpy(_raw_rows(kind, (b, n_dm, t), rng))
+    want = dd.snr_topk_plain(dd._normalize(bank), widths, k, limit)
+    n0, m0 = dd.snr_topk.launches, dd.snr_topk.normalized
+    got = dd._snr_topk(bank.to(dev), widths, k, limit)
+    assert (dd.snr_topk.launches, dd.snr_topk.normalized) == (n0 + 1, m0 + 1)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("kind", RAW_ROWS)
+@pytest.mark.parametrize("n", [1, 2, 3, 16, 523, 524, 9923, 9924])
+def test_median_rows_kernel_equals_the_plain_median(dev, kind, n):
+    """The tail fill's medians on the card, ``median_rows_kernel``, equal
+    ``_median_last`` on the CPU bit for bit at odd and even lengths."""
+    from dsabeamformer_tpu_torch.ops import dedisperse as dd
+
+    x = torch.from_numpy(_raw_rows(kind, (3, 5, n),
+                                   np.random.default_rng([n, 7])))
+    n0 = dd.median_rows.launches
+    got = dd.median_rows(x.to(dev))
+    assert dd.median_rows.launches == n0 + 1
+    assert torch.equal(got.cpu(), dd._median_last(x))
+    # A strided view, as the conv fill takes every step-th sample.
+    assert torch.equal(dd.median_rows(x.to(dev)[..., ::3]).cpu(),
+                       dd._median_last(x[..., ::3]))
+
+
+def test_a_monitor_window_on_the_card_takes_no_torch_median(dev,
+                                                            monkeypatch):
+    """A CUDA ``SearchMonitor`` window calls neither ``_normalize`` nor
+    ``kthvalue``: each beam group's normalization is in its top-k launch,
+    and the conv fill's medians are ``median_rows``'."""
+    from dsabeamformer_tpu_torch.ops import dedisperse as dd
+
+    def refused(*args, **kw):
+        raise AssertionError("the card's search took a torch median")
+
+    monkeypatch.setattr(dd, "_normalize", refused)
+    monkeypatch.setattr(dd, "_median_last", refused)
+    monkeypatch.setattr(torch, "kthvalue", refused)
+    monkeypatch.setattr(torch.Tensor, "kthvalue", refused)
+    freqs = np.linspace(1280.0, 1530.0, 64)
+    tsamp = 1.048576e-3
+    dms = dd.dm_trial_grid(1280.0, 1530.0, tsamp, dm_max=100.0)
+    mon = dd.SearchMonitor(freqs, tsamp, dms, beam="all", chunk_t=256,
+                           beam_batch=3, device=dev)
+    rng = np.random.default_rng(5)
+    n0, m0 = dd.snr_topk.launches, dd.snr_topk.normalized
+    f0 = dd.median_rows.launches
+    for seq in range(12):
+        block = rng.integers(40, 90, (64, 64, 8)).astype(np.uint8)  # [F, T, B]
+        mon.observe(seq, block)
+    mon.flush()
+    assert mon.searched_windows >= 2
+    groups = dd.snr_topk.launches - n0
+    assert groups >= 2 * 3 and dd.snr_topk.normalized - m0 == groups
+    assert dd.median_rows.launches - f0 == groups
+
+
 @pytest.mark.parametrize("method", ["direct", "subband", "conv"])
 def test_search_on_card_equals_cpu(dev, method):
     """The whole search, banks on the kernels, equals the CPU's: candidates

@@ -310,6 +310,40 @@ def test_conv_bank_uint8_equals_float_path():
         assert np.array_equal(a8[d, :n], af[d, :n]), d
 
 
+def test_snr_topk_on_the_cpu_normalizes_in_torch(monkeypatch):
+    """On a CPU tensor ``_snr_topk`` is ``_normalize``, then
+    ``snr_topk_plain`` (the statement that the card's normalizing launch is
+    held to), and ``snr_topk.normalized``, which counts the card's
+    normalizing launches, does not move."""
+    normalize, plain = P._normalize, P.snr_topk_plain
+    seen = []
+    monkeypatch.setattr(P, "_normalize",
+                        lambda *a: seen.append("_normalize") or normalize(*a))
+    monkeypatch.setattr(P, "snr_topk_plain",
+                        lambda *a: seen.append("plain") or plain(*a))
+    rng = np.random.default_rng(9)
+    bank = torch.from_numpy(rng.integers(0, 9, (2, 3, 40)).astype(np.float32))
+    widths, limit = (1, 2, 4), np.full((3, 3), 37)
+    counts = (P.snr_topk.launches, P.snr_topk.normalized)
+    got = P._snr_topk(bank, widths, 2, limit)
+    assert seen == ["_normalize", "plain"]
+    assert (P.snr_topk.launches, P.snr_topk.normalized) == counts
+    for g, w in zip(got, plain(normalize(bank), widths, 2, limit)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("n", [1, 2, 5, 6, 523, 524])
+def test_median_rows_on_the_cpu_is_numpy_s_median(n):
+    """``median_rows`` of a CPU tensor (the tail fill's medians) is
+    ``_median_last``: NumPy's float32 median, the mean of the middle two
+    of an even count, on rows full of ties and on continuous rows."""
+    rng = np.random.default_rng(n)
+    for x in (rng.integers(0, 4, (3, 4, n)).astype(np.float32),
+              rng.normal(size=(3, 4, n)).astype(np.float32)):
+        got = P.median_rows(torch.from_numpy(x))
+        assert np.array_equal(got.numpy(), np.median(x, axis=-1))
+
+
 @pytest.mark.parametrize("method", ["direct", "subband", "conv"])
 def test_search_recovers_injected_pulse_as_jax(method):
     """The injected-pulse drill: found at its DM, time and width, one
